@@ -7,23 +7,50 @@ proof that the port still builds, starts and answers on the card.
 Phases (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi) and the torch/CUDA versions.
-  2. build    — build every CUDA kernel of the main path (K1,
-                csrc/flash_attention_bsc.cu) from the checkout with nvcc.
-  3. kernels  — K1 against its plain PyTorch version at the SD-1.5 512²
-                shapes (batch 2 and 8) and a ragged case, bf16 and fp32,
-                on q/k/v views with rows 3C apart as the model makes them;
-                TF32 off for the reference; CUDA-event times of both.
+  2. build    — build every CUDA kernel of the main paths from the checkout
+                with nvcc, all at once: K1 (csrc/flash_attention_bsc.cu),
+                K4 (csrc/flash_attention_streamed.cu) and K3
+                (csrc/flash_attention_multipass.cu); print -Xptxas -v.
+  3. kernels  — each kernel against its plain PyTorch version (max abs
+                error within 2e-2 for bf16, 1e-4 for fp32, each times the
+                reference's largest value where that is below 1; TF32 off
+                for the reference), on q/k/v views of one fused projection
+                as the model makes them: K1 at the SD-1.5 512² shapes
+                (batch 2 and 8), a ragged case and the 2048² levels 2 and 3
+                and mid block; K4 at the 2048² UNet level 1
+                (2|8, 8, 65536, 40), a ragged KV and KV 262144 with 4096 q
+                rows (the 4096² level-1 KV); K3 at the VAE mid block
+                (1, 1, 65536|4096, 512) and causal ragged cases.  Where the
+                plain version would be too slow, correctness is checked on
+                a subset of q rows and the kernel is timed at the full
+                shape.  At the main K4 and K3 shapes a planted fault (KV
+                short by 4096 tokens) must fail the same check.  CUDA-event
+                times of the
+                kernel, the plain version and, where one PyTorch call
+                computes the same function, of that call
+                (scaled_dot_product_attention, used nowhere in the port).
   4. small    — SD-1.5 at full width, FP32, 128², 3 DDPM+CFG steps: the
-                card (K1 kernel, cuDNN) against the port's CPU plain path
-                on the same seeded weights and noise (latents PSNR > 55 dB,
-                uint8 image PSNR > 40 dB).
+                card against the port's CPU plain path on the same seeded
+                weights and noise (latents PSNR > 55 dB, uint8 image PSNR
+                > 40 dB): once on K1, once with FLASH_ONLY_KV lowered so
+                that K4 carries level 1 and vae_attention_backend="kernel"
+                so that K3 carries the VAE, with exact launch counts.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
-  6. requests — generate(): txt2img 512² 50-step DDPM CFG 7.5 seed 1337,
-                the same again (bit-identical), seed 1338 (different),
-                img2img at strength 0.8, generate_images() with 4 prompts.
-                K1's launch counter, zeroed before the first request, must
-                rise by 15 x the steps of each request.
+  6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
+                seed 1337, the same again (bit-identical), seed 1338
+                (different), img2img at strength 0.8, generate_images()
+                with 4 prompts.  Slice C1, at 2048²: (f) txt2img, 4 steps;
+                (g) hires pass: (a) upscaled to 2048², img2img at strength
+                0.5 with encode_tile and decode_tile; (h) 512² img2img with
+                vae_attention_backend="kernel"; (i) 4096² must raise
+                ValueError.  The launch counters are zeroed before each
+                path and every request checks its K1/K3/K4 launches against
+                the counts derived from the model's plan and the documented
+                dispatch thresholds (not from the port's router); at 2048²
+                these must also equal the per-step counts PERF.md states.
+  7. step     — one 2048² CFG UNet evaluation timed, and profiled for the
+                device busy share.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -31,6 +58,7 @@ Imports only torch, numpy and the port (no jax).  Kernels are built into
 build/kernels/ of the checkout.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,10 +68,27 @@ import torch
 
 SD15_COUNTS = {"diffusion": 859_520_964, "clip": 123_060_480,
                "encoder": 34_163_664, "decoder": 49_490_199}
-K1_SOURCE = "pytorch_stable_diffusion_tpu_torch/csrc/flash_attention_bsc.cu"
-K1_REPLACES = "pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py:384"
-#: self-attention calls per UNet forward at SD-1.5: 6 encoder + 9 decoder
-K1_PER_STEP = 15
+CSRC = "pytorch_stable_diffusion_tpu_torch/csrc/"
+PALLAS = "pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py"
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "flash_attention_bsc": (CSRC + "flash_attention_bsc.cu", PALLAS + ":384"),
+    "flash_attention_streamed": (CSRC + "flash_attention_streamed.cu", PALLAS + ":466"),
+    "flash_attention_multipass": (CSRC + "flash_attention_multipass.cu", PALLAS + ":507"),
+}
+SHORT = {"flash_attention_bsc": "K1", "flash_attention_streamed": "K4",
+         "flash_attention_multipass": "K3"}
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: KV length from which the JAX package always runs flash
+#: (pytorch_stable_diffusion_tpu/ops/attention.py:221), K4 or K3 in the port
+FLASH_ONLY_KV = 40960
+#: launches of one 2048² CFG UNet evaluation (PERF.md): level 1 (65536
+#: tokens) on K4 in 2 down and 3 up blocks; levels 2 and 3 and the mid block
+#: on K1
+PER_STEP_2048 = {"K1": 11, "K4": 5}
+#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on the
+#: CUDA cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 PROMPTS = ["a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dusk",
            "a close up photo of a red fox in the snow",
@@ -55,9 +100,14 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters=None):
+    """Mean ms of ``fn`` over ``iters`` launches (CUDA events) after one
+    warm-up; by default as many launches as fill about a second."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if iters is None:
+        iters = max(1, min(20, int(1.0 / max(time.perf_counter() - t0, 1e-4))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -66,6 +116,29 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops, nbytes, dtype):
+    """The least time the card could take: operations over the peak rate of
+    their type, or bytes (each input read once, the output written once)
+    over the memory rate, whichever is larger."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_ms(q, k, v):
+    """The time of torch's own fused attention on the same (B, H, S, Dh)
+    inputs, restricted to its flash and memory-efficient backends; None with
+    the reason where neither takes the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fn = torch.nn.functional.scaled_dot_product_attention
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            return cuda_ms(lambda: fn(q, k, v)), ""
+    except RuntimeError as e:  # no fused backend takes this shape
+        return None, str(e).splitlines()[0][:160]
 
 
 def psnr(a, b):
@@ -77,53 +150,167 @@ def psnr(a, b):
     return 10.0 * np.log10(max(np.abs(a).max(), 1e-12) ** 2 / max(mse, 1e-30))
 
 
-def phase_kernels(fa, card):
-    """K1 vs its plain version; returns (max bf16 error, main-shape times)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+def fused_views(b, sq, sk, heads, dh, dtype, g):
+    """q, k, v as (B, H, S, Dh) views of one fused (B, Sk, 3C) projection,
+    as the UNet makes them; with sq < sk, q is its first sq rows."""
+    c = heads * dh
+    qkv = torch.randn(b, sk, 3 * c, device="cuda", generator=g).to(dtype)
+    q, k, v = qkv.split(c, dim=-1)
+    q = q[:, :sq]
+    return [t.reshape(b, t.shape[1], heads, dh).transpose(1, 2) for t in (q, k, v)]
+
+
+def max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def tolerance(dtype, ref):
+    """TOL[dtype], scaled down to the reference's largest value where that is
+    below 1: at 65536 KV tokens the outputs are ~1e-2, and an absolute 2e-2
+    would pass a kernel that returned zeros."""
+    return TOL[dtype] * min(1.0, ref.float().abs().max().item())
+
+
+# ------------------------------------------------------------------ kernels
+def phase_k1(fa, card, results):
+    """K1 vs its plain version at SD-1.5's 512² shapes and at the shapes the
+    2048² UNet gives it (levels 2 and 3 and the mid block; the 16384-token
+    level checked on a subset of q rows, whose plain scores would take
+    17 GB)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    worst, main_times = 0.0, None
-    cases = [(b, s, c, 8) for b in (2, 8)
+    cases = [(b, s, c, 8, s) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))]
-    cases.append((2, 300, 32, 1))
+    cases.append((2, 300, 32, 1, 300))
+    cases += [(2, 16384, 640, 8, 2048), (2, 4096, 1280, 8, 4096), (2, 1024, 1280, 8, 1024)]
+    rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
-        for b, s, c, heads in cases:
+        for b, s, c, heads, rows in cases:
             qkv = torch.randn(b, s, 3 * c, device="cuda", generator=g).to(dtype)
             q, k, v = qkv.split(c, dim=-1)
             got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
             torch.cuda.synchronize()
-            ref = fa.flash_attention_bsc_plain(q, k, v, heads)
-            err = (got.float() - ref.float()).abs().max().item()
+            ref = fa.flash_attention_bsc_plain(q[:, :rows], k, v, heads)
+            err = max_err(got[:, :rows], ref)
+            tol = tolerance(dtype, ref)
             check(got.shape == (b, s, c) and got.dtype == dtype, "K1 output shape/dtype")
-            check(err <= tol[dtype], f"K1 {dtype} {(b, s, c, heads)}: max abs err "
-                                     f"{err:.3e} > {tol[dtype]:.0e}")
-            worst = max(worst, err)
+            check(err <= tol, f"K1 {dtype} {(b, s, c, heads)}: max abs err "
+                              f"{err:.3e} > {tol:.3e}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
             line = (f"K1 {str(dtype)[6:]} B={b} S={s} C={c} H={heads} "
-                    f"Dh={c // heads}: max_abs_err {err:.3e} (tol {tol[dtype]:.0e})")
+                    f"Dh={c // heads}: max_abs_err {err:.3e} on {rows} q rows (tol {tol:.3e})")
             if heads == 8:
                 iters = 20 if s * b <= 8192 else 5
                 ms = cuda_ms(lambda: fa.flash_attention_bsc(q, k, v, n_heads=heads), iters)
-                pms = cuda_ms(lambda: fa.flash_attention_bsc_plain(q, k, v, heads), iters)
                 tflops = 4.0 * s * s * c * b / (ms * 1e-3) / 1e12
-                line += (f"; kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-                         f"plain {pms:.3f} ms  [{card}]")
-                if dtype == torch.bfloat16 and (b, s) == (2, 4096):
-                    main_times = (ms, pms)
+                line += f"; kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s)"
+                if rows == s:
+                    pms = cuda_ms(lambda: fa.flash_attention_bsc_plain(q, k, v, heads), iters)
+                    line += f", plain {pms:.3f} ms"
+                if dtype == torch.bfloat16 and (b, s) == (2, 4096) and c == 320:
+                    split = [t.reshape(b, s, heads, c // heads).transpose(1, 2)
+                             for t in (q, k, v)]
+                    lib, why = sdpa_ms(*split)
+                    bms, by = bound_ms(4.0 * s * s * c * b, 4 * b * s * c * 2, dtype)
+                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms,
+                               bound_by=by)
+                    line += (f", sdpa {'none' if lib is None else f'{lib:.3f}'} ms"
+                             f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}")
+                line += f"  [{card}]"
             print(line, flush=True)
             del qkv, q, k, v, got, ref
     torch.cuda.empty_cache()
-    return worst, main_times
 
 
-def phase_small_reference(port, fa):
-    """Full width, FP32, 128²: the card against the CPU plain path."""
+def _check_rows(name, wrapper, plain, args, kw, rows, dtype, rec):
+    """Launch ``wrapper`` at the full shape; hold its first ``rows`` q rows
+    against the plain version run on those rows alone.  Returns the error,
+    the tolerance and the reference."""
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    b, h, sq, dh = args[0].shape
+    check(got.shape == (b, h, sq, dh) and got.dtype == dtype, f"{name} output shape/dtype")
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    rows = min(rows, sq)
+    ref = plain(args[0][:, :, :rows], *args[1:], *kw.values())
+    err = max_err(got[:, :, :rows], ref)
+    tol = tolerance(dtype, ref)
+    check(err <= tol, f"{name} {dtype} {tuple(args[0].shape)} kv {args[1].shape[2]}: "
+                      f"max abs err {err:.3e} > {tol:.3e}")
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return err, tol, ref
+
+
+def _planted_fault(name, wrapper, args, kw, rows, ref, tol):
+    """The same check on a kernel call that drops the last 4096 KV tokens (a
+    lost KV slab): it must fail, or the check could not see such a fault."""
+    short = args[1].shape[2] - 4096
+    bad = wrapper(args[0][:, :, :rows], args[1][:, :, :short], args[2][:, :, :short], **kw)
+    err = max_err(bad, ref)
+    check(err > tol, f"{name}: a call missing 4096 KV tokens passed the check "
+                     f"(max abs err {err:.3e} <= {tol:.3e})")
+    return f"; planted fault (KV short by 4096 tokens) caught: max abs err {err:.3e}"
+
+
+def phase_long(fa, card, results):
+    """K4 and K3 vs their plain versions at the 2048² shapes and edges."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # kernel, B, Sq, Sk, H, Dh, dtype, causal, q rows checked, role
+        ("K4", 2, 65536, 65536, 8, 40, torch.bfloat16, False, 2048, "main"),
+        ("K4", 8, 65536, 65536, 8, 40, torch.bfloat16, False, 512, "time"),
+        ("K4", 2, 3000, 50001, 8, 40, torch.bfloat16, False, 3000, ""),
+        ("K4", 1, 999, 41000, 2, 40, torch.float32, False, 999, ""),
+        ("K4", 1, 4096, 262144, 8, 40, torch.bfloat16, False, 1024, "time"),
+        ("K3", 1, 65536, 65536, 1, 512, torch.bfloat16, False, 4096, "main"),
+        ("K3", 1, 65536, 65536, 1, 512, torch.float32, False, 1024, "time"),
+        ("K3", 1, 4096, 4096, 1, 512, torch.bfloat16, False, 4096, "time"),
+        ("K3", 1, 4096, 4096, 1, 512, torch.float32, False, 4096, "time"),
+        ("K3", 1, 1000, 1000, 2, 512, torch.bfloat16, True, 1000, ""),
+        ("K3", 1, 3001, 3001, 1, 64, torch.float32, True, 3001, ""),
+    ]
+    for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
+        name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
+        wrapper = getattr(fa, name)
+        plain = getattr(fa, f"{name}_plain")
+        kw = {} if kname == "K4" else {"causal": causal}
+        rec = results[name]
+        args = fused_views(b, sq, sk, h, dh, dtype, g)
+        t0 = time.perf_counter()
+        err, tol, ref = _check_rows(kname, wrapper, plain, args, kw, rows, dtype, rec)
+        line = (f"{kname} {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
+                f"{' causal' if causal else ''}: max abs err {err:.3e} on "
+                f"{min(rows, sq)} q rows (tol {tol:.3e})")
+        if role == "main":
+            line += _planted_fault(kname, wrapper, args, kw, min(rows, sq), ref, tol)
+        if role:
+            flops = 4.0 * b * h * sq * sk * dh * (0.5 if causal else 1.0)
+            ms = cuda_ms(lambda: wrapper(*args, **kw))
+            line += f"; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
+            if role == "main":
+                pms = cuda_ms(lambda: plain(*args, *kw.values()), 1)
+                lib, why = sdpa_ms(*args)
+                nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
+                bms, by = bound_ms(flops, nbytes, dtype)
+                rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
+                line += (f", plain {pms:.3f} ms, sdpa "
+                         f"{'none' if lib is None else f'{lib:.3f}'} ms"
+                         f"{' ' + why if why else ''}; bound {bms:.3f} ms by {by}")
+        print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
+        del args, ref
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- small reference
+def phase_small_reference(port, fa, attention):
+    """Full width, FP32, 128²: the card against the CPU plain path, first on
+    K1, then on K4 (FLASH_ONLY_KV lowered) and K3 (VAE on the kernel
+    backend)."""
     import numpy as np
 
     cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
     cfg_gpu = port.sd15_config(policy=port.FP32, attention_backend="kernel")
     t0 = time.perf_counter()
-    cpu_models = port.build_models(cfg_cpu, generator=torch.Generator().manual_seed(7))
+    cpu_models = port.build_models(cfg_cpu, device="cpu",
+                                   generator=torch.Generator().manual_seed(7))
     sds = {k: m.state_dict() for k, m in cpu_models.items()}
     gpu_models = port.build_models(cfg_gpu, device="cuda", state_dicts=sds)
     del sds
@@ -131,22 +318,33 @@ def phase_small_reference(port, fa):
     kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=3, seed=11,
               height=128, width=128, tokenizer=tok, return_latents=True)
     img_c, lat_c = port.generate(PROMPTS[0], models=cpu_models, config=cfg_cpu, **kw)
-    before = fa.flash_attention_bsc.launches
-    img_g, lat_g = port.generate(PROMPTS[0], models=gpu_models, config=cfg_gpu,
-                                 device="cuda", **kw)
-    torch.cuda.synchronize()
-    # at 128² only the first level (16x16 = 256 tokens) reaches K1:
-    # 2 encoder + 3 decoder self-attentions a step
-    check(fa.flash_attention_bsc.launches - before == 5 * 3, "small run did not go through K1")
-    lat_db = psnr(lat_c, lat_g)
-    img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-    print(f"small: full-width FP32 128² 3 steps, card vs CPU plain path: latents "
-          f"PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(np.isfinite(lat_g).all(), "small run latents not finite")
-    check(lat_db > 55.0, f"small run latents PSNR {lat_db:.1f} dB <= 55")
-    check(img_db > 40.0, f"small run image PSNR {img_db:.1f} dB <= 40")
-    del cpu_models, gpu_models
+    del cpu_models
+    runs = [("K1", cfg_gpu, None),
+            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256)]
+    for label, cfg, flash_only in runs:
+        saved = attention.FLASH_ONLY_KV
+        if flash_only is not None:
+            attention.FLASH_ONLY_KV = flash_only
+        try:
+            want = expected_launches(cfg, 128, 128, steps=3, img2img=False,
+                                     flash_only=flash_only or FLASH_ONLY_KV)
+            before = launch_counts(fa)
+            img_g, lat_g = port.generate(PROMPTS[0], models=gpu_models, config=cfg,
+                                         device="cuda", **kw)
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in launch_counts(fa).items()}
+        finally:
+            attention.FLASH_ONLY_KV = saved
+        check(got == want, f"small run ({label}) launched {got}, want {want}")
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small ({label}): full-width FP32 128² 3 steps, card vs CPU plain path: "
+              f"latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
+              f"{got} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(np.isfinite(lat_g).all(), "small run latents not finite")
+        check(lat_db > 55.0, f"small run ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small run ({label}) image PSNR {img_db:.1f} dB <= 40")
+    del gpu_models
     torch.cuda.empty_cache()
 
 
@@ -157,6 +355,115 @@ def _tokenizer():
     return make_test_tokenizer(words, max_len=77)
 
 
+# ------------------------------------------------------------ launch counts
+def launch_counts(fa):
+    return {"K1": fa.flash_attention_bsc.launches,
+            "K4": fa.flash_attention_streamed.launches,
+            "K3": fa.flash_attention_multipass.launches}
+
+
+def zero_counts(fa):
+    fa.flash_attention_bsc.launches = 0
+    fa.flash_attention_streamed.launches = 0
+    fa.flash_attention_multipass.launches = 0
+
+
+def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
+    """The kernel that the port's documented dispatch (ops/attention.py,
+    ROADMAP §2) gives a non-causal attention call, written out here rather
+    than read from ``attention.route``, so that the launch counts check the
+    routing too: K4 (Dh <= 128) or K3 from ``flash_only`` KV tokens on; on
+    the kernel backend from 256 KV tokens, K1 for self-attention with
+    Dh <= 160, K3 above; otherwise materialized scores (None)."""
+    if kv >= flash_only:
+        return "K4" if dh <= 128 else "K3"
+    if backend != "kernel" or kv < 256:
+        return None
+    check(not cross, f"no request here has cross-attention over {kv} tokens")
+    return "K1" if dh <= 160 else "K3"
+
+
+def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV):
+    """Kernel launches of one request, derived from the UNet's plan (which
+    stages carry attention, at which level), the VAE's mid block and
+    :func:`expected_kernel`."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
+
+    counts = {"K1": 0, "K4": 0, "K3": 0}
+
+    def add(kernel, n):
+        if kernel is not None:
+            counts[kernel] += n
+
+    u = cfg.unet
+    h = height // cfg.vae.downsample_factor
+    w = width // cfg.vae.downsample_factor
+    per_step = []  # (tokens, channels) of every UNet transformer block
+    level = 0
+    for st in unet.encoder_plan(u)[1:]:
+        if st["kind"] == "down":
+            level += 1
+        elif st["attn"]:
+            per_step.append(((h >> level) * (w >> level), st["c_out"]))
+    per_step.append(((h >> level) * (w >> level), u.level_channels[-1]))  # bottleneck
+    for st in unet.decoder_plan(u):
+        if st["attn"]:
+            per_step.append(((h >> level) * (w >> level), st["c_out"]))
+        if st["upsample"]:
+            level -= 1
+    for tokens, c in per_step:
+        dh = c // u.heads_for(c)
+        add(expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
+                            flash_only=flash_only), steps)
+        add(expected_kernel(cfg.clip.max_len, dh, cross=True,
+                            backend=cfg.attention_backend, flash_only=flash_only), steps)
+    mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
+    add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
+                        flash_only=flash_only), 2 if img2img else 1)
+    return counts
+
+
+def phase_step(models, cfg, card):
+    """One 2048² CFG UNet evaluation: its wall time, and its device busy
+    share under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dtype = cfg.policy.compute_dtype
+    x = torch.randn(2, 4, 256, 256, device="cuda", generator=g).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(2, 77, 768, device="cuda", generator=g).to(dtype)
+    t = torch.tensor(500.0, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            return models["diffusion"](x, ctx, t, cfg.policy,
+                                       attention_backend=cfg.attention_backend)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # kernel rows only: an operator's row also carries its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
+    share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
+    print(f"step: one 2048² CFG UNet evaluation {wall:.3f} s wall; profiled "
+          f"{prof_wall:.3f} s wall, {busy:.3f} s device busy, busy share {share}; top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
+          + f"  [{card}]", flush=True)
+
+
+# ------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
@@ -164,10 +471,12 @@ def main():
 
     import pytorch_stable_diffusion_tpu_torch as port
     from pytorch_stable_diffusion_tpu_torch.models import param_count
+    from pytorch_stable_diffusion_tpu_torch.ops import attention
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import build
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
     from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 
+    t_start = time.perf_counter()
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -176,21 +485,28 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)",
           flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _, log = build.load("flash_attention_bsc")
-    print(f"build: flash_attention_bsc ready in {time.perf_counter() - t0:.1f} s",
+    libs = build.load_all(KERNELS)
+    print(f"build: {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("built"):
-            print(f"  {line.strip()}", flush=True)
+    for name, (_, log) in libs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or line.startswith("built"):
+                print(f"  {SHORT[name]} {line.strip()}", flush=True)
 
     # 3. kernels
-    worst, (k1_ms, plain_ms) = phase_kernels(fa, card)
+    results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                      "launches": 0, "max_abs_err": 0.0}
+               for name, (src, rep) in KERNELS.items()}
+    phase_k1(fa, card, results)
+    phase_long(fa, card, results)
 
     # 4. small input against the CPU plain path
-    phase_small_reference(port, fa)
+    phase_small_reference(port, fa, attention)
 
     # 5. model
     t0 = time.perf_counter()
@@ -208,60 +524,107 @@ def main():
     base = dict(uncond_prompt="", do_cfg=True, cfg_scale=7.5, sampler_name="ddpm",
                 n_inference_steps=50, models=models, tokenizer=tok, config=cfg,
                 device="cuda", height=512, width=512)
-    results = {}
 
-    def request(name, fn, steps, n_images):
-        before = fa.flash_attention_bsc.launches
+    def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg):
+        # one batched UNet call a step serves every image of the request
+        want = expected_launches(config, size, size, steps=steps, img2img=img2img)
+        if size == 2048:
+            stated = {k: n * steps for k, n in PER_STEP_2048.items()}
+            stated["K3"] = 2 if img2img else 1
+            check(want == stated, f"{name}: derived {want}, PERF.md states {stated}")
+        before = launch_counts(fa)
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         images = out[0] if isinstance(out, tuple) else out
         images = images if images.ndim == 4 else images[None]
-        check(images.dtype == np.uint8 and images.shape == (n_images, 512, 512, 3),
+        check(images.dtype == np.uint8 and images.shape == (n_images, size, size, 3),
               f"{name}: output {images.dtype} {images.shape}")
         for im in images:
             check(im.max() > im.min(), f"{name}: constant image")
         if isinstance(out, tuple):
             check(np.isfinite(out[1]).all(), f"{name}: latents not finite")
-        launched = fa.flash_attention_bsc.launches - before
-        check(launched == K1_PER_STEP * steps,
-              f"{name}: K1 launched {launched} times, want {K1_PER_STEP * steps}")
-        print(f"request {name}: {dt:.2f} s wall, {n_images} image(s), {steps} steps, "
-              f"K1 launches {launched}  [{card}]", flush=True)
-        results[name] = out
+        launched = {k: v - before[k] for k, v in launch_counts(fa).items()}
+        check(launched == want, f"{name}: launched {launched}, want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"request {name}: {dt:.2f} s wall, {dt / steps:.3f} s a step (wall / "
+              f"steps), {n_images} image(s) {size}², {steps} steps, launches "
+              f"{launched}, peak {peak:.2f} GiB  [{card}]", flush=True)
         return out
 
-    fa.flash_attention_bsc.launches = 0
+    main_launches = {k: 0 for k in SHORT.values()}
+
+    def read_path():
+        for k, v in launch_counts(fa).items():
+            main_launches[k] += v
+
+    # slice A: 512²
+    zero_counts(fa)
     a, _ = request("a txt2img seed 1337",
                    lambda: port.generate(PROMPTS[0], seed=1337, return_latents=True,
-                                         **base), 50, 1)
+                                         **base), size=512, steps=50, n_images=1)
     b, _ = request("b txt2img seed 1337 again",
                    lambda: port.generate(PROMPTS[0], seed=1337, return_latents=True,
-                                         **base), 50, 1)
+                                         **base), size=512, steps=50, n_images=1)
     check(np.array_equal(a, b), "same seed gave a different image")
     c, _ = request("c txt2img seed 1338",
                    lambda: port.generate(PROMPTS[0], seed=1338, return_latents=True,
-                                         **base), 50, 1)
+                                         **base), size=512, steps=50, n_images=1)
     check(not np.array_equal(a, c), "seeds 1337 and 1338 gave the same image")
     request("d img2img strength 0.8",
             lambda: port.generate(PROMPTS[0], seed=1337, input_image=a,
                                   strength=0.8, return_latents=True, **base),
-            50 - ddpm.start_step_for_strength(50, 0.8), 1)
+            size=512, steps=50 - ddpm.start_step_for_strength(50, 0.8), n_images=1,
+            img2img=True)
     batch_kw = {k: v for k, v in base.items() if k != "uncond_prompt"}
     e = request("e generate_images x4",
                 lambda: port.generate_images(PROMPTS, uncond_prompts="", seed=1337,
-                                             **batch_kw), 50, 4)
-    main_launches = fa.flash_attention_bsc.launches
+                                             **batch_kw), size=512, steps=50, n_images=4)
+    read_path()
     print(f"requests: b == a bit-identical; c != a; e[0] vs a PSNR "
           f"{psnr(e[0].astype(np.float32), a.astype(np.float32)):.1f} dB "
           f"(same seed, batch 4 vs 1)", flush=True)
 
+    # slice C1: 2048², and the VAE on K3 at 512²
+    zero_counts(fa)
+    big = dict(base, height=2048, width=2048, n_inference_steps=4)
+    request("f txt2img 2048² 4 steps",
+            lambda: port.generate(PROMPTS[1], seed=7, return_latents=True, **big),
+            size=2048, steps=4, n_images=1)
+    upscaled = np.repeat(np.repeat(a, 4, axis=0), 4, axis=1)
+    request("g hires pass 2048² img2img strength 0.5, encode_tile/decode_tile 64",
+            lambda: port.generate(PROMPTS[0], seed=1337, input_image=upscaled,
+                                  strength=0.5, encode_tile=64, decode_tile=64,
+                                  return_latents=True, **big),
+            size=2048, steps=4 - ddpm.start_step_for_strength(4, 0.5), n_images=1,
+            img2img=True)
+    cfg_vae = dataclasses.replace(cfg, vae_attention_backend="kernel")
+    request("h img2img 512² strength 0.8, VAE on K3",
+            lambda: port.generate(PROMPTS[0], seed=1337, input_image=a, strength=0.8,
+                                  return_latents=True, **dict(base, config=cfg_vae)),
+            size=512, steps=50 - ddpm.start_step_for_strength(50, 0.8), n_images=1,
+            img2img=True, config=cfg_vae)
+    before = launch_counts(fa)
+    try:
+        port.generate(PROMPTS[0], seed=1, **dict(base, height=4096, width=4096))
+    except ValueError as err:
+        check(launch_counts(fa) == before, "i 4096² request launched kernels")
+        print(f"request i 4096²: ValueError, as in the JAX package: {err}", flush=True)
+    else:
+        check(False, "i 4096² request did not raise ValueError")
+    read_path()
+    for name, short in SHORT.items():
+        results[name]["launches"] = main_launches[short]
+        check(main_launches[short] > 0, f"{short} was not launched on the main paths")
+
+    # 7. one 2048² UNet evaluation: time and device busy share
+    phase_step(models, cfg, card)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_bsc", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": main_launches,
-        "max_abs_err": worst, "ms": k1_ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

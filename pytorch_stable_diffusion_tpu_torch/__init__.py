@@ -1,11 +1,14 @@
 """Stable Diffusion in PyTorch for NVIDIA Hopper — the port of
 ``pytorch_stable_diffusion_tpu`` (JAX/TPU), which stays the reference.
 
-This slice runs SD-1.5 txt2img and img2img with DDPM and CFG.  Module
+The port runs SD-1.5 txt2img and img2img with DDPM and CFG, up to 2048²
+(65536-token attention), with the tiled VAE for high resolutions.  Module
 paths mirror the JAX package (``core/``, ``ops/``, ``models/``,
 ``sampling/``, ``weights/``, ``pipeline.py``); the TPU's Pallas flash
-attention K1 is the hand-written CUDA kernel ``csrc/flash_attention_bsc.cu``.
-The package imports torch and numpy only, never jax.
+attention kernels are hand-written CUDA kernels in ``csrc/``: K1
+``flash_attention_bsc.cu``, K4 ``flash_attention_streamed.cu`` and K3
+``flash_attention_multipass.cu``.  The package imports torch and numpy
+only, never jax.
 
 Quick start (random weights; checkpoint loading comes in a later slice)::
 

@@ -43,9 +43,9 @@
 //     with __syncthreads between);
 //   * vectorized 16-byte global loads (loads here are one element a thread);
 //   * occupancy at Dh 160 (fp32 staging of P, 4x8 tiles per thread).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -55,16 +55,6 @@ constexpr int THREADS = 128;  // 16 row groups x 8 column groups
 constexpr int ROWS = 4;       // q rows per thread: rg + 16 * i
 constexpr int COLS = 8;       // score columns per thread: cg + 8 * j
 constexpr int P_STRIDE = BLOCK_N + 8;  // conflict-free P writes/reads
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DH>
 struct Smem {
@@ -271,10 +261,6 @@ int sdt_flash_attention_bsc(const void* q, const void* k, const void* v, void* o
     return dispatch_dh<__nv_bfloat16>(head_dim, q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs,
                                       v_rs, batch, sq, sk, n_heads, s);
   return cudaErrorInvalidValue;
-}
-
-const char* sdt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -41,15 +41,23 @@ def reset_parameters(model: nn.Module,
             m.reset_parameters(generator)
 
 
-def build_models(cfg: SDConfig, *, device="cpu",
+def build_models(cfg: SDConfig, *, device=None,
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, nn.Module]:
     """-> {"clip", "encoder", "decoder", "diffusion"} ready for inference.
 
-    With ``state_dicts`` (``weights.convert`` output) the weights load with
-    strict key coverage; without, they are drawn from ``generator`` (a
-    generator on ``device``; None uses torch's default one)."""
+    The models are built on the card (``"cuda"``) unless ``device`` names
+    another one; with no device given and no card present this raises
+    instead of carrying on on the CPU.  With ``state_dicts``
+    (``weights.convert`` output) the weights load with strict key coverage;
+    without, they are drawn from ``generator`` (a generator on ``device``;
+    None uses torch's default one)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_models: no CUDA device; pass device='cpu' "
+                               "to build the models on the CPU")
+        device = "cuda"
     device = torch.device(device)
     models = construct(cfg)
     for name, m in models.items():

@@ -1,8 +1,8 @@
 """Model/architecture configuration (port of ``models/config.py``).
 
 The dataclasses keep every field of the JAX package's configs so a config
-reads the same in both packages.  This first slice of the port runs SD-1.5
-txt2img/img2img; :func:`check_ported` refuses every field value that names
+reads the same in both packages.  The port runs SD-1.5 txt2img/img2img up
+to 2048²; :func:`check_ported` refuses every field value that names
 a feature a later slice brings (ROADMAP.md §1), instead of ignoring it.
 
 Attention backends are named for what runs: ``"plain"`` is the
@@ -129,7 +129,8 @@ class SDConfig:
     #: "plain" (materialized scores) or "kernel" (flash kernel for
     #: self-attention over >= 256 tokens).
     attention_backend: str = "plain"
-    #: VAE mid-block attention backend.
+    #: VAE mid-block attention backend: "kernel" sends its 1-head, Dh-512
+    #: attention to the multi-pass flash kernel K3.
     vae_attention_backend: str = "plain"
     #: "plain" (torch convs with separate GN/SiLU); the fused-conv tiers of
     #: the JAX package ("pallas", "fold", "pallas_fold") are not ported.
@@ -181,39 +182,35 @@ def check_ported(cfg: SDConfig) -> None:
     if cfg.attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"attention_backend must be one of "
                          f"{ATTENTION_BACKENDS}, got {cfg.attention_backend!r}")
-    if cfg.vae_attention_backend == "kernel":
-        _refuse("vae_attention_backend='kernel' (the VAE mid block's 1-head, "
-                "Dh 512 attention runs on the multi-pass flash kernel K3)",
-                "slice C")
-    if cfg.vae_attention_backend != "plain":
-        raise ValueError(f"unknown vae_attention_backend "
-                         f"{cfg.vae_attention_backend!r}")
+    if cfg.vae_attention_backend not in ATTENTION_BACKENDS:
+        raise ValueError(f"vae_attention_backend must be one of "
+                         f"{ATTENTION_BACKENDS}, got {cfg.vae_attention_backend!r}")
     if cfg.conv_backend != "plain":
         _refuse(f"conv_backend={cfg.conv_backend!r} (the fused GN->SiLU->conv "
                 "kernel K5 and the folded norms)", "slice H")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
     if cfg.clip2 is not None:
-        _refuse("a second text tower (clip2, SDXL)", "slice C")
+        _refuse("a second text tower (clip2, SDXL)", "slice C2")
     if cfg.prediction_type != "epsilon":
-        _refuse(f"prediction_type={cfg.prediction_type!r} (SD-2.x)", "slice C")
+        _refuse(f"prediction_type={cfg.prediction_type!r} (SD-2.x)", "slice C2")
     if cfg.zero_terminal_snr:
         _refuse("zero_terminal_snr", "slice B")
     if c.hidden_act != "quick_gelu" or c.layout != "clip" or c.text_projection \
             or c.key_prefix is not None:
-        _refuse("the OpenCLIP/SDXL text towers", "slice C")
+        _refuse("the OpenCLIP/SDXL text towers", "slice C2")
     if c.stop_at_layer is not None:
         _refuse("stop_at_layer (CLIP skip / penultimate conditioning)",
                 "slice D")
     if u.in_channels != 4:
         _refuse(f"a {u.in_channels}-channel UNet (inpaint/ip2p presets)",
-                "slice C")
+                "slice C2")
     if u.head_dim is not None or u.transformer_depth is not None \
             or u.add_embed_dim is not None:
         _refuse("SD-2.x/SDXL UNet topologies (head_dim, transformer_depth, "
-                "add_embed_dim)", "slice C")
+                "add_embed_dim)", "slice C2")
     if u.time_cond_dim is not None:
-        _refuse("the LCM guidance embedding (time_cond_dim)", "slice C")
+        _refuse("the LCM guidance embedding (time_cond_dim)", "slice C2")
     if u.freeu is not None:
         _refuse("FreeU", "slice F")
     if u.tome is not None:

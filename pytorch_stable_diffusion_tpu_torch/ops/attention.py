@@ -4,17 +4,25 @@ Semantics: scores = q kᵀ / √Dh, optional causal mask, fp32 softmax, @ v.
 Cross-attention attends to the tokenizer padding with no mask, as the
 reference does.
 
-Dispatch (:func:`route`) follows the JAX package without its TPU-only
-guards (the VMEM model and the CFG-batch cliff of ``bsc_fits``):
+Dispatch (:func:`route`) follows the JAX package, with its VMEM model
+replaced by the JAX package's own KV thresholds (and without the
+CFG-batch cliff of ``bsc_fits``):
 
-* ``"kernel"`` backend, non-causal self-attention over >= 256 KV tokens:
-  the hand-written K1 kernel (``ops/cuda/flash_attention.py``), any batch.
+* KV >= :data:`FLASH_ONLY_KV` (40960), on either backend, as the JAX
+  package forces flash there: K4 (``flash_attention_streamed``) when
+  non-causal with Dh <= 128, otherwise K3 (``flash_attention_multipass``).
+* ``"kernel"`` backend, KV >= 256:
+  - non-causal self-attention: K1 (``flash_attention_bsc``, heads packed
+    in channels) for Dh <= 160, K3 above (the VAE's 1-head Dh 512);
+  - causal or cross-attention over a padded KV past 9216: K4 when
+    non-causal with Dh <= 128, otherwise K3;
+  - causal or cross-attention over a shorter KV with Dh > 128: K3;
+  - what is left, causal or cross-attention over 256..9216 KV tokens with
+    Dh <= 128, runs on the one-pass kernel K2 in the JAX package, which is
+    not ported yet: it raises ``NotImplementedError`` (slice D).
 * KV < 256 (CLIP, every 77-token cross-attention, the UNet's 64-token mid
-  block) and the ``"plain"`` backend: materialized scores.
-* What the JAX package would run on a flash kernel not ported yet — causal
-  or cross-attention over >= 256 KV tokens on the kernel backend (K2/K3),
-  and any attention over >= 40960 KV tokens (K3/K4) — raises
-  ``NotImplementedError`` instead of materializing silently.
+  block at 512²) and the ``"plain"`` backend below 40960: materialized
+  scores.
 """
 
 from __future__ import annotations
@@ -27,13 +35,17 @@ from torch import nn
 
 from ..core.dtypes import FP32, Policy
 from . import linear
-from .cuda.flash_attention import flash_attention_bsc
+from .cuda.flash_attention import (HEAD_DIMS, STREAMED_MAX_DH, flash_attention_bsc,
+                                   flash_attention_multipass, flash_attention_streamed)
 
 #: shortest KV the kernel backend sends to a flash kernel
 KERNEL_MIN_KV = 256
 #: KV length from which the JAX package always runs flash (materialized
-#: scores stop fitting)
+#: scores stop fitting).  Read at call time, so tests may lower it.
 FLASH_ONLY_KV = 40960
+#: padded KV past which the JAX package's one-pass kernel K2 gives way to
+#: the long-KV kernels
+ONE_PASS_MAX_KV = 9216
 
 
 class Attention(nn.Module):
@@ -92,23 +104,26 @@ def _fused_proj(parts, x: torch.Tensor, policy: Policy):
 
 def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
           backend: str) -> str:
-    """``"kernel"`` (K1) or ``"plain"``; raises for the unported flash cases."""
+    """Which attention runs: ``"plain"`` (materialized scores), ``"bsc"``
+    (K1), ``"streamed"`` (K4) or ``"multipass"`` (K3); raises
+    ``NotImplementedError`` for the cases of the unported K2."""
+    long_kernel = ("streamed" if not causal and head_dim <= STREAMED_MAX_DH
+                   else "multipass")
     if kv_len >= FLASH_ONLY_KV:
-        which = ("K4 (_flash_attention_streamed)"
-                 if not causal and head_dim <= 128
-                 else "K3 (flash_attention multi-pass)")
-        raise NotImplementedError(
-            f"attention over {kv_len} KV tokens runs on the flash kernel "
-            f"{which} in the JAX package; it is not ported yet (slice C)")
-    if backend == "kernel" and kv_len >= KERNEL_MIN_KV:
-        if causal or cross:
-            kind = "causal" if causal else "cross"
-            raise NotImplementedError(
-                f"{kind} attention over {kv_len} KV tokens on the kernel "
-                f"backend runs on the flash kernel K2/K3 (flash_attention) in "
-                f"the JAX package; it is not ported yet (slice C)")
-        return "kernel"
-    return "plain"
+        return long_kernel
+    if backend != "kernel" or kv_len < KERNEL_MIN_KV:
+        return "plain"
+    if not (causal or cross):
+        return "bsc" if head_dim <= max(HEAD_DIMS) else "multipass"
+    if -(-kv_len // 128) * 128 > ONE_PASS_MAX_KV:
+        return long_kernel
+    if head_dim > STREAMED_MAX_DH:
+        return "multipass"
+    kind = "causal" if causal else "cross"
+    raise NotImplementedError(
+        f"{kind} attention over {kv_len} KV tokens on the kernel backend runs "
+        f"on the one-pass flash kernel K2 (flash_attention) in the JAX "
+        f"package; it is not ported yet: it comes with slice D (ROADMAP.md §1)")
 
 
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -128,9 +143,15 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
             k, v = (linear.apply(m, context, policy) for m in (p.k, p.v))
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
                  cross=context is not None, backend=backend)
-    if path == "kernel":
+    if path == "bsc":
         out = flash_attention_bsc(q, k, v, n_heads=n_heads)
     else:
-        out = _merge_heads(materialized_attention(
-            *(_split_heads(t, n_heads) for t in (q, k, v)), causal, policy))
+        heads = [_split_heads(t, n_heads) for t in (q, k, v)]  # views, no copy
+        if path == "streamed":
+            out = flash_attention_streamed(*heads)
+        elif path == "multipass":
+            out = flash_attention_multipass(*heads, causal=causal)
+        else:
+            out = materialized_attention(*heads, causal, policy)
+        out = _merge_heads(out)
     return linear.apply(p.out, out, policy)

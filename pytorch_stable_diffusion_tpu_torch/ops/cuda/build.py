@@ -3,9 +3,10 @@
 Each kernel source has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
-library name carries a hash of the source and flags, so an edited source
-rebuilds.  A finished build is moved into place atomically, so processes
-that build at once do not see a partial file.
+library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.  :func:`load_all` starts one ``nvcc`` per source, all at once.  A
+finished build is moved into place atomically, so processes that build at
+once do not see a partial file.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -42,8 +43,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -53,20 +58,35 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
     Returns the library and the build log (nvcc's ``-Xptxas -v`` report of
     registers, shared memory and spills; empty when the library was built
     before)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    so = library_path(name)
-    log = ""
-    if not so.exists():
+    return load_all([name])[name]
+
+
+def load_all(names: Iterable[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """:func:`load` for several sources, their ``nvcc`` runs started
+    together and all waited for before any failure is raised."""
+    names = list(names)
+    builds = {}
+    for name in names:
+        so = library_path(name)
+        if name in _LOADED or so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        builds[name] = (proc, tmp, so, time.perf_counter())
+    logs, failed = {}, []
+    for name, (proc, tmp, so, t0) in builds.items():
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
         os.replace(tmp, so)
-        log = (f"built {so.name} in {time.perf_counter() - t0:.1f} s\n"
-               f"{proc.stderr}")
-    _LOADED[name] = (ctypes.CDLL(str(so)), log)
-    return _LOADED[name]
+        logs[name] = f"built {so.name} in {time.perf_counter() - t0:.1f} s\n{err}"
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LOADED:
+            _LOADED[name] = (ctypes.CDLL(str(library_path(name))), logs.get(name, ""))
+    return {name: _LOADED[name] for name in names}

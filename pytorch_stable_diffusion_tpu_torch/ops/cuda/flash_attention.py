@@ -1,21 +1,29 @@
-"""K1: flash attention on heads packed in channels, (B, S, H*Dh).
+"""Flash attention kernels of the port and their plain PyTorch versions.
 
-Port of ``pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py::
-flash_attention_bsc`` (the Pallas ``_bsc_kernel``): non-causal
-softmax(Q Kᵀ/√Dh)·V per head, heads sliced inside the kernel so the caller
-needs no head transposes.  The CUDA kernel is ``csrc/flash_attention_bsc.cu``
-(its header says what bounds it on the H100 and what the simple design
-leaves on the table).
+* K1, heads packed in channels (B, S, H*Dh): port of
+  ``pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py::
+  flash_attention_bsc`` (the Pallas ``_bsc_kernel``), CUDA kernel
+  ``csrc/flash_attention_bsc.cu``.
+* K4, streamed long-KV attention on head-split (B, H, S, Dh), Dh <= 128,
+  non-causal: port of ``_flash_attention_streamed`` (``_streamed_kernel``),
+  CUDA kernel ``csrc/flash_attention_streamed.cu``.
+* K3, multi-pass attention on head-split (B, H, S, Dh), Dh up to 512,
+  causal or not, KV of any length: port of ``flash_attention``'s multi-pass
+  grid (``_kernel``), CUDA kernel ``csrc/flash_attention_multipass.cu``.
 
-* :func:`flash_attention_bsc_plain` is the plain PyTorch version: split the
-  heads, fp32 scores and softmax, multiply by V, return in q's dtype.
-* :func:`flash_attention_bsc` takes the plain version only for CPU tensors;
-  for CUDA tensors it launches the kernel or raises — there is no fallback.
-  ``flash_attention_bsc.launches`` counts kernel launches.
+Each kernel's header says what bounds it on the H100 and what its simple
+design leaves on the table.  All compute softmax(Q Kᵀ/√Dh)·V with fp32
+scores and softmax and return q's dtype; a row with every score masked
+gives 0 (output acc / max(l, 1e-30)).
 
-q, k and v may be strided views, e.g. the three C-wide slices of the fused
-q/k/v projection whose rows are 3C apart: the kernel takes the batch and
-row strides, so nothing is copied.  Only the channel stride must be 1.
+Every kernel has a plain PyTorch version (``*_plain``) beside it.  The
+wrapper takes the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises — there is no fallback.  Each wrapper counts
+its kernel launches in ``<wrapper>.launches``.
+
+q, k and v may be strided views, e.g. the slices of the fused q/k/v
+projection whose rows are 3C apart: the kernels take the strides, so
+nothing is copied.  Only the last (channel) stride must be 1.
 """
 
 from __future__ import annotations
@@ -28,7 +36,18 @@ import torch
 #: head dims the kernel is instantiated for: SD-1.5's 40, 80, 160, and 32
 #: for the small checks
 HEAD_DIMS = (32, 40, 80, 160)
+#: K4's instantiations: SD-1.5's 40, 64 (SD-2.x/SDXL), 128 (the largest
+#: head dim K4 takes) and 16 for the small checks
+STREAMED_HEAD_DIMS = (16, 40, 64, 128)
+STREAMED_MAX_DH = 128
+#: K3's instantiations: the VAE's 512, and 64/128 for causal and small checks
+MULTIPASS_HEAD_DIMS = (64, 128, 512)
+MULTIPASS_MAX_DH = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: fp32 score bytes the head-split plain versions hold at once: they walk
+#: q rows in blocks, so a (2, 8, 65536, 40) call does not materialize its
+#: 137 GB of scores
+PLAIN_SCORE_BYTES = 1 << 30
 
 
 def flash_attention_bsc_plain(q: torch.Tensor, k: torch.Tensor,
@@ -86,13 +105,17 @@ def _launch(q, k, v, n_heads):
              q.stride(0), q.stride(1), k.stride(0), k.stride(1),
              v.stride(0), v.stride(1),
              b, sq, sk, n_heads, dh, _DTYPE_CODE[q.dtype], stream)
+    _raise_on_error(lib, "flash_attention_bsc", err)
+    flash_attention_bsc.launches += 1
+    return out
+
+
+def _raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
         lib.sdt_cuda_error_string.restype = ctypes.c_char_p
         lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.sdt_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_bsc launch failed ({err}): {msg}")
-    flash_attention_bsc.launches += 1
-    return out
+        raise RuntimeError(f"{name} launch failed ({err}): {msg}")
 
 
 def flash_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,3 +131,127 @@ def flash_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_bsc.launches = 0
+
+
+# ------------------------------------------------------------ head-split
+def _attention_plain(q, k, v, causal: bool) -> torch.Tensor:
+    """(B, H, Sq, Dh), (B, H, Sk, Dh) x2 -> (B, H, Sq, Dh) in q's dtype.
+
+    Walks batch elements and blocks of q rows so that at most
+    :data:`PLAIN_SCORE_BYTES` of fp32 scores exist at once.  Causal mask
+    ``col <= row``; a row whose every score is masked gives 0, as the
+    kernels' ``acc / max(l, 1e-30)`` does."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=q.device)
+    rows = max(1, PLAIN_SCORE_BYTES // (4 * h * max(sk, 1)))
+    cols = torch.arange(sk, device=q.device)
+    for bi in range(b):
+        kf, vf = k[bi].float(), v[bi].float()
+        for r0 in range(0, sq, rows):
+            s = torch.matmul(q[bi, :, r0:r0 + rows].float(), kf.transpose(-1, -2)) * scale
+            if causal:
+                row = torch.arange(r0, r0 + s.shape[1], device=q.device)
+                s = s.masked_fill(cols[None, :] > row[:, None], float("-inf"))
+            m = s.amax(-1, keepdim=True)
+            m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+            p = torch.exp(s - m)
+            l = p.sum(-1, keepdim=True)
+            out[bi, :, r0:r0 + rows] = (torch.matmul(p, vf) / l.clamp_min(1e-30)).to(q.dtype)
+    return out
+
+
+def flash_attention_streamed_plain(q, k, v) -> torch.Tensor:
+    """Plain version of K4: non-causal attention, head-split."""
+    return _attention_plain(q, k, v, causal=False)
+
+
+def flash_attention_multipass_plain(q, k, v, causal: bool) -> torch.Tensor:
+    """Plain version of K3: attention with an optional causal mask."""
+    return _attention_plain(q, k, v, causal)
+
+
+def _check_bhsd(name, q, k, v, max_dh):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name} wants (B, H, S, Dh) tensors")
+    if (k.shape != v.shape or k.shape[:2] != q.shape[:2]
+            or k.shape[3] != q.shape[3]):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q.shape[3] > max_dh:
+        raise ValueError(f"{name} takes head dims up to {max_dh}, got {q.shape[3]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k and v must share a dtype")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must share a device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA, not {q.device.type}")
+
+
+def _launch_bhsd(name, head_dims, q, k, v, *extra):
+    """Launch ``sdt_<name>`` from ``csrc/<name>.cu`` on head-split tensors.
+
+    The output is allocated as (B, Sq, H, Dh) memory and returned as its
+    (B, H, Sq, Dh) view, so merging the heads back to (B, Sq, H*Dh)
+    afterwards is free."""
+    from .build import load
+
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    if dh not in head_dims:
+        raise ValueError(f"{name} kernel takes head dims {head_dims}, got {dh}")
+    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    item = q.element_size()
+    for t in (q, k, v):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} kernel needs a unit head-dim stride")
+        # 16-byte cp.async copies: every row start must be 16-byte aligned
+        if t.data_ptr() % 16 or any(t.stride(i) * item % 16 for i in range(3)):
+            raise ValueError(f"{name} kernel needs 16-byte aligned rows "
+                             f"(pointer and strides)")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{name} kernel takes at most 65535 batch elements and heads")
+    lib, _ = load(name)
+    fn = getattr(lib, f"sdt_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
+                                         for i in range(3)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+             b, h, sq, sk, dh, _DTYPE_CODE[q.dtype], *extra, stream)
+    _raise_on_error(lib, name, err)
+    return out
+
+
+def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """K4: non-causal attention over (B, H, S, Dh) tensors, Dh <= 128, for
+    long KV -> (B, H, Sq, Dh)."""
+    _check_bhsd("flash_attention_streamed", q, k, v, STREAMED_MAX_DH)
+    if q.device.type == "cpu":
+        return flash_attention_streamed_plain(q, k, v)
+    out = _launch_bhsd("flash_attention_streamed", STREAMED_HEAD_DIMS, q, k, v)
+    flash_attention_streamed.launches += 1
+    return out
+
+
+def flash_attention_multipass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              *, causal: bool) -> torch.Tensor:
+    """K3: attention over (B, H, S, Dh) tensors, Dh <= 512, optional causal
+    mask (``col <= row``), KV of any length -> (B, H, Sq, Dh)."""
+    _check_bhsd("flash_attention_multipass", q, k, v, MULTIPASS_MAX_DH)
+    if q.device.type == "cpu":
+        return flash_attention_multipass_plain(q, k, v, causal)
+    out = _launch_bhsd("flash_attention_multipass", MULTIPASS_HEAD_DIMS, q, k, v,
+                       int(causal))
+    flash_attention_multipass.launches += 1
+    return out
+
+
+flash_attention_streamed.launches = 0
+flash_attention_multipass.launches = 0

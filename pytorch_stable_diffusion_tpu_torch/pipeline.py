@@ -17,6 +17,12 @@ Same public keyword surface as the JAX package's ``generate()`` and
   ``uncond + scale * (cond - uncond)`` in float32.
 * img2img encodes the init image, noises it to the timestep of
   ``start_step_for_strength`` and denoises from there.
+* ``encode_tile`` / ``decode_tile`` (latent px) run the VAE's
+  image-resolution convs over overlapping tiles (``models/vae.py``), for
+  high-resolution requests; the mid block's attention still runs whole.
+* Exact-mode requests are served up to :data:`MAX_VALIDATED_ATTN_TOKENS`
+  level-1 tokens (2048² at SD-1.5); larger ones raise ``ValueError``, as
+  in the JAX package.
 * Output: decoded (-1, 1) rescaled to (0, 255), clamped, truncated to
   uint8 (H, W, 3) — the reference's contract.
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from .core import rng as rng_mod
+from .models import vae as vae_mod
 from .models.config import SDConfig, check_ported, sd15_config
 from .sampling import ddpm
 
@@ -43,13 +50,18 @@ _LATER_SAMPLERS = ("ddim", "dpm++", "dpm++_sde", "dpm++_3m_sde", "dpm++_2s_a",
                    "euler", "euler_a", "heun", "unipc", "lcm", "plms", "lms",
                    "dpm2", "dpm2_a", "restart", "dpm_fast", "dpm_adaptive")
 
+#: Largest global self-attention sequence (level-1 tokens) served: the JAX
+#: package's limit and ``ValueError`` contract (its ``pipeline.py``), which
+#: the port keeps; 2048² at SD-1.5 is 65536 tokens.  The JAX package lifts
+#: it with hypertile, which the port does not run (slice F).
+MAX_VALIDATED_ATTN_TOKENS = 65536
+
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "init_latents": (None, "slice C"), "mask_image": (None, "slice C"),
-    "mask_blur": (0, "slice C"), "edit_image": (None, "slice C"),
-    "image_guidance_scale": (1.5, "slice C"), "decode_tile": (None, "slice C"),
-    "encode_tile": (None, "slice C"), "original_size": (None, "slice C"),
-    "crop_coords": ((0, 0), "slice C"), "target_size": (None, "slice C"),
+    "init_latents": (None, "slice C2"), "mask_image": (None, "slice C2"),
+    "mask_blur": (0, "slice C2"), "edit_image": (None, "slice C2"),
+    "image_guidance_scale": (1.5, "slice C2"), "original_size": (None, "slice C2"),
+    "crop_coords": ((0, 0), "slice C2"), "target_size": (None, "slice C2"),
     "timestep_spacing": ("uniform", "slice B"), "ddim_eta": (0.0, "slice B"),
     "long_prompts": (False, "slice D"), "emphasis": (False, "slice D"),
     "clip_skip": (None, "slice D"), "hypernetwork": (None, "slice D"),
@@ -147,6 +159,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   tokenizer=None, *, config: Optional[SDConfig] = None,
                   height: int = 512, width: int = 512,
                   fixed_noise: Optional[Dict[str, np.ndarray]] = None,
+                  decode_tile: Optional[int] = None,
+                  encode_tile: Optional[int] = None,
                   **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32)."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
@@ -162,6 +176,13 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         raise ValueError("models dict and tokenizer are required")
     cfg = config or sd15_config()
     check_ported(cfg)
+    n_lvl1 = (height // cfg.vae.downsample_factor) * (width // cfg.vae.downsample_factor)
+    if n_lvl1 > MAX_VALIDATED_ATTN_TOKENS:
+        raise ValueError(
+            f"{height}x{width} needs {n_lvl1}-token global self-attention, "
+            f"beyond the validated streamed-kernel scale "
+            f"({MAX_VALIDATED_ATTN_TOKENS}); reduce the size (hypertile, which "
+            f"lifts this limit in the JAX package, comes with slice F)")
     policy = cfg.policy
 
     prompts = [prompt] if isinstance(prompt, str) else list(prompt)
@@ -223,6 +244,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     t_dev = torch.as_tensor(timesteps.astype(np.float32)).to(device)
     memory_format = torch.channels_last if device.type == "cuda" \
         else torch.contiguous_format
+    vae_kw = dict(attention_backend=cfg.vae_attention_backend,
+                  reference_quirks=cfg.reference_quirks)
 
     with torch.inference_mode():
         tokens = torch.as_tensor(np.concatenate([cond_tokens, uncond_tokens])
@@ -233,10 +256,13 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             image = torch.as_tensor(_prepare_image(input_image, width, height))
             image = image.to(device).expand(batch, -1, -1, -1) \
                 .contiguous(memory_format=memory_format)
-            lat0 = models["encoder"](
-                image, noise["encoder"], policy,
-                attention_backend=cfg.vae_attention_backend,
-                reference_quirks=cfg.reference_quirks).float()
+            if encode_tile:
+                lat0 = vae_mod.apply_encoder_tiled(models["encoder"], image,
+                                                   noise["encoder"], policy,
+                                                   tile=encode_tile, **vae_kw)
+            else:
+                lat0 = models["encoder"](image, noise["encoder"], policy, **vae_kw)
+            lat0 = lat0.float()
             latents = ddpm.add_noise(schedule, lat0, int(timesteps[start_step]),
                                      noise["latent_init"])
         else:
@@ -258,10 +284,12 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                                 num_inference_steps=n_inference_steps,
                                 prev_t=int(prev_timesteps[i])).float()
 
-        images = models["decoder"](
-            latents.contiguous(memory_format=memory_format), policy,
-            attention_backend=cfg.vae_attention_backend,
-            reference_quirks=cfg.reference_quirks)
+        lat_in = latents.contiguous(memory_format=memory_format)
+        if decode_tile:
+            images = vae_mod.apply_decoder_tiled(models["decoder"], lat_in, policy,
+                                                 tile=decode_tile, **vae_kw)
+        else:
+            images = models["decoder"](lat_in, policy, **vae_kw)
         images = rescale(images.float(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         images = images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
         return images.cpu().numpy(), latents.cpu().numpy()

@@ -29,10 +29,19 @@ def cuda():
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
+def tolerance(dtype, ref):
+    """TOL[dtype], scaled down to the reference's largest value where that is
+    below 1: over a long KV the outputs are ~1e-2, and an absolute 2e-2 would
+    pass a kernel that returned zeros."""
+    return TOL[dtype] * min(1.0, ref.float().abs().max().item())
+
+
 @pytest.mark.parametrize("b,s,c,heads", [
     (2, 4096, 320, 8),    # SD-1.5 512², level 1: Dh 40
     (2, 1024, 640, 8),    # level 2: Dh 80
     (2, 256, 1280, 8),    # level 3: Dh 160
+    (2, 4096, 1280, 8),   # 2048², level 3
+    (2, 1024, 1280, 8),   # 2048², mid block
     (2, 300, 32, 1),      # ragged KV tail, Dh 32
     (3, 77, 32, 1),       # KV shorter than one tile
 ])
@@ -48,7 +57,7 @@ def test_k1_matches_plain(cuda, b, s, c, heads, dtype):
     assert got.dtype == dtype and got.shape == (b, s, c) and got.is_contiguous()
     ref = fa.flash_attention_bsc_plain(q, k, v, heads)
     err = (got.float() - ref.float()).abs().max().item()
-    assert err <= TOL[dtype], err
+    assert err <= tolerance(dtype, ref), err
 
 
 def test_k1_refuses_unsupported_head_dim(cuda):
@@ -61,3 +70,65 @@ def test_k1_refuses_fp16(cuda):
     q = torch.zeros(1, 256, 40, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_bsc(q, q, q, n_heads=1)
+
+
+def _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed):
+    """q from its own (B, Sq, C) projection, k and v as the two halves of a
+    fused (B, Sk, 2C) one, all viewed as (B, H, S, Dh) without a copy."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = h * dh
+    q = torch.randn(b, sq, c, device=cuda, generator=g).to(dtype)
+    kv = torch.randn(b, sk, 2 * c, device=cuda, generator=g).to(dtype)
+    k, v = kv.split(c, dim=-1)
+    return [t.reshape(b, t.shape[1], h, dh).transpose(1, 2) for t in (q, k, v)]
+
+
+def _check_head_split(wrapper, plain, args, kw, dtype):
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    b, h, sq, dh = args[0].shape
+    assert got.dtype == dtype and got.shape == (b, h, sq, dh)
+    assert got.transpose(1, 2).is_contiguous()  # heads merge back without a copy
+    ref = plain(*args, *kw.values())
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tolerance(dtype, ref), err
+
+
+@pytest.mark.parametrize("b,h,sq,sk,dh", [
+    (2, 8, 4096, 4096, 40),    # SD-1.5 level-1 width at 512²
+    (1, 2, 1000, 1100, 16),    # ragged q and KV tails
+    (1, 1, 300, 5000, 64),
+    (1, 2, 200, 9300, 128),    # K4's widest head
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k4_matches_plain(cuda, b, h, sq, sk, dh, dtype):
+    args = _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed=1)
+    _check_head_split(fa.flash_attention_streamed, fa.flash_attention_streamed_plain,
+                      args, {}, dtype)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,dh,causal", [
+    (1, 1, 4096, 4096, 512, False),  # the 512² VAE mid block on the kernel backend
+    (1, 1, 1000, 1000, 512, True),   # causal, ragged
+    (1, 2, 300, 1000, 64, True),     # causal with Sq < Sk
+    (2, 2, 777, 500, 128, False),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k3_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
+    args = _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed=2)
+    _check_head_split(fa.flash_attention_multipass, fa.flash_attention_multipass_plain,
+                      args, {"causal": causal}, dtype)
+
+
+def test_k3_k4_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 1, 64, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_streamed(q, q, q)       # Dh 48 not instantiated
+    q = torch.zeros(1, 1, 64, 192, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_multipass(q, q, q, causal=False)
+    q = torch.zeros(1, 1, 64, 41, device=cuda)[..., 1:]  # rows 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_streamed(q, q, q)

@@ -66,9 +66,9 @@ def test_wrapper_rejects_mismatched_inputs():
 
 
 @pytest.mark.parametrize("kv,dh,causal,cross,backend,want", [
-    (4096, 40, False, False, "kernel", "kernel"),   # 512² level 1
-    (256, 160, False, False, "kernel", "kernel"),   # 512² level 3
-    (4096, 512, False, False, "kernel", "kernel"),  # no VMEM cliff in the port
+    (4096, 40, False, False, "kernel", "bsc"),      # 512² level 1
+    (256, 160, False, False, "kernel", "bsc"),      # 512² level 3
+    (4096, 512, False, False, "kernel", "multipass"),  # VAE mid block: K3
     (255, 40, False, False, "kernel", "plain"),     # short KV
     (64, 160, False, False, "kernel", "plain"),     # UNet mid block
     (77, 40, False, True, "kernel", "plain"),       # cross-attention
@@ -84,14 +84,17 @@ def test_route(kv, dh, causal, cross, backend, want):
 @pytest.mark.parametrize("kv,dh,causal,cross,backend,kernel", [
     (256, 64, True, False, "kernel", "K2"),       # causal long KV
     (300, 40, False, True, "kernel", "K2"),       # long cross-attention
-    (40960, 40, False, False, "kernel", "K4"),    # streamed long KV
-    (65536, 40, False, False, "plain", "K4"),     # any backend past 40960
-    (40960, 512, False, False, "plain", "K3"),    # VAE mid block at 2048²
-    (40960, 64, True, False, "plain", "K3"),      # causal long KV
+    (9216, 40, False, True, "kernel", "K2"),      # the one-pass kernel's longest
+    (8192, 128, True, False, "kernel", "K2"),     # causal, K2's widest head
+    (1024, 80, False, True, "kernel", "K2"),      # SD-1.5 level-2 width
+    (4096, 64, True, False, "kernel", "K2"),
 ])
 def test_route_refuses_unported_flash_kernels(kv, dh, causal, cross, backend,
                                               kernel):
-    with pytest.raises(NotImplementedError, match=kernel):
+    """What is left of the one-pass kernel K2 (causal or cross-attention
+    over 256..9216 KV tokens, Dh <= 128) raises, naming slice D; the
+    long-KV cases K3/K4 carry are routed (tests/test_torch_flash_long.py)."""
+    with pytest.raises(NotImplementedError, match=f"{kernel}.*slice D"):
         attention.route(kv, dh, causal=causal, cross=cross, backend=backend)
 
 

@@ -1,7 +1,7 @@
 """The port's CLIP, UNet and VAE against the JAX forwards at tiny_sd_config,
 with the JAX weights loaded through weights.convert.from_jax_params, under
-the FP32 policy and in both reference_quirks modes; converter coverage;
-the SD-1.5 parameter counts.
+the FP32 policy and in both reference_quirks modes; the tiled VAE encode
+and decode; converter coverage; the SD-1.5 parameter counts.
 
 Tolerance 1e-4 abs/rel: fp32 throughout, but a few dozen convs, norms and
 matmuls deep, each summing in another order than XLA (conv sums of up to
@@ -22,6 +22,7 @@ from pytorch_stable_diffusion_tpu.models import unet as junet
 from pytorch_stable_diffusion_tpu.models import vae as jvae
 from pytorch_stable_diffusion_tpu_torch.models import (build_models, construct,
                                                        param_count)
+from pytorch_stable_diffusion_tpu_torch.models import vae
 from pytorch_stable_diffusion_tpu_torch.models.config import (sd15_config,
                                                               tiny_sd_config)
 from pytorch_stable_diffusion_tpu_torch.weights import convert
@@ -32,7 +33,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.fixture(scope="module")
 def port_models(tiny_models):
     cfg = tiny_sd_config()
-    return build_models(cfg, state_dicts=convert.from_jax_params(tiny_models, cfg))
+    return build_models(cfg, device="cpu", state_dicts=convert.from_jax_params(tiny_models, cfg))
 
 
 def _rand(seed, *shape):
@@ -89,6 +90,39 @@ def test_vae_decoder(tiny_cfg, tiny_models, port_models, quirks):
         got = port_models["decoder"](torch.from_numpy(to_nchw(lat)),
                                      reference_quirks=quirks)
     np.testing.assert_allclose(got.numpy(), to_nchw(ref), **TOL)
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_tiled_vae_matches_jax(tiny_cfg, tiny_models, port_models, part):
+    """32x48-pixel image (16x24 latent px) in 8-px tiles, against JAX
+    ``apply_encoder_tiled``/``apply_decoder_tiled``: clamped border windows,
+    halos cut to fit, per-window GroupNorm statistics."""
+    if part == "encoder":
+        img = np.tanh(_rand(21, 1, 32, 48, 3))
+        noise = _rand(22, 1, 16, 24, 4)
+        ref = jax.jit(lambda p, x, n: jvae.apply_encoder_tiled(
+            p, x, n, tiny_cfg.vae, tile=8))(tiny_models["encoder"], img, noise)
+        with torch.inference_mode():
+            got = vae.apply_encoder_tiled(port_models["encoder"],
+                                          torch.from_numpy(to_nchw(img)),
+                                          torch.from_numpy(to_nchw(noise)), tile=8)
+    else:
+        lat = _rand(23, 1, 16, 24, 4)
+        ref = jax.jit(lambda p, x: jvae.apply_decoder_tiled(
+            p, x, tiny_cfg.vae, tile=8))(tiny_models["decoder"], lat)
+        with torch.inference_mode():
+            got = vae.apply_decoder_tiled(port_models["decoder"],
+                                          torch.from_numpy(to_nchw(lat)), tile=8)
+    np.testing.assert_allclose(got.numpy(), to_nchw(ref), **TOL)
+
+
+def test_halos_match_jax(tiny_cfg):
+    sd15 = sd15_config().vae
+    for cfg, jcfg in ((sd15, jconfig.sd15_config().vae),
+                      (tiny_sd_config().vae, tiny_cfg.vae)):
+        assert vae.down_receptive_halo(cfg) == jvae.down_receptive_halo(jcfg)
+        assert vae.tail_receptive_halo(cfg) == jvae.tail_receptive_halo(jcfg)
+    assert (vae.down_receptive_halo(sd15), vae.tail_receptive_halo(sd15)) == (9, 13)
 
 
 def test_quirk_modes_differ(tiny_cfg, port_models):

@@ -6,10 +6,21 @@ the UNet's first level attends over a 16x16 = 256-token latent and both
 sides take their flash kernel K1 there (the JAX package's Pallas kernel in
 interpret mode, the port's plain version on the CPU).  Noise is injected
 (``fixed_noise``): torch generators cannot reproduce JAX's threefry.
+
+The long-KV slice (what K4 and K3 carry at 2048²: the UNet's level 1 over
+65536 tokens, the VAE's 1-head Dh-512 mid block) runs at the same size with
+the port's ``FLASH_ONLY_KV`` lowered to 256, so that level 1 takes K4's
+path, and a VAE widened to a 192-channel mid block (past K1's head dims) on
+``vae_attention_backend="kernel"``, so that it takes K3's.  Spies count the
+plain versions the CPU runs.  The JAX side runs its materialized ("xla")
+attention there, the same function (tests/test_torch_flash_long.py holds
+the plain versions to the Pallas kernels themselves).
 """
 
 import dataclasses
+from unittest import mock
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -18,11 +29,13 @@ from conftest import psnr, to_nchw
 
 from pytorch_stable_diffusion_tpu import pipeline as jpipeline
 from pytorch_stable_diffusion_tpu.models import config as jconfig
+from pytorch_stable_diffusion_tpu.models import vae as jvae
 from pytorch_stable_diffusion_tpu.sampling import ddpm as jddpm
 from pytorch_stable_diffusion_tpu_torch import pipeline
 from pytorch_stable_diffusion_tpu_torch.core import rng
 from pytorch_stable_diffusion_tpu_torch.models import build_models
 from pytorch_stable_diffusion_tpu_torch.models.config import tiny_sd_config
+from pytorch_stable_diffusion_tpu_torch.ops import attention
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
 from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 from pytorch_stable_diffusion_tpu_torch.weights import convert
@@ -108,7 +121,7 @@ HW = 32
 @pytest.fixture(scope="module")
 def slice_setup(tiny_models):
     cfg = tiny_sd_config(attention_backend="kernel")
-    models = build_models(cfg, state_dicts=convert.from_jax_params(tiny_models, cfg))
+    models = build_models(cfg, device="cpu", state_dicts=convert.from_jax_params(tiny_models, cfg))
     r = np.random.RandomState(11)
     noise = {"latent_init": r.randn(1, 16, 16, 4).astype(np.float32),
              "sampler_noise": r.randn(STEPS, 1, 16, 16, 4).astype(np.float32),
@@ -165,6 +178,108 @@ def test_seed_determinism_and_batching(slice_setup):
     assert batch.shape == (2, HW, HW, 3) and batch.dtype == np.uint8
     # sample 0 draws the same noise at any batch size
     assert psnr(batch[0].astype(np.float32), a.astype(np.float32)) > 40.0
+
+
+# ----------------------------------------------------------- long-KV slice
+#: level-1 self-attentions per UNet evaluation of tiny_sd_config: 2 in the
+#: encoder's level 1, 3 in the decoder's
+LEVEL1_ATTN = 5
+
+
+def _wide_vae(cfg):
+    """``cfg`` with a 192-channel VAE mid block: 1 head of Dh 192."""
+    return dataclasses.replace(cfg, vae=dataclasses.replace(cfg.vae, ch_mults=(1, 12)))
+
+
+def _random_vae_params(vae_cfg, seed):
+    """JAX VAE parameters drawn with numpy into the JAX initializers' shapes
+    (``jax.eval_shape``; the eager init takes seconds on the CPU): kernels
+    ~ N(0, 1/fan_in), norm scales near 1, small biases."""
+    r = np.random.RandomState(seed)
+    key = jax.random.PRNGKey(0)
+
+    def draw(path, leaf):
+        name, shape = jax.tree_util.keystr(path), leaf.shape
+        if name.endswith("['scale']"):
+            return (1.0 + 0.05 * r.randn(*shape)).astype(np.float32)
+        if len(shape) == 1:
+            return (0.05 * r.randn(*shape)).astype(np.float32)
+        return (r.randn(*shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+
+    return {name: jax.tree_util.tree_map_with_path(draw, jax.eval_shape(
+        lambda k: init(k, vae_cfg), key))
+        for name, init in (("encoder", jvae.init_encoder),
+                           ("decoder", jvae.init_decoder))}
+
+
+@pytest.fixture(scope="module")
+def long_kv_setup(tiny_models):
+    jcfg = _wide_vae(jconfig.tiny_sd_config())
+    jmodels = dict(tiny_models, **_random_vae_params(jcfg.vae, seed=5))
+    cfg = _wide_vae(tiny_sd_config(attention_backend="kernel",
+                                   vae_attention_backend="kernel"))
+    models = build_models(cfg, device="cpu",
+                          state_dicts=convert.from_jax_params(jmodels, cfg))
+    r = np.random.RandomState(13)
+    noise = {"latent_init": r.randn(1, 16, 16, 4).astype(np.float32),
+             "sampler_noise": r.randn(STEPS, 1, 16, 16, 4).astype(np.float32),
+             "encoder_noise": r.randn(1, 16, 16, 4).astype(np.float32)}
+    init_image = r.randint(0, 256, size=(HW, HW, 3)).astype(np.uint8)
+    return jcfg, jmodels, cfg, models, noise, init_image
+
+
+@pytest.mark.parametrize("img2img", [False, True], ids=["txt2img", "img2img_tiled"])
+def test_long_kv_slice_matches_jax_generate(long_kv_setup, tiny_tokenizer,
+                                            monkeypatch, img2img):
+    """The UNet's level 1 goes through K4's plain version, the VAE's mid
+    block through K3's, with exact call counts.  img2img also runs the
+    tiled encoder and decoder on both sides (4 tiles of 8x8 latent px)."""
+    jcfg, jmodels, cfg, models, noise, init_image = long_kv_setup
+    kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=STEPS, seed=0,
+              height=HW, width=HW, return_latents=True)
+    steps, vae_calls = STEPS, 1
+    if img2img:
+        kw.update(input_image=init_image, strength=0.7, encode_tile=8, decode_tile=8)
+        steps -= ddpm.start_step_for_strength(STEPS, 0.7)
+        vae_calls = 2
+    else:
+        noise = {k: v for k, v in noise.items() if k != "encoder_noise"}
+    ref_img, ref_lat = jpipeline.generate(
+        "a photo of a cat", models=jmodels, tokenizer=tiny_tokenizer,
+        config=jcfg, fixed_noise=noise, **kw)
+    monkeypatch.setattr(attention, "FLASH_ONLY_KV", 256)
+    spies = {k: mock.patch.object(fa, f"flash_attention_{name}_plain",
+                                  wraps=getattr(fa, f"flash_attention_{name}_plain"))
+             for k, name in (("K1", "bsc"), ("K4", "streamed"), ("K3", "multipass"))}
+    with spies["K1"] as k1, spies["K4"] as k4, spies["K3"] as k3:
+        img, lat = pipeline.generate(
+            "a photo of a cat", models=models,
+            tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len),
+            config=cfg, fixed_noise=_nchw_noise(noise), **kw)
+    assert (k1.call_count, k4.call_count, k3.call_count) == \
+        (0, LEVEL1_ATTN * steps, vae_calls)
+    q = k4.call_args.args[0]
+    assert q.shape == (2, 4, 256, 4) and q.stride(2) == 3 * 16  # CFG batch, fused q/k/v
+    assert k3.call_args.args[0].shape == (1, 1, 256, 192)      # the VAE's one head
+    assert fa.flash_attention_streamed.launches == 0            # CPU: plain versions
+    assert fa.flash_attention_multipass.launches == 0
+    assert img.dtype == np.uint8 and img.shape == (HW, HW, 3)
+    assert psnr(lat, to_nchw(ref_lat)) > 55.0
+    assert psnr(img.astype(np.float32), ref_img.astype(np.float32)) > 40.0
+
+
+def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_models,
+                                                          tiny_tokenizer):
+    """257x257 latent px = 66049 tokens (the tiny VAE downsamples 2x): both
+    packages raise ValueError before any work."""
+    cfg, models, _, _ = slice_setup
+    assert pipeline.MAX_VALIDATED_ATTN_TOKENS == jpipeline.MAX_VALIDATED_ATTN_TOKENS
+    with pytest.raises(ValueError, match="65536"):
+        jpipeline.generate("a cat", models=tiny_models, tokenizer=tiny_tokenizer,
+                           config=jconfig.tiny_sd_config(), height=514, width=514)
+    with pytest.raises(ValueError, match="66049-token.*65536"):
+        pipeline.generate("a cat", models=models, config=cfg, height=514, width=514,
+                          tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len))
 
 
 @pytest.mark.parametrize("kwargs,where", [

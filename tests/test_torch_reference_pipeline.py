@@ -60,7 +60,8 @@ def bits():
                                        err_msg=f"weight fingerprint drift at {k}")
     state = convert.convert(sd, sd15_config(reference_quirks=True))
     del params, sd  # free the JAX weights before the port's copy is built
-    models = build_models(sd15_config(reference_quirks=True), state_dicts=state)
+    models = build_models(sd15_config(reference_quirks=True), device="cpu",
+                          state_dicts=state)
     del state
     tok = _TableTokenizer({PROMPT: g["cond_tokens"][0], "": g["uncond_tokens"][0]})
     return g, models, tok, mods
