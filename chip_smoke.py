@@ -9,32 +9,42 @@ Phases (any failure exits non-zero):
                 (nvidia-smi) and the torch/CUDA versions.
   2. build    — build every CUDA kernel of the main paths from the checkout
                 with nvcc, all at once: K1 (csrc/flash_attention_bsc.cu),
-                K4 (csrc/flash_attention_streamed.cu) and K3
-                (csrc/flash_attention_multipass.cu); print -Xptxas -v.
+                K4 (csrc/flash_attention_streamed.cu), K3
+                (csrc/flash_attention_multipass.cu) and K5
+                (csrc/scaled_silu_conv3x3.cu); print -Xptxas -v.
   3. kernels  — each kernel against its plain PyTorch version (max abs
                 error within 2e-2 for bf16, 1e-4 for fp32, each times the
-                reference's largest value where that is below 1; TF32 off
-                for the reference), on q/k/v views of one fused projection
-                as the model makes them: K1 at the SD-1.5 512² shapes
-                (batch 2 and 8), a ragged case and the 2048² levels 2 and 3
-                and mid block; K4 at the 2048² UNet level 1
-                (2|8, 8, 65536, 40), a ragged KV and KV 262144 with 4096 q
-                rows (the 4096² level-1 KV); K3 at the VAE mid block
-                (1, 1, 65536|4096, 512) and causal ragged cases.  Where the
-                plain version would be too slow, correctness is checked on
-                a subset of q rows and the kernel is timed at the full
-                shape.  At the main K4 and K3 shapes a planted fault (KV
-                short by 4096 tokens) must fail the same check.  CUDA-event
-                times of the
-                kernel, the plain version and, where one PyTorch call
-                computes the same function, of that call
-                (scaled_dot_product_attention, used nowhere in the port).
+                reference's largest value where that is below 1 — for K5
+                times that value itself; TF32 off for the reference), on
+                q/k/v views of one fused projection as the model makes them:
+                K1 at the SD-1.5 512² shapes (batch 2 and 8), a ragged case
+                and the 2048² levels 2 and 3 and mid block; K4 at the 2048²
+                UNet level 1 (2|8, 8, 65536, 40), a ragged KV and KV 262144
+                with 4096 q rows (the 4096² level-1 KV); K3 at the VAE mid
+                block (1, 1, 65536|4096, 512) and causal ragged cases; K5 at
+                every (batch, shape) at which phases 4, 6 and 7 run it, from
+                the UNet's plan: the 14 distinct res-block conv shapes of
+                SD-1.5 512² at batch 2 (with and without the time-embedding
+                fold) and 8, those of 2048² and of 128² at batch 2, and a
+                ragged case, in bf16 and fp32.  Where the plain version
+                would be too slow, correctness is checked on a subset of q
+                rows and the kernel is timed at the full shape.  At the main
+                K4 and K3 shapes a
+                planted fault (KV short by 4096 tokens), at K5's the plain
+                version with the padding applied before the activation, must
+                fail the same check.  CUDA-event times of the kernel, the
+                plain version and, where one PyTorch call computes the same
+                function, of that call (scaled_dot_product_attention; for K5
+                cuDNN's conv on the already activated input), used nowhere
+                in the port.
   4. small    — SD-1.5 at full width, FP32, 128², 3 DDPM+CFG steps: the
                 card against the port's CPU plain path on the same seeded
                 weights and noise (latents PSNR > 55 dB, uint8 image PSNR
                 > 40 dB): once on K1, once with FLASH_ONLY_KV lowered so
                 that K4 carries level 1 and vae_attention_backend="kernel"
-                so that K3 carries the VAE, with exact launch counts.
+                so that K3 carries the VAE, once with
+                conv_backend="kernel_fold" (K5's fp32 path), with exact
+                launch counts.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -44,13 +54,21 @@ Phases (any failure exits non-zero):
                 (g) hires pass: (a) upscaled to 2048², img2img at strength
                 0.5 with encode_tile and decode_tile; (h) 512² img2img with
                 vae_attention_backend="kernel"; (i) 4096² must raise
-                ValueError.  The launch counters are zeroed before each
-                path and every request checks its K1/K3/K4 launches against
-                the counts derived from the model's plan and the documented
-                dispatch thresholds (not from the port's router); at 2048²
-                these must also equal the per-step counts PERF.md states.
+                ValueError.  Slice H1, the conv_backend tiers at 512²: (j)
+                txt2img on "kernel", (k) on "fold", (l) on "kernel_fold"
+                twice (bit-identical), (m) generate_images() x4 on
+                "kernel_fold", (n) img2img at strength 0.8 on "kernel",
+                (o) and (p) generate_images() x4 on "kernel" and "fold";
+                each one's PSNR against (a) or (e) is printed, not gated.
+                The launch counters are zeroed before each path and every
+                request checks its K1/K3/K4/K5 launches against the counts
+                derived from the model's plan and the documented dispatch
+                thresholds (not from the port's router); at 2048² these
+                must also equal the per-step counts PERF.md states, and K5
+                must run 44 times a UNet evaluation on "kernel" and
+                "kernel_fold", never on "plain" and "fold".
   7. step     — one 2048² CFG UNet evaluation timed, and profiled for the
-                device busy share.
+                device busy share, on conv_backend "plain" and "kernel".
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -74,9 +92,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "flash_attention_bsc": (CSRC + "flash_attention_bsc.cu", PALLAS + ":384"),
     "flash_attention_streamed": (CSRC + "flash_attention_streamed.cu", PALLAS + ":466"),
     "flash_attention_multipass": (CSRC + "flash_attention_multipass.cu", PALLAS + ":507"),
+    "scaled_silu_conv3x3": (CSRC + "scaled_silu_conv3x3.cu",
+                            "pytorch_stable_diffusion_tpu/ops/pallas/conv.py:218"),
 }
 SHORT = {"flash_attention_bsc": "K1", "flash_attention_streamed": "K4",
-         "flash_attention_multipass": "K3"}
+         "flash_attention_multipass": "K3", "scaled_silu_conv3x3": "K5"}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #: KV length from which the JAX package always runs flash
 #: (pytorch_stable_diffusion_tpu/ops/attention.py:221), K4 or K3 in the port
@@ -85,6 +105,9 @@ FLASH_ONLY_KV = 40960
 #: tokens) on K4 in 2 down and 3 up blocks; levels 2 and 3 and the mid block
 #: on K1
 PER_STEP_2048 = {"K1": 11, "K4": 5}
+#: K5 launches of one UNet evaluation on conv_backend "kernel"/"kernel_fold"
+#: (PERF.md): both halves of its 22 res blocks
+K5_PER_EVAL = 44
 #: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on the
 #: CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -299,11 +322,192 @@ def phase_long(fa, card, results):
         torch.cuda.empty_cache()
 
 
+def res_convs(cfg, height, width):
+    """(H, W, Cin, Cout) of the 44 res-block 3x3 convs of one SD-1.5 UNet
+    evaluation, in order, from the UNet's plan: both halves of every res
+    block of the encoder, the bottleneck and the decoder."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
+
+    u = cfg.unet
+    h = height // cfg.vae.downsample_factor
+    w = width // cfg.vae.downsample_factor
+    convs, level = [], 0
+
+    def block(c_in, c_out):
+        convs.extend([(h >> level, w >> level, c_in, c_out),
+                      (h >> level, w >> level, c_out, c_out)])
+
+    for st in unet.encoder_plan(u)[1:]:
+        if st["kind"] == "down":
+            level += 1
+        else:
+            block(st["c_in"], st["c_out"])
+    block(u.level_channels[-1], u.level_channels[-1])  # the bottleneck's two
+    block(u.level_channels[-1], u.level_channels[-1])
+    for st in unet.decoder_plan(u):
+        block(st["c_in"], st["c_out"])
+        if st["upsample"]:
+            level -= 1
+    return convs
+
+
+def conv_flops(b, h, w, cin, cout):
+    return 2.0 * 9 * cin * cout * h * w * b
+
+
+def k5_inputs(b, h, w, cin, cout, dtype, g):
+    """x (channels_last), GroupNorm parameters, a channels_last weight
+    ~ N(0, 1/(9 Cin)), a bias and a time embedding, on the card."""
+    from pytorch_stable_diffusion_tpu_torch.ops import norm
+
+    cl = torch.channels_last
+    x = torch.randn(b, cin, h, w, device="cuda", generator=g).to(dtype).contiguous(
+        memory_format=cl)
+    gn = norm.Norm(cin, device="cuda")
+    gn.weight.data = 1.0 + 0.2 * torch.randn(cin, device="cuda", generator=g)
+    gn.bias.data = 0.5 * torch.randn(cin, device="cuda", generator=g)
+    weight = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) / (9 * cin) ** 0.5) \
+        .to(dtype).contiguous(memory_format=cl)
+    bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    temb = torch.randn(b, cin, device="cuda", generator=g).to(dtype)
+    return x, gn, weight, bias, temb
+
+
+def k5_tolerance(dtype, ref):
+    """TOL[dtype] times the reference's largest value: a conv's outputs reach
+    several units, and bf16 rounds them relatively."""
+    return TOL[dtype] * ref.float().abs().max().item()
+
+
+def phase_k5(k5, card, results):
+    """K5 against its plain version at every (batch, shape) at which this
+    script's paths run it, read from the UNet's plan: the res-block convs of
+    SD-1.5 512² at CFG batch 2 (with and without the time-embedding fold)
+    and 8 (four prompts), of 2048² at batch 2 (phase 7) and of 128² at batch
+    2 (phase 4), and a ragged case, in bf16 and fp32; the planted fault;
+    times at the largest 512² shape and at 2048² level 1, and summed over
+    the 44 convs of a 512² CFG step."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rec = results["scaled_silu_conv3x3"]
+    cfg = port.sd15_config()
+
+    def distinct(convs):
+        return sorted(set(convs), key=lambda s: (-s[0], s[2], s[3]))
+
+    step = res_convs(cfg, 512, 512)
+    shapes = distinct(step)
+    main = (2, 64, 64, 960, 320)  # the largest 512² conv (45 GFLOP, with 32² 1920 -> 640)
+    cases = [(2, *s, temb) for s in shapes for temb in (False, True)]
+    cases += [(8, *s, False) for s in shapes]
+    cases += [(2, *s, False) for size in (2048, 128) for s in distinct(res_convs(cfg, size, size))]
+    cases += [(2, 10, 12, 64, 128, True)]
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (0.0, None)
+        for b, h, w, cin, cout, with_temb in cases:
+            x, gn, weight, bias, temb = k5_inputs(b, h, w, cin, cout, dtype, g)
+            scale, shift = k5.fold_gn_affine(gn, x, 32, temb=temb if with_temb else None)
+            got = k5.scaled_silu_conv3x3(x, scale, shift, weight, bias)
+            torch.cuda.synchronize()
+            check(got.shape == (b, cout, h, w) and got.dtype == dtype
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  "K5 output shape/dtype/format")
+            ref = k5.scaled_silu_conv3x3_plain(x, scale, shift, weight, bias)
+            err, tol = max_err(got, ref), k5_tolerance(dtype, ref)
+            check(err <= tol, f"K5 {dtype} {(b, h, w, cin, cout)} temb={with_temb}: max abs "
+                              f"err {err:.3e} > {tol:.3e}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            worst = max(worst, (err / tol, (b, h, w, cin, cout, with_temb, err, tol)),
+                        key=lambda e: e[0])
+            if (b, h, w, cin, cout) == main and not with_temb:
+                a = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))
+                a = torch.nn.functional.silu(a * scale[:, :, None, None]
+                                             + shift[:, :, None, None]).to(dtype)
+                bad = torch.nn.functional.conv2d(a, weight, bias.to(dtype))
+                bad_err = max_err(bad, ref)
+                check(bad_err > tol, f"K5: padding before the activation passed the "
+                                     f"check ({bad_err:.3e} <= {tol:.3e})")
+                print(f"K5 {str(dtype)[6:]} {main}: max abs err {err:.3e} (tol {tol:.3e}); "
+                      f"planted fault (padding before the activation) caught: max abs "
+                      f"err {bad_err:.3e}", flush=True)
+            if dtype == torch.bfloat16 and not with_temb and (b, h, w, cin, cout) in (
+                    main, (2, 256, 256, 320, 320)):
+                flops = conv_flops(b, h, w, cin, cout)
+                ms = cuda_ms(lambda: k5.scaled_silu_conv3x3(x, scale, shift, weight, bias))
+                pms = cuda_ms(lambda: k5.scaled_silu_conv3x3_plain(x, scale, shift,
+                                                                   weight, bias))
+                a = torch.nn.functional.silu(x.float() * scale[:, :, None, None]
+                                             + shift[:, :, None, None]).to(dtype)
+                bias_c = bias.to(dtype)
+                lib = cuda_ms(lambda: torch.nn.functional.conv2d(a, weight, bias_c, padding=1))
+                dev = device_ms(lambda: [k5.scaled_silu_conv3x3(x, scale, shift, weight, bias)
+                                         for _ in range(10)]) / 10
+                nbytes = (x.numel() + got.numel() + weight.numel()) * x.element_size() \
+                    + 4 * (scale.numel() + shift.numel() + bias.numel())
+                bms, by = bound_ms(flops, nbytes, dtype)
+                if (b, h, w, cin, cout) == main:
+                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
+                print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.3f} ms "
+                      f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; device time under the "
+                      f"profiler {dev:.3f} ms), plain {pms:.3f} ms, "
+                      f"cuDNN conv alone on the activated input {lib:.3f} ms; bound "
+                      f"{bms:.4f} ms by {by}  [{card}]", flush=True)
+            del x, gn, weight, bias, temb, scale, shift, got, ref
+        r, (b, h, w, cin, cout, with_temb, err, tol) = worst
+        print(f"K5 {str(dtype)[6:]}: {len(cases)} cases within tolerance; closest "
+              f"{(b, h, w, cin, cout)} temb={with_temb}: err {err:.3e} = {r:.2f} x tol",
+              flush=True)
+        torch.cuda.empty_cache()
+    # the 44 convs of one 512² CFG step: device time under the profiler (the
+    # launches are host-bound at the small levels, so CUDA events around
+    # back-to-back calls would time the host)
+    calls = {"kernel": [], "plain": [], "cudnn": []}
+    flops = 0.0
+    for h, w, cin, cout in shapes:
+        x, gn, weight, bias, _ = k5_inputs(2, h, w, cin, cout, torch.bfloat16, g)
+        scale, shift = k5.fold_gn_affine(gn, x, 32)
+        a = torch.nn.functional.silu(x.float() * scale[:, :, None, None]
+                                     + shift[:, :, None, None]).to(torch.bfloat16)
+        args, conv_args = (x, scale, shift, weight, bias), (a, weight, bias.to(torch.bfloat16))
+        n = step.count((h, w, cin, cout))
+        calls["kernel"] += [(k5.scaled_silu_conv3x3, args)] * n
+        calls["plain"] += [(k5.scaled_silu_conv3x3_plain, args)] * n
+        calls["cudnn"] += [(lambda a, w, b: torch.nn.functional.conv2d(a, w, b, padding=1),
+                            conv_args)] * n
+        flops += n * conv_flops(2, h, w, cin, cout)
+    check(len(step) == K5_PER_EVAL, f"{len(step)} res-block convs a step, PERF.md states "
+                                    f"{K5_PER_EVAL}")
+    dev = {k: device_ms(lambda: [fn(*args) for fn, args in v]) for k, v in calls.items()}
+    print(f"K5 one 512² CFG step (44 convs, {flops / 1e9:.0f} GFLOP, bound "
+          f"{flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms), device time: kernel "
+          f"{dev['kernel']:.3f} ms ({flops / (dev['kernel'] * 1e-3) / 1e12:.1f} TFLOP/s), "
+          f"plain {dev['plain']:.3f} ms, cuDNN conv alone {dev['cudnn']:.3f} ms "
+          f"({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+
+def device_ms(fn):
+    """Device time of the CUDA kernels ``fn`` launches, summed from one run
+    under torch.profiler after a warm-up run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
 # ----------------------------------------------------------- small reference
-def phase_small_reference(port, fa, attention):
+def phase_small_reference(port, attention):
     """Full width, FP32, 128²: the card against the CPU plain path, first on
     K1, then on K4 (FLASH_ONLY_KV lowered) and K3 (VAE on the kernel
-    backend)."""
+    backend), then on K5 and the folded norms (conv_backend="kernel_fold")."""
     import numpy as np
 
     cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
@@ -320,7 +524,9 @@ def phase_small_reference(port, fa, attention):
     img_c, lat_c = port.generate(PROMPTS[0], models=cpu_models, config=cfg_cpu, **kw)
     del cpu_models
     runs = [("K1", cfg_gpu, None),
-            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256)]
+            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256),
+            ("K1+K5 kernel_fold", dataclasses.replace(cfg_gpu, conv_backend="kernel_fold"),
+             None)]
     for label, cfg, flash_only in runs:
         saved = attention.FLASH_ONLY_KV
         if flash_only is not None:
@@ -328,11 +534,11 @@ def phase_small_reference(port, fa, attention):
         try:
             want = expected_launches(cfg, 128, 128, steps=3, img2img=False,
                                      flash_only=flash_only or FLASH_ONLY_KV)
-            before = launch_counts(fa)
+            before = launch_counts()
             img_g, lat_g = port.generate(PROMPTS[0], models=gpu_models, config=cfg,
                                          device="cuda", **kw)
             torch.cuda.synchronize()
-            got = {k: v - before[k] for k, v in launch_counts(fa).items()}
+            got = {k: v - before[k] for k, v in launch_counts().items()}
         finally:
             attention.FLASH_ONLY_KV = saved
         check(got == want, f"small run ({label}) launched {got}, want {want}")
@@ -356,16 +562,23 @@ def _tokenizer():
 
 
 # ------------------------------------------------------------ launch counts
-def launch_counts(fa):
-    return {"K1": fa.flash_attention_bsc.launches,
-            "K4": fa.flash_attention_streamed.launches,
-            "K3": fa.flash_attention_multipass.launches}
+def wrappers():
+    """The kernel wrappers of the port by short name; each counts its
+    launches in ``.launches``."""
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
+
+    return {"K1": fa.flash_attention_bsc, "K4": fa.flash_attention_streamed,
+            "K3": fa.flash_attention_multipass, "K5": conv.scaled_silu_conv3x3}
 
 
-def zero_counts(fa):
-    fa.flash_attention_bsc.launches = 0
-    fa.flash_attention_streamed.launches = 0
-    fa.flash_attention_multipass.launches = 0
+def launch_counts():
+    return {k: w.launches for k, w in wrappers().items()}
+
+
+def zero_counts():
+    for w in wrappers().values():
+        w.launches = 0
 
 
 def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
@@ -385,11 +598,11 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
 
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV):
     """Kernel launches of one request, derived from the UNet's plan (which
-    stages carry attention, at which level), the VAE's mid block and
-    :func:`expected_kernel`."""
+    stages carry attention, at which level; its res blocks), the VAE's mid
+    block and :func:`expected_kernel`."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
-    counts = {"K1": 0, "K4": 0, "K3": 0}
+    counts = {"K1": 0, "K4": 0, "K3": 0, "K5": 0}
 
     def add(kernel, n):
         if kernel is not None:
@@ -417,6 +630,9 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                             flash_only=flash_only), steps)
         add(expected_kernel(cfg.clip.max_len, dh, cross=True,
                             backend=cfg.attention_backend, flash_only=flash_only), steps)
+    if cfg.conv_backend in ("kernel", "kernel_fold"):  # both halves of every res block
+        counts["K5"] += 2 * steps * (sum(st["kind"] == "block" for st in unet.encoder_plan(u))
+                                     + 2 + len(unet.decoder_plan(u)))
     mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
                         flash_only=flash_only), 2 if img2img else 1)
@@ -438,7 +654,8 @@ def phase_step(models, cfg, card):
     def step():
         with torch.inference_mode():
             return models["diffusion"](x, ctx, t, cfg.policy,
-                                       attention_backend=cfg.attention_backend)
+                                       attention_backend=cfg.attention_backend,
+                                       conv_backend=cfg.conv_backend)
 
     step()
     torch.cuda.synchronize()
@@ -457,7 +674,7 @@ def phase_step(models, cfg, card):
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
-    print(f"step: one 2048² CFG UNet evaluation {wall:.3f} s wall; profiled "
+    print(f"step ({cfg.conv_backend}): one 2048² CFG UNet evaluation {wall:.3f} s wall; profiled "
           f"{prof_wall:.3f} s wall, {busy:.3f} s device busy, busy share {share}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
@@ -473,6 +690,7 @@ def main():
     from pytorch_stable_diffusion_tpu_torch.models import param_count
     from pytorch_stable_diffusion_tpu_torch.ops import attention
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import build
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv as k5
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
     from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 
@@ -504,9 +722,10 @@ def main():
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     phase_long(fa, card, results)
+    phase_k5(k5, card, results)
 
     # 4. small input against the CPU plain path
-    phase_small_reference(port, fa, attention)
+    phase_small_reference(port, attention)
 
     # 5. model
     t0 = time.perf_counter()
@@ -528,11 +747,15 @@ def main():
     def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg):
         # one batched UNet call a step serves every image of the request
         want = expected_launches(config, size, size, steps=steps, img2img=img2img)
+        k5_stated = K5_PER_EVAL * steps if config.conv_backend in ("kernel", "kernel_fold") \
+            else 0
+        check(want["K5"] == k5_stated, f"{name}: derived {want['K5']} K5 launches, "
+                                       f"PERF.md states {k5_stated}")
         if size == 2048:
             stated = {k: n * steps for k, n in PER_STEP_2048.items()}
-            stated["K3"] = 2 if img2img else 1
+            stated.update(K3=2 if img2img else 1, K5=k5_stated)
             check(want == stated, f"{name}: derived {want}, PERF.md states {stated}")
-        before = launch_counts(fa)
+        before = launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = fn()
@@ -546,7 +769,7 @@ def main():
             check(im.max() > im.min(), f"{name}: constant image")
         if isinstance(out, tuple):
             check(np.isfinite(out[1]).all(), f"{name}: latents not finite")
-        launched = {k: v - before[k] for k, v in launch_counts(fa).items()}
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
         check(launched == want, f"{name}: launched {launched}, want {want}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"request {name}: {dt:.2f} s wall, {dt / steps:.3f} s a step (wall / "
@@ -557,11 +780,11 @@ def main():
     main_launches = {k: 0 for k in SHORT.values()}
 
     def read_path():
-        for k, v in launch_counts(fa).items():
+        for k, v in launch_counts().items():
             main_launches[k] += v
 
     # slice A: 512²
-    zero_counts(fa)
+    zero_counts()
     a, _ = request("a txt2img seed 1337",
                    lambda: port.generate(PROMPTS[0], seed=1337, return_latents=True,
                                          **base), size=512, steps=50, n_images=1)
@@ -588,7 +811,7 @@ def main():
           f"(same seed, batch 4 vs 1)", flush=True)
 
     # slice C1: 2048², and the VAE on K3 at 512²
-    zero_counts(fa)
+    zero_counts()
     big = dict(base, height=2048, width=2048, n_inference_steps=4)
     request("f txt2img 2048² 4 steps",
             lambda: port.generate(PROMPTS[1], seed=7, return_latents=True, **big),
@@ -606,21 +829,55 @@ def main():
                                   return_latents=True, **dict(base, config=cfg_vae)),
             size=512, steps=50 - ddpm.start_step_for_strength(50, 0.8), n_images=1,
             img2img=True, config=cfg_vae)
-    before = launch_counts(fa)
+    before = launch_counts()
     try:
         port.generate(PROMPTS[0], seed=1, **dict(base, height=4096, width=4096))
     except ValueError as err:
-        check(launch_counts(fa) == before, "i 4096² request launched kernels")
+        check(launch_counts() == before, "i 4096² request launched kernels")
         print(f"request i 4096²: ValueError, as in the JAX package: {err}", flush=True)
     else:
         check(False, "i 4096² request did not raise ValueError")
     read_path()
+
+    # slice H1: the conv_backend tiers at 512²
+    zero_counts()
+    tier = {name: dataclasses.replace(cfg, conv_backend=name)
+            for name in ("kernel", "fold", "kernel_fold")}
+    txt = {}
+    for label, name in (("j", "kernel"), ("k", "fold"), ("l", "kernel_fold"),
+                        ("l'", "kernel_fold")):
+        txt[label], _ = request(
+            f"{label} txt2img seed 1337, conv_backend={name}",
+            lambda: port.generate(PROMPTS[0], seed=1337, return_latents=True,
+                                  **dict(base, config=tier[name])),
+            size=512, steps=50, n_images=1, config=tier[name])
+    check(np.array_equal(txt["l"], txt["l'"]), "kernel_fold: same seed gave a different image")
+    batch = {}
+    for label, name in (("m", "kernel_fold"), ("o", "kernel"), ("p", "fold")):
+        batch[label] = request(
+            f"{label} generate_images x4, conv_backend={name}",
+            lambda: port.generate_images(PROMPTS, uncond_prompts="", seed=1337,
+                                         **dict(batch_kw, config=tier[name])),
+            size=512, steps=50, n_images=4, config=tier[name])
+    request("n img2img strength 0.8, conv_backend=kernel",
+            lambda: port.generate(PROMPTS[0], seed=1337, input_image=a, strength=0.8,
+                                  return_latents=True, **dict(base, config=tier["kernel"])),
+            size=512, steps=50 - ddpm.start_step_for_strength(50, 0.8), n_images=1,
+            img2img=True, config=tier["kernel"])
+    read_path()
+    print("requests (not gated): PSNR against plain (a) / (e) of the same seed: "
+          + ", ".join(f"{k} {psnr(v.astype(np.float32), a.astype(np.float32)):.1f} dB"
+                      for k, v in txt.items())
+          + ", " + ", ".join(f"{k} {psnr(v.astype(np.float32), e.astype(np.float32)):.1f} dB"
+                             for k, v in batch.items())
+          + "; l' == l bit-identical", flush=True)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")
 
     # 7. one 2048² UNet evaluation: time and device busy share
     phase_step(models, cfg, card)
+    phase_step(models, tier["kernel"], card)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

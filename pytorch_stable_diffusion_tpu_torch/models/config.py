@@ -8,7 +8,11 @@ a feature a later slice brings (ROADMAP.md §1), instead of ignoring it.
 Attention backends are named for what runs: ``"plain"`` is the
 materialized-scores path (the JAX package's ``"xla"``) and ``"kernel"``
 sends long self-attention to the hand-written flash kernel (the JAX
-package's ``"pallas"``).
+package's ``"pallas"``).  The conv backends are named the same way:
+``"plain"`` (JAX ``"xla"``), ``"kernel"`` (``"pallas"``: every UNet
+res-block half through the fused GN->SiLU->conv3x3 kernel K5), ``"fold"``
+(torch convs, every UNet GroupNorm/LayerNorm normalize folded to an affine
+in compute dtype) and ``"kernel_fold"`` (``"pallas_fold"``: both).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Tuple
 from ..core.dtypes import FP32, Policy
 
 ATTENTION_BACKENDS = ("plain", "kernel")
+CONV_BACKENDS = ("plain", "kernel", "fold", "kernel_fold")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +137,12 @@ class SDConfig:
     #: VAE mid-block attention backend: "kernel" sends its 1-head, Dh-512
     #: attention to the multi-pass flash kernel K3.
     vae_attention_backend: str = "plain"
-    #: "plain" (torch convs with separate GN/SiLU); the fused-conv tiers of
-    #: the JAX package ("pallas", "fold", "pallas_fold") are not ported.
+    #: "plain" (torch convs with separate GN/SiLU), "kernel" (the UNet
+    #: res blocks through K5, the time-embedding add folded into the second
+    #: half's affine), "fold" (torch convs, the UNet's GN/LN normalizes
+    #: applied as compute-dtype affines) or "kernel_fold" (both).  The
+    #: non-plain tiers equal "plain" up to bf16 rounding of the normalize
+    #: and of the (h + t_emb) sum.
     conv_backend: str = "plain"
     #: reproduce the reference's three bugs (dropped GeGLU gate, VAE
     #: attention un-transpose no-op and skipped GroupNorm, beta_start typo).
@@ -185,9 +194,9 @@ def check_ported(cfg: SDConfig) -> None:
     if cfg.vae_attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"vae_attention_backend must be one of "
                          f"{ATTENTION_BACKENDS}, got {cfg.vae_attention_backend!r}")
-    if cfg.conv_backend != "plain":
-        _refuse(f"conv_backend={cfg.conv_backend!r} (the fused GN->SiLU->conv "
-                "kernel K5 and the folded norms)", "slice H")
+    if cfg.conv_backend not in CONV_BACKENDS:
+        raise ValueError(f"conv_backend must be one of {CONV_BACKENDS}, got "
+                         f"{cfg.conv_backend!r}")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
     if cfg.clip2 is not None:

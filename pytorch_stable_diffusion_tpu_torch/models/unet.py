@@ -1,4 +1,4 @@
-"""SD-1.5 UNet denoiser (port of ``models/unet.py``, plain path).
+"""SD-1.5 UNet denoiser (port of ``models/unet.py``).
 
 * Sinusoidal timestep embedding, [cos, sin] order, fp32; time MLP
   320 -> 1280 -> 1280 with SiLU.
@@ -11,6 +11,11 @@
 * Encoder: conv_in + levels of (res [+ attn]) with stride-2 pad-1
   downsamples; bottleneck res/attn/res; decoder levels of (res [+ attn])
   over skip-concats with nearest-2x upsample + conv between levels.
+* ``conv_backend`` (``models/config.py``): "kernel" runs both halves of
+  every res block through K5 (``ops/cuda/conv.py``), the time-embedding
+  add folded into the second half's affine; "fold" applies every GN/LN
+  normalize of the res and transformer blocks as a compute-dtype affine;
+  "kernel_fold" does both.  ``norm_out`` stays exact in every tier.
 
 Tensors are NCHW (channels_last in memory on CUDA); parameter names follow
 the JAX pytree paths (``encoder.1.attn.self_attn.q.weight``).
@@ -27,6 +32,7 @@ from ..core.dtypes import FP32, Policy
 from ..ops import attention, conv, linear, norm
 from ..ops.act import geglu, silu
 from ..ops.conv import upsample_nearest_2x
+from ..ops.cuda.conv import gn_silu_conv3x3
 from .config import UNetConfig
 
 
@@ -94,14 +100,27 @@ class ResBlock(nn.Module):
         self.conv2 = conv.Conv(c_out, c_out, 3, **kw)
         self.shortcut = conv.Conv(c_in, c_out, 1, **kw) if c_in != c_out else None
 
-    def forward(self, x, t_emb, groups: int, policy: Policy):
+    def forward(self, x, t_emb, groups: int, policy: Policy,
+                conv_backend: str = "plain"):
         """x: (B, C, H, W); t_emb: (B, t_dim) or (1, t_dim)."""
-        h = norm.group_norm_silu(self.norm1, x, groups, policy=policy)
-        h = conv.apply(self.conv1, h, padding=1, policy=policy)
         t = linear.apply(self.time_proj, silu(t_emb), policy)
-        h = h + t[:, :, None, None].to(h.dtype)
-        h = norm.group_norm_silu(self.norm2, h, groups, policy=policy)
-        h = conv.apply(self.conv2, h, padding=1, policy=policy)
+        if conv_backend in ("kernel", "kernel_fold"):
+            h = gn_silu_conv3x3(self.norm1, self.conv1, x, groups)
+            t = t.expand(x.shape[0], -1)
+            h = gn_silu_conv3x3(self.norm2, self.conv2, h, groups, temb=t)
+        elif conv_backend == "fold":
+            h = norm.group_norm_silu_folded(self.norm1, x, groups, policy=policy)
+            h = conv.apply(self.conv1, h, padding=1, policy=policy)
+            t = t.expand(x.shape[0], -1)
+            h = norm.group_norm_silu_folded(self.norm2, h, groups, policy=policy,
+                                            temb=t)
+            h = conv.apply(self.conv2, h, padding=1, policy=policy)
+        else:
+            h = norm.group_norm_silu(self.norm1, x, groups, policy=policy)
+            h = conv.apply(self.conv1, h, padding=1, policy=policy)
+            h = h + t[:, :, None, None].to(h.dtype)
+            h = norm.group_norm_silu(self.norm2, h, groups, policy=policy)
+            h = conv.apply(self.conv2, h, padding=1, policy=policy)
         res = x if self.shortcut is None else conv.apply(self.shortcut, x,
                                                          policy=policy)
         return h + res
@@ -135,22 +154,31 @@ class AttnBlock(nn.Module):
 
     def forward(self, x, context, n_heads: int, groups: int, policy: Policy, *,
                 backend: str = "plain", reference_quirks: bool = False,
-                fuse_qkv: bool = True):
+                fuse_qkv: bool = True, fold_norms: bool = False):
+        """``fold_norms``: the GroupNorm and the three LayerNorms apply their
+        normalize as compute-dtype affines (``conv_backend`` "fold" and
+        "kernel_fold")."""
         n, c, h, w = x.shape
 
         def tokens(t):  # (B, C, H, W) -> (B, HW, C); free for channels_last
             return t.permute(0, 2, 3, 1).reshape(n, h * w, c)
 
+        if fold_norms:
+            gn = norm.group_norm_silu_folded(self.norm, x, groups, policy=policy,
+                                             apply_silu=False)
+            ln = norm.layer_norm_folded
+        else:
+            gn = norm.group_norm(self.norm, x, groups, policy=policy)
+            ln = norm.layer_norm
         y0 = tokens(x)
-        y = tokens(norm.group_norm(self.norm, x, groups, policy=policy))
-        y = _proj1x1(self.conv_in, y, policy)
-        t = norm.layer_norm(self.ln1, y, policy=policy)
+        y = _proj1x1(self.conv_in, tokens(gn), policy)
+        t = ln(self.ln1, y, policy=policy)
         y = y + attention.apply(self.self_attn, t, n_heads=n_heads,
                                 backend=backend, policy=policy, fuse=fuse_qkv)
-        t = norm.layer_norm(self.ln2, y, policy=policy)
+        t = ln(self.ln2, y, policy=policy)
         y = y + attention.apply(self.cross_attn, t, context, n_heads=n_heads,
                                 backend=backend, policy=policy, fuse=fuse_qkv)
-        t = norm.layer_norm(self.ln3, y, policy=policy)
+        t = ln(self.ln3, y, policy=policy)
         t = geglu(linear.apply(self.geglu_proj, t, policy), reference_quirks)
         y = y + linear.apply(self.geglu_out, t, policy)
         y = _proj1x1(self.conv_out, y, policy) + y0
@@ -214,7 +242,7 @@ class UNet(nn.Module):
 
     def forward(self, latents, context, t, policy: Policy = FP32, *,
                 attention_backend: str = "plain", reference_quirks: bool = False,
-                fuse_qkv: bool = True):
+                fuse_qkv: bool = True, conv_backend: str = "plain"):
         """latents: (B, in_ch, h, w); context: (B, S, d_context); t: scalar
         or (B,) timestep.
 
@@ -223,13 +251,15 @@ class UNet(nn.Module):
         t_emb = timestep_embedding(t, cfg.model_channels, device=latents.device)
         t_emb = linear.apply(self.time_embed.fc1, t_emb, policy)
         t_emb = linear.apply(self.time_embed.fc2, silu(t_emb), policy)
+        fold_norms = conv_backend in ("fold", "kernel_fold")
 
         def block(res, attn, x):
-            x = res(x, t_emb, cfg.groups, policy)
+            x = res(x, t_emb, cfg.groups, policy, conv_backend)
             if attn is not None:
                 x = attn(x, context, cfg.heads_for(x.shape[1]), cfg.groups,
                          policy, backend=attention_backend,
-                         reference_quirks=reference_quirks, fuse_qkv=fuse_qkv)
+                         reference_quirks=reference_quirks, fuse_qkv=fuse_qkv,
+                         fold_norms=fold_norms)
             return x
 
         x = conv.apply(self.conv_in, latents, padding=1, policy=policy)
@@ -243,7 +273,7 @@ class UNet(nn.Module):
             skips.append(x)
         mid = self.bottleneck
         x = block(mid.res1, mid.attn, x)
-        x = mid.res2(x, t_emb, cfg.groups, policy)
+        x = mid.res2(x, t_emb, cfg.groups, policy, conv_backend)
         for stage in self.decoder:
             x = block(stage.res, stage.attn, torch.cat([x, skips.pop()], dim=1))
             if stage.upsample is not None:

@@ -57,7 +57,8 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
 
     Returns the library and the build log (nvcc's ``-Xptxas -v`` report of
     registers, shared memory and spills; empty when the library was built
-    before)."""
+    before).  A library loaded before is returned as it is, unhashed: the
+    wrappers call this on every launch."""
     return load_all([name])[name]
 
 
@@ -65,10 +66,11 @@ def load_all(names: Iterable[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
     """:func:`load` for several sources, their ``nvcc`` runs started
     together and all waited for before any failure is raised."""
     names = list(names)
+    todo = [name for name in names if name not in _LOADED]
     builds = {}
-    for name in names:
+    for name in todo:
         so = library_path(name)
-        if name in _LOADED or so.exists():
+        if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -86,7 +88,6 @@ def load_all(names: Iterable[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
         logs[name] = f"built {so.name} in {time.perf_counter() - t0:.1f} s\n{err}"
     if failed:
         raise RuntimeError("\n".join(failed))
-    for name in names:
-        if name not in _LOADED:
-            _LOADED[name] = (ctypes.CDLL(str(library_path(name))), logs.get(name, ""))
+    for name in todo:
+        _LOADED[name] = (ctypes.CDLL(str(library_path(name))), logs.get(name, ""))
     return {name: _LOADED[name] for name in names}

@@ -4,6 +4,12 @@
 ``layer_norm`` normalizes the last axis.  Both cast to ``policy.norm_dtype``
 (fp32) explicitly, normalize, apply the affine there, and cast back — GN
 over 512-channel activations loses visible precision in bf16.  eps = 1e-5.
+
+The folded variants (``conv_backend="fold"``/``"kernel_fold"``) keep the
+statistics in ``policy.norm_dtype`` but apply the normalize as a
+per-(batch, channel) or per-token affine in x's dtype, with no fp32
+full-tensor intermediate; they differ from the exact ones only by the
+rounding of that apply.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from torch import nn
 
 from ..core.dtypes import FP32, Policy
 from .act import silu
+from .cuda.conv import fold_gn_affine
 
 EPS = 1e-5
 
@@ -58,3 +65,30 @@ def layer_norm(p: Norm, x: torch.Tensor, eps: float = EPS,
     y = F.layer_norm(x.to(nd), (x.shape[-1],), p.weight.to(nd), p.bias.to(nd),
                      eps)
     return y.to(x.dtype)
+
+
+def group_norm_silu_folded(p: Norm, x: torch.Tensor, num_groups: int = 32,
+                           eps: float = EPS, policy: Policy = FP32,
+                           temb: Optional[torch.Tensor] = None,
+                           apply_silu: bool = True) -> torch.Tensor:
+    """GN of x (N, C, ...) (+ ``temb`` (N, C) added per channel) -> SiLU,
+    the normalize applied as ``x * scale + shift`` in x's dtype
+    (:func:`~.cuda.conv.fold_gn_affine`)."""
+    scale, shift = fold_gn_affine(p, x, num_groups, eps=eps, temb=temb,
+                                  norm_dtype=policy.norm_dtype)
+    bshape = scale.shape + (1,) * (x.dim() - 2)
+    y = x * scale.reshape(bshape).to(x.dtype) + shift.reshape(bshape).to(x.dtype)
+    return silu(y) if apply_silu else y
+
+
+def layer_norm_folded(p: Norm, x: torch.Tensor, eps: float = EPS,
+                      policy: Policy = FP32) -> torch.Tensor:
+    """LayerNorm over the last axis with statistics in ``policy.norm_dtype``
+    and the normalize applied as ``x * scale + shift`` in x's dtype."""
+    nd = policy.norm_dtype
+    var, mean = torch.var_mean(x.to(nd), dim=-1, keepdim=True, unbiased=False)
+    rstd = torch.reciprocal(torch.sqrt(var + eps))
+    gamma = p.weight.to(nd)
+    scale = (rstd * gamma).to(x.dtype)
+    shift = (p.bias.to(nd) - mean * rstd * gamma).to(x.dtype)
+    return x * scale + shift

@@ -275,7 +275,7 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             eps = unet(model_in.contiguous(memory_format=memory_format), context,
                        t_dev[i], policy, attention_backend=cfg.attention_backend,
                        reference_quirks=cfg.reference_quirks,
-                       fuse_qkv=cfg.fuse_qkv).float()
+                       fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend).float()
             if do_cfg:
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)

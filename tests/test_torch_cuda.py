@@ -10,6 +10,8 @@ run this file without it (it imports only torch, numpy and the port):
 import pytest
 import torch
 
+from pytorch_stable_diffusion_tpu_torch.ops import norm
+from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv as k5
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -132,3 +134,66 @@ def test_k3_k4_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 1, 64, 41, device=cuda)[..., 1:]  # rows 4 bytes off
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_streamed(q, q, q)
+
+
+def _k5_inputs(b, cin, h, w, cout, dtype, cuda, seed):
+    """x and the weight in channels_last memory, as the UNet holds them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn(b, cin, h, w, device=cuda, generator=g).to(dtype).contiguous(memory_format=cl)
+    scale = 1.0 + 0.2 * torch.randn(b, cin, device=cuda, generator=g)
+    shift = 0.5 * torch.randn(b, cin, device=cuda, generator=g)
+    weight = (torch.randn(cout, cin, 3, 3, device=cuda, generator=g) / (9 * cin) ** 0.5) \
+        .to(dtype).contiguous(memory_format=cl)
+    bias = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    return x, scale, shift, weight, bias
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [
+    (2, 320, 64, 64, 320),     # SD-1.5 512², level 1
+    (2, 1920, 32, 32, 640),    # level 2, decoder concat
+    (2, 2560, 16, 16, 1280),   # level 3, decoder concat
+    (2, 1280, 8, 8, 1280),     # level 4: half of each 8x16 patch masked
+    (1, 64, 10, 12, 128),      # ragged H and W
+    (1, 24, 5, 7, 40),         # Cin not a multiple of 16, Cout not of 64
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k5_matches_plain(cuda, b, cin, h, w, cout, dtype):
+    args = _k5_inputs(b, cin, h, w, cout, dtype, cuda, seed=3)
+    before = k5.scaled_silu_conv3x3.launches
+    got = k5.scaled_silu_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert k5.scaled_silu_conv3x3.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = k5.scaled_silu_conv3x3_plain(*args)
+    err = (got.float() - ref.float()).abs().max().item()
+    # relative to the largest output: bf16 rounds a conv's outputs (several
+    # units) relatively
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+
+
+def test_k5_res_block_half_with_temb(cuda):
+    """gn_silu_conv3x3 with the time embedding folded against the explicit
+    x + t -> GroupNorm -> SiLU -> conv composition."""
+    x, _, _, weight, bias = _k5_inputs(2, 640, 32, 32, 640, torch.bfloat16, cuda, seed=4)
+    gn = norm.Norm(640, device=cuda)
+    gn.reset_parameters()
+    conv = torch.nn.Module()
+    conv.weight, conv.bias = weight, bias
+    t = torch.randn(2, 640, device=cuda).to(torch.bfloat16)
+    got = k5.gn_silu_conv3x3(gn, conv, x, 32, temb=t)
+    h = norm.group_norm_silu(gn, x + t[:, :, None, None], 32)
+    ref = torch.nn.functional.conv2d(h, weight, bias.to(torch.bfloat16), padding=1)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16] * ref.float().abs().max().item(), err
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    x, scale, shift, weight, bias = _k5_inputs(1, 64, 8, 8, 64, torch.bfloat16, cuda, seed=5)
+    with pytest.raises(ValueError, match="channels_last"):
+        k5.scaled_silu_conv3x3(x.contiguous(), scale, shift, weight, bias)
+    with pytest.raises(ValueError, match="channels_last"):
+        k5.scaled_silu_conv3x3(x, scale, shift, weight.contiguous(), bias)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k5.scaled_silu_conv3x3(x.half(), scale, shift, weight.half(), bias)

@@ -22,9 +22,11 @@ for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "pytorch_stable_diffusion_tpu."))
              or n == "pytorch_stable_diffusion_tpu")
-print("IMPORTED", len([n for n in sys.modules if n.startswith(p.__name__)]))
+print("IMPORTED", " ".join(sorted(n for n in sys.modules if n.startswith(p.__name__ + "."))))
 print("BAD", bad)
 """
+#: the modules that hold a kernel's wrapper and plain version
+KERNEL_MODULES = ("ops.cuda.flash_attention", "ops.cuda.conv")
 
 
 def test_port_imports_without_jax():
@@ -33,8 +35,25 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    n = int(re.search(r"IMPORTED (\d+)", out.stdout).group(1))
-    assert n >= 16  # every module of the slice was imported
+    names = re.search(r"IMPORTED (.*)", out.stdout).group(1).split()
+    assert len(names) >= 24  # every module of the slices was imported
+    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline"):
+        assert f"pytorch_stable_diffusion_tpu_torch.{mod}" in names, mod
+
+
+def test_every_kernel_source_has_a_wrapper():
+    """Each CUDA source of csrc/ is built by the wrapper module that names
+    it (ops/cuda/build.py loads ``csrc/<name>.cu``)."""
+    sources = sorted(f[:-3] for f in os.listdir(os.path.join(PACKAGE, "csrc"))
+                     if f.endswith(".cu"))
+    wrappers = ""
+    for mod in KERNEL_MODULES:
+        with open(os.path.join(PACKAGE, *mod.split(".")) + ".py") as f:
+            wrappers += f.read()
+    assert sources == ["flash_attention_bsc", "flash_attention_multipass",
+                       "flash_attention_streamed", "scaled_silu_conv3x3"]
+    for name in sources:
+        assert f'"{name}"' in wrappers or f"sdt_{name}" in wrappers, name
 
 
 def _sources():
@@ -43,6 +62,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "k5_launch_bounds.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

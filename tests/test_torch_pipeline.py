@@ -35,7 +35,9 @@ from pytorch_stable_diffusion_tpu_torch import pipeline
 from pytorch_stable_diffusion_tpu_torch.core import rng
 from pytorch_stable_diffusion_tpu_torch.models import build_models
 from pytorch_stable_diffusion_tpu_torch.models.config import tiny_sd_config
+from pytorch_stable_diffusion_tpu_torch.models import unet
 from pytorch_stable_diffusion_tpu_torch.ops import attention
+from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv as k5
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
 from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 from pytorch_stable_diffusion_tpu_torch.weights import convert
@@ -160,6 +162,34 @@ def test_slice_matches_jax_generate(slice_setup, tiny_models, tiny_tokenizer,
     assert fa.flash_attention_bsc.launches == before  # CPU: plain version
     assert img.dtype == np.uint8 and img.shape == (HW, HW, 3)
     assert lat.shape == (1, 4, 16, 16)
+    assert psnr(lat, to_nchw(ref_lat)) > 55.0
+    assert psnr(img.astype(np.float32), ref_img.astype(np.float32)) > 40.0
+
+
+def test_kernel_fold_slice_matches_jax_generate(slice_setup, tiny_models, tiny_tokenizer):
+    """conv_backend="kernel_fold": every UNet res block through K5 (its plain
+    version on the CPU, counted) and the transformer blocks' norms folded,
+    against JAX ``generate(conv_backend="pallas_fold")``, whose Pallas conv
+    kernel engages at both latent levels (16² and 8²)."""
+    cfg, models, noise, _ = slice_setup
+    cfg = dataclasses.replace(cfg, conv_backend="kernel_fold")
+    noise = {k: v for k, v in noise.items() if k != "encoder_noise"}
+    kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=STEPS, seed=0,
+              height=HW, width=HW, return_latents=True)
+    jcfg = jconfig.tiny_sd_config(attention_backend="pallas", conv_backend="pallas_fold")
+    ref_img, ref_lat = jpipeline.generate(
+        "a photo of a cat", models=tiny_models, tokenizer=tiny_tokenizer,
+        config=jcfg, fixed_noise=noise, **kw)
+    res_blocks = sum(st["kind"] == "block" for st in unet.encoder_plan(cfg.unet)) \
+        + 2 + len(unet.decoder_plan(cfg.unet))
+    with mock.patch.object(k5, "scaled_silu_conv3x3_plain",
+                           wraps=k5.scaled_silu_conv3x3_plain) as spy:
+        img, lat = pipeline.generate(
+            "a photo of a cat", models=models,
+            tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len),
+            config=cfg, fixed_noise=_nchw_noise(noise), **kw)
+    assert spy.call_count == 2 * res_blocks * STEPS == 72
+    assert k5.scaled_silu_conv3x3.launches == 0  # CPU: the plain version
     assert psnr(lat, to_nchw(ref_lat)) > 55.0
     assert psnr(img.astype(np.float32), ref_img.astype(np.float32)) > 40.0
 
@@ -289,7 +319,7 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
     ({"control_image": np.zeros((HW, HW, 3))}, "slice E"),
     ({"panorama": True}, "slice G"),
     ({"prompt": "a [cat:dog:2]"}, "slice D"),
-    ({"config": tiny_sd_config(conv_backend="pallas")}, "slice H"),
+    ({"config": tiny_sd_config(quant="int8")}, "slice H"),
     ({"config": dataclasses.replace(tiny_sd_config(), unet=dataclasses.replace(
         tiny_sd_config().unet, tome=(0.5, 2, 2, 16)))}, "slice F"),
 ])
