@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
                 (nvidia-smi) and the torch/CUDA versions.
   2. build    — build every CUDA kernel of the main paths from the checkout
                 with nvcc, all at once: K1 (csrc/flash_attention_bsc.cu),
-                K4 (csrc/flash_attention_streamed.cu), K3
+                K2 (csrc/flash_attention_onepass.cu), K4
+                (csrc/flash_attention_streamed.cu), K3
                 (csrc/flash_attention_multipass.cu) and K5
                 (csrc/scaled_silu_conv3x3.cu); print -Xptxas -v.
   3. kernels  — each kernel against its plain PyTorch version (max abs
@@ -21,7 +22,11 @@ Phases (any failure exits non-zero):
                 and the 2048² levels 2 and 3 and mid block; K4 at the 2048²
                 UNet level 1 (2|8, 8, 65536, 40), a ragged KV and KV 262144
                 with 4096 q rows (the 4096² level-1 KV); K3 at the VAE mid
-                block (1, 1, 65536|4096, 512) and causal ragged cases; K5 at
+                block (1, 1, 65536|4096, 512) and causal ragged cases; K2 at
+                the cross-attentions of a 4-window prompt at 512² (2|8, 8,
+                4096|1024|256|64, KV 308, Dh 40|80|160) on views of one
+                fused k/v projection, a ragged KV 300, a causal (1, 2,
+                1024, 1024, 64) and KV 9216 at Dh 40; K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
                 SD-1.5 512² at batch 2 (with and without the time-embedding
@@ -29,22 +34,24 @@ Phases (any failure exits non-zero):
                 ragged case, in bf16 and fp32.  Where the plain version
                 would be too slow, correctness is checked on a subset of q
                 rows and the kernel is timed at the full shape.  At the main
-                K4 and K3 shapes a
-                planted fault (KV short by 4096 tokens), at K5's the plain
+                K4 and K3 shapes a planted fault (KV short by 4096 tokens),
+                at K2's (KV short by 64 tokens), at K5's the plain
                 version with the padding applied before the activation, must
                 fail the same check.  CUDA-event times of the kernel, the
                 plain version and, where one PyTorch call computes the same
                 function, of that call (scaled_dot_product_attention; for K5
                 cuDNN's conv on the already activated input), used nowhere
-                in the port.
+                in the port; for K2, whose calls are shorter than their host
+                launch cost, device times under torch.profiler.
   4. small    — SD-1.5 at full width, FP32, 128², 3 DDPM+CFG steps: the
                 card against the port's CPU plain path on the same seeded
                 weights and noise (latents PSNR > 55 dB, uint8 image PSNR
                 > 40 dB): once on K1, once with FLASH_ONLY_KV lowered so
                 that K4 carries level 1 and vae_attention_backend="kernel"
                 so that K3 carries the VAE, once with
-                conv_backend="kernel_fold" (K5's fp32 path), with exact
-                launch counts.
+                conv_backend="kernel_fold" (K5's fp32 path), and once with a
+                4-window prompt (emphasis, BREAK, clip_skip=2) so that K2
+                carries every cross-attention, with exact launch counts.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -60,15 +67,23 @@ Phases (any failure exits non-zero):
                 "kernel_fold", (n) img2img at strength 0.8 on "kernel",
                 (o) and (p) generate_images() x4 on "kernel" and "fold";
                 each one's PSNR against (a) or (e) is printed, not gated.
+                Slice D1, prompt features at 512²: (q) txt2img with a
+                4-window prompt (308 context tokens), emphasis, BREAK and
+                clip_skip=2; (r) generate_images() x4 with long prompts
+                (CFG batch 8); (s) a prompt edit [..:..:25] in a long
+                prompt: K2 at every cross-attention, 16 a UNet evaluation.
                 The launch counters are zeroed before each path and every
                 request checks its K1/K3/K4/K5 launches against the counts
-                derived from the model's plan and the documented dispatch
-                thresholds (not from the port's router); at 2048² these
+                derived from the model's plan, the context length and the
+                documented dispatch thresholds (not from the port's
+                router); at 2048² these
                 must also equal the per-step counts PERF.md states, and K5
                 must run 44 times a UNet evaluation on "kernel" and
                 "kernel_fold", never on "plain" and "fold".
   7. step     — one 2048² CFG UNet evaluation timed, and profiled for the
-                device busy share, on conv_backend "plain" and "kernel".
+                device busy share, on conv_backend "plain" and "kernel"; one
+                512² CFG UNet evaluation with a 77- and a 308-token context,
+                with K2's share of the device time.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -90,12 +105,14 @@ CSRC = "pytorch_stable_diffusion_tpu_torch/csrc/"
 PALLAS = "pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "flash_attention_bsc": (CSRC + "flash_attention_bsc.cu", PALLAS + ":384"),
+    "flash_attention_onepass": (CSRC + "flash_attention_onepass.cu", PALLAS + ":587"),
     "flash_attention_streamed": (CSRC + "flash_attention_streamed.cu", PALLAS + ":466"),
     "flash_attention_multipass": (CSRC + "flash_attention_multipass.cu", PALLAS + ":507"),
     "scaled_silu_conv3x3": (CSRC + "scaled_silu_conv3x3.cu",
                             "pytorch_stable_diffusion_tpu/ops/pallas/conv.py:218"),
 }
-SHORT = {"flash_attention_bsc": "K1", "flash_attention_streamed": "K4",
+SHORT = {"flash_attention_bsc": "K1", "flash_attention_onepass": "K2",
+         "flash_attention_streamed": "K4",
          "flash_attention_multipass": "K3", "scaled_silu_conv3x3": "K5"}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #: KV length from which the JAX package always runs flash
@@ -108,6 +125,9 @@ PER_STEP_2048 = {"K1": 11, "K4": 5}
 #: K5 launches of one UNet evaluation on conv_backend "kernel"/"kernel_fold"
 #: (PERF.md): both halves of its 22 res blocks
 K5_PER_EVAL = 44
+#: K2 launches of one UNet evaluation under a context of 256+ tokens
+#: (PERF.md): every one of its 16 cross-attentions
+K2_PER_EVAL = 16
 #: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on the
 #: CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -116,6 +136,12 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dusk",
            "a close up photo of a red fox in the snow",
            "an isometric drawing of a small city"]
+#: four 77-token windows (BREAK between them, which turns long prompts on),
+#: with emphasis: a 308-token context
+LONG_PROMPT = " BREAK ".join(["a (photograph:1.2) of an astronaut riding a horse",
+                              *PROMPTS[1:3], "an isometric [drawing] of a small city"])
+#: the same with a prompt edit at step 25 of 50
+LONG_EDIT = LONG_PROMPT.replace("riding a horse", "riding a [horse:fox:25]")
 
 
 def check(cond, msg):
@@ -150,7 +176,7 @@ def bound_ms(flops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_ms(q, k, v):
+def sdpa_ms(q, k, v, timer=cuda_ms):
     """The time of torch's own fused attention on the same (B, H, S, Dh)
     inputs, restricted to its flash and memory-efficient backends; None with
     the reason where neither takes the shape."""
@@ -159,7 +185,7 @@ def sdpa_ms(q, k, v):
     fn = torch.nn.functional.scaled_dot_product_attention
     try:
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-            return cuda_ms(lambda: fn(q, k, v)), ""
+            return timer(lambda: fn(q, k, v)), ""
     except RuntimeError as e:  # no fused backend takes this shape
         return None, str(e).splitlines()[0][:160]
 
@@ -263,15 +289,16 @@ def _check_rows(name, wrapper, plain, args, kw, rows, dtype, rec):
     return err, tol, ref
 
 
-def _planted_fault(name, wrapper, args, kw, rows, ref, tol):
-    """The same check on a kernel call that drops the last 4096 KV tokens (a
-    lost KV slab): it must fail, or the check could not see such a fault."""
-    short = args[1].shape[2] - 4096
+def _planted_fault(name, wrapper, args, kw, rows, ref, tol, drop=4096):
+    """The same check on a kernel call that drops the last ``drop`` KV tokens
+    (a lost KV slab or tile): it must fail, or the check could not see such a
+    fault."""
+    short = args[1].shape[2] - drop
     bad = wrapper(args[0][:, :, :rows], args[1][:, :, :short], args[2][:, :, :short], **kw)
     err = max_err(bad, ref)
-    check(err > tol, f"{name}: a call missing 4096 KV tokens passed the check "
+    check(err > tol, f"{name}: a call missing {drop} KV tokens passed the check "
                      f"(max abs err {err:.3e} <= {tol:.3e})")
-    return f"; planted fault (KV short by 4096 tokens) caught: max abs err {err:.3e}"
+    return f"; planted fault (KV short by {drop} tokens) caught: max abs err {err:.3e}"
 
 
 def phase_long(fa, card, results):
@@ -320,6 +347,74 @@ def phase_long(fa, card, results):
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
+
+
+def cross_views(b, sq, sk, heads, dh, dtype, g):
+    """q from its own (B, Sq, C) projection, k and v as the two halves of one
+    fused (B, Sk, 2C) projection of the context, all viewed as (B, H, S,
+    Dh), as the UNet's cross-attention makes them."""
+    c = heads * dh
+    q = torch.randn(b, sq, c, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(b, sk, 2 * c, device="cuda", generator=g).to(dtype)
+    return [t.reshape(b, t.shape[1], heads, dh).transpose(1, 2)
+            for t in (q, *kv.split(c, dim=-1))]
+
+
+def phase_k2(fa, card, results):
+    """K2 vs its plain version at the cross-attentions of a 4-window prompt
+    at 512² (levels 1-3 and the mid block, CFG batch 2 and 8), a ragged KV,
+    a causal self-attention across tiles and the one-pass envelope's top
+    (KV 9216), in bf16 and fp32; the planted fault (KV short by one 64-token
+    tile) and the times at level 1."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wrapper, plain = fa.flash_attention_onepass, fa.flash_attention_onepass_plain
+    rec = results["flash_attention_onepass"]
+    levels = ((4096, 40), (1024, 80), (256, 160), (64, 160))
+    cases = [(b, sq, 308, dh, False, sq, "main" if (b, sq) == (2, 4096) else "time")
+             for b in (2, 8) for sq, dh in levels]
+    cases += [(2, 1000, 300, 40, False, 1000, ""), (1, 1024, 1024, 64, True, 1024, ""),
+              (2, 9216, 9216, 40, False, 2048, "")]
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, sk, dh, causal, rows, role in cases:
+            h = 2 if causal else 8
+            args = fused_views(b, sq, sk, h, dh, dtype, g) if causal \
+                else cross_views(b, sq, sk, h, dh, dtype, g)
+            kw = {"causal": causal}
+            err, tol, ref = _check_rows("K2", wrapper, plain, args, kw, rows, dtype, rec)
+            line = (f"K2 {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
+                    f"{' causal' if causal else ''}: max abs err {err:.3e} on "
+                    f"{min(rows, sq)} q rows (tol {tol:.3e})")
+            if role == "main":
+                line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
+            if role and dtype == torch.bfloat16:
+                # a call is shorter than its host launch cost, so CUDA events
+                # around back-to-back calls time the host: the recorded times
+                # are device times under the profiler
+                flops = 4.0 * b * h * sq * sk * dh
+                events = cuda_ms(lambda: wrapper(*args, **kw), 50)
+                ms = one_call_device_ms(lambda: wrapper(*args, **kw))
+                line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
+                         f"TFLOP/s), {events:.4f} ms by events")
+                if role == "main":
+                    pms = one_call_device_ms(lambda: plain(*args, causal))
+                    lib, why = sdpa_ms(*args, timer=one_call_device_ms)
+                    lib_events, _ = sdpa_ms(*args)
+                    nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
+                    bms, by = bound_ms(flops, nbytes, dtype)
+                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
+                    line += (f"; device: plain {pms:.4f} ms, sdpa "
+                             f"{'none' if lib is None else f'{lib:.4f}'} ms"
+                             f"{' ' + why if why else ''} "
+                             f"({'none' if lib_events is None else f'{lib_events:.4f}'} ms by "
+                             f"events); "
+                             f"bound {bms:.4f} ms by {by}")
+                line += f"  [{card}]"
+            print(line, flush=True)
+            del args, ref
+    print(f"K2: {2 * len(cases)} cases within tolerance ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 def res_convs(cfg, height, width):
@@ -489,6 +584,12 @@ def phase_k5(k5, card, results):
     torch.cuda.empty_cache()
 
 
+def one_call_device_ms(fn):
+    """Device time of one call of ``fn``: ten calls under the profiler, over
+    ten."""
+    return device_ms(lambda: [fn() for _ in range(10)]) / 10
+
+
 def device_ms(fn):
     """Device time of the CUDA kernels ``fn`` launches, summed from one run
     under torch.profiler after a warm-up run."""
@@ -507,7 +608,8 @@ def device_ms(fn):
 def phase_small_reference(port, attention):
     """Full width, FP32, 128²: the card against the CPU plain path, first on
     K1, then on K4 (FLASH_ONLY_KV lowered) and K3 (VAE on the kernel
-    backend), then on K5 and the folded norms (conv_backend="kernel_fold")."""
+    backend), then on K5 and the folded norms (conv_backend="kernel_fold"),
+    then with a 4-window prompt (emphasis, BREAK, clip_skip=2) on K2."""
     import numpy as np
 
     cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
@@ -521,27 +623,32 @@ def phase_small_reference(port, attention):
     tok = _tokenizer()
     kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=3, seed=11,
               height=128, width=128, tokenizer=tok, return_latents=True)
-    img_c, lat_c = port.generate(PROMPTS[0], models=cpu_models, config=cfg_cpu, **kw)
+    long_kw = dict(emphasis=True, clip_skip=2)
+    refs = {prompt: port.generate(prompt, models=cpu_models, config=cfg_cpu, **opts, **kw)
+            for prompt, opts in ((PROMPTS[0], {}), (LONG_PROMPT, long_kw))}
     del cpu_models
-    runs = [("K1", cfg_gpu, None),
-            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256),
+    runs = [("K1", cfg_gpu, None, PROMPTS[0], {}, 77),
+            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256,
+             PROMPTS[0], {}, 77),
             ("K1+K5 kernel_fold", dataclasses.replace(cfg_gpu, conv_backend="kernel_fold"),
-             None)]
-    for label, cfg, flash_only in runs:
+             None, PROMPTS[0], {}, 77),
+            ("K1+K2 4-window prompt", cfg_gpu, None, LONG_PROMPT, long_kw, 308)]
+    for label, cfg, flash_only, prompt, opts, context in runs:
         saved = attention.FLASH_ONLY_KV
         if flash_only is not None:
             attention.FLASH_ONLY_KV = flash_only
         try:
             want = expected_launches(cfg, 128, 128, steps=3, img2img=False,
-                                     flash_only=flash_only or FLASH_ONLY_KV)
+                                     flash_only=flash_only or FLASH_ONLY_KV, context=context)
             before = launch_counts()
-            img_g, lat_g = port.generate(PROMPTS[0], models=gpu_models, config=cfg,
-                                         device="cuda", **kw)
+            img_g, lat_g = port.generate(prompt, models=gpu_models, config=cfg,
+                                         device="cuda", **opts, **kw)
             torch.cuda.synchronize()
             got = {k: v - before[k] for k, v in launch_counts().items()}
         finally:
             attention.FLASH_ONLY_KV = saved
         check(got == want, f"small run ({label}) launched {got}, want {want}")
+        img_c, lat_c = refs[prompt]
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
         print(f"small ({label}): full-width FP32 128² 3 steps, card vs CPU plain path: "
@@ -568,8 +675,9 @@ def wrappers():
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv
     from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
 
-    return {"K1": fa.flash_attention_bsc, "K4": fa.flash_attention_streamed,
-            "K3": fa.flash_attention_multipass, "K5": conv.scaled_silu_conv3x3}
+    return {"K1": fa.flash_attention_bsc, "K2": fa.flash_attention_onepass,
+            "K4": fa.flash_attention_streamed, "K3": fa.flash_attention_multipass,
+            "K5": conv.scaled_silu_conv3x3}
 
 
 def launch_counts():
@@ -587,22 +695,28 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     than read from ``attention.route``, so that the launch counts check the
     routing too: K4 (Dh <= 128) or K3 from ``flash_only`` KV tokens on; on
     the kernel backend from 256 KV tokens, K1 for self-attention with
-    Dh <= 160, K3 above; otherwise materialized scores (None)."""
+    Dh <= 160 (K3 above) and K2 for cross-attention over a padded KV up to
+    9216 with Dh <= 160; otherwise materialized scores (None)."""
     if kv >= flash_only:
         return "K4" if dh <= 128 else "K3"
     if backend != "kernel" or kv < 256:
         return None
-    check(not cross, f"no request here has cross-attention over {kv} tokens")
+    if cross:
+        check(-(-kv // 128) * 128 <= 9216 and dh <= 160,
+              f"no request here has cross-attention over {kv} tokens at Dh {dh}")
+        return "K2"
     return "K1" if dh <= 160 else "K3"
 
 
-def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV):
+def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
+                      context=77):
     """Kernel launches of one request, derived from the UNet's plan (which
-    stages carry attention, at which level; its res blocks), the VAE's mid
-    block and :func:`expected_kernel`."""
+    stages carry attention, at which level; its res blocks), the length of
+    the cross-attention context, the VAE's mid block and
+    :func:`expected_kernel`."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
-    counts = {"K1": 0, "K4": 0, "K3": 0, "K5": 0}
+    counts = {"K1": 0, "K2": 0, "K4": 0, "K3": 0, "K5": 0}
 
     def add(kernel, n):
         if kernel is not None:
@@ -628,7 +742,7 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
         dh = c // u.heads_for(c)
         add(expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
                             flash_only=flash_only), steps)
-        add(expected_kernel(cfg.clip.max_len, dh, cross=True,
+        add(expected_kernel(context, dh, cross=True,
                             backend=cfg.attention_backend, flash_only=flash_only), steps)
     if cfg.conv_backend in ("kernel", "kernel_fold"):  # both halves of every res block
         counts["K5"] += 2 * steps * (sum(st["kind"] == "block" for st in unet.encoder_plan(u))
@@ -639,16 +753,18 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     return counts
 
 
-def phase_step(models, cfg, card):
-    """One 2048² CFG UNet evaluation: its wall time, and its device busy
-    share under torch.profiler."""
+def phase_step(models, cfg, card, size=2048, context=77):
+    """One CFG UNet evaluation at ``size``² under a ``context``-token
+    context: its wall time, its device busy share under torch.profiler, and
+    the device time of K2 (the one-pass kernel) in it."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
     dtype = cfg.policy.compute_dtype
-    x = torch.randn(2, 4, 256, 256, device="cuda", generator=g).to(dtype) \
+    lat = size // cfg.vae.downsample_factor
+    x = torch.randn(2, 4, lat, lat, device="cuda", generator=g).to(dtype) \
         .contiguous(memory_format=torch.channels_last)
-    ctx = torch.randn(2, 77, 768, device="cuda", generator=g).to(dtype)
+    ctx = torch.randn(2, context, 768, device="cuda", generator=g).to(dtype)
     t = torch.tensor(500.0, device="cuda")
 
     def step():
@@ -672,10 +788,14 @@ def phase_step(models, cfg, card):
     rows = [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
+    k2 = sum(e.self_device_time_total for e in rows if "onepass" in e.key) / 1e6
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
-    print(f"step ({cfg.conv_backend}): one 2048² CFG UNet evaluation {wall:.3f} s wall; profiled "
-          f"{prof_wall:.3f} s wall, {busy:.3f} s device busy, busy share {share}; top: "
+    k2_share = f"{k2 / busy:.3f}" if busy > 0 else "not measured"
+    print(f"step ({size}², {context}-token context, {cfg.conv_backend}): one CFG UNet "
+          f"evaluation {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
+          f"device busy, busy share {share}; K2 {k2 * 1e3:.3f} ms, {k2_share} of the "
+          f"device time; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
 
@@ -721,6 +841,7 @@ def main():
                       "launches": 0, "max_abs_err": 0.0}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
+    phase_k2(fa, card, results)
     phase_long(fa, card, results)
     phase_k5(k5, card, results)
 
@@ -744,16 +865,20 @@ def main():
                 n_inference_steps=50, models=models, tokenizer=tok, config=cfg,
                 device="cuda", height=512, width=512)
 
-    def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg):
+    def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg, context=77):
         # one batched UNet call a step serves every image of the request
-        want = expected_launches(config, size, size, steps=steps, img2img=img2img)
+        want = expected_launches(config, size, size, steps=steps, img2img=img2img,
+                                 context=context)
         k5_stated = K5_PER_EVAL * steps if config.conv_backend in ("kernel", "kernel_fold") \
             else 0
         check(want["K5"] == k5_stated, f"{name}: derived {want['K5']} K5 launches, "
                                        f"PERF.md states {k5_stated}")
+        k2_stated = K2_PER_EVAL * steps if context >= 256 else 0
+        check(want["K2"] == k2_stated, f"{name}: derived {want['K2']} K2 launches, "
+                                       f"PERF.md states {k2_stated}")
         if size == 2048:
             stated = {k: n * steps for k, n in PER_STEP_2048.items()}
-            stated.update(K3=2 if img2img else 1, K5=k5_stated)
+            stated.update(K2=k2_stated, K3=2 if img2img else 1, K5=k5_stated)
             check(want == stated, f"{name}: derived {want}, PERF.md states {stated}")
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -871,13 +996,37 @@ def main():
           + ", " + ", ".join(f"{k} {psnr(v.astype(np.float32), e.astype(np.float32)):.1f} dB"
                              for k, v in batch.items())
           + "; l' == l bit-identical", flush=True)
+
+    # slice D1: prompt features at 512², a 308-token context on K2
+    zero_counts()
+    long_kw = dict(base, emphasis=True, clip_skip=2)
+    long_img, _ = request("q txt2img 4-window prompt, emphasis, BREAK, clip_skip=2",
+                          lambda: port.generate(LONG_PROMPT, seed=1337, return_latents=True,
+                                                **long_kw),
+                          size=512, steps=50, n_images=1, context=308)
+    long_prompts = [LONG_PROMPT] + [" BREAK ".join(PROMPTS[i:] + PROMPTS[:i])
+                                    for i in (1, 2, 3)]
+    request("r generate_images x4, long prompts",
+            lambda: port.generate_images(long_prompts, uncond_prompts="", seed=1337,
+                                         long_prompts=True, emphasis=True, **batch_kw),
+            size=512, steps=50, n_images=4, context=308)
+    edit, _ = request("s txt2img prompt edit [horse:fox:25] in the 4-window prompt",
+                      lambda: port.generate(LONG_EDIT, seed=1337, return_latents=True,
+                                            **long_kw),
+                      size=512, steps=50, n_images=1, context=308)
+    read_path()
+    print(f"requests D1 (not gated): q vs a PSNR "
+          f"{psnr(long_img.astype(np.float32), a.astype(np.float32)):.1f} dB, s vs q "
+          f"{psnr(edit.astype(np.float32), long_img.astype(np.float32)):.1f} dB", flush=True)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")
 
-    # 7. one 2048² UNet evaluation: time and device busy share
+    # 7. one UNet evaluation: time, device busy share, K2's share
     phase_step(models, cfg, card)
     phase_step(models, tier["kernel"], card)
+    phase_step(models, cfg, card, size=512, context=77)
+    phase_step(models, cfg, card, size=512, context=308)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

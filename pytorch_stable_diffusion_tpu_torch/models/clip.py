@@ -3,7 +3,9 @@
 Token embedding + learned positional parameter; 12 pre-norm blocks
 (LN -> causal self-attention -> residual; LN -> fc1 -> QuickGELU -> fc2 ->
 residual); final LayerNorm.  Output: (B, 77, 768) last hidden state.
-The 77-token attention always takes the materialized path.
+The 77-token attention always takes the materialized path.  A config with
+``stop_at_layer`` (CLIP skip, ``config.with_clip_skip``) runs only that many
+layers, then the final LayerNorm unless ``penultimate_norm`` is false.
 
 Parameter names follow the JAX pytree paths (``layers.3.attn.q.weight``
 for ``layers/3/attn/q/kernel``).
@@ -51,12 +53,18 @@ class CLIP(nn.Module):
         self.position_embedding.data.zero_()
 
     def forward(self, tokens: torch.Tensor, policy: Policy = FP32, *,
-                fuse_qkv: bool = True) -> torch.Tensor:
-        """tokens: (B, max_len) int -> (B, max_len, d_model)."""
-        cfg = self.cfg
+                fuse_qkv: bool = True,
+                cfg: Optional[CLIPConfig] = None) -> torch.Tensor:
+        """tokens: (B, max_len) int -> (B, max_len, d_model).
+
+        ``cfg`` is the request's tower config (the JAX ``apply``'s), by
+        default the one the module was built from; its ``stop_at_layer``
+        and ``penultimate_norm`` choose where the stack ends."""
+        cfg = cfg or self.cfg
+        n_run = cfg.n_layers if cfg.stop_at_layer is None else cfg.stop_at_layer
         x = self.token_embedding[tokens] + self.position_embedding[None]
         x = x.to(policy.compute_dtype)
-        for lp in self.layers:
+        for lp in self.layers[:n_run]:
             h = norm.layer_norm(lp.ln1, x, policy=policy)
             x = x + attention.apply(lp.attn, h, n_heads=cfg.n_heads,
                                     causal=True, backend="plain",
@@ -65,4 +73,6 @@ class CLIP(nn.Module):
             h = linear.apply(lp.fc2, quick_gelu(linear.apply(lp.fc1, h, policy)),
                              policy)
             x = x + h
+        if cfg.stop_at_layer is not None and not cfg.penultimate_norm:
+            return x  # the truncated hidden without the final LayerNorm
         return norm.layer_norm(self.final_norm, x, policy=policy)

@@ -2,8 +2,9 @@
 
 The dataclasses keep every field of the JAX package's configs so a config
 reads the same in both packages.  The port runs SD-1.5 txt2img/img2img up
-to 2048²; :func:`check_ported` refuses every field value that names
-a feature a later slice brings (ROADMAP.md §1), instead of ignoring it.
+to 2048², with CLIP skip (:func:`with_clip_skip`); :func:`check_ported`
+refuses every field value that names a feature a later slice brings
+(ROADMAP.md §1), instead of ignoring it.
 
 Attention backends are named for what runs: ``"plain"`` is the
 materialized-scores path (the JAX package's ``"xla"``) and ``"kernel"``
@@ -179,6 +180,32 @@ def sd15_config(policy: Policy = FP32, **kw) -> SDConfig:
     return SDConfig(policy=policy, **kw)
 
 
+def with_clip_skip(cfg: SDConfig, clip_skip: int) -> SDConfig:
+    """A1111-convention "CLIP skip": condition the UNet on an EARLIER text
+    encoder layer.  ``clip_skip=1`` is the family default (no change);
+    each increment stops one transformer layer earlier than that default
+    (SD-1.x: 2 == penultimate layer + final LN, the webui setting used by
+    anime-style checkpoints).  Port of the JAX package's ``with_clip_skip``,
+    whose second tower (SDXL) the port does not run."""
+    if clip_skip < 1:
+        raise ValueError(f"clip_skip must be >= 1, got {clip_skip}")
+    if clip_skip == 1:
+        return cfg
+
+    def shift(tower: CLIPConfig) -> CLIPConfig:
+        base = tower.n_layers if tower.stop_at_layer is None \
+            else tower.stop_at_layer
+        stop = base - (clip_skip - 1)
+        if stop < 1:
+            raise ValueError(f"clip_skip {clip_skip} skips past the "
+                             f"{tower.n_layers}-layer text encoder")
+        return dataclasses.replace(tower, stop_at_layer=stop)
+
+    return dataclasses.replace(
+        cfg, clip=shift(cfg.clip),
+        clip2=None if cfg.clip2 is None else shift(cfg.clip2))
+
+
 def _refuse(what: str, where: str):
     raise NotImplementedError(
         f"{what} is not ported yet: it comes with {where} (ROADMAP.md §1)")
@@ -208,9 +235,6 @@ def check_ported(cfg: SDConfig) -> None:
     if c.hidden_act != "quick_gelu" or c.layout != "clip" or c.text_projection \
             or c.key_prefix is not None:
         _refuse("the OpenCLIP/SDXL text towers", "slice C2")
-    if c.stop_at_layer is not None:
-        _refuse("stop_at_layer (CLIP skip / penultimate conditioning)",
-                "slice D")
     if u.in_channels != 4:
         _refuse(f"a {u.in_channels}-channel UNet (inpaint/ip2p presets)",
                 "slice C2")

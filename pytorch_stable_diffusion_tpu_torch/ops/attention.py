@@ -13,13 +13,16 @@ CFG-batch cliff of ``bsc_fits``):
   non-causal with Dh <= 128, otherwise K3 (``flash_attention_multipass``).
 * ``"kernel"`` backend, KV >= 256:
   - non-causal self-attention: K1 (``flash_attention_bsc``, heads packed
-    in channels) for Dh <= 160, K3 above (the VAE's 1-head Dh 512);
+    in channels) for Dh <= 160, K3 above (the VAE's 1-head Dh 512).  This
+    includes the 9216-token self-attention of 768², where the JAX package
+    runs its one-pass kernel: the port keeps K1 there;
   - causal or cross-attention over a padded KV past 9216: K4 when
     non-causal with Dh <= 128, otherwise K3;
-  - causal or cross-attention over a shorter KV with Dh > 128: K3;
-  - what is left, causal or cross-attention over 256..9216 KV tokens with
-    Dh <= 128, runs on the one-pass kernel K2 in the JAX package, which is
-    not ported yet: it raises ``NotImplementedError`` (slice D).
+  - causal or cross-attention over 256..9216 KV tokens (padded to 128):
+    the one-pass kernel K2 (``flash_attention_onepass``) for Dh <= 160, as
+    in the JAX package, whose ``_pick_chunk`` fits every such case; K3
+    above.  Through ``generate()`` this is the cross-attention over a
+    long-prompt context of 4+ windows (308+ tokens).
 * KV < 256 (CLIP, every 77-token cross-attention, the UNet's 64-token mid
   block at 512²) and the ``"plain"`` backend below 40960: materialized
   scores.
@@ -35,17 +38,16 @@ from torch import nn
 
 from ..core.dtypes import FP32, Policy
 from . import linear
-from .cuda.flash_attention import (HEAD_DIMS, STREAMED_MAX_DH, flash_attention_bsc,
-                                   flash_attention_multipass, flash_attention_streamed)
+from .cuda.flash_attention import (HEAD_DIMS, ONEPASS_MAX_DH, ONEPASS_MAX_KV,
+                                   STREAMED_MAX_DH, flash_attention_bsc,
+                                   flash_attention_multipass, flash_attention_onepass,
+                                   flash_attention_streamed)
 
 #: shortest KV the kernel backend sends to a flash kernel
 KERNEL_MIN_KV = 256
 #: KV length from which the JAX package always runs flash (materialized
 #: scores stop fitting).  Read at call time, so tests may lower it.
 FLASH_ONLY_KV = 40960
-#: padded KV past which the JAX package's one-pass kernel K2 gives way to
-#: the long-KV kernels
-ONE_PASS_MAX_KV = 9216
 
 
 class Attention(nn.Module):
@@ -105,8 +107,8 @@ def _fused_proj(parts, x: torch.Tensor, policy: Policy):
 def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
           backend: str) -> str:
     """Which attention runs: ``"plain"`` (materialized scores), ``"bsc"``
-    (K1), ``"streamed"`` (K4) or ``"multipass"`` (K3); raises
-    ``NotImplementedError`` for the cases of the unported K2."""
+    (K1), ``"onepass"`` (K2), ``"streamed"`` (K4) or ``"multipass"``
+    (K3)."""
     long_kernel = ("streamed" if not causal and head_dim <= STREAMED_MAX_DH
                    else "multipass")
     if kv_len >= FLASH_ONLY_KV:
@@ -115,15 +117,9 @@ def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
         return "plain"
     if not (causal or cross):
         return "bsc" if head_dim <= max(HEAD_DIMS) else "multipass"
-    if -(-kv_len // 128) * 128 > ONE_PASS_MAX_KV:
+    if -(-kv_len // 128) * 128 > ONEPASS_MAX_KV:
         return long_kernel
-    if head_dim > STREAMED_MAX_DH:
-        return "multipass"
-    kind = "causal" if causal else "cross"
-    raise NotImplementedError(
-        f"{kind} attention over {kv_len} KV tokens on the kernel backend runs "
-        f"on the one-pass flash kernel K2 (flash_attention) in the JAX "
-        f"package; it is not ported yet: it comes with slice D (ROADMAP.md §1)")
+    return "onepass" if head_dim <= ONEPASS_MAX_DH else "multipass"
 
 
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -147,7 +143,9 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
         out = flash_attention_bsc(q, k, v, n_heads=n_heads)
     else:
         heads = [_split_heads(t, n_heads) for t in (q, k, v)]  # views, no copy
-        if path == "streamed":
+        if path == "onepass":
+            out = flash_attention_onepass(*heads, causal=causal)
+        elif path == "streamed":
             out = flash_attention_streamed(*heads)
         elif path == "multipass":
             out = flash_attention_multipass(*heads, causal=causal)

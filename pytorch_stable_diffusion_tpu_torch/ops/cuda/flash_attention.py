@@ -10,6 +10,10 @@
 * K3, multi-pass attention on head-split (B, H, S, Dh), Dh up to 512,
   causal or not, KV of any length: port of ``flash_attention``'s multi-pass
   grid (``_kernel``), CUDA kernel ``csrc/flash_attention_multipass.cu``.
+* K2, one-pass attention on head-split (B, H, S, Dh), Dh up to 160, causal
+  or not, padded KV up to 9216: port of ``flash_attention``'s one-pass call
+  (``_onepass_kernel`` with ``_chunk_softmax_stats``), CUDA kernel
+  ``csrc/flash_attention_onepass.cu`` (tensor cores in bf16).
 
 Each kernel's header says what bounds it on the H100 and what its simple
 design leaves on the table.  All compute softmax(Q Kᵀ/√Dh)·V with fp32
@@ -22,7 +26,8 @@ launches the kernel or raises — there is no fallback.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``.
 
 q, k and v may be strided views, e.g. the slices of the fused q/k/v
-projection whose rows are 3C apart: the kernels take the strides, so
+projection whose rows are 3C apart, or of the fused k/v projection of a
+cross-attention context (2C apart): the kernels take the strides, so
 nothing is copied.  Only the last (channel) stride must be 1.
 """
 
@@ -43,6 +48,13 @@ STREAMED_MAX_DH = 128
 #: K3's instantiations: the VAE's 512, and 64/128 for causal and small checks
 MULTIPASS_HEAD_DIMS = (64, 128, 512)
 MULTIPASS_MAX_DH = 512
+#: K2's instantiations: SD-1.5's 40, 80 and 160, 64 and 128 (SD-2.x/SDXL
+#: widths) and 16 for the small checks
+ONEPASS_HEAD_DIMS = (16, 40, 64, 80, 128, 160)
+ONEPASS_MAX_DH = 160
+#: longest KV K2 takes, padded to 128: the JAX package's one-pass envelope
+#: (``_pick_chunk``)
+ONEPASS_MAX_KV = 9216
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: fp32 score bytes the head-split plain versions hold at once: they walk
 #: q rows in blocks, so a (2, 8, 65536, 40) call does not materialize its
@@ -172,6 +184,11 @@ def flash_attention_multipass_plain(q, k, v, causal: bool) -> torch.Tensor:
     return _attention_plain(q, k, v, causal)
 
 
+def flash_attention_onepass_plain(q, k, v, causal: bool) -> torch.Tensor:
+    """Plain version of K2: attention with an optional causal mask."""
+    return _attention_plain(q, k, v, causal)
+
+
 def _check_bhsd(name, q, k, v, max_dh):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name} wants (B, H, S, Dh) tensors")
@@ -253,5 +270,22 @@ def flash_attention_multipass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_onepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool) -> torch.Tensor:
+    """K2: attention over (B, H, S, Dh) tensors, Dh <= 160, optional causal
+    mask (``col <= row``), KV up to :data:`ONEPASS_MAX_KV` tokens padded to
+    128 -> (B, H, Sq, Dh)."""
+    _check_bhsd("flash_attention_onepass", q, k, v, ONEPASS_MAX_DH)
+    if -(-k.shape[2] // 128) * 128 > ONEPASS_MAX_KV:
+        raise ValueError(f"flash_attention_onepass takes KV up to {ONEPASS_MAX_KV} "
+                         f"tokens padded to 128, got {k.shape[2]}")
+    if q.device.type == "cpu":
+        return flash_attention_onepass_plain(q, k, v, causal)
+    out = _launch_bhsd("flash_attention_onepass", ONEPASS_HEAD_DIMS, q, k, v, int(causal))
+    flash_attention_onepass.launches += 1
+    return out
+
+
 flash_attention_streamed.launches = 0
 flash_attention_multipass.launches = 0
+flash_attention_onepass.launches = 0

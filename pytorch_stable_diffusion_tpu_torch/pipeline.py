@@ -25,6 +25,16 @@ Same public keyword surface as the JAX package's ``generate()`` and
   in the JAX package.
 * Output: decoded (-1, 1) rescaled to (0, 255), clamped, truncated to
   uint8 (H, W, 3) — the reference's contract.
+* Prompt features (slice D1), as in the JAX package: ``long_prompts``
+  (windows of ``max_len`` tokens encoded in one batched CLIP call, their
+  hiddens concatenated into one long context; a ``BREAK`` keyword turns it
+  on), ``emphasis`` (``(word:1.3)``, per-token weights applied to the
+  hidden states with the row mean restored), prompt editing and
+  alternation (``[a:b:N]``, ``[a|b]``: the K distinct conditionings
+  encoded together, each step indexing its own from a host-side map) and
+  ``clip_skip``.  A context of 256+ tokens (4+ windows at SD-1.5) sends
+  every cross-attention to the one-pass flash kernel K2 on the kernel
+  backend.
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
@@ -39,9 +49,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import prompt_schedule
 from .core import rng as rng_mod
 from .models import vae as vae_mod
-from .models.config import SDConfig, check_ported, sd15_config
+from .models.config import SDConfig, check_ported, sd15_config, with_clip_skip
 from .sampling import ddpm
 
 #: samplers this slice ports; the JAX package's others come with slice B
@@ -63,9 +74,7 @@ _UNPORTED = {
     "image_guidance_scale": (1.5, "slice C2"), "original_size": (None, "slice C2"),
     "crop_coords": ((0, 0), "slice C2"), "target_size": (None, "slice C2"),
     "timestep_spacing": ("uniform", "slice B"), "ddim_eta": (0.0, "slice B"),
-    "long_prompts": (False, "slice D"), "emphasis": (False, "slice D"),
-    "clip_skip": (None, "slice D"), "hypernetwork": (None, "slice D"),
-    "hypernetwork_strength": (1.0, "slice D"),
+    "hypernetwork": (None, "slice D2"), "hypernetwork_strength": (1.0, "slice D2"),
     "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
     "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
     "ip_adapter_image": (None, "slice E"), "ip_adapter_scale": (1.0, "slice E"),
@@ -98,18 +107,13 @@ def _check_unported(kwargs) -> None:
                 f"(ROADMAP.md §1)")
 
 
-def _check_prompt_syntax(texts) -> None:
-    """A1111 prompt syntax is parsed by the JAX package; refuse it rather
-    than encode it as literal text."""
-    for t in texts:
-        if "[" in t and (":" in t or "|" in t) or re.search(r"\bBREAK\b", t):
-            raise NotImplementedError(
-                "prompt editing/alternation and BREAK are not ported yet: they "
-                "come with slice D (ROADMAP.md §1)")
-        if " AND " in t:
-            raise NotImplementedError(
-                "composable prompts (AND) are not ported yet: they come with "
-                "slice F (ROADMAP.md §1)")
+def _check_composable(prompts) -> None:
+    """Composable prompts (``AND``) are parsed by the JAX package; refuse
+    them rather than encode them as literal text."""
+    if any(prompt_schedule.has_composable(p) for p in prompts):
+        raise NotImplementedError(
+            "composable prompts (AND) are not ported yet: they come with "
+            "slice F (ROADMAP.md §1)")
 
 
 # --------------------------------------------------------------- tokenizing
@@ -122,6 +126,96 @@ def _encode_tokens(tokenizer, prompts, max_len: int) -> np.ndarray:
             prompts, padding="max_length", max_length=max_len, truncation=True
         ).input_ids
     return np.asarray(ids, np.int64)
+
+
+def _tokenize(tokenizer, prompts, uncond, max_len: int, *, long_prompts: bool,
+              emphasis: bool):
+    """-> (cond_tokens, uncond_tokens, cond_weights, uncond_weights).
+
+    Tokens are (N, L) int64, or (N, k, L) with long prompts of k > 1
+    windows (every prompt padded to the common k with ``[sot] + [eot] *
+    (L - 1)`` windows of weight 1); weights are float32 of the same shape,
+    or None without emphasis.  A ``BREAK`` keyword turns long prompts on."""
+    if not long_prompts and hasattr(tokenizer, "encode_windows") and any(
+            re.search(r"\bBREAK\b", t) for t in prompts + uncond):
+        # without windows the keyword would encode as a literal "break" token
+        long_prompts = True
+    if emphasis and not hasattr(tokenizer, "encode_weighted"):
+        raise ValueError("emphasis requires the built-in CLIPTokenizer "
+                         "(encode_weighted)")
+    if long_prompts:
+        if not hasattr(tokenizer, "encode_windows"):
+            raise ValueError("long_prompts requires the built-in "
+                             "CLIPTokenizer (encode_windows)")
+        if emphasis:
+            cw, cww = map(list, zip(*[tokenizer.encode_windows_weighted(t)
+                                      for t in prompts]))
+            uw, uww = map(list, zip(*[tokenizer.encode_windows_weighted(t)
+                                      for t in uncond]))
+        else:
+            cw = [tokenizer.encode_windows(t) for t in prompts]
+            uw = [tokenizer.encode_windows(t) for t in uncond]
+        k = max(len(w) for w in cw + uw)
+        pad_win = [tokenizer.sot] + [tokenizer.eot] * (max_len - 1)
+
+        def stack(wins, pad=pad_win, dt=np.int64):
+            return np.asarray([w + [pad] * (k - len(w)) for w in wins], dt)
+
+        tokens = [stack(cw), stack(uw)]
+        weights = [stack(cww, [1.0] * max_len, np.float32),
+                   stack(uww, [1.0] * max_len, np.float32)] if emphasis else [None, None]
+        if k == 1:
+            tokens = [t[:, 0] for t in tokens]
+            weights = [None if w is None else w[:, 0] for w in weights]
+        return (*tokens, *weights)
+    if emphasis:
+        cw = [tokenizer.encode_weighted(t) for t in prompts]
+        uw = [tokenizer.encode_weighted(t) for t in uncond]
+        return (np.asarray([p[0] for p in cw], np.int64),
+                np.asarray([p[0] for p in uw], np.int64),
+                np.asarray([p[1] for p in cw], np.float32),
+                np.asarray([p[1] for p in uw], np.float32))
+    return (_encode_tokens(tokenizer, prompts, max_len),
+            _encode_tokens(tokenizer, uncond, max_len), None, None)
+
+
+def _emphasize(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A1111 emphasis: scale each token's hidden state (B, L, d) by its
+    weight (B, L), then restore each row's mean, in fp32.
+
+    The weighted mean is taken in delta form, ``mean(h) + mean(h * (w -
+    1))``, so that w == 1 adds an exact zero; rows whose means sit within
+    fp32 cancellation noise of zero skip the restore (ratio 1).  With every
+    weight 1 the result is bit-identical to ``h``."""
+    hf = h.float()
+    wf = w.float()[:, :, None]
+    m0 = hf.mean(dim=(1, 2), keepdim=True)
+    delta = (hf * (wf - 1.0)).mean(dim=(1, 2), keepdim=True)
+    scale = hf.abs().mean(dim=(1, 2), keepdim=True)
+    den = m0 + delta
+    ok = (den.abs() > 1e-6 * scale) & (m0.abs() > 1e-6 * scale)
+    one = torch.ones_like(den)
+    ratio = torch.where(ok, m0 / torch.where(ok, den, one), one)
+    return (hf * wf * ratio).to(h.dtype)
+
+
+def _encode_text(clip, tokens: torch.Tensor, weights: Optional[torch.Tensor],
+                 cfg: SDConfig) -> torch.Tensor:
+    """(N, L) or (N, k, L) tokens -> (N, [k *] L, d) context: the k windows
+    of every prompt go through one batched CLIP call, each weighted on its
+    own, and their hiddens are concatenated."""
+    win_k = None
+    if tokens.dim() == 3:
+        n, win_k, length = tokens.shape
+        tokens = tokens.reshape(n * win_k, length)
+        if weights is not None:
+            weights = weights.reshape(tokens.shape)
+    h = clip(tokens, cfg.policy, fuse_qkv=cfg.fuse_qkv, cfg=cfg.clip)
+    if weights is not None:
+        h = _emphasize(h, weights)
+    if win_k is not None:
+        h = h.reshape(n, win_k * h.shape[1], h.shape[2])
+    return h
 
 
 # ------------------------------------------------------------ image helpers
@@ -161,6 +255,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   fixed_noise: Optional[Dict[str, np.ndarray]] = None,
                   decode_tile: Optional[int] = None,
                   encode_tile: Optional[int] = None,
+                  long_prompts: bool = False, emphasis: bool = False,
+                  clip_skip: Optional[int] = None,
                   **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32)."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
@@ -175,6 +271,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     if models is None or tokenizer is None:
         raise ValueError("models dict and tokenizer are required")
     cfg = config or sd15_config()
+    if clip_skip is not None:
+        cfg = with_clip_skip(cfg, int(clip_skip))
     check_ported(cfg)
     n_lvl1 = (height // cfg.vae.downsample_factor) * (width // cfg.vae.downsample_factor)
     if n_lvl1 > MAX_VALIDATED_ATTN_TOKENS:
@@ -191,10 +289,28 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         uncond = uncond * len(prompts)
     if len(uncond) != len(prompts):
         raise ValueError("uncond_prompt count must match the prompts")
-    _check_prompt_syntax(prompts + uncond)
     batch = len(prompts)
-    cond_tokens = _encode_tokens(tokenizer, prompts, cfg.clip.max_len)
-    uncond_tokens = _encode_tokens(tokenizer, uncond, cfg.clip.max_len)
+
+    # prompt editing/alternation: the K distinct realizations of the prompts
+    # ride flattened into the encoding batch (K*B), and each step indexes its
+    # conditioning from the stack with the host-side map
+    sched_idx = None
+    if any(prompt_schedule.has_schedule(t) for t in prompts + uncond):
+        realized, sched_idx = prompt_schedule.schedule_prompts(
+            prompts, uncond, n_inference_steps)
+        if len(realized) > 1:
+            if fixed_noise is not None:
+                raise ValueError("prompt editing is not supported in "
+                                 "fixed_noise parity mode")
+            prompts = [p for cp, _ in realized for p in cp]
+            uncond = [u for _, up in realized for u in up]
+        else:  # the syntax resolved to a single conditioning
+            prompts, uncond = list(realized[0][0]), list(realized[0][1])
+            sched_idx = None
+    _check_composable(prompts)
+    cond_tokens, uncond_tokens, cond_w, uncond_w = _tokenize(
+        tokenizer, prompts, uncond, cfg.clip.max_len, long_prompts=long_prompts,
+        emphasis=emphasis)
     vmax = max(cond_tokens.max(), uncond_tokens.max())
     if vmax >= cfg.clip.vocab_size:
         raise ValueError(f"token id {vmax} >= vocab_size {cfg.clip.vocab_size} "
@@ -248,9 +364,18 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   reference_quirks=cfg.reference_quirks)
 
     with torch.inference_mode():
-        tokens = torch.as_tensor(np.concatenate([cond_tokens, uncond_tokens])
-                                 if do_cfg else cond_tokens).to(device)
-        context = models["clip"](tokens, policy, fuse_qkv=cfg.fuse_qkv)
+        # one CLIP call for cond and uncond, every window and every
+        # realization of an edited prompt
+        tokens = np.concatenate([cond_tokens, uncond_tokens]) if do_cfg else cond_tokens
+        weights = None
+        if emphasis:
+            weights = np.concatenate([cond_w, uncond_w]) if do_cfg else cond_w
+            weights = torch.as_tensor(weights).to(device)
+        context = _encode_text(models["clip"], torch.as_tensor(tokens).to(device),
+                               weights, cfg)
+        if sched_idx is not None:  # (K, [2]B, S, d): cond then uncond per K
+            context = torch.cat(context.unflatten(0, (-1, batch)).chunk(
+                2 if do_cfg else 1), dim=1)
 
         if img2img:
             image = torch.as_tensor(_prepare_image(input_image, width, height))
@@ -272,7 +397,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         for i in range(start_step, n_inference_steps):
             lat_c = latents.to(policy.compute_dtype)
             model_in = torch.cat([lat_c, lat_c]) if do_cfg else lat_c
-            eps = unet(model_in.contiguous(memory_format=memory_format), context,
+            ctx = context if sched_idx is None else context[int(sched_idx[i])]
+            eps = unet(model_in.contiguous(memory_format=memory_format), ctx,
                        t_dev[i], policy, attention_backend=cfg.attention_backend,
                        reference_quirks=cfg.reference_quirks,
                        fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend).float()

@@ -124,6 +124,35 @@ def test_k3_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
                       args, {"causal": causal}, dtype)
 
 
+@pytest.mark.parametrize("b,h,sq,sk,dh,causal", [
+    (2, 8, 4096, 308, 40, False),    # SD-1.5 512² level 1 under a 4-window prompt
+    (2, 8, 1024, 308, 80, False),    # level 2
+    (2, 8, 256, 308, 160, False),    # level 3
+    (2, 8, 64, 308, 160, False),     # mid block
+    (1, 2, 1000, 300, 16, False),    # ragged q and KV tails
+    (1, 2, 1024, 1024, 64, True),    # causal across tiles
+    (1, 2, 333, 777, 128, True),     # causal, Sq < Sk, ragged
+    (1, 1, 200, 9216, 40, False),    # the one-pass envelope's top
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k2_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
+    args = _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed=6)
+    _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
+                      args, {"causal": causal}, dtype)
+
+
+def test_k2_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 64, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_onepass(q, q, q, causal=False)   # Dh 48 not instantiated
+    kv = torch.zeros(1, 1, 9217, 40, device=cuda)
+    with pytest.raises(ValueError, match="9216"):
+        fa.flash_attention_onepass(kv[:, :, :64], kv, kv, causal=False)
+    q = torch.zeros(1, 1, 64, 41, device=cuda)[..., 1:]  # rows 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_onepass(q, q, q, causal=True)
+
+
 def test_k3_k4_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 1, 64, 48, device=cuda)
     with pytest.raises(ValueError, match="head dims"):

@@ -82,20 +82,21 @@ def test_route(kv, dh, causal, cross, backend, want):
 
 
 @pytest.mark.parametrize("kv,dh,causal,cross,backend,kernel", [
-    (256, 64, True, False, "kernel", "K2"),       # causal long KV
-    (300, 40, False, True, "kernel", "K2"),       # long cross-attention
-    (9216, 40, False, True, "kernel", "K2"),      # the one-pass kernel's longest
-    (8192, 128, True, False, "kernel", "K2"),     # causal, K2's widest head
-    (1024, 80, False, True, "kernel", "K2"),      # SD-1.5 level-2 width
-    (4096, 64, True, False, "kernel", "K2"),
+    (256, 64, True, False, "kernel", "onepass"),       # causal long KV
+    (300, 40, False, True, "kernel", "onepass"),       # long cross-attention
+    (9216, 40, False, True, "kernel", "onepass"),      # the one-pass kernel's longest
+    (8192, 128, True, False, "kernel", "onepass"),     # causal, Dh 128
+    (1024, 80, False, True, "kernel", "onepass"),      # SD-1.5 level-2 width
+    (4096, 64, True, False, "kernel", "onepass"),
 ])
 def test_route_refuses_unported_flash_kernels(kv, dh, causal, cross, backend,
                                               kernel):
-    """What is left of the one-pass kernel K2 (causal or cross-attention
-    over 256..9216 KV tokens, Dh <= 128) raises, naming slice D; the
-    long-KV cases K3/K4 carry are routed (tests/test_torch_flash_long.py)."""
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*slice D"):
-        attention.route(kv, dh, causal=causal, cross=cross, backend=backend)
+    """The cases these tests once held to a refusal, before K2 was ported:
+    causal or cross-attention over 256..9216 KV tokens with Dh <= 160 now
+    runs on the one-pass kernel K2; the long-KV cases K3/K4 carry are
+    routed in tests/test_torch_flash_long.py."""
+    assert attention.route(kv, dh, causal=causal, cross=cross,
+                           backend=backend) == kernel
 
 
 def test_self_attention_dispatches_to_k1():

@@ -119,7 +119,8 @@ def test_wrapper_rejects_unsupported_inputs(name, dh):
     (4096, 512, False, False, "plain", "plain"),       # 512² VAE mid, plain
     (9217, 40, False, True, "kernel", "streamed"),     # long cross-attention
     (9217, 64, True, False, "kernel", "multipass"),    # long causal
-    (300, 160, False, True, "kernel", "multipass"),    # wide cross-attention
+    (300, 160, False, True, "kernel", "onepass"),      # SD-1.5 level 3, long prompt
+    (300, 192, False, True, "kernel", "multipass"),    # past K2's Dh 160
     (1024, 1280, True, False, "kernel", "multipass"),
 ])
 def test_route(kv, dh, causal, cross, backend, want):
@@ -131,8 +132,10 @@ def test_route(kv, dh, causal, cross, backend, want):
     (256, 64, True, False), (9216, 128, False, True), (9089, 40, True, False),
 ])
 def test_route_leaves_k2_cases_unported(kv, dh, causal, cross):
-    with pytest.raises(NotImplementedError, match="K2.*slice D"):
-        attention.route(kv, dh, causal=causal, cross=cross, backend="kernel")
+    """The edges of K2's envelope (KV 256, padded KV 9216) route to the
+    one-pass kernel; these cases raised before K2 was ported."""
+    assert attention.route(kv, dh, causal=causal, cross=cross,
+                           backend="kernel") == "onepass"
 
 
 def test_route_reads_flash_only_kv_at_call_time(monkeypatch):

@@ -6,9 +6,12 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
+from pytorch_stable_diffusion_tpu import prompt_schedule as jax_schedule
 from pytorch_stable_diffusion_tpu.weights import tokenizer as jax_tokenizer
+from pytorch_stable_diffusion_tpu_torch import prompt_schedule as torch_schedule
 from pytorch_stable_diffusion_tpu_torch.weights import tokenizer as torch_tokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +54,8 @@ def test_every_kernel_source_has_a_wrapper():
         with open(os.path.join(PACKAGE, *mod.split(".")) + ".py") as f:
             wrappers += f.read()
     assert sources == ["flash_attention_bsc", "flash_attention_multipass",
-                       "flash_attention_streamed", "scaled_silu_conv3x3"]
+                       "flash_attention_onepass", "flash_attention_streamed",
+                       "scaled_silu_conv3x3"]
     for name in sources:
         assert f'"{name}"' in wrappers or f"sdt_{name}" in wrappers, name
 
@@ -89,11 +93,32 @@ def test_tokenizer_copies_agree(text):
     assert ours.encode_windows(text) == ref.encode_windows(text)
 
 
+def _body(mod):
+    """A module's source below its docstring."""
+    with open(mod.__file__) as f:
+        return f.read().split('"""', 2)[2]
+
+
 def test_tokenizer_copy_is_verbatim_below_the_docstring():
     """The copy may differ from the original only in its module docstring."""
-    def body(mod):
-        with open(mod.__file__) as f:
-            src = f.read()
-        return src.split('"""', 2)[2]
+    assert _body(torch_tokenizer) == _body(jax_tokenizer)
 
-    assert body(torch_tokenizer) == body(jax_tokenizer)
+
+def test_prompt_schedule_copy_is_verbatim_below_the_docstring():
+    assert _body(torch_schedule) == _body(jax_schedule)
+
+
+#: tests/test_prompt_schedule.py's prompts
+SCHEDULED = ["a [cat:dog:0.5] pet", "[cat:dog:1]", "x[ add:2]", "[drop ::2]now",
+             "[a|b|c]", "a [word] here", "(cat:1.3)", "[big [cat:dog:1]]", "plain"]
+
+
+@pytest.mark.parametrize("text", SCHEDULED)
+def test_prompt_schedule_copies_agree(text):
+    assert torch_schedule.has_schedule(text) == jax_schedule.has_schedule(text)
+    for step in range(1, 7):
+        assert torch_schedule.realize(text, step, 6) == jax_schedule.realize(text, step, 6)
+    ours, idx = torch_schedule.schedule_prompts([text, "x"], ["", text], 6)
+    ref, ref_idx = jax_schedule.schedule_prompts([text, "x"], ["", text], 6)
+    assert ours == ref
+    np.testing.assert_array_equal(idx, ref_idx)

@@ -18,9 +18,11 @@ the plain versions to the Pallas kernels themselves).
 """
 
 import dataclasses
+import types
 from unittest import mock
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,13 +30,14 @@ import torch
 from conftest import psnr, to_nchw
 
 from pytorch_stable_diffusion_tpu import pipeline as jpipeline
+from pytorch_stable_diffusion_tpu.models import clip as jclip
 from pytorch_stable_diffusion_tpu.models import config as jconfig
 from pytorch_stable_diffusion_tpu.models import vae as jvae
 from pytorch_stable_diffusion_tpu.sampling import ddpm as jddpm
-from pytorch_stable_diffusion_tpu_torch import pipeline
+from pytorch_stable_diffusion_tpu_torch import pipeline, prompt_schedule
 from pytorch_stable_diffusion_tpu_torch.core import rng
 from pytorch_stable_diffusion_tpu_torch.models import build_models
-from pytorch_stable_diffusion_tpu_torch.models.config import tiny_sd_config
+from pytorch_stable_diffusion_tpu_torch.models.config import tiny_sd_config, with_clip_skip
 from pytorch_stable_diffusion_tpu_torch.models import unet
 from pytorch_stable_diffusion_tpu_torch.ops import attention
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv as k5
@@ -318,7 +321,8 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
     ({"timestep_spacing": "karras"}, "slice B"),
     ({"control_image": np.zeros((HW, HW, 3))}, "slice E"),
     ({"panorama": True}, "slice G"),
-    ({"prompt": "a [cat:dog:2]"}, "slice D"),
+    ({"hypernetwork": "style.pt"}, "slice D2"),
+    ({"prompt": "a cat AND a dog"}, "slice F"),
     ({"config": tiny_sd_config(quant="int8")}, "slice H"),
     ({"config": dataclasses.replace(tiny_sd_config(), unet=dataclasses.replace(
         tiny_sd_config().unet, tome=(0.5, 2, 2, 16)))}, "slice F"),
@@ -337,3 +341,146 @@ def test_unknown_keyword_is_an_error(slice_setup):
     with pytest.raises(TypeError):
         pipeline.generate("a cat", models=models, config=cfg,
                           tokenizer=make_test_tokenizer(WORDS), no_such_option=1)
+
+
+# ------------------------------------------------------- prompt features (D1)
+#: cross-attentions per UNet evaluation of tiny_sd_config: 2 in the
+#: encoder's level 1, the mid block's, 3 in the decoder's
+CROSS_ATTN = 6
+#: emphasis, a down-weighted [word], 19 windows of the tiny tokenizer's 16
+#: tokens (18 of the repeated text, one after BREAK): a 304-token context
+D1_PROMPT = " ".join(["a photo of a (cat:1.3) of a [dog]"] * 30) + " BREAK a cat"
+
+
+def _jax_emphasize():
+    """The JAX package's ``_emphasize``: a closure of ``_compiled_txt2img``
+    that captures nothing, rebuilt from its code object over the JAX
+    pipeline's globals."""
+    def find(code):
+        for c in code.co_consts:
+            if isinstance(c, types.CodeType):
+                found = c if c.co_name == "_emphasize" else find(c)
+                if found is not None:
+                    return found
+        return None
+
+    outer = getattr(jpipeline._compiled_txt2img, "__wrapped__", jpipeline._compiled_txt2img)
+    return types.FunctionType(find(outer.__code__), vars(jpipeline))
+
+
+def test_emphasize_matches_jax():
+    """Random hiddens and weights, with one zero-mean row (the degenerate
+    guard keeps its ratio at 1); bit-exact identity at w == 1."""
+    r = np.random.RandomState(21)
+    h = (r.randn(5, 16, 32) + 0.3).astype(np.float32)
+    h[0] -= h[0].mean()
+    w = r.uniform(0.6, 1.5, (5, 16)).astype(np.float32)
+    ref = np.asarray(_jax_emphasize()(jnp.asarray(h), jnp.asarray(w)))
+    got = pipeline._emphasize(torch.from_numpy(h), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    for dtype in (torch.float32, torch.bfloat16):
+        hd = torch.from_numpy(h).to(dtype)
+        assert torch.equal(pipeline._emphasize(hd, torch.ones(5, 16)), hd)
+
+
+@pytest.mark.parametrize("skip", [1, 2])
+def test_clip_skip_matches_jax(slice_setup, tiny_models, skip):
+    cfg, models, _, _ = slice_setup
+    jcfg = jconfig.with_clip_skip(jconfig.tiny_sd_config(), skip)
+    ours = with_clip_skip(cfg, skip)
+    assert ours.clip == dataclasses.replace(cfg.clip, stop_at_layer=jcfg.clip.stop_at_layer)
+    tokens = np.random.RandomState(skip).randint(0, cfg.clip.vocab_size, (3, 16))
+    ref = np.asarray(jclip.apply(tiny_models["clip"], jnp.asarray(tokens), jcfg.clip))
+    with torch.inference_mode():
+        got = models["clip"](torch.from_numpy(tokens), cfg=ours.clip).numpy()
+        full = models["clip"](torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert (np.abs(got - full).max() > 1e-2) == (skip == 2)
+
+
+def test_d1_slice_matches_jax_generate(slice_setup, tiny_models, tiny_tokenizer):
+    """Long prompts with emphasis, a BREAK and CLIP skip: a 304-token
+    context, so every cross-attention runs K2 (its plain version here; the
+    JAX package's one-pass Pallas kernel in interpret mode)."""
+    cfg, models, noise, _ = slice_setup
+    noise = {k: v for k, v in noise.items() if k != "encoder_noise"}
+    tok = make_test_tokenizer(WORDS, max_len=cfg.clip.max_len)
+    windows = len(tok.encode_windows_weighted(D1_PROMPT)[0])
+    assert windows == 19
+    kw = dict(uncond_prompt="a (dog:0.8)", cfg_scale=7.5, n_inference_steps=STEPS,
+              seed=0, height=HW, width=HW, return_latents=True, long_prompts=True,
+              emphasis=True, clip_skip=2)
+    ref_img, ref_lat = jpipeline.generate(
+        D1_PROMPT, models=tiny_models, tokenizer=tiny_tokenizer,
+        config=jconfig.tiny_sd_config(attention_backend="pallas"), fixed_noise=noise,
+        **kw)
+    with mock.patch.object(fa, "flash_attention_onepass_plain",
+                           wraps=fa.flash_attention_onepass_plain) as k2:
+        img, lat = pipeline.generate(D1_PROMPT, models=models, tokenizer=tok, config=cfg,
+                                     fixed_noise=_nchw_noise(noise), **kw)
+    assert k2.call_count == CROSS_ATTN * STEPS
+    q, k = k2.call_args.args[:2]
+    assert q.shape[0] == 2 and k.shape[2] == windows * cfg.clip.max_len
+    assert fa.flash_attention_onepass.launches == 0  # CPU: the plain version
+    assert psnr(lat, to_nchw(ref_lat)) > 55.0
+    assert psnr(img.astype(np.float32), ref_img.astype(np.float32)) > 40.0
+
+
+@pytest.mark.parametrize("options", [{"long_prompts": True}, {"emphasis": True},
+                                     {"long_prompts": True, "emphasis": True}],
+                         ids=["long_prompts", "emphasis", "both"])
+def test_prompt_options_are_identity_on_a_plain_prompt(slice_setup, options):
+    """One window and every weight 1: bit-identical to the plain path."""
+    cfg, models, _, _ = slice_setup
+    kw = dict(models=models, tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len),
+              config=cfg, height=HW, width=HW, n_inference_steps=2, seed=3,
+              return_latents=True)
+    base = pipeline.generate("a photo of a cat", **kw)
+    got = pipeline.generate("a photo of a cat", **options, **kw)
+    for a, b in zip(base, got):
+        np.testing.assert_array_equal(a, b)
+
+
+class _ContextRecorder(torch.nn.Module):
+    """Wraps the UNet and records the context of every call."""
+
+    def __init__(self, unet_module):
+        super().__init__()
+        self.inner = unet_module
+        self.contexts = []
+
+    def forward(self, x, context, *args, **kwargs):
+        self.contexts.append(context.clone())
+        return self.inner(x, context, *args, **kwargs)
+
+
+def test_prompt_editing_switches_context_per_step(slice_setup):
+    """``[cat:dog:2]`` and ``[a|photo]`` over 3 steps: each step's context is
+    the port's encoding of the prompts ``realize`` gives for that step."""
+    cfg, models, _, _ = slice_setup
+    tok = make_test_tokenizer(WORDS, max_len=cfg.clip.max_len)
+    prompt, uncond = "a [cat:dog:2] photo", "[a|photo]"
+    rec = _ContextRecorder(models["diffusion"])
+    pipeline.generate(prompt, uncond, models=dict(models, diffusion=rec), tokenizer=tok,
+                      config=cfg, height=HW, width=HW, n_inference_steps=STEPS, seed=1)
+    assert len(rec.contexts) == STEPS
+    for step, ctx in enumerate(rec.contexts, start=1):
+        texts = [prompt_schedule.realize(t, step, STEPS) for t in (prompt, uncond)]
+        tokens = torch.from_numpy(pipeline._encode_tokens(tok, texts, cfg.clip.max_len))
+        with torch.inference_mode():
+            want = pipeline._encode_text(models["clip"], tokens, None, cfg)
+        torch.testing.assert_close(ctx, want, rtol=1e-5, atol=1e-6)
+    assert not torch.equal(rec.contexts[0], rec.contexts[1])  # the alternation
+    assert not torch.equal(rec.contexts[1][:1], rec.contexts[2][:1])  # cat -> dog
+
+
+def test_prompt_editing_to_itself_is_the_plain_prompt(slice_setup):
+    cfg, models, noise, _ = slice_setup
+    kw = dict(models=models, tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len),
+              config=cfg, height=HW, width=HW, n_inference_steps=2, seed=4,
+              return_latents=True)
+    for a, b in zip(pipeline.generate("a [cat:cat:2] photo", **kw),
+                    pipeline.generate("a cat photo", **kw)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="fixed_noise"):
+        pipeline.generate("a [cat:dog:1] photo", fixed_noise=_nchw_noise(noise), **kw)
