@@ -6,23 +6,29 @@ proof that the port still builds, starts and answers on the card.
 
 Phases (any failure exits non-zero):
   1. device   — require CUDA; print the card's name and power limit
-                (nvidia-smi) and the torch/CUDA versions.
+                (nvidia-smi), the torch/CUDA versions, and the SM count and
+                maximum SM clock (the exp floor: 16 exp2 a clock on each SM).
   2. build    — build every CUDA kernel of the main paths from the checkout
                 with nvcc, all at once: K1 (csrc/flash_attention_bsc.cu),
                 K2 (csrc/flash_attention_onepass.cu), K4
                 (csrc/flash_attention_streamed.cu), K3
                 (csrc/flash_attention_multipass.cu) and K5
-                (csrc/scaled_silu_conv3x3.cu); print -Xptxas -v.
+                (csrc/scaled_silu_conv3x3.cu); print -Xptxas -v (registers,
+                spills) by kernel, the tensor-core template of K1 and K4
+                (csrc/flash_attention_tc.cuh) at each head dim included.
   3. kernels  — each kernel against its plain PyTorch version (max abs
                 error within 2e-2 for bf16, 1e-4 for fp32, each times the
                 reference's largest value where that is below 1 — for K5
                 times that value itself; TF32 off for the reference), on
                 q/k/v views of one fused projection as the model makes them:
-                K1 at the SD-1.5 512² shapes (batch 2 and 8), a ragged case
-                and the 2048² levels 2 and 3 and mid block; K4 at the 2048²
-                UNet level 1 (2|8, 8, 65536, 40), a ragged KV and KV 262144
-                with 4096 q rows (the 4096² level-1 KV); K3 at the VAE mid
-                block (1, 1, 65536|4096, 512) and causal ragged cases; K2 at
+                K1 at the SD-1.5 512² shapes (batch 2 and 8), ragged cases
+                (Sq not a multiple of the q tile, Sk not one of the KV
+                tile, Dh 40 with 8 packed heads) and the 2048² levels 2
+                and 3 and mid block; K4 at the 2048² UNet level 1 (2|8, 8,
+                65536, 40), two ragged cases and KV 262144 with 4096 q rows
+                (the 4096² level-1 KV); K1 and K4 each in bf16 (the
+                tensor-core template) and fp32; K3 at the VAE mid block
+                (1, 1, 65536|4096, 512) and causal ragged cases; K2 at
                 the cross-attentions of a 4-window prompt at 512² (2|8, 8,
                 4096|1024|256|64, KV 308, Dh 40|80|160) on views of one
                 fused k/v projection, a ragged KV 300, a causal (1, 2,
@@ -35,14 +41,19 @@ Phases (any failure exits non-zero):
                 would be too slow, correctness is checked on a subset of q
                 rows and the kernel is timed at the full shape.  At the main
                 K4 and K3 shapes a planted fault (KV short by 4096 tokens),
-                at K2's (KV short by 64 tokens), at K5's the plain
+                at K1's (KV short by one 128-token tile), at K2's (KV short
+                by 64 tokens), at K5's the plain
                 version with the padding applied before the activation, must
                 fail the same check.  CUDA-event times of the kernel, the
                 plain version and, where one PyTorch call computes the same
                 function, of that call (scaled_dot_product_attention; for K5
                 cuDNN's conv on the already activated input), used nowhere
-                in the port; for K2, whose calls are shorter than their host
-                launch cost, device times under torch.profiler.
+                in the port; for K1, K4 and K2 (K1 and K2 calls are shorter
+                than their host launch cost) device times under
+                torch.profiler, with SDPA's device time, the bound and the
+                exp floor beside K1's and K4's.  The host time of one small
+                K1 call, its C function's argument types bound once against
+                bound before every call.
   4. small    — SD-1.5 at full width, FP32, 128², 3 DDPM+CFG steps: the
                 card against the port's CPU plain path on the same seeded
                 weights and noise (latents PSNR > 55 dB, uint8 image PSNR
@@ -83,7 +94,8 @@ Phases (any failure exits non-zero):
   7. step     — one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
                 512² CFG UNet evaluation with a 77- and a 308-token context,
-                with K2's share of the device time.
+                and one of CFG batch 8 (four prompts); each with the device
+                time of K2 and of the K1/K4 template by head dim.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -93,6 +105,7 @@ build/kernels/ of the checkout.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +145,9 @@ K2_PER_EVAL = 16
 #: CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+#: the SMs and maximum SM clock of the card (set in main): the exp floor of
+#: the attention kernels, at 16 exp2 a clock on each SM (the SFU's rate)
+SFU = {"sms": 0, "clock_hz": 0.0}
 PROMPTS = ["a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dusk",
            "a close up photo of a red fox in the snow",
@@ -221,53 +237,122 @@ def tolerance(dtype, ref):
 
 
 # ------------------------------------------------------------------ kernels
+def short_name(mangled):
+    """A kernel's name and integer template arguments from its mangled name:
+    the length-prefixed identifier in it that ends in ``kernel`` (else the
+    longest), and each ``Li<n>E``."""
+    names = [m.group(2)[:int(m.group(1))]
+             for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled)
+             if len(m.group(2)) >= int(m.group(1))]
+    kernels = [n for n in names if n.endswith("kernel")]
+    args = re.findall(r"Li(\d+)E", mangled)
+    return (kernels or sorted(names, key=len)[-1:] or [mangled[:40]])[0] \
+        + (f"<{', '.join(args)}>" if args else "")
+
+
+def exp_floor_ms(exps):
+    """The least time the SFU needs for ``exps`` exp2 evaluations: 16 a clock
+    on each SM at the card's maximum SM clock."""
+    return exps / (16.0 * SFU["sms"] * SFU["clock_hz"]) * 1e3
+
+
 def phase_k1(fa, card, results):
     """K1 vs its plain version at SD-1.5's 512² shapes and at the shapes the
     2048² UNet gives it (levels 2 and 3 and the mid block; the 16384-token
     level checked on a subset of q rows, whose plain scores would take
-    17 GB)."""
+    17 GB), ragged cases (Sq not a multiple of the q tile, Sk not one of
+    the KV tile; Dh 40 with 8 packed heads, so a pad column read from the
+    next head would show), in bf16 (the tensor-core template) and fp32; the
+    planted fault (KV short by one 128-token tile); device times under the
+    profiler beside SDPA's, the bound and the exp floor."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(b, s, c, 8, s) for b in (2, 8)
+    cases = [(b, s, s, c, 8, s) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))]
-    cases.append((2, 300, 32, 1, 300))
-    cases += [(2, 16384, 640, 8, 2048), (2, 4096, 1280, 8, 4096), (2, 1024, 1280, 8, 1024)]
+    cases += [(2, 300, 300, 32, 1, 300), (2, 1000, 1100, 320, 8, 1000),
+              (1, 333, 200, 640, 8, 333), (1, 130, 70, 1280, 8, 130)]
+    cases += [(2, 16384, 16384, 640, 8, 2048), (2, 4096, 4096, 1280, 8, 4096),
+              (2, 1024, 1024, 1280, 8, 1024)]
+    timed = {(b, s, s, c) for b in (2, 8)
+             for s, c in ((4096, 320), (1024, 640), (256, 1280))}
+    timed |= {(2, 16384, 16384, 640), (2, 4096, 4096, 1280)}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
-        for b, s, c, heads, rows in cases:
-            qkv = torch.randn(b, s, 3 * c, device="cuda", generator=g).to(dtype)
+        for b, sq, sk, c, heads, rows in cases:
+            qkv = torch.randn(b, max(sq, sk), 3 * c, device="cuda", generator=g).to(dtype)
             q, k, v = qkv.split(c, dim=-1)
+            q, k, v = q[:, :sq], k[:, :sk], v[:, :sk]
             got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
             torch.cuda.synchronize()
             ref = fa.flash_attention_bsc_plain(q[:, :rows], k, v, heads)
             err = max_err(got[:, :rows], ref)
             tol = tolerance(dtype, ref)
-            check(got.shape == (b, s, c) and got.dtype == dtype, "K1 output shape/dtype")
-            check(err <= tol, f"K1 {dtype} {(b, s, c, heads)}: max abs err "
+            check(got.shape == (b, sq, c) and got.dtype == dtype, "K1 output shape/dtype")
+            check(err <= tol, f"K1 {dtype} {(b, sq, sk, c, heads)}: max abs err "
                               f"{err:.3e} > {tol:.3e}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            line = (f"K1 {str(dtype)[6:]} B={b} S={s} C={c} H={heads} "
-                    f"Dh={c // heads}: max_abs_err {err:.3e} on {rows} q rows (tol {tol:.3e})")
-            if heads == 8:
-                iters = 20 if s * b <= 8192 else 5
-                ms = cuda_ms(lambda: fa.flash_attention_bsc(q, k, v, n_heads=heads), iters)
-                tflops = 4.0 * s * s * c * b / (ms * 1e-3) / 1e12
-                line += f"; kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s)"
-                if rows == s:
-                    pms = cuda_ms(lambda: fa.flash_attention_bsc_plain(q, k, v, heads), iters)
-                    line += f", plain {pms:.3f} ms"
-                if dtype == torch.bfloat16 and (b, s) == (2, 4096) and c == 320:
-                    split = [t.reshape(b, s, heads, c // heads).transpose(1, 2)
+            line = (f"K1 {str(dtype)[6:]} B={b} Sq={sq} Sk={sk} C={c} H={heads} "
+                    f"Dh={c // heads}: max abs err {err:.3e} on {rows} q rows (tol {tol:.3e})")
+            main = dtype == torch.bfloat16 and (b, sq, c) == (2, 4096, 320)
+            if main:  # KV short by one 128-token tile must fail the check
+                bad = fa.flash_attention_bsc(q, k[:, :-128], v[:, :-128], n_heads=heads)
+                bad_err = max_err(bad, ref)
+                check(bad_err > tol, f"K1: a call missing 128 KV tokens passed the check "
+                                     f"(max abs err {bad_err:.3e} <= {tol:.3e})")
+                line += (f"; planted fault (KV short by 128 tokens) caught: max abs err "
+                         f"{bad_err:.3e}")
+            if (b, sq, sk, c) in timed:
+                flops = 4.0 * sq * sk * c * b
+                exps = b * heads * sq * sk
+                ms = one_call_device_ms(lambda: fa.flash_attention_bsc(q, k, v, n_heads=heads))
+                line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.1f} "
+                         f"TFLOP/s)")
+                if dtype == torch.bfloat16:
+                    split = [t.reshape(b, t.shape[1], heads, c // heads).transpose(1, 2)
                              for t in (q, k, v)]
-                    lib, why = sdpa_ms(*split)
-                    bms, by = bound_ms(4.0 * s * s * c * b, 4 * b * s * c * 2, dtype)
-                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms,
-                               bound_by=by)
-                    line += (f", sdpa {'none' if lib is None else f'{lib:.3f}'} ms"
-                             f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}")
+                    lib, why = sdpa_ms(*split, timer=one_call_device_ms)
+                    bms, by = bound_ms(flops, 2 * b * (sq + sk) * c * 2, dtype)
+                    line += (f", sdpa {'none' if lib is None else f'{lib:.4f}'} ms device"
+                             f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, exp "
+                             f"floor {exp_floor_ms(exps):.4f} ms ({exps / 1e6:.0f} M exp2)")
+                    if main:
+                        pms = one_call_device_ms(
+                            lambda: fa.flash_attention_bsc_plain(q, k, v, heads))
+                        rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms,
+                                   bound_by=by)
+                        line += f"; plain {pms:.4f} ms device"
                 line += f"  [{card}]"
             print(line, flush=True)
             del qkv, q, k, v, got, ref
     torch.cuda.empty_cache()
+
+
+def host_cost(fa, card):
+    """Host time of one small K1 call (2, 256, 1280), by CUDA events around
+    50 back-to-back calls (the kernel is shorter than its launch):
+    the wrapper as it is, whose C function's argument types are bound once,
+    against the same call with them bound again before every launch, as the
+    wrappers did before; alternated, twice each."""
+    import ctypes
+
+    qkv = torch.randn(2, 256, 3 * 1280, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(1280, dim=-1)
+
+    def rebinding():
+        _, fn = fa._entry("flash_attention_bsc")
+        fn.argtypes = list(fa._ARGTYPES["flash_attention_bsc"])
+        fn.restype = ctypes.c_int
+        return fa.flash_attention_bsc(q, k, v, n_heads=8)
+
+    def bound_once():
+        return fa.flash_attention_bsc(q, k, v, n_heads=8)
+
+    times = {"bound once": [], "bound every call": []}
+    for _ in range(2):
+        times["bound once"].append(cuda_ms(bound_once, 50) * 1e3)
+        times["bound every call"].append(cuda_ms(rebinding, 50) * 1e3)
+    print("host: one K1 call (2, 256, 1280), CUDA events around 50 calls: "
+          + "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in v)} us" for k, v in times.items())
+          + f"  [{card}]", flush=True)
 
 
 def _check_rows(name, wrapper, plain, args, kw, rows, dtype, rec):
@@ -302,20 +387,28 @@ def _planted_fault(name, wrapper, args, kw, rows, ref, tol, drop=4096):
 
 
 def phase_long(fa, card, results):
-    """K4 and K3 vs their plain versions at the 2048² shapes and edges."""
+    """K4 and K3 vs their plain versions at the 2048² shapes and edges.  K4
+    runs every case in bf16 (the tensor-core template) and fp32; its times
+    are device times under the profiler, with SDPA's, the bound and the exp
+    floor beside them."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # kernel, B, Sq, Sk, H, Dh, dtype, causal, q rows checked, role
-        ("K4", 2, 65536, 65536, 8, 40, torch.bfloat16, False, 2048, "main"),
-        ("K4", 8, 65536, 65536, 8, 40, torch.bfloat16, False, 512, "time"),
-        ("K4", 2, 3000, 50001, 8, 40, torch.bfloat16, False, 3000, ""),
-        ("K4", 1, 999, 41000, 2, 40, torch.float32, False, 999, ""),
-        ("K4", 1, 4096, 262144, 8, 40, torch.bfloat16, False, 1024, "time"),
-        ("K3", 1, 65536, 65536, 1, 512, torch.bfloat16, False, 4096, "main"),
-        ("K3", 1, 65536, 65536, 1, 512, torch.float32, False, 1024, "time"),
-        ("K3", 1, 4096, 4096, 1, 512, torch.bfloat16, False, 4096, "time"),
-        ("K3", 1, 4096, 4096, 1, 512, torch.float32, False, 4096, "time"),
-        ("K3", 1, 1000, 1000, 2, 512, torch.bfloat16, True, 1000, ""),
-        ("K3", 1, 3001, 3001, 1, 64, torch.float32, True, 3001, ""),
+    bf, f32 = torch.bfloat16, torch.float32
+    k4 = [  # B, Sq, Sk, H, q rows checked, role
+        (2, 65536, 65536, 8, 2048, "main"),
+        (8, 65536, 65536, 8, 512, "time"),
+        (2, 3000, 50001, 8, 3000, ""),
+        (1, 999, 41000, 2, 999, ""),
+        (1, 4096, 262144, 8, 1024, "time"),
+    ]
+    cases = [("K4", b, sq, sk, h, 40, dtype, False, rows, role if dtype == bf else "")
+             for b, sq, sk, h, rows, role in k4 for dtype in (bf, f32)]
+    cases += [  # kernel, B, Sq, Sk, H, Dh, dtype, causal, q rows checked, role
+        ("K3", 1, 65536, 65536, 1, 512, bf, False, 4096, "main"),
+        ("K3", 1, 65536, 65536, 1, 512, f32, False, 1024, "time"),
+        ("K3", 1, 4096, 4096, 1, 512, bf, False, 4096, "time"),
+        ("K3", 1, 4096, 4096, 1, 512, f32, False, 4096, "time"),
+        ("K3", 1, 1000, 1000, 2, 512, bf, True, 1000, ""),
+        ("K3", 1, 3001, 3001, 1, 64, f32, True, 3001, ""),
     ]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
@@ -333,17 +426,26 @@ def phase_long(fa, card, results):
             line += _planted_fault(kname, wrapper, args, kw, min(rows, sq), ref, tol)
         if role:
             flops = 4.0 * b * h * sq * sk * dh * (0.5 if causal else 1.0)
-            ms = cuda_ms(lambda: wrapper(*args, **kw))
-            line += f"; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
+            nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
+            bms, by = bound_ms(flops, nbytes, dtype)
+            if kname == "K4":  # device time; SDPA's beside it
+                ms = device_ms(lambda: wrapper(*args, **kw))
+                lib, why = sdpa_ms(*args, timer=device_ms)
+                line += (f"; kernel {ms:.3f} ms device ({flops / (ms * 1e-3) / 1e12:.1f} "
+                         f"TFLOP/s), sdpa {'none' if lib is None else f'{lib:.3f}'} ms "
+                         f"device{' ' + why if why else ''}; bound {bms:.3f} ms by {by}, "
+                         f"exp floor {exp_floor_ms(b * h * sq * sk):.3f} ms")
+            else:
+                ms = cuda_ms(lambda: wrapper(*args, **kw))
+                line += f"; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
             if role == "main":
                 pms = cuda_ms(lambda: plain(*args, *kw.values()), 1)
-                lib, why = sdpa_ms(*args)
-                nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
-                bms, by = bound_ms(flops, nbytes, dtype)
+                if kname == "K3":
+                    lib, why = sdpa_ms(*args)
+                    line += (f", sdpa {'none' if lib is None else f'{lib:.3f}'} ms"
+                             f"{' ' + why if why else ''}; bound {bms:.3f} ms by {by}")
                 rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
-                line += (f", plain {pms:.3f} ms, sdpa "
-                         f"{'none' if lib is None else f'{lib:.3f}'} ms"
-                         f"{' ' + why if why else ''}; bound {bms:.3f} ms by {by}")
+                line += f"; plain {pms:.3f} ms"
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
@@ -592,16 +694,22 @@ def one_call_device_ms(fn):
 
 def device_ms(fn):
     """Device time of the CUDA kernels ``fn`` launches, summed from one run
-    under torch.profiler after a warm-up run."""
+    under torch.profiler after a warm-up run.  A run in which the profiler
+    recorded no kernel at all (it happens now and then) is made again, up to
+    three times; then the script fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA") / 1e3
+        if total > 0:
+            return total
+    check(False, "torch.profiler recorded no kernel in three runs")
 
 
 # ----------------------------------------------------------- small reference
@@ -753,18 +861,18 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     return counts
 
 
-def phase_step(models, cfg, card, size=2048, context=77):
-    """One CFG UNet evaluation at ``size``² under a ``context``-token
-    context: its wall time, its device busy share under torch.profiler, and
-    the device time of K2 (the one-pass kernel) in it."""
+def phase_step(models, cfg, card, size=2048, context=77, batch=2):
+    """One UNet evaluation at ``size``² of CFG batch ``batch`` under a
+    ``context``-token context: its wall time, its device busy share under
+    torch.profiler, and the device time of K1, K4 and K2 in it."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
     dtype = cfg.policy.compute_dtype
     lat = size // cfg.vae.downsample_factor
-    x = torch.randn(2, 4, lat, lat, device="cuda", generator=g).to(dtype) \
+    x = torch.randn(batch, 4, lat, lat, device="cuda", generator=g).to(dtype) \
         .contiguous(memory_format=torch.channels_last)
-    ctx = torch.randn(2, context, 768, device="cuda", generator=g).to(dtype)
+    ctx = torch.randn(batch, context, 768, device="cuda", generator=g).to(dtype)
     t = torch.tensor(500.0, device="cuda")
 
     def step():
@@ -788,14 +896,30 @@ def phase_step(models, cfg, card, size=2048, context=77):
     rows = [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    k2 = sum(e.self_device_time_total for e in rows if "onepass" in e.key) / 1e6
+    # K1 and K4 share the bf16 template attention_tc_kernel<Dh, warpgroups>:
+    # by head dim, at 2048² Dh 40 is K4 (level 1) and Dh 80/160 K1; at 512²
+    # all three are K1
+    def kernel_of(key):
+        tc = re.search(r"attention_tc_kernel<(\d+),", key)
+        if tc:
+            return f"tc<{tc.group(1)}>"
+        return next((label for label, name in (("K1 fp32", "bsc_fp32_kernel"),
+                                               ("K4 fp32", "streamed_fp32_kernel"),
+                                               ("K2", "onepass")) if name in key), None)
+
+    times = {}
+    for e in rows:
+        label = kernel_of(e.key)
+        if label:
+            times[label] = times.get(label, 0.0) + e.self_device_time_total / 1e6
+    parts = [f"{label} {t * 1e3:.3f} ms "
+             f"({f'{t / busy:.3f}' if busy > 0 else 'not measured'} of the device time)"
+             for label, t in sorted(times.items())]
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
-    k2_share = f"{k2 / busy:.3f}" if busy > 0 else "not measured"
-    print(f"step ({size}², {context}-token context, {cfg.conv_backend}): one CFG UNet "
-          f"evaluation {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
-          f"device busy, busy share {share}; K2 {k2 * 1e3:.3f} ms, {k2_share} of the "
-          f"device time; top: "
+    print(f"step ({size}², batch {batch}, {context}-token context, {cfg.conv_backend}): one "
+          f"UNet evaluation {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
+          f"device busy, busy share {share}; {'; '.join(parts)}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
 
@@ -825,6 +949,13 @@ def main():
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, check=True).stdout.split()[0]
+    SFU.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+               clock_hz=float(clock) * 1e6)
+    print(f"{SFU['sms']} SMs, max SM clock {clock} MHz: exp2 floor at "
+          f"{16 * SFU['sms'] * SFU['clock_hz'] / 1e12:.2f} T/s", flush=True)
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -832,8 +963,14 @@ def main():
     print(f"build: {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (_, log) in libs.items():
+        kernel = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or line.startswith("built"):
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                kernel = short_name(entry.group(1))
+            elif "registers" in line or "spill" in line or "C7518" in line:
+                print(f"  {SHORT[name]} {kernel}: {line.strip()}", flush=True)
+            elif line.startswith("built"):
                 print(f"  {SHORT[name]} {line.strip()}", flush=True)
 
     # 3. kernels
@@ -841,6 +978,7 @@ def main():
                       "launches": 0, "max_abs_err": 0.0}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
+    host_cost(fa, card)
     phase_k2(fa, card, results)
     phase_long(fa, card, results)
     phase_k5(k5, card, results)
@@ -1027,6 +1165,7 @@ def main():
     phase_step(models, tier["kernel"], card)
     phase_step(models, cfg, card, size=512, context=77)
     phase_step(models, cfg, card, size=512, context=308)
+    phase_step(models, cfg, card, size=512, context=77, batch=8)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

@@ -2,50 +2,48 @@
 //
 // Replaces the Pallas kernel
 //   pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py::flash_attention_bsc
-//   (body: _bsc_kernel).
+//   (:384 -> pallas_call :412 -> body _bsc_kernel :300).
 // It computes what that kernel computes, non-causal softmax(Q K^T / sqrt(Dh)) V
 // for every (batch, head), with the heads sliced out of the channel axis so
 // the caller needs no head transposes:
-//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) and exp2f;
+//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) into exp2;
 //   * an online softmax over KV tiles (running max m, sum l, accumulator);
 //   * the KV tail of the last tile masked to -inf, with a guard for fully
 //     masked rows (exp2 of (-inf) - (-inf) would be NaN);
 //   * output acc / max(l, 1e-30) written in the input dtype (bf16 or fp32).
-//
-// Design (simple and correct first).  One CTA of 128 threads per (64-row q
-// tile, head, batch).  The CTA keeps its Q tile in shared memory and walks
-// KV in 64-row tiles staged in shared memory.  Thread (rg, cg), rg = tid / 8,
-// cg = tid % 8, owns q rows rg + 16*i (i < 4) and, for the scores, KV columns
-// cg + 8*j (j < 8): a 4x8 register tile, whose row max and row sum reduce
-// over the 8 lanes of a row group with warp shuffles.  The probabilities go
-// through shared memory, and the same thread accumulates P V for its 4 rows
-// over head-dim columns cg + 8*k (k < Dh/8), so Dh only has to be a multiple
-// of 8 (SD-1.5 has 40, 80, 160: not multiples of 16).  All products are
-// fp32 FMAs on the CUDA cores.
 //
 // Strides.  q, k and v are taken with their own batch and row strides (in
 // elements) and a unit channel stride: the model passes the three C-wide
 // slices of the fused q/k/v projection, whose rows are 3C apart, without a
 // copy.  The output is a contiguous (B, Sq, C) tensor.
 //
-// What bounds it on the H100.  At the main shape (S = 4096, C = 320, 8 heads
-// of Dh 40) a call costs 4*S^2*C = 21.5 GFLOP per batch element but moves
-// only ~8 MB, so it is compute-bound; the bytes could be read in a few
-// microseconds at 3.35 TB/s.  This design runs on the CUDA cores (67 TFLOP/s
-// fp32 peak), with about one shared-memory load for every 2.7 FMAs in the
-// score loop, so it reaches a fraction of that.
+// bf16 path: the tensor-core template of flash_attention_tc.cuh, with the
+// head stride Dh: wgmma for Q K^T and P V, K/V tiles by TMA (one 16-byte-wide
+// box per 8-column slab of a (Dh, head, row, batch) map, so Dh is its own
+// dimension and a box never reaches into the next head) into an mbarrier
+// ring, a producer warpgroup and three consumer warpgroups of 64 q rows that
+// take turns on the tensor cores.  Needs 16-byte aligned pointers and row
+// strides (the wrapper checks; the UNet's views are: rows 3C x 2 bytes apart,
+// heads Dh x 2).
 //
-// What the simple design leaves on the table:
-//   * the tensor cores (989 TFLOP/s bf16): QK^T and PV as wgmma with Dh
-//     padded to 48/80/160, fed by TMA loads of K/V tiles into a multi-stage
-//     ring with mbarriers, P kept in registers as the A operand;
-//   * overlap of loads and math (here every tile is loaded, then computed,
-//     with __syncthreads between);
-//   * vectorized 16-byte global loads (loads here are one element a thread);
-//   * occupancy at Dh 160 (fp32 staging of P, 4x8 tiles per thread).
+// What bounds it on the H100.  At the main shape (2, 4096, 320), 8 heads of
+// Dh 40, a call costs 4*S^2*C*B = 43 GFLOP (0.043 ms at 989 TFLOP/s) but moves
+// only ~21 MB (0.006 ms), and needs B*H*S^2 = 268 M exp2 (~0.064 ms at 16 a
+// clock per SM on 132 SMs): on paper the exponential sets the floor, then the
+// tensor cores.  flash_attention_tc.cuh says what the design does about it,
+// and what the card showed instead: the K/V stream from L2 into shared
+// memory holds it back.
+//
+// fp32 path (the FP32 policy's checks need full fp32: no TF32): one CTA of
+// 128 threads per (64-row q tile, head, batch) on the CUDA cores.  Thread
+// (rg, cg), rg = tid / 8, cg = tid % 8, owns q rows rg + 16*i (i < 4) and, for
+// the scores, KV columns cg + 8*j (j < 8); row max and sum reduce over the 8
+// lanes of a row group with warp shuffles; P goes through shared memory and
+// the same thread accumulates P V over head-dim columns cg + 8*k.
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace {
 
@@ -61,20 +59,22 @@ struct Smem {
   static constexpr int QK_STRIDE = DH + 1;  // odd row stride: rows hit distinct banks
 };
 
-template <typename T, int DH>
+template <int DH>
 size_t smem_bytes() {
+  using T = float;
   constexpr int QK = Smem<DH>::QK_STRIDE;
   size_t tiles = sizeof(T) * (size_t)(BLOCK_M * QK + BLOCK_N * QK + BLOCK_N * DH);
   tiles = (tiles + 15) / 16 * 16;
   return tiles + sizeof(float) * BLOCK_M * P_STRIDE;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-bsc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, long long q_bs, long long q_rs, long long k_bs,
-           long long k_rs, long long v_bs, long long v_rs, int sq, int sk, int c,
-           float scale_log2) {
+bsc_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, long long q_bs,
+                long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                long long v_rs, int sq, int sk, int c, float scale_log2) {
+  using T = float;
   static_assert(DH % 8 == 0, "head dim must be a multiple of 8");
   constexpr int QK = Smem<DH>::QK_STRIDE;
   constexpr int DCOLS = DH / 8;
@@ -201,34 +201,47 @@ bsc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, long long q_bs,
-                   long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                   long long v_rs, int batch, int sq, int sk, int n_heads,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, DH>();
-  cudaError_t err = cudaFuncSetAttribute(bsc_kernel<T, DH>,
+template <int DH>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, long long q_bs,
+                        long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                        long long v_rs, int batch, int sq, int sk, int n_heads,
+                        cudaStream_t stream) {
+  const size_t smem = smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(bsc_fp32_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, n_heads, batch);
   const float scale_log2 = LOG2E / sqrtf((float)DH);
-  bsc_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, sq, sk, n_heads * DH,
-      scale_log2);
+  bsc_fp32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), q_bs, q_rs, k_bs, k_rs, v_bs,
+      v_rs, sq, sk, n_heads * DH, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int head_dim, const void* q, const void* k, const void* v,
+// bf16: the tensor-core template, heads Dh apart in the channel axis; the
+// output (B, Sq, C) contiguous
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, long long q_bs,
+                        long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                        long long v_rs, int batch, int sq, int sk, int n_heads,
+                        cudaStream_t stream) {
+  const long long c = (long long)n_heads * DH;
+  const Strides st{q_bs, DH, q_rs, k_bs, DH, k_rs, v_bs, DH, v_rs, sq * c, DH, c};
+  return sdt_tc::launch<DH>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
+}
+
+cudaError_t dispatch_dh(int dtype, int head_dim, const void* q, const void* k, const void* v,
                         void* o, long long q_bs, long long q_rs, long long k_bs,
-                        long long k_rs, long long v_bs, long long v_rs, int batch,
-                        int sq, int sk, int n_heads, cudaStream_t stream) {
-#define SDT_CASE(D)                                                                \
-  case D:                                                                          \
-    return launch<T, D>(q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, batch, sq, \
-                        sk, n_heads, stream);
+                        long long k_rs, long long v_bs, long long v_rs, int batch, int sq,
+                        int sk, int n_heads, cudaStream_t stream) {
+#define SDT_CASE(D)                                                                    \
+  case D:                                                                              \
+    return dtype == 0 ? launch_fp32<D>(q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, \
+                                       batch, sq, sk, n_heads, stream)                 \
+                      : launch_bf16<D>(q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, \
+                                       batch, sq, sk, n_heads, stream);
   switch (head_dim) {
     SDT_CASE(32)
     SDT_CASE(40)
@@ -253,14 +266,9 @@ int sdt_flash_attention_bsc(const void* q, const void* k, const void* v, void* o
                             void* stream) {
   if (batch <= 0 || sq <= 0 || n_heads <= 0) return cudaSuccess;
   if (sk <= 0 || n_heads > 65535 || batch > 65535) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dh<float>(head_dim, q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
-                              batch, sq, sk, n_heads, s);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(head_dim, q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                      v_rs, batch, sq, sk, n_heads, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  return dispatch_dh(dtype, head_dim, q, k, v, o, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, batch,
+                     sq, sk, n_heads, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas kernel
 //   pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py::_flash_attention_streamed
-//   (body: _streamed_kernel).
+//   (:466 -> pallas_call :484 -> body _streamed_kernel :202).
 // It computes what that kernel computes, non-causal softmax(Q K^T / sqrt(Dh)) V
 // for every (batch, head) with Dh <= 128:
-//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) and exp2f;
+//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) into exp2;
 //   * an online softmax over KV tiles (running max m, sum l, accumulator);
 //   * the KV tail of the last tile masked to -inf, with a guard for fully
 //     masked rows (exp2 of (-inf) - (-inf) would be NaN);
@@ -14,19 +14,10 @@
 // What the TPU kernel is for, and what is kept of it.  Its point is to walk a
 // very long KV inside one grid cell while the next KV slab is already in
 // flight.  Its transposed (BH, Dh, Sk) KV and its 4096-token groups exist only
-// because TPU DMA slices need 128 lanes, and are not carried over.  Here one
-// CTA of 128 threads owns a (64-row q tile, head, batch) and walks the whole
-// KV in 64-row tiles through a two-stage cp.async ring in shared memory: the
-// copies of tile j+1 are issued before the math on tile j, so loading
-// overlaps computing.  Copies are 16 bytes a thread (cp.async.cg); the rows
-// of the last tile past Sk are zero-filled by the copy itself (src-size 0).
-//
-// Thread layout as in K1 (csrc/flash_attention_bsc.cu): thread (rg, cg),
-// rg = tid / 8, cg = tid % 8, owns q rows rg + 16*i (i < 4) and, for the
-// scores, KV columns cg + 8*j (j < 8); row max and sum reduce over the 8
-// lanes of a row group with warp shuffles; P goes through shared memory and
-// the same thread accumulates P V for its 4 rows over head-dim columns
-// cg + 8*k.  All products are fp32 FMAs on the CUDA cores.
+// because TPU DMA slices need 128 lanes, and are not carried over.  Here a CTA
+// owns a block of q rows of one (head, batch) and walks the whole KV in tiles
+// through a ring in shared memory, the next tiles' copies in flight while the
+// current one computes.
 //
 // Strides.  q, k, v and the output are taken with their own batch, head and
 // row strides (in elements, 64-bit) and a unit head-dim stride: the UNet
@@ -35,16 +26,33 @@
 // afterwards is free.  Every offset is computed in 64 bits: at 262144 tokens
 // a row index times a row stride of 3C overflows an int.
 //
+// bf16 path: the tensor-core template of flash_attention_tc.cuh (wgmma for
+// Q K^T and P V, K/V tiles by TMA into an mbarrier ring, a producer
+// warpgroup and three consumer warpgroups of 64 q rows that take turns on
+// the tensor cores).  Needs 16-byte aligned pointers and strides (the
+// wrapper checks).
+//
 // What bounds it on the H100.  At SD-1.5's 2048² level 1, (2, 8, 65536, 40),
-// a call costs 4*Sq*Sk*Dh*B*H = 11 TFLOP and must move 0.34 GB in bf16, so it
-// is compute-bound by far (11.1 ms at 989 TFLOP/s; the bytes take 0.1 ms).
-// This design runs on the CUDA cores (67 TFLOP/s fp32 peak) with about one
-// shared-memory load for every 2.7 FMAs in the score loop, so it reaches a
-// fraction of that.  Left on the table: the tensor cores (wgmma, Dh padded to
-// 48), TMA loads with mbarriers, P kept in registers, vectorized shared loads.
+// a call costs 4*Sq*Sk*Dh*B*H = 11 TFLOP (11.1 ms at 989 TFLOP/s) and must
+// move 0.34 GB in bf16 (0.1 ms), and needs B*H*Sq*Sk = 68.7 G exp2: at 16 a
+// clock per SM on 132 SMs (~4.2 T/s at 1.98 GHz) ~16-18 ms.  On paper the
+// exponential, not the tensor cores, sets the floor; flash_attention_tc.cuh
+// says what the design does about it, and what the card showed instead: the
+// K/V stream from L2 (each of a head's 342 q tiles reads its 65536-token K
+// and V) holds it back.
+//
+// fp32 path (the FP32 policy's checks need full fp32: no TF32): one CTA of
+// 128 threads per (64-row q tile, head, batch) on the CUDA cores, KV in 64-row
+// tiles through a two-stage cp.async ring (rows past Sk zero-filled by the
+// copy).  Thread (rg, cg), rg = tid / 8, cg = tid % 8, owns q rows rg + 16*i
+// (i < 4) and, for the scores, KV columns cg + 8*j (j < 8); row max and sum
+// reduce over the 8 lanes of a row group with warp shuffles; P goes through
+// shared memory and the same thread accumulates P V for its 4 rows over
+// head-dim columns cg + 8*k.
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace {
 
@@ -58,8 +66,9 @@ constexpr int P_STRIDE = BLOCK_N + 8;  // conflict-free P writes/reads
 // Shared-memory layout.  Q and K rows are QK elements apart: a multiple of 16
 // bytes (cp.async writes 16-byte chunks) that is an odd number of chunks, so
 // the 8 K rows a warp reads at one column fall in 8 distinct banks.
-template <typename T, int DH>
+template <int DH>
 struct Layout {
+  using T = float;
   static_assert(DH % 8 == 0, "head dim must be a multiple of 8");
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte chunk
   static constexpr int QK = (DH / VEC) % 2 == 1 ? DH : DH + VEC;
@@ -70,11 +79,13 @@ struct Layout {
   static constexpr size_t SMEM = TILE_BYTES + sizeof(float) * BLOCK_M * P_STRIDE;
 };
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-streamed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, Strides st, int sq, int sk, float scale_log2) {
-  using L = Layout<T, DH>;
+streamed_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, Strides st, int sq,
+                     int sk, float scale_log2) {
+  using T = float;
+  using L = Layout<DH>;
   constexpr int QK = L::QK;
   constexpr int DCOLS = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -207,31 +218,39 @@ streamed_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides& st,
-                   int batch, int n_heads, int sq, int sk, cudaStream_t stream) {
-  const size_t smem = Layout<T, DH>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(streamed_kernel<T, DH>,
+template <int DH>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        const Strides& st, int batch, int n_heads, int sq, int sk,
+                        cudaStream_t stream) {
+  const size_t smem = Layout<DH>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(streamed_fp32_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, n_heads, batch);
   const float scale_log2 = LOG2E / sqrtf((float)DH);
-  streamed_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st, sq, sk, scale_log2);
+  streamed_fp32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, sq, sk, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int head_dim, const void* q, const void* k, const void* v, void* o,
-                        const Strides& st, int batch, int n_heads, int sq, int sk,
+template <int DH>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
+                   const Strides& st, int batch, int n_heads, int sq, int sk,
+                   cudaStream_t stream) {
+  return dtype == 0 ? launch_fp32<DH>(q, k, v, o, st, batch, n_heads, sq, sk, stream)
+                    : sdt_tc::launch<DH>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
+}
+
+cudaError_t dispatch_dh(int dtype, int head_dim, const void* q, const void* k, const void* v,
+                        void* o, const Strides& st, int batch, int n_heads, int sq, int sk,
                         cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
-    case 40: return launch<T, 40>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
-    case 64: return launch<T, 64>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
-    case 128: return launch<T, 128>(q, k, v, o, st, batch, n_heads, sq, sk, stream);
+    case 16: return launch<16>(dtype, q, k, v, o, st, batch, n_heads, sq, sk, stream);
+    case 40: return launch<40>(dtype, q, k, v, o, st, batch, n_heads, sq, sk, stream);
+    case 64: return launch<64>(dtype, q, k, v, o, st, batch, n_heads, sq, sk, stream);
+    case 128: return launch<128>(dtype, q, k, v, o, st, batch, n_heads, sq, sk, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -248,13 +267,11 @@ int sdt_flash_attention_streamed(const void* q, const void* k, const void* v, vo
                                  int sk, int head_dim, int dtype, void* stream) {
   if (batch <= 0 || sq <= 0 || n_heads <= 0) return cudaSuccess;
   if (sk <= 0 || n_heads > 65535 || batch > 65535) return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dh<float>(head_dim, q, k, v, o, st, batch, n_heads, sq, sk, s);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(head_dim, q, k, v, o, st, batch, n_heads, sq, sk, s);
-  return cudaErrorInvalidValue;
+  return dispatch_dh(dtype, head_dim, q, k, v, o, st, batch, n_heads, sq, sk,
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -92,9 +92,52 @@ def _check(q, k, v, n_heads):
         raise ValueError("q, k and v must share a device")
 
 
-def _launch(q, k, v, n_heads):
-    from .build import load
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t`` meets the kernels' copy rule: a unit last stride, and its
+    pointer and every other stride a multiple of 16 bytes, as TMA boxes and
+    16-byte asynchronous copies need.  The stride of a dimension of size 1
+    is never used and is not checked."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        return False
+    item = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * item % 16 == 0 for i in range(t.dim() - 1) if t.shape[i] > 1)
 
+
+#: the argument types of each kernel's C entry point (its last argument, the
+#: stream, is a pointer)
+_ARGTYPES = {
+    "flash_attention_bsc": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "flash_attention_streamed": [ctypes.c_void_p] * 4
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "flash_attention_multipass": [ctypes.c_void_p] * 4
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "flash_attention_onepass": [ctypes.c_void_p] * 4
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
+_BOUND = {}
+
+
+def _entry(name: str):
+    """The library of ``csrc/<name>.cu`` and its C function ``sdt_<name>``,
+    built and loaded at first use, with its argument and result types set
+    once (the per-call host cost of a launch is the ctypes call alone)."""
+    found = _BOUND.get(name)
+    if found is None:
+        from .build import load
+
+        lib, _ = load(name)
+        fn = getattr(lib, f"sdt_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sdt_cuda_error_string.restype = ctypes.c_char_p
+        found = _BOUND[name] = (lib, fn)
+    return found
+
+
+def _launch(q, k, v, n_heads):
     dh = q.shape[2] // n_heads
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bsc kernel takes head dims "
@@ -104,11 +147,10 @@ def _launch(q, k, v, n_heads):
                          f"got {q.dtype}")
     if q.stride(2) != 1 or k.stride(2) != 1 or v.stride(2) != 1:
         raise ValueError("flash_attention_bsc kernel needs unit channel stride")
-    lib, _ = load("flash_attention_bsc")
-    fn = lib.sdt_flash_attention_bsc
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if not all(aligned16(t) for t in (q, k, v)):
+        raise ValueError("flash_attention_bsc kernel needs 16-byte aligned rows "
+                         "(pointer and strides)")
+    lib, fn = _entry("flash_attention_bsc")
     b, sq, c = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
@@ -124,8 +166,6 @@ def _launch(q, k, v, n_heads):
 
 def _raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
-        lib.sdt_cuda_error_string.restype = ctypes.c_char_p
-        lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.sdt_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed ({err}): {msg}")
 
@@ -214,28 +254,20 @@ def _launch_bhsd(name, head_dims, q, k, v, *extra):
     The output is allocated as (B, Sq, H, Dh) memory and returned as its
     (B, H, Sq, Dh) view, so merging the heads back to (B, Sq, H*Dh)
     afterwards is free."""
-    from .build import load
-
     b, h, sq, dh = q.shape
     sk = k.shape[2]
     if dh not in head_dims:
         raise ValueError(f"{name} kernel takes head dims {head_dims}, got {dh}")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    item = q.element_size()
     for t in (q, k, v):
         if t.stride(3) != 1:
             raise ValueError(f"{name} kernel needs a unit head-dim stride")
-        # 16-byte cp.async copies: every row start must be 16-byte aligned
-        if t.data_ptr() % 16 or any(t.stride(i) * item % 16 for i in range(3)):
+        if not aligned16(t):
             raise ValueError(f"{name} kernel needs 16-byte aligned rows "
                              f"(pointer and strides)")
     if b > 65535 or h > 65535:
         raise ValueError(f"{name} kernel takes at most 65535 batch elements and heads")
-    lib, _ = load(name)
-    fn = getattr(lib, f"sdt_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib, fn = _entry(name)
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
                                          for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream

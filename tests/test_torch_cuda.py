@@ -38,28 +38,66 @@ def tolerance(dtype, ref):
     return TOL[dtype] * min(1.0, ref.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,s,c,heads", [
-    (2, 4096, 320, 8),    # SD-1.5 512², level 1: Dh 40
-    (2, 1024, 640, 8),    # level 2: Dh 80
-    (2, 256, 1280, 8),    # level 3: Dh 160
-    (2, 4096, 1280, 8),   # 2048², level 3
-    (2, 1024, 1280, 8),   # 2048², mid block
-    (2, 300, 32, 1),      # ragged KV tail, Dh 32
-    (3, 77, 32, 1),       # KV shorter than one tile
+def _k1_views(b, sq, sk, c, dtype, cuda, seed=0):
+    """q, k, v as the three C-wide slices of one fused (B, S, 3C) projection
+    (rows 3C apart, as the model makes them): its first sq and sk rows."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, max(sq, sk), 3 * c, device=cuda, generator=g).to(dtype)
+    q, k, v = qkv.split(c, dim=-1)
+    return q[:, :sq], k[:, :sk], v[:, :sk]
+
+
+@pytest.mark.parametrize("b,sq,sk,c,heads", [
+    (2, 4096, 4096, 320, 8),    # SD-1.5 512², level 1: Dh 40
+    (8, 4096, 4096, 320, 8),    # level 1 at batch 8 (four prompts, CFG)
+    (2, 1024, 1024, 640, 8),    # level 2: Dh 80
+    (2, 256, 256, 1280, 8),     # level 3: Dh 160
+    (2, 4096, 4096, 1280, 8),   # 2048², level 3
+    (2, 1024, 1024, 1280, 8),   # 2048², mid block
+    (2, 300, 300, 32, 1),       # ragged KV tail, Dh 32
+    (3, 77, 77, 32, 1),         # KV shorter than one tile
+    # Sq not a multiple of the q tile, Sk not one of the KV tile: Dh 40 with 8
+    # packed heads (a pad column read from the next head would show), Dh 80
+    # (128-token tiles), Dh 160 (64-token tiles), Dh 32 with 4 heads
+    (2, 1000, 1100, 320, 8),
+    (1, 333, 200, 640, 8),
+    (1, 130, 70, 1280, 8),
+    (2, 65, 257, 128, 4),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_k1_matches_plain(cuda, b, s, c, heads, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    qkv = torch.randn(b, s, 3 * c, device=cuda, generator=g).to(dtype)
-    q, k, v = qkv.split(c, dim=-1)  # rows 3C apart, as the model makes them
+def test_k1_matches_plain(cuda, b, sq, sk, c, heads, dtype):
+    q, k, v = _k1_views(b, sq, sk, c, dtype, cuda)
     before = fa.flash_attention_bsc.launches
     got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
     torch.cuda.synchronize()
     assert fa.flash_attention_bsc.launches == before + 1
-    assert got.dtype == dtype and got.shape == (b, s, c) and got.is_contiguous()
+    assert got.dtype == dtype and got.shape == (b, sq, c) and got.is_contiguous()
     ref = fa.flash_attention_bsc_plain(q, k, v, heads)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= tolerance(dtype, ref), err
+
+
+@pytest.mark.parametrize("c,tile", [(320, 128), (1280, 64)])  # Dh 40 and 160
+def test_k1_planted_fault_fails_the_check(cuda, c, tile):
+    """A call whose KV is short by one KV tile (a lost tile) must fail the
+    tolerance the kernel is held to, or the check could not see such a
+    fault."""
+    q, k, v = _k1_views(2, 1024, 1024, c, torch.bfloat16, cuda)
+    ref = fa.flash_attention_bsc_plain(q, k, v, 8)
+    bad = fa.flash_attention_bsc(q, k[:, :-tile], v[:, :-tile], n_heads=8)
+    err = (bad.float() - ref.float()).abs().max().item()
+    assert err > tolerance(torch.bfloat16, ref), err
+
+
+def test_k1_refuses_misaligned_rows(cuda):
+    qkv = torch.zeros(1, 256, 3 * 320 + 1, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv[..., 1:].split(320, dim=-1)  # pointers 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bsc(q, k, v, n_heads=8)
+    qkv = torch.zeros(1, 256, 3 * 320 + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :-4].split(320, dim=-1)  # rows 1928 bytes apart
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bsc(q, k, v, n_heads=8)
 
 
 def test_k1_refuses_unsupported_head_dim(cuda):
@@ -100,15 +138,37 @@ def _check_head_split(wrapper, plain, args, kw, dtype):
 
 @pytest.mark.parametrize("b,h,sq,sk,dh", [
     (2, 8, 4096, 4096, 40),    # SD-1.5 level-1 width at 512²
+    (8, 8, 4096, 4096, 40),    # the same at batch 8
     (1, 2, 1000, 1100, 16),    # ragged q and KV tails
     (1, 1, 300, 5000, 64),
     (1, 2, 200, 9300, 128),    # K4's widest head
+    (2, 8, 1000, 1100, 40),    # Sq not a multiple of the q tile, Sk not of the KV tile
+    (1, 3, 129, 65, 128),      # one 64-token KV tile and one token
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_k4_matches_plain(cuda, b, h, sq, sk, dh, dtype):
     args = _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed=1)
     _check_head_split(fa.flash_attention_streamed, fa.flash_attention_streamed_plain,
                       args, {}, dtype)
+
+
+def test_k4_takes_contiguous_head_split_tensors(cuda):
+    """(B, H, S, Dh) tensors of their own, whose head stride is larger than
+    their row stride (the views the UNet passes have it the other way)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args = [torch.randn(2, 3, s, 40, device=cuda, generator=g).to(torch.bfloat16)
+            for s in (300, 700, 700)]
+    _check_head_split(fa.flash_attention_streamed, fa.flash_attention_streamed_plain,
+                      args, {}, torch.bfloat16)
+
+
+def test_k4_planted_fault_fails_the_check(cuda):
+    """KV short by one 128-token tile must fail the tolerance."""
+    q, k, v = _head_split_views(2, 8, 1024, 4096, 40, torch.bfloat16, cuda, seed=8)
+    ref = fa.flash_attention_streamed_plain(q, k, v)
+    bad = fa.flash_attention_streamed(q, k[:, :, :-128], v[:, :, :-128])
+    err = (bad.float() - ref.float()).abs().max().item()
+    assert err > tolerance(torch.bfloat16, ref), err
 
 
 @pytest.mark.parametrize("b,h,sq,sk,dh,causal", [

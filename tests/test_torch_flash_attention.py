@@ -118,3 +118,26 @@ def test_self_attention_dispatches_to_k1():
         assert k1.call_count == 1
     ref = attention.apply(mod, x, n_heads=4, backend="plain")
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _fused_bf16(b, s, c, extra=0):
+    return torch.zeros(b, s, 3 * c + extra, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,want", [
+    # the UNet's q/k/v slices of one fused projection at SD-1.5's widths:
+    # rows 3C x 2 bytes apart, heads Dh x 2 = 80 / 160 / 320 bytes
+    (lambda: _fused_bf16(2, 4096, 320).split(320, dim=-1), True),
+    (lambda: _fused_bf16(2, 256, 1280).split(1280, dim=-1), True),
+    (lambda: torch.zeros(2, 300, 2 * 32).split(32, dim=-1), True),      # fp32 k/v halves
+    (lambda: _fused_bf16(1, 64, 40, extra=1)[..., 1:].split(40, -1), False),  # 2 bytes off
+    (lambda: _fused_bf16(1, 64, 40, extra=4)[..., :-4].split(40, -1), False),  # 248-byte rows
+    (lambda: [_fused_bf16(2, 64, 40)[:, :, ::2]], False),               # channel stride 2
+    (lambda: [_fused_bf16(1, 1, 40, extra=4)[..., :-4]], True),         # one row: its stride unused
+])
+def test_k1_alignment_rule(make, want):
+    """K1's kernel reads its tiles with TMA: every pointer and every stride
+    but the unit channel stride must be a multiple of 16 bytes, checked on
+    the host (the wrapper raises ValueError for a CUDA tensor that breaks
+    it)."""
+    assert all(fa.aligned16(t) for t in make()) == want

@@ -60,6 +60,28 @@ def test_every_kernel_source_has_a_wrapper():
         assert f'"{name}"' in wrappers or f"sdt_{name}" in wrappers, name
 
 
+def test_every_kernel_header_is_built():
+    """Each shared header of csrc/ is included by a kernel source, directly or
+    through another header, so build.py's hash of every header covers what
+    the libraries are built from and no header is left unbuilt."""
+    csrc = os.path.join(PACKAGE, "csrc")
+    text = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
+            if f.endswith((".cu", ".cuh"))}
+    reached = {f for f in text if f.endswith(".cu")}
+    while True:
+        more = {h for h in text if h.endswith(".cuh") and h not in reached
+                and any(f'#include "{h}"' in text[f] for f in reached)}
+        if not more:
+            break
+        reached |= more
+    assert sorted(h for h in text if h.endswith(".cuh")) == sorted(
+        h for h in reached if h.endswith(".cuh"))
+    assert "wgmma.mma_async" in text["wgmma.cuh"]
+    assert "cp.async.bulk.tensor" in text["flash_attention_tc.cuh"]
+    for name in ("flash_attention_bsc.cu", "flash_attention_streamed.cu"):
+        assert '#include "flash_attention_tc.cuh"' in text[name], name
+
+
 def _sources():
     for root, _, files in os.walk(PACKAGE):
         for f in files:
