@@ -27,8 +27,11 @@ Phases (any failure exits non-zero):
                 and 3 and mid block; K4 at the 2048² UNet level 1 (2|8, 8,
                 65536, 40), two ragged cases and KV 262144 with 4096 q rows
                 (the 4096² level-1 KV); K1 and K4 each in bf16 (the
-                tensor-core template) and fp32; K3 at the VAE mid block
-                (1, 1, 65536|4096, 512) and causal ragged cases; K2 at
+                tensor-core template) and fp32, K1 also at Dh 64 (5 heads);
+                K3 at the VAE mid block (1, 1, 65536|4096, 512) in bf16
+                (wgmma) and fp32, causal ragged cases at Dh 64, 128 and
+                512, and head dims it pads (80 and 320 over 40960+ KV
+                tokens), with its launch configuration; K2 at
                 the cross-attentions of a 4-window prompt at 512² (2|8, 8,
                 4096|1024|256|64, KV 308, Dh 40|80|160) on views of one
                 fused k/v projection, a ragged KV 300, a causal (1, 2,
@@ -44,16 +47,22 @@ Phases (any failure exits non-zero):
                 at K1's (KV short by one 128-token tile), at K2's (KV short
                 by 64 tokens), at K5's the plain
                 version with the padding applied before the activation, must
-                fail the same check.  CUDA-event times of the kernel, the
-                plain version and, where one PyTorch call computes the same
-                function, of that call (scaled_dot_product_attention; for K5
-                cuDNN's conv on the already activated input), used nowhere
-                in the port; for K1, K4 and K2 (K1 and K2 calls are shorter
-                than their host launch cost) device times under
-                torch.profiler, with SDPA's device time, the bound and the
-                exp floor beside K1's and K4's.  The host time of one small
-                K1 call, its C function's argument types bound once against
-                bound before every call.
+                fail the same check.  Device times under torch.profiler of
+                the kernel and, where one PyTorch call computes the same
+                function, of that call (scaled_dot_product_attention, with
+                the bound and the exp floor beside K1's, K4's and K3's; for
+                K5 cuDNN's conv on the already activated input, and the
+                plain tier's GroupNorm + SiLU + cuDNN conv), used nowhere in
+                the port; CUDA-event times of the plain versions.  Where the
+                profiler records no kernel three times over, a call of 1 ms
+                or more is timed by CUDA events instead (the kernels line
+                says which timer each entry's times came from); a shorter
+                one fails the run.  K5 also summed over the 44 convs of a
+                512² CFG step, its launch configuration and the Cin split it
+                takes at each conv shape.
+                The host time of one small K1 call, its C function's
+                argument types bound once against bound before every
+                call.
   4. small    — SD-1.5 at full width, FP32, 128², 3 DDPM+CFG steps: the
                 card against the port's CPU plain path on the same seeded
                 weights and noise (latents PSNR > 55 dB, uint8 image PSNR
@@ -91,11 +100,12 @@ Phases (any failure exits non-zero):
                 must also equal the per-step counts PERF.md states, and K5
                 must run 44 times a UNet evaluation on "kernel" and
                 "kernel_fold", never on "plain" and "fold".
-  7. step     — one 2048² CFG UNet evaluation timed, and profiled for the
+  7. step     — one 2048² VAE decode timed, with K3's device time in it;
+                one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
                 512² CFG UNet evaluation with a 77- and a 308-token context,
                 and one of CFG batch 8 (four prompts); each with the device
-                time of K2 and of the K1/K4 template by head dim.
+                time of K2, K5 and of the K1/K4 template by head dim.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -262,7 +272,8 @@ def phase_k1(fa, card, results):
     level checked on a subset of q rows, whose plain scores would take
     17 GB), ragged cases (Sq not a multiple of the q tile, Sk not one of
     the KV tile; Dh 40 with 8 packed heads, so a pad column read from the
-    next head would show), in bf16 (the tensor-core template) and fp32; the
+    next head would show), Dh 64 (level 1 at 5 heads, timed beside SDPA,
+    and ragged), in bf16 (the tensor-core template) and fp32; the
     planted fault (KV short by one 128-token tile); device times under the
     profiler beside SDPA's, the bound and the exp floor."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -272,9 +283,11 @@ def phase_k1(fa, card, results):
               (1, 333, 200, 640, 8, 333), (1, 130, 70, 1280, 8, 130)]
     cases += [(2, 16384, 16384, 640, 8, 2048), (2, 4096, 4096, 1280, 8, 4096),
               (2, 1024, 1024, 1280, 8, 1024)]
-    timed = {(b, s, s, c) for b in (2, 8)
+    # Dh 64: SD-1.5's level 1 at 5 heads (SD-2.x/SDXL's head dim), and ragged
+    cases += [(2, 4096, 4096, 320, 5, 4096), (1, 300, 333, 128, 2, 300)]
+    timed = {(b, s, s, c, 8) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))}
-    timed |= {(2, 16384, 16384, 640), (2, 4096, 4096, 1280)}
+    timed |= {(2, 16384, 16384, 640, 8), (2, 4096, 4096, 1280, 8), (2, 4096, 4096, 320, 5)}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, sk, c, heads, rows in cases:
@@ -292,7 +305,7 @@ def phase_k1(fa, card, results):
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             line = (f"K1 {str(dtype)[6:]} B={b} Sq={sq} Sk={sk} C={c} H={heads} "
                     f"Dh={c // heads}: max abs err {err:.3e} on {rows} q rows (tol {tol:.3e})")
-            main = dtype == torch.bfloat16 and (b, sq, c) == (2, 4096, 320)
+            main = dtype == torch.bfloat16 and (b, sq, c, heads) == (2, 4096, 320, 8)
             if main:  # KV short by one 128-token tile must fail the check
                 bad = fa.flash_attention_bsc(q, k[:, :-128], v[:, :-128], n_heads=heads)
                 bad_err = max_err(bad, ref)
@@ -300,9 +313,10 @@ def phase_k1(fa, card, results):
                                      f"(max abs err {bad_err:.3e} <= {tol:.3e})")
                 line += (f"; planted fault (KV short by 128 tokens) caught: max abs err "
                          f"{bad_err:.3e}")
-            if (b, sq, sk, c) in timed:
+            if (b, sq, sk, c, heads) in timed:
                 flops = 4.0 * sq * sk * c * b
                 exps = b * heads * sq * sk
+                n0 = FALLBACKS[0]
                 ms = one_call_device_ms(lambda: fa.flash_attention_bsc(q, k, v, n_heads=heads))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.1f} "
                          f"TFLOP/s)")
@@ -318,7 +332,7 @@ def phase_k1(fa, card, results):
                         pms = one_call_device_ms(
                             lambda: fa.flash_attention_bsc_plain(q, k, v, heads))
                         rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms,
-                                   bound_by=by)
+                                   bound_by=by, timer=timer_since(n0))
                         line += f"; plain {pms:.4f} ms device"
                 line += f"  [{card}]"
             print(line, flush=True)
@@ -388,9 +402,11 @@ def _planted_fault(name, wrapper, args, kw, rows, ref, tol, drop=4096):
 
 def phase_long(fa, card, results):
     """K4 and K3 vs their plain versions at the 2048² shapes and edges.  K4
-    runs every case in bf16 (the tensor-core template) and fp32; its times
-    are device times under the profiler, with SDPA's, the bound and the exp
-    floor beside them."""
+    runs every case in bf16 (the tensor-core template) and fp32; K3 its
+    VAE shapes in both, causal cases (Dh 64, 128, 512) and head dims K4
+    lacks (80, 320), which it pads.  Times are device times under the
+    profiler, with SDPA's, the bound and the exp floor beside them in bf16."""
+    k3_launches(fa)
     g = torch.Generator(device="cuda").manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
     k4 = [  # B, Sq, Sk, H, q rows checked, role
@@ -409,6 +425,11 @@ def phase_long(fa, card, results):
         ("K3", 1, 4096, 4096, 1, 512, f32, False, 4096, "time"),
         ("K3", 1, 1000, 1000, 2, 512, bf, True, 1000, ""),
         ("K3", 1, 3001, 3001, 1, 64, f32, True, 3001, ""),
+        # head dims K4 lacks, padded in the kernel (TMA zero-fills past Dh)
+        ("K3", 1, 2000, 40960, 2, 80, bf, False, 2000, ""),
+        ("K3", 1, 999, 40960, 2, 80, f32, False, 999, ""),
+        ("K3", 1, 1500, 41000, 1, 320, bf, False, 1500, ""),
+        ("K3", 1, 3001, 3001, 2, 128, bf, True, 3001, ""),
     ]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
@@ -428,27 +449,45 @@ def phase_long(fa, card, results):
             flops = 4.0 * b * h * sq * sk * dh * (0.5 if causal else 1.0)
             nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
             bms, by = bound_ms(flops, nbytes, dtype)
-            if kname == "K4":  # device time; SDPA's beside it
-                ms = device_ms(lambda: wrapper(*args, **kw))
-                lib, why = sdpa_ms(*args, timer=device_ms)
-                line += (f"; kernel {ms:.3f} ms device ({flops / (ms * 1e-3) / 1e12:.1f} "
-                         f"TFLOP/s), sdpa {'none' if lib is None else f'{lib:.3f}'} ms "
-                         f"device{' ' + why if why else ''}; bound {bms:.3f} ms by {by}, "
-                         f"exp floor {exp_floor_ms(b * h * sq * sk):.3f} ms")
-            else:
-                ms = cuda_ms(lambda: wrapper(*args, **kw))
-                line += f"; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
+            # device time; in bf16 SDPA's beside it, the bound and the exp floor
+            timer = device_ms if sq * sk >= 1 << 28 else one_call_device_ms
+            n0 = FALLBACKS[0]
+            ms = timer(lambda: wrapper(*args, **kw))
+            line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.1f} "
+                     f"TFLOP/s)")
+            lib = None
+            if dtype == bf:
+                lib, why = sdpa_ms(*args, timer=timer)
+                line += (f", sdpa {'none' if lib is None else f'{lib:.4f}'} ms "
+                         f"device{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, "
+                         f"exp floor {exp_floor_ms(b * h * sq * sk):.4f} ms")
             if role == "main":
                 pms = cuda_ms(lambda: plain(*args, *kw.values()), 1)
-                if kname == "K3":
-                    lib, why = sdpa_ms(*args)
-                    line += (f", sdpa {'none' if lib is None else f'{lib:.3f}'} ms"
-                             f"{' ' + why if why else ''}; bound {bms:.3f} ms by {by}")
-                rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
+                rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
+                           timer=timer_since(n0))
                 line += f"; plain {pms:.3f} ms"
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
+
+
+def k3_launches(fa):
+    """K3's bf16 launch configuration at each padded width: ring stages (K or
+    V tiles of 32 tokens), shared memory, CTAs an SM."""
+    import ctypes
+
+    lib, _ = fa._entry("flash_attention_multipass")
+    conf = lib.sdt_flash_attention_multipass_config
+    conf.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    conf.restype = ctypes.c_int
+    parts = []
+    for dh in (128, 256, 512):
+        vals = [ctypes.c_int() for _ in range(3)]
+        check(conf(dh, *map(ctypes.byref, vals)) == 0, "K3 config")
+        stages, smem, ctas = (v.value for v in vals)
+        parts.append(f"Dh<={dh}: {stages} stages, {smem} B, {ctas} CTA(s) an SM")
+    print("K3 bf16 launch: 384 threads (a producer and two consumer warpgroups, 64 q rows), "
+          "no cluster; " + "; ".join(parts), flush=True)
 
 
 def cross_views(b, sq, sk, heads, dh, dtype, g):
@@ -495,6 +534,7 @@ def phase_k2(fa, card, results):
                 # are device times under the profiler
                 flops = 4.0 * b * h * sq * sk * dh
                 events = cuda_ms(lambda: wrapper(*args, **kw), 50)
+                n0 = FALLBACKS[0]
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
@@ -504,7 +544,8 @@ def phase_k2(fa, card, results):
                     lib_events, _ = sdpa_ms(*args)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
-                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
+                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
+                               timer=timer_since(n0))
                     line += (f"; device: plain {pms:.4f} ms, sdpa "
                              f"{'none' if lib is None else f'{lib:.4f}'} ms"
                              f"{' ' + why if why else ''} "
@@ -632,25 +673,31 @@ def phase_k5(k5, card, results):
             if dtype == torch.bfloat16 and not with_temb and (b, h, w, cin, cout) in (
                     main, (2, 256, 256, 320, 320)):
                 flops = conv_flops(b, h, w, cin, cout)
-                ms = cuda_ms(lambda: k5.scaled_silu_conv3x3(x, scale, shift, weight, bias))
+                n0 = FALLBACKS[0]
+                ms = one_call_device_ms(
+                    lambda: k5.scaled_silu_conv3x3(x, scale, shift, weight, bias))
                 pms = cuda_ms(lambda: k5.scaled_silu_conv3x3_plain(x, scale, shift,
                                                                    weight, bias))
                 a = torch.nn.functional.silu(x.float() * scale[:, :, None, None]
                                              + shift[:, :, None, None]).to(dtype)
                 bias_c = bias.to(dtype)
-                lib = cuda_ms(lambda: torch.nn.functional.conv2d(a, weight, bias_c, padding=1))
-                dev = device_ms(lambda: [k5.scaled_silu_conv3x3(x, scale, shift, weight, bias)
-                                         for _ in range(10)]) / 10
+                lib = one_call_device_ms(
+                    lambda: torch.nn.functional.conv2d(a, weight, bias_c, padding=1))
+                tier = one_call_device_ms(lambda: plain_tier_conv(gn, x, weight, bias_c))
+                fused = one_call_device_ms(lambda: k5.gn_silu_conv3x3(
+                    gn, _Conv(weight, bias), x, 32))
                 nbytes = (x.numel() + got.numel() + weight.numel()) * x.element_size() \
                     + 4 * (scale.numel() + shift.numel() + bias.numel())
                 bms, by = bound_ms(flops, nbytes, dtype)
                 if (b, h, w, cin, cout) == main:
-                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by)
-                print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.3f} ms "
-                      f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; device time under the "
-                      f"profiler {dev:.3f} ms), plain {pms:.3f} ms, "
-                      f"cuDNN conv alone on the activated input {lib:.3f} ms; bound "
-                      f"{bms:.4f} ms by {by}  [{card}]", flush=True)
+                    rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
+                               timer=timer_since(n0))
+                print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.4f} ms device "
+                      f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.3f} ms "
+                      f"(events), cuDNN conv alone on the activated input {lib:.4f} ms "
+                      f"device, the plain tier's GroupNorm + SiLU + cuDNN conv {tier:.4f} ms "
+                      f"device, the kernel tier's folded GroupNorm + K5 {fused:.4f} ms "
+                      f"device; bound {bms:.4f} ms by {by}  [{card}]", flush=True)
             del x, gn, weight, bias, temb, scale, shift, got, ref
         r, (b, h, w, cin, cout, with_temb, err, tol) = worst
         print(f"K5 {str(dtype)[6:]}: {len(cases)} cases within tolerance; closest "
@@ -659,44 +706,111 @@ def phase_k5(k5, card, results):
         torch.cuda.empty_cache()
     # the 44 convs of one 512² CFG step: device time under the profiler (the
     # launches are host-bound at the small levels, so CUDA events around
-    # back-to-back calls would time the host)
-    calls = {"kernel": [], "plain": [], "cudnn": []}
+    # back-to-back calls would time the host); beside K5 alone, the kernel
+    # tier's whole half (folded GroupNorm + K5), the plain tier's (GroupNorm
+    # + SiLU + cuDNN conv), cuDNN's conv alone and K5's plain version
+    calls = {"kernel": [], "kernel tier": [], "plain tier": [], "cudnn": [], "plain": []}
     flops = 0.0
     for h, w, cin, cout in shapes:
         x, gn, weight, bias, _ = k5_inputs(2, h, w, cin, cout, torch.bfloat16, g)
         scale, shift = k5.fold_gn_affine(gn, x, 32)
         a = torch.nn.functional.silu(x.float() * scale[:, :, None, None]
                                      + shift[:, :, None, None]).to(torch.bfloat16)
-        args, conv_args = (x, scale, shift, weight, bias), (a, weight, bias.to(torch.bfloat16))
+        bias_c = bias.to(torch.bfloat16)
+        args = (x, scale, shift, weight, bias)
         n = step.count((h, w, cin, cout))
         calls["kernel"] += [(k5.scaled_silu_conv3x3, args)] * n
-        calls["plain"] += [(k5.scaled_silu_conv3x3_plain, args)] * n
+        calls["kernel tier"] += [(lambda gn, x, cv: k5.gn_silu_conv3x3(gn, cv, x, 32),
+                                  (gn, x, _Conv(weight, bias)))] * n
+        calls["plain tier"] += [(plain_tier_conv, (gn, x, weight, bias_c))] * n
         calls["cudnn"] += [(lambda a, w, b: torch.nn.functional.conv2d(a, w, b, padding=1),
-                            conv_args)] * n
+                            (a, weight, bias_c))] * n
+        calls["plain"] += [(k5.scaled_silu_conv3x3_plain, args)] * n
         flops += n * conv_flops(2, h, w, cin, cout)
     check(len(step) == K5_PER_EVAL, f"{len(step)} res-block convs a step, PERF.md states "
                                     f"{K5_PER_EVAL}")
-    dev = {k: device_ms(lambda: [fn(*args) for fn, args in v]) for k, v in calls.items()}
+    dev = {k: device_ms(lambda: [fn(*args) for fn, args in v], len(v))
+           for k, v in calls.items()}
     print(f"K5 one 512² CFG step (44 convs, {flops / 1e9:.0f} GFLOP, bound "
           f"{flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms), device time: kernel "
           f"{dev['kernel']:.3f} ms ({flops / (dev['kernel'] * 1e-3) / 1e12:.1f} TFLOP/s), "
-          f"plain {dev['plain']:.3f} ms, cuDNN conv alone {dev['cudnn']:.3f} ms "
-          f"({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in dev.items() if k != "kernel")
+          + f" ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
     del calls
+    k5_launches(k5, card, cfg)
     torch.cuda.empty_cache()
+
+
+class _Conv(torch.nn.Module):
+    """A conv parameter holder for ``gn_silu_conv3x3`` (weight, bias)."""
+
+    def __init__(self, weight, bias):
+        super().__init__()
+        self.weight, self.bias = weight, bias
+
+
+def plain_tier_conv(gn, x, weight, bias):
+    """What conv_backend="plain" runs for a res-block half in BF16: GroupNorm
+    (fp32 statistics) -> SiLU -> cuDNN's conv (models/unet.py ResBlock)."""
+    from pytorch_stable_diffusion_tpu_torch.core.dtypes import BF16
+    from pytorch_stable_diffusion_tpu_torch.ops import norm
+
+    h = norm.group_norm_silu(gn, x, 32, policy=BF16)
+    return torch.nn.functional.conv2d(h, weight, bias, padding=1)
+
+
+def k5_launches(k5, card, cfg):
+    """K5's bf16 launch configuration (weight-ring stages, shared memory, CTAs
+    an SM) and the Cin split it takes at each distinct 512² and 2048²
+    res-block conv at batch 2."""
+    import ctypes
+
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import build
+
+    lib, _ = build.load("scaled_silu_conv3x3")
+    conf = lib.sdt_scaled_silu_conv3x3_config
+    conf.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 4
+    conf.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    splits = {}
+    for size in (512, 2048):
+        for h, w, cin, cout in sorted(set(res_convs(cfg, size, size)),
+                                      key=lambda s: (-s[0], s[2], s[3])):
+            check(conf(2, h, w, cin, cout, *map(ctypes.byref, vals)) == 0, "K5 config")
+            splits[(h, w, cin, cout)] = vals[3].value
+    stages, smem, ctas = (v.value for v in vals[:3])
+    print(f"K5 bf16 launch: 384 threads (a producer and two consumer warpgroups), "
+          f"{stages} weight stages, {smem} bytes of shared memory, {ctas} CTA(s) an SM; "
+          f"Cin split (a cluster along z) at batch 2: "
+          + ", ".join(f"{s}: {n}" for s, n in splits.items()) + f"  [{card}]", flush=True)
 
 
 def one_call_device_ms(fn):
     """Device time of one call of ``fn``: ten calls under the profiler, over
     ten."""
-    return device_ms(lambda: [fn() for _ in range(10)]) / 10
+    return device_ms(lambda: [fn() for _ in range(10)], 10) / 10
 
 
-def device_ms(fn):
-    """Device time of the CUDA kernels ``fn`` launches, summed from one run
-    under torch.profiler after a warm-up run.  A run in which the profiler
-    recorded no kernel at all (it happens now and then) is made again, up to
-    three times; then the script fails."""
+#: how many device_ms measurements so far were timed by CUDA events
+FALLBACKS = [0]
+#: the least time a call must take for CUDA events around it to stand for
+#: its device time: 1 ms is a hundred times a launch's host cost
+EVENTS_MIN_MS = 1.0
+
+
+def timer_since(n0):
+    """The timer of the measurements made since FALLBACKS was ``n0``."""
+    return "profiler" if FALLBACKS[0] == n0 else "events"
+
+
+def device_ms(fn, calls=1):
+    """Device time of the CUDA kernels ``fn`` launches in its ``calls``
+    calls, summed from one run under torch.profiler after a warm-up run.  A
+    run in which the profiler recorded no kernel at all is made again, up to
+    three times.  Then, where a call takes EVENTS_MIN_MS or more, the run is
+    timed with CUDA events around it, which the script says on a line of its
+    own and counts in FALLBACKS; a shorter call fails the run, because events
+    around it would time the host's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -709,7 +823,14 @@ def device_ms(fn):
                     if e.device_type.name == "CUDA") / 1e3
         if total > 0:
             return total
-    check(False, "torch.profiler recorded no kernel in three runs")
+    ms = cuda_ms(fn, 1)
+    check(ms / calls >= EVENTS_MIN_MS,
+          f"torch.profiler recorded no kernel in three runs, and a call ({ms / calls:.4f} ms "
+          f"by events) is too short for CUDA events to time the device")
+    FALLBACKS[0] += 1
+    print(f"device_ms: torch.profiler recorded no kernel in three runs; timed by CUDA "
+          f"events instead ({ms / calls:.4f} ms a call): {ms:.4f} ms", flush=True)
+    return ms
 
 
 # ----------------------------------------------------------- small reference
@@ -797,23 +918,31 @@ def zero_counts():
         w.launches = 0
 
 
+#: head dims each kernel is built for on the card (ROADMAP §2); K3 takes
+#: every multiple of 8 up to 512
+K1_DH, K4_DH, K2_DH = (32, 40, 64, 80, 160), (16, 40, 64, 128), (16, 40, 64, 80, 128, 160)
+
+
 def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     """The kernel that the port's documented dispatch (ops/attention.py,
     ROADMAP §2) gives a non-causal attention call, written out here rather
     than read from ``attention.route``, so that the launch counts check the
-    routing too: K4 (Dh <= 128) or K3 from ``flash_only`` KV tokens on; on
-    the kernel backend from 256 KV tokens, K1 for self-attention with
-    Dh <= 160 (K3 above) and K2 for cross-attention over a padded KV up to
-    9216 with Dh <= 160; otherwise materialized scores (None)."""
+    routing too: K4 (at its head dims) or K3 from ``flash_only`` KV tokens
+    on; on the kernel backend from 256 KV tokens, K1 for self-attention at
+    its head dims (K3 at other multiples of 8 up to 512) and K2 for
+    cross-attention over a padded KV up to 9216 at its head dims;
+    otherwise materialized scores (None)."""
+    k3 = dh % 8 == 0 and dh <= 512
     if kv >= flash_only:
-        return "K4" if dh <= 128 else "K3"
+        check(dh in K4_DH or k3, f"no kernel takes Dh {dh} at {kv} KV tokens")
+        return "K4" if dh in K4_DH else "K3"
     if backend != "kernel" or kv < 256:
         return None
     if cross:
-        check(-(-kv // 128) * 128 <= 9216 and dh <= 160,
+        check(-(-kv // 128) * 128 <= 9216 and dh in K2_DH,
               f"no request here has cross-attention over {kv} tokens at Dh {dh}")
         return "K2"
-    return "K1" if dh <= 160 else "K3"
+    return "K1" if dh in K1_DH else "K3" if k3 else None
 
 
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
@@ -905,7 +1034,8 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2):
             return f"tc<{tc.group(1)}>"
         return next((label for label, name in (("K1 fp32", "bsc_fp32_kernel"),
                                                ("K4 fp32", "streamed_fp32_kernel"),
-                                               ("K2", "onepass")) if name in key), None)
+                                               ("K2", "onepass"), ("K5", "conv_tc_kernel"))
+                     if name in key), None)
 
     times = {}
     for e in rows:
@@ -922,6 +1052,41 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2):
           f"device busy, busy share {share}; {'; '.join(parts)}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
+
+
+def phase_vae(models, cfg, card, size=2048):
+    """One VAE decode of a ``size``² image (its mid block on K3 at 65536
+    tokens): wall time, and the device time of K3 and of everything under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lat = size // cfg.vae.downsample_factor
+    z = torch.randn(1, 4, lat, lat, device="cuda", generator=g).contiguous(
+        memory_format=torch.channels_last)
+
+    def decode():
+        with torch.inference_mode():
+            return models["decoder"](z, cfg.policy,
+                                     attention_backend=cfg.vae_attention_backend,
+                                     reference_quirks=cfg.reference_quirks)
+
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    k3 = sum(e.self_device_time_total for e in rows if "multipass" in e.key) / 1e3
+    dev = (f"{busy:.2f} ms device, K3 {k3:.2f} ms device" if busy > 0
+           else "device time not measured (the profiler recorded no kernel)")
+    print(f"vae ({size}², batch 1, decode): {wall:.4f} s wall, {dev}  [{card}]", flush=True)
 
 
 # ------------------------------------------------------------------- main
@@ -1161,6 +1326,7 @@ def main():
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")
 
     # 7. one UNet evaluation: time, device busy share, K2's share
+    phase_vae(models, cfg, card)
     phase_step(models, cfg, card)
     phase_step(models, tier["kernel"], card)
     phase_step(models, cfg, card, size=512, context=77)

@@ -1,4 +1,5 @@
-// Helpers shared by the flash attention kernels of csrc/ (K1, K3, K4).
+// Helpers shared by the kernels of csrc/ (the copy helpers by the attention
+// kernels; the exported error string by all).
 //
 // Each kernel source includes this header once and is built into its own
 // shared library (ops/cuda/build.py, which also hashes this header into the

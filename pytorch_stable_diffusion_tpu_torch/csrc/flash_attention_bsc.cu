@@ -245,6 +245,7 @@ cudaError_t dispatch_dh(int dtype, int head_dim, const void* q, const void* k, c
   switch (head_dim) {
     SDT_CASE(32)
     SDT_CASE(40)
+    SDT_CASE(64)
     SDT_CASE(80)
     SDT_CASE(160)
     default:

@@ -463,10 +463,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 4-d map (Dh, head, row, batch) of a bf16 tensor with a unit Dh stride,
-// boxes of {8, 1, rows, 1}; strides in elements.  A dim of size 1 takes a
-// nominal stride (its stride is never used).  Rows past the end read as 0.
+// boxes of {cols, 1, rows, 1} (8 columns and no swizzle unless asked);
+// strides in elements.  A dim of size 1 takes a nominal stride (its stride
+// is never used).  Rows past the end, and columns past Dh, read as 0.
 inline bool make_map(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int batch,
-                     long long s_h, long long s_r, long long s_b, int rows) {
+                     long long s_h, long long s_r, long long s_b, int rows, int cols = 8,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)seq,
@@ -474,10 +476,10 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int dh, int heads, int s
   const cuuint64_t strides[3] = {heads > 1 ? (cuuint64_t)s_h * 2 : 16,
                                  seq > 1 ? (cuuint64_t)s_r * 2 : 16,
                                  batch > 1 ? (cuuint64_t)s_b * 2 : 16};
-  const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel
 //   pytorch_stable_diffusion_tpu/ops/pallas/conv.py::scaled_silu_conv3x3
-//   (body: _kernel), the body of every UNet res-block half.
+//   (:218, pallas_call :256, body _kernel :53), the body of every UNet
+//   res-block half.
 // It computes what that kernel computes,
 //   out[b, y, x, :] = bias + sum_{dy, dx} a[b, y + dy - 1, x + dx - 1, :] . W[:, :, dy, dx]
 //   with a = silu(x * scale[b, c] + shift[b, c]) inside the image and 0 outside:
@@ -14,67 +15,65 @@
 //
 // Layouts.  x and out are NHWC memory (the port's channels_last (B, C, H, W)
 // tensors).  The weight is the port's OIHW parameter in channels_last memory,
-// i.e. (Cout, 3, 3, Cin): for each output channel the nine taps follow each
-// other with Cin contiguous, so the kernel reads the parameter in place — no
-// per-call permute, no cached copy.  Offsets are 64-bit products: an
-// (8, 256, 256, 960) activation holds 5e8 elements.
+// i.e. (Cout, 3, 3, Cin): the kernel reads it in place through a tensor map
+// over (Cin, tap, Cout) — no per-call permute, no cached copy.
 //
-// bf16 path: an implicit GEMM on the tensor cores, M = B*H*W output pixels,
-// N = Cout, K = 9*Cin.  One CTA of 128 threads (2x2 warps, 64x32 outputs
-// each) owns an 8x16-pixel patch of one image and 64 output channels, and
-// walks Cin in chunks of 16.  For each chunk it stages in shared memory
-//   * the ACTIVATED halo, 10x18 pixels x 16 channels: read raw with 16-byte
-//     loads, x*scale+shift and SiLU in fp32, stored as bf16 (pixels outside
-//     the image stored as 0).  Each input element is activated 180/128 =
-//     1.4x per CTA instead of 9x as an im2col would;
-//   * the chunk's weights for all nine taps (64 x 16 per tap), by cp.async.
-// The nine taps then read shifted windows of the same halo: per tap and
-// warp, 4 ldmatrix.x4 of A (one m16 tile is one 16-pixel row of the patch,
-// so the tap's shift is just another row address per lane), 2 ldmatrix.x4 of
-// B and 16 mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  Shared rows are 48
-// bytes apart, so the 8 rows an ldmatrix phase reads fall in distinct banks.
-// Two stages: chunk k+1's weights are in flight (cp.async) and its raw halo
-// in registers while chunk k computes; the halo is activated and stored after
-// the math.  Ragged edges (H, W not multiples of the patch, Cout not a
-// multiple of 64, Cin not a multiple of 16) are masked: halo and weight
-// vectors past the edge are zero, stores past it are skipped.
+// What bounds it on the H100.  A res-block conv costs 2*9*Cin*Cout*H*W*B FLOP
+// against x, out and W moved once: (2, 64, 64, 960 -> 320) is 45 GFLOP and
+// 10 MB, 0.046 ms at 989 TFLOP/s against 0.003 ms of bytes, so on paper it
+// is compute-bound; the 44 convs of a 512² CFG step are 653 GFLOP, 0.66 ms.
+// On the card the activation bounds it: every CTA activates its halo
+// (affine + SiLU, ~8 instructions an element) for its own output channels,
+// and a build without that work ran the main shape far faster.  So a CTA
+// takes as many output channels as it can hold (320) and as small a halo as
+// a wgmma tile allows (8x8 pixels: 100 halo pixels for 64 outputs), SiLU
+// divides with the approximate division (__fdividef), and the small levels,
+// which would leave most SMs idle, split Cin.
 //
-// fp32 path (the FP32 policy's checks): the same halo staging in fp32 and a
-// CUDA-core FMA loop, 8x8 pixels x 64 channels a CTA, each of 256 threads a
-// 4x4 register tile; no TF32.
+// bf16 design: an implicit GEMM on wgmma, M = output pixels, N = Cout,
+// K = 9 x Cin, walked as 64-channel chunks x 9 taps.  One CTA of three
+// warpgroups per (8x8-pixel patch, 320 output channels, share of Cin):
+//   * a producer warpgroup (setmaxnreg 24) issues every TMA load: per chunk
+//     the RAW 10x10-pixel halo (a 4-d map over (Cin, W, H, B), 128-byte
+//     swizzle; pixels outside the image come back as zeros) into a ring of
+//     two, one chunk ahead, and per (chunk, tap) the 320 x 64 weight tile
+//     (two boxes of a 3-d map over (Cin, tap, Cout), 128-byte swizzle) into
+//     a ring of four;
+//   * two consumer warpgroups, 160 output channels each, activate each raw
+//     halo element ONCE (fp32 affine + SiLU, rounded to bf16; pixels outside
+//     the image and channels past Cin written as 0, so the padding comes
+//     after the activation) into a bf16 halo buffer stored as 8-channel
+//     slabs, [slab][halo pixel][8 channels] (the no-swizzle core-matrix
+//     layout).  A patch row is 8 consecutive halo pixels, so the A operand
+//     of tap (dy, dx) is the same buffer read through a descriptor whose
+//     start is (dy*10 + dx)*16 bytes on: core-matrix rows 16 bytes apart,
+//     8-row groups (patch rows) one halo row (160 bytes) apart (SBO), k
+//     halves one slab apart (LBO).  No im2col, no per-tap copy; the 8x8
+//     patch also fits the 8x8 level with no wasted rows;
+//   * wgmma m64n160k16 with both operands from shared memory, 4 a tap,
+//     two taps in flight; chunk k+1's activation runs in slices between the
+//     taps of chunk k, while their products are in flight, into the third
+//     of three halo buffers, so the products never drain between chunks;
+//   * split K: where (pixel tiles x channel tiles) would not fill the SMs,
+//     the Cin chunks are split over a thread-block cluster of up to 8 CTAs
+//     along z; each writes its fp32 partial tile to its own shared memory and
+//     each reduces a share of the rows over the cluster's partials
+//     (distributed shared memory), adds the bias and stores bf16.  One
+//     epilogue serves every split count, 1 included (16-byte stores of 8
+//     channels).  Shared memory (~225 KB) holds one CTA an SM, so the split
+//     is the launch's per-grid occupancy choice.
+// Ragged H and W (masked on store), Cout (TMA zero rows, masked on store) and
+// Cin (a multiple of 8: TMA zero channels, activations masked to 0).
 //
-// What bounds it on the H100.  At SD-1.5 512² a res-block conv costs
-// 2*9*Cin*Cout*H*W*B FLOP against x, out and W moved once: e.g. (2, 64, 64,
-// 960 -> 320) is 45 GFLOP and 10 MB, 0.046 ms at 989 TFLOP/s against 0.003
-// ms of bytes, so it is compute-bound; the 44 convs of a CFG step are 653
-// GFLOP, 0.66 ms.  This design reaches a fraction of the tensor-core peak:
-// mma.sync instead of wgmma, two stages only, the activation on the CUDA
-// cores inside the main loop, 8x16 patches that waste half their rows on
-// the 8x8 level, and few CTAs there (B = 2: 40 CTAs at Cout 1280).
-// Left for later: wgmma fed by TMA through a multi-stage ring, split-K at
-// the 8x8 level.
+// fp32 path (the FP32 policy's checks): the activated halo staged in fp32 in
+// shared memory and a CUDA-core FMA loop, 8x8 pixels x 64 channels a CTA,
+// each of 256 threads a 4x4 register tile; no TF32.
 #include "common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------ bf16 path
-constexpr int TH = 8;                    // patch rows
-constexpr int TW = 16;                   // patch columns: one m16 tile a row
-constexpr int BN = 64;                   // output channels a CTA
-constexpr int BK = 16;                   // input channels a chunk
-constexpr int HALO_W = TW + 2;
-constexpr int HALO = (TH + 2) * HALO_W;  // 180 halo pixels
-constexpr int LD = BK + 8;               // shared row stride: 48 B
-constexpr int THREADS = 128;
-constexpr int HALO_VECS = HALO * BK / 8;  // 16-byte vectors of 8 channels
-constexpr int HALO_ITEMS = (HALO_VECS + THREADS - 1) / THREADS;
-constexpr int W_VECS = 9 * BN * BK / 8;
-constexpr int HALO_ELEMS = HALO * LD;
-constexpr int STAGE_ELEMS = HALO_ELEMS + 9 * BN * LD;
-constexpr size_t SMEM_BYTES = 2 * STAGE_ELEMS * sizeof(bf16);
-static_assert(HALO_ELEMS * sizeof(bf16) % 16 == 0, "weights must start 16-byte aligned");
 
 struct Geometry {
   int H, W, cin, cout, tiles_w, tiles_per_image;
@@ -82,196 +81,343 @@ struct Geometry {
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + __expf(-v)); }
 
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
+// ------------------------------------------------------------ bf16 path
+namespace tc {
+
+using sdt_tc::bar_sync;
+using sdt_tc::fence_regs;
+using sdt_tc::mbar_arrive;
+using sdt_tc::mbar_expect_tx;
+using sdt_tc::mbar_init;
+using sdt_tc::mbar_wait;
+using sdt_tc::smem_u32;
+using sdt_tc::wgmma_commit;
+using sdt_tc::wgmma_fence;
+using sdt_tc::wgmma_wait;
+
+constexpr int PH = 8, PW = 8;              // patch: 8 x 8 pixels, 64 outputs
+constexpr int HH = PH + 2, HW = PW + 2;    // halo 10 x 10
+constexpr int HP = HH * HW;                // 100 halo pixels
+constexpr int WN = 160;                    // output channels a consumer warpgroup
+constexpr int BN = 2 * WN;                 // output channels a CTA
+constexpr int BK = 64;                     // input channels a chunk (128-byte rows)
+constexpr int THREADS = 384;
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int W_STAGES = 4;
+constexpr int RAW_SLOT = (HP * 128 + 1023) / 1024 * 1024;   // 13312: TMA destination
+constexpr int W_TILE = BN * 128;                            // 40960: two boxes
+constexpr int SLAB = HP * 16;                               // one 8-channel slab
+constexpr int ACT = 8 * SLAB;                               // 12800
+constexpr int ITEMS = HP * 8;                               // 16-byte activation items
+constexpr int ACT_TAPS = (ITEMS + CONSUMERS - 1) / CONSUMERS;  // taps that carry them
+constexpr int RAW_OFF = 0, W_OFF = 2 * RAW_SLOT, ACT_OFF = W_OFF + W_STAGES * W_TILE;
+constexpr int BAR_OFF = ACT_OFF + 3 * ACT;
+constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * W_STAGES + 4);
+constexpr int RED_PITCH = BN + 8;          // floats; the partial tile reuses offset 0
+constexpr int MAX_SPLIT = 8;
+constexpr int CONSUMER_BAR = 1;
+static_assert(ACT_TAPS <= 9, "activation slices");
+static_assert(PH * PW * RED_PITCH * 4 <= ACT_OFF, "partial tile");
+static_assert(SMEM <= 227 * 1024, "shared memory");
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return sdt_tc::make_desc(addr, 16, 1024) | (1ull << 62);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// 16 bytes of the shared memory of cluster CTA `cta` at this CTA's offset `addr`
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(cta));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
+// SiLU with the approximate division (2 ulp; x / (1 + e^-x) as an IEEE
+// division is ~20 instructions, and the activation is what bounds this
+// kernel: a build without it ran far faster on the card)
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.f + __expf(-v)); }
 __device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
 
-// Halo vector i: pixel i / 2 of the (TH+2)x(TW+2) window, channels
-// c0 + 8*(i % 2) .. +7.  Returns whether it lies in the image and in Cin,
-// and its global element offset within image b.
-__device__ __forceinline__ bool halo_vec(int i, const Geometry& g, int y0, int x0, int c0,
-                                         long long& off, int& c) {
-  const int hp = i >> 1;
-  const int hy = hp / HALO_W, hx = hp - hy * HALO_W;
-  const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
-  c = c0 + (i & 1) * 8;
-  off = ((long long)gy * g.W + gx) * g.cin + c;
-  return gy >= 0 && gy < g.H && gx >= 0 && gx < g.W && c < g.cin;
-}
+// grid: x = pixel tiles (batch-major), y = channel tiles, z = Cin splits (a
+// cluster along z)
+__global__ void __launch_bounds__(THREADS, 1)
+conv_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+               const float* __restrict__ scale, const float* __restrict__ shift,
+               const float* __restrict__ bias, bf16* __restrict__ out, Geometry g) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t raw0 = smem_u32(smem_tc);
+  const uint32_t base = (raw0 + 1023) & ~1023u;
+  unsigned char* smem = smem_tc + (base - raw0);
+  const uint32_t w_full = base + BAR_OFF, w_empty = w_full + 8 * W_STAGES;
+  const uint32_t x_full = w_empty + 8 * W_STAGES, x_empty = x_full + 16;
 
-// Start the raw halo loads of the chunk at c0 into registers.
-__device__ __forceinline__ void load_halo(uint4 (&raw)[HALO_ITEMS], const bf16* xb,
-                                          const Geometry& g, int y0, int x0, int c0,
-                                          int tid) {
-#pragma unroll
-  for (int j = 0; j < HALO_ITEMS; ++j) {
-    const int i = tid + j * THREADS;
-    raw[j] = make_uint4(0u, 0u, 0u, 0u);
-    long long off;
-    int c;
-    if (i < HALO_VECS && halo_vec(i, g, y0, x0, c0, off, c))
-      raw[j] = __ldg(reinterpret_cast<const uint4*>(xb + off));
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int b = blockIdx.x / g.tiles_per_image;
+  const int r = blockIdx.x - b * g.tiles_per_image;
+  const int y0 = (r / g.tiles_w) * PH, x0 = (r % g.tiles_w) * PW;
+  const int n0 = blockIdx.y * BN;
+  const int split = gridDim.z, z = blockIdx.z;
+  const int n_chunks = (g.cin + BK - 1) / BK;
+  const int kb = z * n_chunks / split, ke = (z + 1) * n_chunks / split;
+  const int nk = ke - kb;
+
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(x_full + 8 * s, 1);
+      mbar_init(x_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();
 
-// Activate the raw halo (fp32 affine + SiLU, rounded to bf16) into shared
-// memory; vectors outside the image or past Cin are stored as zeros.
-__device__ __forceinline__ void store_halo(bf16* hs, const uint4 (&raw)[HALO_ITEMS],
-                                           const float* sc, const float* sh,
-                                           const Geometry& g, int y0, int x0, int c0,
-                                           int tid) {
-#pragma unroll
-  for (int j = 0; j < HALO_ITEMS; ++j) {
-    const int i = tid + j * THREADS;
-    if (i >= HALO_VECS) continue;
-    long long off;
-    int c;
+  if (wg == 0) {  // ---------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      auto load_x = [&](int i) {  // the raw halo of chunk kb + i
+        const int slot = i % 2;
+        if (i >= 2) mbar_wait(x_empty + 8 * slot, (i / 2 - 1) & 1);
+        mbar_expect_tx(x_full + 8 * slot, HP * 128);
+        sdt_tc::tma_load(base + RAW_OFF + slot * RAW_SLOT, &tm_x, x_full + 8 * slot,
+                         (kb + i) * BK, x0 - 1, y0 - 1, b);
+      };
+      if (nk > 0) load_x(0);
+      for (int i = 0; i < nk; ++i) {
+        if (i + 1 < nk) load_x(i + 1);  // one chunk ahead of the weights
+        for (int tap = 0; tap < 9; ++tap) {
+          const int u = 9 * i + tap, st = u % W_STAGES;
+          if (u >= W_STAGES) mbar_wait(w_empty + 8 * st, (u / W_STAGES - 1) & 1);
+          mbar_expect_tx(w_full + 8 * st, W_TILE);
+          for (int h = 0; h < 2; ++h)  // a box of 160 output channels a warpgroup
+            tma_load_3d(base + W_OFF + st * W_TILE + h * WN * 128, &tm_w, w_full + 8 * st,
+                        (kb + i) * BK, tap, n0 + h * WN);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the partial tiles are written
+    cluster_sync();  // and read
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int w = wg - 1;  // output channels n0 + WN w ..
+  const int ct = tid - 128, t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  const float* sc = scale + (long long)b * g.cin;
+  const float* sh = shift + (long long)b * g.cin;
+
+  // one 16-byte item of the activation: 8 channels of one halo pixel
+  auto activate = [&](int item, int i) {
+    const int slab = item / HP, hp = item - slab * HP;
+    const int hy = hp / HW, hx = hp - hy * HW;
+    const int gy = y0 - 1 + hy, gx = x0 - 1 + hx, c = (kb + i) * BK + 8 * slab;
     uint4 o = make_uint4(0u, 0u, 0u, 0u);
-    if (halo_vec(i, g, y0, x0, c0, off, c)) {
+    if (gy >= 0 && gy < g.H && gx >= 0 && gx < g.W && c < g.cin) {
+      const uint4 rv = *reinterpret_cast<const uint4*>(
+          smem + RAW_OFF + (i % 2) * RAW_SLOT + hp * 128 + ((slab ^ (hp & 7)) << 4));
       const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc + c));
       const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc + c + 4));
       const float4 t0 = __ldg(reinterpret_cast<const float4*>(sh + c));
       const float4 t1 = __ldg(reinterpret_cast<const float4*>(sh + c + 4));
-      const uint4 r = raw[j];
-      o.x = pack_bf16x2(silu(fmaf(bf16_lo(r.x), s0.x, t0.x)), silu(fmaf(bf16_hi(r.x), s0.y, t0.y)));
-      o.y = pack_bf16x2(silu(fmaf(bf16_lo(r.y), s0.z, t0.z)), silu(fmaf(bf16_hi(r.y), s0.w, t0.w)));
-      o.z = pack_bf16x2(silu(fmaf(bf16_lo(r.z), s1.x, t1.x)), silu(fmaf(bf16_hi(r.z), s1.y, t1.y)));
-      o.w = pack_bf16x2(silu(fmaf(bf16_lo(r.w), s1.z, t1.z)), silu(fmaf(bf16_hi(r.w), s1.w, t1.w)));
+      o.x = sdt_tc::pack_bf16(silu_fast(fmaf(bf16_lo(rv.x), s0.x, t0.x)),
+                              silu_fast(fmaf(bf16_hi(rv.x), s0.y, t0.y)));
+      o.y = sdt_tc::pack_bf16(silu_fast(fmaf(bf16_lo(rv.y), s0.z, t0.z)),
+                              silu_fast(fmaf(bf16_hi(rv.y), s0.w, t0.w)));
+      o.z = sdt_tc::pack_bf16(silu_fast(fmaf(bf16_lo(rv.z), s1.x, t1.x)),
+                              silu_fast(fmaf(bf16_hi(rv.z), s1.y, t1.y)));
+      o.w = sdt_tc::pack_bf16(silu_fast(fmaf(bf16_lo(rv.w), s1.z, t1.z)),
+                              silu_fast(fmaf(bf16_hi(rv.w), s1.w, t1.w)));
     }
-    *reinterpret_cast<uint4*>(hs + (i >> 1) * LD + (i & 1) * 8) = o;
+    *reinterpret_cast<uint4*>(smem + ACT_OFF + (i % 3) * ACT + slab * SLAB + hp * 16) = o;
+  };
+  auto release_x = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(x_empty + 8 * (i % 2));
+  };
+
+  float acc[WN / 2];
+#pragma unroll
+  for (int e = 0; e < WN / 2; ++e) acc[e] = 0.f;
+
+  if (nk > 0) {  // the first chunk's activation, whole
+    mbar_wait(x_full, 0);
+    for (int item = ct; item < ITEMS; item += CONSUMERS) activate(item, 0);
+    release_x(0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(CONSUMER_BAR, CONSUMERS);
   }
-}
-
-// Start the copies of the chunk's weights, all nine taps of BN output
-// channels: row tap*BN + n of the stage holds W[n0 + n, tap, c0 .. c0 + 15].
-__device__ __forceinline__ void load_weights(bf16* ws, const bf16* w, const Geometry& g,
-                                             int n0, int c0, int tid) {
-  for (int i = tid; i < W_VECS; i += THREADS) {
-    const int row = i >> 1;
-    const int tap = row / BN, n = row - tap * BN;
-    const int co = n0 + n, c = c0 + (i & 1) * 8;
-    const bool ok = co < g.cout && c < g.cin;
-    const bf16* src = ok ? w + ((long long)co * 9 + tap) * g.cin + c : w;
-    cp_async16(ws + row * LD + (i & 1) * 8, src, ok);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                 const float* __restrict__ shift, const bf16* __restrict__ w,
-                 const float* __restrict__ bias, bf16* __restrict__ out, Geometry g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int b = blockIdx.x / g.tiles_per_image;
-  const int r = blockIdx.x - b * g.tiles_per_image;
-  const int y0 = (r / g.tiles_w) * TH;
-  const int x0 = (r % g.tiles_w) * TW;
-  const int n0 = blockIdx.y * BN;
-  const bf16* xb = x + (long long)b * g.H * g.W * g.cin;
-  const float* sc = scale + (long long)b * g.cin;
-  const float* sh = shift + (long long)b * g.cin;
-
-  // per-lane ldmatrix rows: A row = patch column (lane & 15) of the warp's
-  // m16 tile, k half (lane >> 4); B row = output channel of the n16 pair
-  const int a_col = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = wn * 32 + (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  uint4 raw[HALO_ITEMS];
-  load_weights(smem + HALO_ELEMS, w, g, n0, 0, tid);
-  cp_async_commit();
-  load_halo(raw, xb, g, y0, x0, 0, tid);
-  store_halo(smem, raw, sc, sh, g, y0, x0, 0, tid);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int n_chunks = (g.cin + BK - 1) / BK;
-  for (int k = 0; k < n_chunks; ++k) {
-    const bf16* hs = smem + (k & 1) * STAGE_ELEMS;
-    const bf16* ws = hs + HALO_ELEMS;
-    bf16* next = smem + ((k + 1) & 1) * STAGE_ELEMS;
-    const bool more = k + 1 < n_chunks;
-    if (more) {
-      load_weights(next + HALO_ELEMS, w, g, n0, (k + 1) * BK, tid);
-      cp_async_commit();
-      load_halo(raw, xb, g, y0, x0, (k + 1) * BK, tid);
-    }
-#pragma unroll
+  for (int i = 0; i < nk; ++i) {
+    const bool next = i + 1 < nk;
+    // A: the patch's 8 rows of 8 pixels, k halves one slab apart (both
+    // warpgroups read the same halo)
+    const uint32_t act = base + ACT_OFF + (i % 3) * ACT;
+#pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap - dy * 3;
-      unsigned a[4][4], bm[2][4];
+      const int u = 9 * i + tap, st = u % W_STAGES;
+      const int dy = tap / 3, dx = tap - 3 * dy;
+      mbar_wait(w_full + 8 * st, (u / W_STAGES) & 1);
+      wgmma_fence();
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(a[mi], hs + ((wm * 4 + mi + dy) * HALO_W + a_col + dx) * LD + a_k);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4(bm[nj], ws + (tap * BN + b_row + nj * 16) * LD + b_k);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], bm[ni >> 1][(ni & 1) * 2],
-                   bm[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-    if (more) store_halo(next, raw, sc, sh, g, y0, x0, (k + 1) * BK, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-
-  // epilogue: thread holds rows (lane / 4) and (lane / 4 + 8) of each m16
-  // tile, channels 2 * (lane % 4) and +1 of each n8 tile
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int gy = y0 + wm * 4 + mi;
-    if (gy >= g.H) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gx = x0 + gr + half * 8;
-      if (gx >= g.W) continue;
-      bf16* orow = out + (((long long)b * g.H + gy) * g.W + gx) * g.cout;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int co = n0 + wn * 32 + ni * 8 + gc;
-        if (co >= g.cout) continue;
-        const float v0 = acc[mi][ni][half * 2] + bias[co];
-        const float v1 = acc[mi][ni][half * 2 + 1] + bias[co + 1];
-        *reinterpret_cast<__nv_bfloat162*>(orow + co) = __floats2bfloat162_rn(v0, v1);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t a =
+            sdt_tc::make_desc(act + (dy * HW + dx) * 16 + kk * 2 * SLAB, SLAB, HW * 16);
+        const uint64_t bd = desc_sw128(base + W_OFF + st * W_TILE + w * WN * 128 + kk * 32);
+        sdt_wgmma::MmaSS<WN, 0>::run(acc, a, bd, 1);
       }
+      wgmma_commit();
+      if (next && tap < ACT_TAPS) {  // a slice of the next chunk's activation
+        if (tap == 0) mbar_wait(x_full + 8 * ((i + 1) % 2), ((i + 1) / 2) & 1);
+        const int item = tap * CONSUMERS + ct;
+        if (item < ITEMS) activate(item, i + 1);
+        if (tap == ACT_TAPS - 1) release_x(i + 1);
+      }
+      wgmma_wait<1>();  // the previous tap, possibly the last of the previous chunk
+      fence_regs(acc);
+      if (u > 0 && lane == 0) mbar_arrive(w_empty + 8 * ((u - 1) % W_STAGES));
     }
+    // the next halo is whole, and chunk i-1's products are done in both
+    // warpgroups, so the buffer it read can take chunk i+2's halo
+    if (next) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(CONSUMER_BAR, CONSUMERS);
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0) mbar_arrive(w_empty + 8 * ((9 * nk - 1) % W_STAGES));
+  bar_sync(CONSUMER_BAR, CONSUMERS);  // both warpgroups' products are done
+
+  // epilogue: the fp32 partial tile [64 pixels][320 channels] at offset 0
+  // (the halo and weight rings are idle now: every load was waited for)
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < WN / 8; ++i)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int m = 16 * warp + lane / 4 + 8 * rr, n = WN * w + 8 * i + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(part + m * RED_PITCH + n) =
+          make_float2(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]);
+    }
+  cluster_sync();
+  // this CTA's share of the rows, summed over the cluster's partial tiles
+  const uint32_t rank = split > 1 ? cluster_rank() : 0;
+  const int m0 = rank * PH * PW / split, m1 = (rank + 1) * PH * PW / split;
+  for (int item = ct; item < (m1 - m0) * (BN / 8); item += CONSUMERS) {
+    const int m = m0 + item / (BN / 8), n = 8 * (item % (BN / 8));
+    const int gy = y0 + m / 8, gx = x0 + m % 8, co = n0 + n;  // m = 8 * patch row + column
+    if (gy >= g.H || gx >= g.W || co >= g.cout) continue;
+    const uint32_t addr = base + (m * RED_PITCH + n) * 4;
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    for (int c = 0; c < split; ++c) {
+      const float4 a = ld_cluster(addr, c), a1 = ld_cluster(addr + 16, c);
+      s0.x += a.x; s0.y += a.y; s0.z += a.z; s0.w += a.w;
+      s1.x += a1.x; s1.y += a1.y; s1.z += a1.z; s1.w += a1.w;
+    }
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + co));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + co + 4));
+    uint4 o;
+    o.x = sdt_tc::pack_bf16(s0.x + b0.x, s0.y + b0.y);
+    o.y = sdt_tc::pack_bf16(s0.z + b0.z, s0.w + b0.w);
+    o.z = sdt_tc::pack_bf16(s1.x + b1.x, s1.y + b1.y);
+    o.w = sdt_tc::pack_bf16(s1.z + b1.z, s1.w + b1.w);
+    *reinterpret_cast<uint4*>(out + (((long long)b * g.H + gy) * g.W + gx) * g.cout + co) = o;
+  }
+  cluster_sync();  // the peers are done reading this CTA's partial tile
 }
+
+// the Cin split: doubled (up to 8 CTAs a cluster, and no more than the
+// chunks) while the grid still fits in one wave of the SMs
+int pick_split(long long tiles, int n_chunks, int sms) {
+  int split = 1;
+  while (split < MAX_SPLIT && tiles * split * 2 <= sms && 2 * split <= n_chunks) split *= 2;
+  return split;
+}
+
+cudaError_t launch(const void* x, const void* scale, const void* shift, const void* w,
+                   const void* bias, void* out, int batch, int H, int W, int cin, int cout,
+                   cudaStream_t stream) {
+  sdt_tc::EncodeTiled encode = sdt_tc::encode_tiled();
+  if (encode == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  {  // x: (Cin, W, H, B), boxes of 64 channels x 10 x 10 pixels
+    const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)W * cin * 2,
+                                   (cuuint64_t)H * W * cin * 2};
+    const cuuint32_t box[4] = {BK, HW, HH, 1}, elem[4] = {1, 1, 1, 1};
+    if (encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  {  // w: (Cin, tap, Cout), boxes of 64 channels x 1 tap x 160 outputs
+    const cuuint64_t dims[3] = {(cuuint64_t)cin, 9, (cuuint64_t)cout};
+    const cuuint64_t strides[2] = {(cuuint64_t)cin * 2, (cuuint64_t)9 * cin * 2};
+    const cuuint32_t box[3] = {BK, 1, WN}, elem[3] = {1, 1, 1};
+    if (encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return attr;
+  Geometry g{H, W, cin, cout, (W + PW - 1) / PW, 0};
+  g.tiles_per_image = ((H + PH - 1) / PH) * g.tiles_w;
+  const long long tiles = (long long)batch * g.tiles_per_image;
+  const int n_tiles = (cout + BN - 1) / BN;
+  if (tiles > 0x7fffffffLL || n_tiles > 65535) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int split = pick_split(tiles * n_tiles, (cin + BK - 1) / BK, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)tiles, n_tiles, split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv_tc_kernel, tx, tw,
+                                       static_cast<const float*>(scale),
+                                       static_cast<const float*>(shift),
+                                       static_cast<const float*>(bias), static_cast<bf16*>(out), g);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace tc
 
 // ------------------------------------------------------------ fp32 path
 constexpr int F_T = 8;                     // 8x8-pixel patch
@@ -365,7 +511,7 @@ extern "C" {
 // x, out: NHWC (B, H, W, Cin) / (B, H, W, Cout); scale, shift: fp32 (B, Cin);
 // w: (Cout, 3, 3, Cin); bias: fp32 (Cout,).  dtype: 0 = float32 (CUDA-core
 // path), 1 = bfloat16 (tensor cores).  Cin and Cout must be multiples of 8,
-// x and w 16-byte aligned.  Returns the cudaError_t of the launch (0 on
+// every pointer 16-byte aligned.  Returns the cudaError_t of the launch (0 on
 // success); never synchronizes.
 int sdt_scaled_silu_conv3x3(const void* x, const void* scale, const void* shift,
                             const void* w, const void* bias, void* out, int batch, int H,
@@ -373,23 +519,10 @@ int sdt_scaled_silu_conv3x3(const void* x, const void* scale, const void* shift,
   if (batch <= 0 || H <= 0 || W <= 0 || cout <= 0) return cudaSuccess;
   if (cin <= 0 || cin % 8 || cout % 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Geometry g{H, W, cin, cout, 0, 0};
-  if (dtype == 1) {
-    g.tiles_w = (W + TW - 1) / TW;
-    g.tiles_per_image = ((H + TH - 1) / TH) * g.tiles_w;
-    const long long tiles = (long long)batch * g.tiles_per_image;
-    const int n_tiles = (cout + BN - 1) / BN;
-    if (tiles > 0x7fffffffLL || n_tiles > 65535) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    conv_bf16_kernel<<<dim3((unsigned)tiles, n_tiles), THREADS, SMEM_BYTES, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(scale),
-        static_cast<const float*>(shift), static_cast<const bf16*>(w),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), g);
-    return cudaGetLastError();
-  }
+  if (dtype == 1)
+    return tc::launch(x, scale, shift, w, bias, out, batch, H, W, cin, cout, s);
   if (dtype == 0) {
+    Geometry g{H, W, cin, cout, 0, 0};
     g.tiles_w = (W + F_T - 1) / F_T;
     g.tiles_per_image = ((H + F_T - 1) / F_T) * g.tiles_w;
     const long long tiles = (long long)batch * g.tiles_per_image;
@@ -402,6 +535,29 @@ int sdt_scaled_silu_conv3x3(const void* x, const void* scale, const void* shift,
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+// The bf16 kernel's launch configuration: weight-ring stages, dynamic shared
+// memory (bytes), CTAs an SM, and the Cin split a (batch, H, W, Cin, Cout)
+// call takes.  Returns a cudaError_t.
+int sdt_scaled_silu_conv3x3_config(int batch, int H, int W, int cin, int cout, int* stages,
+                                   int* smem, int* ctas, int* split) {
+  *stages = tc::W_STAGES;
+  *smem = tc::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(tc::conv_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, tc::conv_tc_kernel, tc::THREADS,
+                                                        tc::SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)batch * ((H + tc::PH - 1) / tc::PH) *
+                          ((W + tc::PW - 1) / tc::PW) * ((cout + tc::BN - 1) / tc::BN);
+  *split = tc::pick_split(tiles, (cin + tc::BK - 1) / tc::BK, sms);
+  return cudaSuccess;
 }
 
 }  // extern "C"

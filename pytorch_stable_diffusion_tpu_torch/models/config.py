@@ -25,6 +25,9 @@ from ..core.dtypes import FP32, Policy
 
 ATTENTION_BACKENDS = ("plain", "kernel")
 CONV_BACKENDS = ("plain", "kernel", "fold", "kernel_fold")
+#: the JAX package's quantization tiers (its ``generate()`` refuses any
+#: other with ValueError); only "none" is ported, the rest come with slice H
+QUANT_TIERS = ("none", "wide", "conv", "w8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +216,8 @@ def _refuse(what: str, where: str):
 
 def check_ported(cfg: SDConfig) -> None:
     """Raise ``NotImplementedError`` for any field value this slice does not
-    run, naming the slice of ROADMAP.md §1 that brings it."""
+    run, naming the slice of ROADMAP.md §1 that brings it, and ``ValueError``
+    for a value the JAX package does not know either."""
     c, u = cfg.clip, cfg.unet
     if cfg.attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"attention_backend must be one of "
@@ -224,6 +228,9 @@ def check_ported(cfg: SDConfig) -> None:
     if cfg.conv_backend not in CONV_BACKENDS:
         raise ValueError(f"conv_backend must be one of {CONV_BACKENDS}, got "
                          f"{cfg.conv_backend!r}")
+    if cfg.quant not in QUANT_TIERS:
+        raise ValueError(f"unknown quant tier {cfg.quant!r}: the JAX package's tiers "
+                         f"are {QUANT_TIERS}")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
     if cfg.clip2 is not None:

@@ -6,23 +6,30 @@ reference does.
 
 Dispatch (:func:`route`) follows the JAX package, with its VMEM model
 replaced by the JAX package's own KV thresholds (and without the
-CFG-batch cliff of ``bsc_fits``):
+CFG-batch cliff of ``bsc_fits``).  A kernel is chosen only where its
+wrapper takes the head dim (``takes_head_dim``: on the card K1 takes Dh
+32/40/64/80/160, K4 16/40/64/128, K2 16/40/64/80/128/160, K3 every
+multiple of 8 up to 512; on the CPU each plain version takes every Dh up
+to its kernel's largest):
 
 * KV >= :data:`FLASH_ONLY_KV` (40960), on either backend, as the JAX
   package forces flash there: K4 (``flash_attention_streamed``) when
-  non-causal with Dh <= 128, otherwise K3 (``flash_attention_multipass``).
+  non-causal at a head dim K4 takes, otherwise K3
+  (``flash_attention_multipass``); a head dim K3 does not take either
+  raises ``ValueError`` (materialized scores do not fit there).
 * ``"kernel"`` backend, KV >= 256:
   - non-causal self-attention: K1 (``flash_attention_bsc``, heads packed
-    in channels) for Dh <= 160, K3 above (the VAE's 1-head Dh 512).  This
-    includes the 9216-token self-attention of 768², where the JAX package
-    runs its one-pass kernel: the port keeps K1 there;
-  - causal or cross-attention over a padded KV past 9216: K4 when
-    non-causal with Dh <= 128, otherwise K3;
+    in channels) where it takes the head dim, else K3 (the VAE's 1-head
+    Dh 512).  This includes the 9216-token self-attention of 768², where
+    the JAX package runs its one-pass kernel: the port keeps K1 there;
+  - causal or cross-attention over a padded KV past 9216: as at
+    FLASH_ONLY_KV, but materialized where no kernel takes the head dim;
   - causal or cross-attention over 256..9216 KV tokens (padded to 128):
-    the one-pass kernel K2 (``flash_attention_onepass``) for Dh <= 160, as
-    in the JAX package, whose ``_pick_chunk`` fits every such case; K3
-    above.  Through ``generate()`` this is the cross-attention over a
-    long-prompt context of 4+ windows (308+ tokens).
+    the one-pass kernel K2 (``flash_attention_onepass``), as in the JAX
+    package, whose ``_pick_chunk`` fits every such case; else K3.
+    Through ``generate()`` this is the cross-attention over a long-prompt
+    context of 4+ windows (308+ tokens).
+  - a head dim no kernel takes: materialized scores.
 * KV < 256 (CLIP, every 77-token cross-attention, the UNet's 64-token mid
   block at 512²) and the ``"plain"`` backend below 40960: materialized
   scores.
@@ -38,10 +45,9 @@ from torch import nn
 
 from ..core.dtypes import FP32, Policy
 from . import linear
-from .cuda.flash_attention import (HEAD_DIMS, ONEPASS_MAX_DH, ONEPASS_MAX_KV,
-                                   STREAMED_MAX_DH, flash_attention_bsc,
+from .cuda.flash_attention import (MULTIPASS_MAX_DH, ONEPASS_MAX_KV, flash_attention_bsc,
                                    flash_attention_multipass, flash_attention_onepass,
-                                   flash_attention_streamed)
+                                   flash_attention_streamed, takes_head_dim)
 
 #: shortest KV the kernel backend sends to a flash kernel
 KERNEL_MIN_KV = 256
@@ -105,21 +111,43 @@ def _fused_proj(parts, x: torch.Tensor, policy: Policy):
 
 
 def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
-          backend: str) -> str:
+          backend: str, cuda: bool = True) -> str:
     """Which attention runs: ``"plain"`` (materialized scores), ``"bsc"``
     (K1), ``"onepass"`` (K2), ``"streamed"`` (K4) or ``"multipass"``
-    (K3)."""
-    long_kernel = ("streamed" if not causal and head_dim <= STREAMED_MAX_DH
-                   else "multipass")
+    (K3).
+
+    A kernel is picked only where its wrapper takes ``head_dim``
+    (:func:`~.cuda.flash_attention.takes_head_dim`; ``cuda`` False asks
+    for the CPU, whose plain versions take every head dim up to each
+    kernel's largest).  A head dim no kernel takes runs materialized
+    below :data:`FLASH_ONLY_KV` and raises ``ValueError`` at or above it."""
+    def takes(kernel):
+        return takes_head_dim(kernel, head_dim, cuda=cuda)
+
+    def long_kernel():
+        if not causal and takes("streamed"):
+            return "streamed"
+        return "multipass" if takes("multipass") else None
+
     if kv_len >= FLASH_ONLY_KV:
-        return long_kernel
+        found = long_kernel()
+        if found is None:
+            raise ValueError(
+                f"attention over {kv_len} KV tokens (>= FLASH_ONLY_KV = {FLASH_ONLY_KV}) "
+                f"at head dim {head_dim}: no flash kernel takes it (K3 takes multiples "
+                f"of 8 up to {MULTIPASS_MAX_DH}), and materialized scores do not fit")
+        return found
     if backend != "kernel" or kv_len < KERNEL_MIN_KV:
         return "plain"
     if not (causal or cross):
-        return "bsc" if head_dim <= max(HEAD_DIMS) else "multipass"
+        if takes("bsc"):
+            return "bsc"
+        return "multipass" if takes("multipass") else "plain"
     if -(-kv_len // 128) * 128 > ONEPASS_MAX_KV:
-        return long_kernel
-    return "onepass" if head_dim <= ONEPASS_MAX_DH else "multipass"
+        return long_kernel() or "plain"
+    if takes("onepass"):
+        return "onepass"
+    return "multipass" if takes("multipass") else "plain"
 
 
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -138,7 +166,7 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
         else:
             k, v = (linear.apply(m, context, policy) for m in (p.k, p.v))
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
-                 cross=context is not None, backend=backend)
+                 cross=context is not None, backend=backend, cuda=q.is_cuda)
     if path == "bsc":
         out = flash_attention_bsc(q, k, v, n_heads=n_heads)
     else:

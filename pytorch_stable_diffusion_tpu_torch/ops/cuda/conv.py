@@ -7,8 +7,10 @@ Port of ``pytorch_stable_diffusion_tpu/ops/pallas/conv.py``:
   ``shift``, so the kernel never needs group logic or ``x + t``.
 * :func:`scaled_silu_conv3x3` is ``conv3x3(silu(x*scale + shift)) + bias``
   with SAME zero padding applied after the activation: CUDA kernel
-  ``csrc/scaled_silu_conv3x3.cu`` (the Pallas ``_kernel``), with its plain
-  PyTorch version :func:`scaled_silu_conv3x3_plain` beside it.
+  ``csrc/scaled_silu_conv3x3.cu`` (the Pallas ``_kernel``; in bf16 a wgmma
+  implicit GEMM fed by TMA, the activation applied once per halo element,
+  Cin split over a thread-block cluster where the grid is small), with its
+  plain PyTorch version :func:`scaled_silu_conv3x3_plain` beside it.
 * :func:`gn_silu_conv3x3` is a whole res-block half.
 
 Tensors are the port's NCHW; on the card, x and the conv weight must be in
@@ -112,9 +114,9 @@ def _launch(x, scale, shift, weight, bias):
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
     bias = bias.float().contiguous()
-    if any(t.data_ptr() % 16 for t in (x, weight, scale, shift)):
+    if any(t.data_ptr() % 16 for t in (x, weight, scale, shift, bias)):
         raise ValueError("scaled_silu_conv3x3 kernel needs 16-byte aligned x, weight, "
-                         "scale and shift")
+                         "scale, shift and bias")
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     lib, _ = load("scaled_silu_conv3x3")

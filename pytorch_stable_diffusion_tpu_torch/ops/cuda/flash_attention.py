@@ -7,16 +7,19 @@
 * K4, streamed long-KV attention on head-split (B, H, S, Dh), Dh <= 128,
   non-causal: port of ``_flash_attention_streamed`` (``_streamed_kernel``),
   CUDA kernel ``csrc/flash_attention_streamed.cu``.
-* K3, multi-pass attention on head-split (B, H, S, Dh), Dh up to 512,
-  causal or not, KV of any length: port of ``flash_attention``'s multi-pass
-  grid (``_kernel``), CUDA kernel ``csrc/flash_attention_multipass.cu``.
+* K3, multi-pass attention on head-split (B, H, S, Dh), Dh up to 512 (a
+  multiple of 8 on the card), causal or not, KV of any length: port of
+  ``flash_attention``'s multi-pass grid (``_kernel``), CUDA kernel
+  ``csrc/flash_attention_multipass.cu`` (tensor cores in bf16, the head
+  dim split across two consumer warpgroups).
 * K2, one-pass attention on head-split (B, H, S, Dh), Dh up to 160, causal
   or not, padded KV up to 9216: port of ``flash_attention``'s one-pass call
   (``_onepass_kernel`` with ``_chunk_softmax_stats``), CUDA kernel
   ``csrc/flash_attention_onepass.cu`` (tensor cores in bf16).
 
-Each kernel's header says what bounds it on the H100 and what its simple
-design leaves on the table.  All compute softmax(Q Kᵀ/√Dh)·V with fp32
+Each kernel's header says what bounds it on the H100 and what its
+design leaves on the table.  Which head dims each kernel takes is
+:func:`takes_head_dim`, which ``ops.attention.route`` also reads.  All compute softmax(Q Kᵀ/√Dh)·V with fp32
 scores and softmax and return q's dtype; a row with every score masked
 gives 0 (output acc / max(l, 1e-30)).
 
@@ -38,15 +41,16 @@ import math
 
 import torch
 
-#: head dims the kernel is instantiated for: SD-1.5's 40, 80, 160, and 32
-#: for the small checks
-HEAD_DIMS = (32, 40, 80, 160)
+#: K1's instantiations: SD-1.5's 40, 80, 160, 64 (SD-2.x/SDXL, and SD-1.5
+#: widths at 5 heads) and 32 for the small checks
+HEAD_DIMS = (32, 40, 64, 80, 160)
 #: K4's instantiations: SD-1.5's 40, 64 (SD-2.x/SDXL), 128 (the largest
 #: head dim K4 takes) and 16 for the small checks
 STREAMED_HEAD_DIMS = (16, 40, 64, 128)
 STREAMED_MAX_DH = 128
-#: K3's instantiations: the VAE's 512, and 64/128 for causal and small checks
-MULTIPASS_HEAD_DIMS = (64, 128, 512)
+#: K3 takes every head dim that is a multiple of 8 up to 512: the kernel is
+#: instantiated at padded widths (64, 128, 256, 512) and reads zeros past
+#: the true Dh
 MULTIPASS_MAX_DH = 512
 #: K2's instantiations: SD-1.5's 40, 80 and 160, 64 and 128 (SD-2.x/SDXL
 #: widths) and 16 for the small checks
@@ -55,11 +59,25 @@ ONEPASS_MAX_DH = 160
 #: longest KV K2 takes, padded to 128: the JAX package's one-pass envelope
 #: (``_pick_chunk``)
 ONEPASS_MAX_KV = 9216
+#: the head dims each fixed-set kernel is built for
+_BUILT_DH = {"bsc": HEAD_DIMS, "streamed": STREAMED_HEAD_DIMS, "onepass": ONEPASS_HEAD_DIMS}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: fp32 score bytes the head-split plain versions hold at once: they walk
 #: q rows in blocks, so a (2, 8, 65536, 40) call does not materialize its
 #: 137 GB of scores
 PLAIN_SCORE_BYTES = 1 << 30
+
+
+def takes_head_dim(kernel: str, dh: int, *, cuda: bool = True) -> bool:
+    """Whether the wrapper of ``kernel`` ("bsc", "streamed", "multipass" or
+    "onepass") takes head dim ``dh``: on the card, the head dims its kernel
+    is built for; on the CPU, where the plain version runs, every head dim
+    up to the kernel's largest.  The one source of truth for the wrappers'
+    checks and for ``ops.attention.route``."""
+    if kernel == "multipass":
+        return 0 < dh <= MULTIPASS_MAX_DH and (dh % 8 == 0 or not cuda)
+    dims = _BUILT_DH[kernel]
+    return dh in dims if cuda else 0 < dh <= max(dims)
 
 
 def flash_attention_bsc_plain(q: torch.Tensor, k: torch.Tensor,
@@ -139,7 +157,7 @@ def _entry(name: str):
 
 def _launch(q, k, v, n_heads):
     dh = q.shape[2] // n_heads
-    if dh not in HEAD_DIMS:
+    if not takes_head_dim("bsc", dh):
         raise ValueError(f"flash_attention_bsc kernel takes head dims "
                          f"{HEAD_DIMS}, got {dh}")
     if q.dtype not in _DTYPE_CODE:
@@ -248,7 +266,7 @@ def _check_bhsd(name, q, k, v, max_dh):
         raise ValueError(f"{name} runs on CPU or CUDA, not {q.device.type}")
 
 
-def _launch_bhsd(name, head_dims, q, k, v, *extra):
+def _launch_bhsd(name, q, k, v, *extra):
     """Launch ``sdt_<name>`` from ``csrc/<name>.cu`` on head-split tensors.
 
     The output is allocated as (B, Sq, H, Dh) memory and returned as its
@@ -256,8 +274,10 @@ def _launch_bhsd(name, head_dims, q, k, v, *extra):
     afterwards is free."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
-    if dh not in head_dims:
-        raise ValueError(f"{name} kernel takes head dims {head_dims}, got {dh}")
+    kernel = name[len("flash_attention_"):]
+    if not takes_head_dim(kernel, dh):
+        dims = "multiples of 8 up to 512" if kernel == "multipass" else _BUILT_DH[kernel]
+        raise ValueError(f"{name} kernel takes head dims {dims}, got {dh}")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     for t in (q, k, v):
         if t.stride(3) != 1:
@@ -284,20 +304,20 @@ def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
     _check_bhsd("flash_attention_streamed", q, k, v, STREAMED_MAX_DH)
     if q.device.type == "cpu":
         return flash_attention_streamed_plain(q, k, v)
-    out = _launch_bhsd("flash_attention_streamed", STREAMED_HEAD_DIMS, q, k, v)
+    out = _launch_bhsd("flash_attention_streamed", q, k, v)
     flash_attention_streamed.launches += 1
     return out
 
 
 def flash_attention_multipass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               *, causal: bool) -> torch.Tensor:
-    """K3: attention over (B, H, S, Dh) tensors, Dh <= 512, optional causal
-    mask (``col <= row``), KV of any length -> (B, H, Sq, Dh)."""
+    """K3: attention over (B, H, S, Dh) tensors, Dh <= 512 (a multiple of 8
+    on the card), optional causal mask (``col <= row``), KV of any length ->
+    (B, H, Sq, Dh)."""
     _check_bhsd("flash_attention_multipass", q, k, v, MULTIPASS_MAX_DH)
     if q.device.type == "cpu":
         return flash_attention_multipass_plain(q, k, v, causal)
-    out = _launch_bhsd("flash_attention_multipass", MULTIPASS_HEAD_DIMS, q, k, v,
-                       int(causal))
+    out = _launch_bhsd("flash_attention_multipass", q, k, v, int(causal))
     flash_attention_multipass.launches += 1
     return out
 
@@ -313,7 +333,7 @@ def flash_attention_onepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"tokens padded to 128, got {k.shape[2]}")
     if q.device.type == "cpu":
         return flash_attention_onepass_plain(q, k, v, causal)
-    out = _launch_bhsd("flash_attention_onepass", ONEPASS_HEAD_DIMS, q, k, v, int(causal))
+    out = _launch_bhsd("flash_attention_onepass", q, k, v, int(causal))
     flash_attention_onepass.launches += 1
     return out
 

@@ -15,7 +15,8 @@ Same public keyword surface as the JAX package's ``generate()`` and
   encoder_noise (B, 4, h, w)).
 * CFG runs cond and uncond as one batched UNet call per step, combined as
   ``uncond + scale * (cond - uncond)`` in float32.
-* img2img encodes the init image, noises it to the timestep of
+* img2img encodes the init image (one for the whole batch, or a
+  (B, H, W, 3) array of one per prompt), noises it to the timestep of
   ``start_step_for_strength`` and denoises from there.
 * ``encode_tile`` / ``decode_tile`` (latent px) run the VAE's
   image-resolution convs over overlapping tiles (``models/vae.py``), for
@@ -38,7 +39,8 @@ Same public keyword surface as the JAX package's ``generate()`` and
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
-slice of ROADMAP.md §1 that ports it.
+slice of ROADMAP.md §1 that ports it, and a value the JAX package does
+not know either raises ``ValueError``, as it does there.
 """
 
 from __future__ import annotations
@@ -96,10 +98,17 @@ _UNPORTED = {
 }
 
 
+#: the JAX package's timestep spacings; any other raises ValueError there
+TIMESTEP_SPACINGS = ("uniform", "trailing", "karras", "exponential", "sgm_uniform",
+                     "kl_optimal", "ays", "beta")
+
+
 def _check_unported(kwargs) -> None:
     for name, value in kwargs.items():
         if name not in _UNPORTED:
             raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
+        if name == "timestep_spacing" and value not in TIMESTEP_SPACINGS:
+            raise ValueError(f"unknown timestep_spacing {value!r}")
         default, where = _UNPORTED[name]
         if value is not None if default is None else value != default:
             raise NotImplementedError(
@@ -231,17 +240,22 @@ def rescale(x, old_range, new_range, clamp: bool = False):
 
 
 def _prepare_image(input_image, width: int, height: int) -> np.ndarray:
-    """PIL image / (H, W[, C]) array -> (1, 3, H, W) float32 in [-1, 1]."""
+    """PIL image / (H, W[, C]) array -> (1, 3, H, W) float32 in [-1, 1].
+
+    A 4-D (B, H, W, C) array is a per-sample batch (each sample its own
+    init image, as in the JAX package) and returns (B, 3, H, W)."""
     if not isinstance(input_image, np.ndarray) and hasattr(input_image, "resize"):
         arr = np.asarray(input_image.resize((width, height)), np.float32)
     else:
         arr = np.asarray(input_image, np.float32)
-        if arr.shape[:2] != (height, width):
+        spatial = arr.shape[1:3] if arr.ndim == 4 else arr.shape[:2]
+        if spatial != (height, width):
             raise ValueError(f"input image must be {height}x{width}, got {arr.shape}")
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     arr = rescale(arr[..., :3], (0.0, 255.0), (-1.0, 1.0))
-    return np.ascontiguousarray(arr.transpose(2, 0, 1)[None])
+    arr = arr if arr.ndim == 4 else arr[None]
+    return np.ascontiguousarray(arr.transpose(0, 3, 1, 2))
 
 
 # -------------------------------------------------------------- public API
@@ -379,6 +393,9 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
 
         if img2img:
             image = torch.as_tensor(_prepare_image(input_image, width, height))
+            if image.shape[0] not in (1, batch):
+                raise ValueError(f"{image.shape[0]} init images for a batch of {batch}: "
+                                 f"give one image, or one for each prompt")
             image = image.to(device).expand(batch, -1, -1, -1) \
                 .contiguous(memory_format=memory_format)
             if encode_tile:

@@ -63,6 +63,9 @@ def _k1_views(b, sq, sk, c, dtype, cuda, seed=0):
     (1, 333, 200, 640, 8),
     (1, 130, 70, 1280, 8),
     (2, 65, 257, 128, 4),
+    # Dh 64: SD-2.x/SDXL widths, and SD-1.5's level 1 at 5 heads
+    (2, 4096, 4096, 320, 5),
+    (1, 300, 333, 128, 2),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_k1_matches_plain(cuda, b, sq, sk, c, heads, dtype):
@@ -176,6 +179,14 @@ def test_k4_planted_fault_fails_the_check(cuda):
     (1, 1, 1000, 1000, 512, True),   # causal, ragged
     (1, 2, 300, 1000, 64, True),     # causal with Sq < Sk
     (2, 2, 777, 500, 128, False),
+    # padded widths: the tensor maps zero-fill the columns past the true Dh
+    (1, 2, 333, 777, 64, False),
+    (1, 2, 500, 3000, 80, False),    # a Dh K4 lacks
+    (1, 1, 700, 2000, 320, False),
+    (1, 1, 257, 513, 200, True),
+    (1, 2, 1000, 1000, 128, True),   # causal across 64-row CTAs
+    (1, 1, 1000, 1100, 512, False),  # ragged q and KV tails
+    (2, 1, 300, 700, 512, True),     # causal with Sq < Sk over a few q tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_k3_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
@@ -201,6 +212,15 @@ def test_k2_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
                       args, {"causal": causal}, dtype)
 
 
+def test_k3_planted_fault_fails_the_check(cuda):
+    """KV short by one 32-token tile must fail the tolerance."""
+    q, k, v = _head_split_views(1, 1, 1024, 4096, 512, torch.bfloat16, cuda, seed=9)
+    ref = fa.flash_attention_multipass_plain(q, k, v, False)
+    bad = fa.flash_attention_multipass(q, k[:, :, :-32], v[:, :, :-32], causal=False)
+    err = (bad.float() - ref.float()).abs().max().item()
+    assert err > tolerance(torch.bfloat16, ref), err
+
+
 def test_k2_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 64, 48, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
@@ -217,9 +237,9 @@ def test_k3_k4_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 1, 64, 48, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_streamed(q, q, q)       # Dh 48 not instantiated
-    q = torch.zeros(1, 1, 64, 192, device=cuda)
+    q = torch.zeros(1, 1, 64, 196, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_multipass(q, q, q, causal=False)
+        fa.flash_attention_multipass(q, q, q, causal=False)   # not a multiple of 8
     q = torch.zeros(1, 1, 64, 41, device=cuda)[..., 1:]  # rows 4 bytes off
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_streamed(q, q, q)
@@ -242,7 +262,8 @@ def _k5_inputs(b, cin, h, w, cout, dtype, cuda, seed):
     (2, 320, 64, 64, 320),     # SD-1.5 512², level 1
     (2, 1920, 32, 32, 640),    # level 2, decoder concat
     (2, 2560, 16, 16, 1280),   # level 3, decoder concat
-    (2, 1280, 8, 8, 1280),     # level 4: half of each 8x16 patch masked
+    (2, 1280, 8, 8, 1280),     # level 4
+    (2, 2560, 8, 8, 1280),     # level 4, decoder concat: Cin split across CTAs
     (1, 64, 10, 12, 128),      # ragged H and W
     (1, 24, 5, 7, 40),         # Cin not a multiple of 16, Cout not of 64
 ])

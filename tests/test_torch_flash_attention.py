@@ -141,3 +141,52 @@ def test_k1_alignment_rule(make, want):
     the host (the wrapper raises ValueError for a CUDA tensor that breaks
     it)."""
     assert all(fa.aligned16(t) for t in make()) == want
+
+
+_ROUTE_KV = (255, 256, 9216, 9217, 40959, 40960, 65536)
+
+
+@pytest.mark.parametrize("dh", [4, 12, 36, *range(8, 1281, 8)])
+def test_route_sends_only_head_dims_the_kernel_takes(dh):
+    """Over both backends, both sides of 256, 9216 and 40960 KV tokens,
+    causal or not, self or cross: every kernel ``route`` picks for the card
+    takes the head dim there (``takes_head_dim``), and at or past
+    FLASH_ONLY_KV a head dim no kernel takes raises ValueError."""
+    for kv in _ROUTE_KV:
+        for causal, cross in ((False, False), (True, False), (False, True)):
+            long = (not causal and fa.takes_head_dim("streamed", dh)) \
+                or fa.takes_head_dim("multipass", dh)
+            for backend in ("plain", "kernel"):
+                kw = dict(causal=causal, cross=cross, backend=backend)
+                if kv >= attention.FLASH_ONLY_KV and not long:
+                    with pytest.raises(ValueError, match="FLASH_ONLY_KV"):
+                        attention.route(kv, dh, **kw)
+                    continue
+                path = attention.route(kv, dh, **kw)
+                assert path == "plain" or fa.takes_head_dim(path, dh), (kv, causal,
+                                                                         cross, backend)
+
+
+@pytest.mark.parametrize("kv,dh,causal,cross,backend,want", [
+    (4096, 64, False, False, "kernel", "bsc"),          # n_heads=5 at SD-1.5 widths
+    (40960, 80, False, False, "kernel", "multipass"),   # a Dh K4 lacks: K3
+    (4096, 96, False, False, "kernel", "multipass"),    # a Dh K1 lacks: K3
+    (300, 192, False, True, "kernel", "multipass"),     # past K2's Dh 160
+    (4096, 520, False, False, "kernel", "plain"),       # no kernel takes it
+])
+def test_route_by_the_kernels_head_dims(kv, dh, causal, cross, backend, want):
+    assert attention.route(kv, dh, causal=causal, cross=cross,
+                           backend=backend) == want
+
+
+def test_route_on_the_cpu_keeps_each_kernels_range():
+    """The plain versions take every head dim up to their kernel's largest,
+    so the CPU keeps a kernel's path at head dims its card build lacks (the
+    tiny test configs' Dh 4 and 8)."""
+    assert attention.route(256, 4, causal=False, cross=False, backend="kernel",
+                           cuda=False) == "bsc"
+    assert attention.route(256, 4, causal=False, cross=False, backend="kernel") == "plain"
+    assert attention.route(40960, 4, causal=False, cross=False, backend="plain",
+                           cuda=False) == "streamed"
+    with pytest.raises(ValueError, match="FLASH_ONLY_KV"):
+        attention.route(40960, 4, causal=False, cross=False, backend="plain")

@@ -121,7 +121,8 @@ def test_wrapper_rejects_unsupported_inputs(name, dh):
     (9217, 64, True, False, "kernel", "multipass"),    # long causal
     (300, 160, False, True, "kernel", "onepass"),      # SD-1.5 level 3, long prompt
     (300, 192, False, True, "kernel", "multipass"),    # past K2's Dh 160
-    (1024, 1280, True, False, "kernel", "multipass"),
+    (1024, 1280, True, False, "kernel", "plain"),      # no kernel takes Dh 1280
+    (40960, 80, False, False, "plain", "multipass"),   # a Dh K4 lacks: K3
 ])
 def test_route(kv, dh, causal, cross, backend, want):
     assert attention.route(kv, dh, causal=causal, cross=cross,

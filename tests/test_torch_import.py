@@ -78,8 +78,48 @@ def test_every_kernel_header_is_built():
         h for h in reached if h.endswith(".cuh"))
     assert "wgmma.mma_async" in text["wgmma.cuh"]
     assert "cp.async.bulk.tensor" in text["flash_attention_tc.cuh"]
-    for name in ("flash_attention_bsc.cu", "flash_attention_streamed.cu"):
+    for name in ("flash_attention_bsc.cu", "flash_attention_streamed.cu",
+                 "flash_attention_multipass.cu", "scaled_silu_conv3x3.cu"):
         assert '#include "flash_attention_tc.cuh"' in text[name], name
+
+
+def _built_widths(source, pattern):
+    with open(os.path.join(PACKAGE, "csrc", source)) as f:
+        return sorted(int(d) for d in re.findall(pattern, f.read()))
+
+
+@pytest.mark.parametrize("kernel", ["bsc", "streamed", "onepass", "multipass"])
+def test_wrapper_head_dims_match_the_sources(kernel):
+    """The head dims ``takes_head_dim`` admits on the card are those each
+    kernel source dispatches to: K1's SDT_CASE list, K4's and K2's
+    ``case D: return launch<D>`` switch, and K3's guard (a multiple of 8 up
+    to its largest padded width) with each Dh padded to the first width
+    that holds it, in both dtypes."""
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
+
+    if kernel == "multipass":
+        with open(os.path.join(PACKAGE, "csrc", "flash_attention_multipass.cu")) as f:
+            text = f.read()
+        guard = re.search(r"head_dim > (\d+) \|\| head_dim % 8\)", text)
+        assert guard and int(guard.group(1)) == fa.MULTIPASS_MAX_DH
+        for launch in ("launch", "launch_fp32"):
+            # if (dh <= N) return launch<N>(...); ...; return launch<MAX>(...)
+            steps = re.findall(rf"if \(dh <= (\d+)\)\s*return {launch}<(\d+)>", text)
+            assert steps and all(a == b for a, b in steps), launch
+            last = re.findall(rf"\n  return {launch}<(\d+)>", text)
+            assert last == [str(fa.MULTIPASS_MAX_DH)], launch
+        built = [dh for dh in range(1, 1025) if fa.takes_head_dim(kernel, dh)]
+        assert built == list(range(8, fa.MULTIPASS_MAX_DH + 1, 8))
+        return
+    source, pattern = {
+        "bsc": ("flash_attention_bsc.cu", r"SDT_CASE\((\d+)\)\n"),
+        "streamed": ("flash_attention_streamed.cu", r"case (\d+): return launch<\1>"),
+        "onepass": ("flash_attention_onepass.cu", r"case (\d+): return launch<\1>"),
+    }[kernel]
+    dims = _built_widths(source, pattern)
+    assert dims, source
+    assert dims == [dh for dh in range(1, 1025) if fa.takes_head_dim(kernel, dh)]
+    assert not fa.takes_head_dim(kernel, max(dims) + 8)
 
 
 def _sources():
@@ -88,7 +128,6 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "k5_launch_bounds.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

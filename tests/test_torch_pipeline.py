@@ -323,7 +323,7 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
     ({"panorama": True}, "slice G"),
     ({"hypernetwork": "style.pt"}, "slice D2"),
     ({"prompt": "a cat AND a dog"}, "slice F"),
-    ({"config": tiny_sd_config(quant="int8")}, "slice H"),
+    ({"config": tiny_sd_config(quant="wide")}, "slice H"),
     ({"config": dataclasses.replace(tiny_sd_config(), unet=dataclasses.replace(
         tiny_sd_config().unet, tome=(0.5, 2, 2, 16)))}, "slice F"),
 ])
@@ -334,6 +334,51 @@ def test_unported_features_raise(slice_setup, kwargs, where):
     kw.update(kwargs)
     with pytest.raises(NotImplementedError, match=where):
         pipeline.generate(**kw)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"config": tiny_sd_config(quant="int8")}, "quant tier"),
+    ({"timestep_spacing": "bogus"}, "timestep_spacing"),
+])
+def test_unknown_option_values_raise_value_error(slice_setup, kwargs, match):
+    """Values the JAX package does not know either raise ValueError there
+    (``generate()``'s quant and timestep_spacing checks), and so here; the
+    JAX package's own tiers and spacings raise NotImplementedError above."""
+    cfg, models, _, _ = slice_setup
+    kw = dict(prompt="a cat", models=models, config=cfg, height=HW, width=HW,
+              tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len))
+    kw.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        pipeline.generate(**kw)
+
+
+def test_per_sample_init_images_match_jax(slice_setup, tiny_models, tiny_tokenizer):
+    """img2img with two different init images in one (2, H, W, 3) array, one
+    for each prompt, as the JAX package takes them (generate_many and
+    sd_upscale rely on it), against JAX ``generate`` on the same noise; a
+    count of init images that is neither 1 nor the batch raises."""
+    cfg, models, _, _ = slice_setup
+    cfg = dataclasses.replace(cfg, attention_backend="plain")
+    r = np.random.RandomState(17)
+    noise = {"latent_init": r.randn(2, 16, 16, 4).astype(np.float32),
+             "sampler_noise": r.randn(STEPS, 2, 16, 16, 4).astype(np.float32),
+             "encoder_noise": r.randn(2, 16, 16, 4).astype(np.float32)}
+    init = r.randint(0, 256, size=(2, HW, HW, 3)).astype(np.uint8)
+    prompts = ["a photo of a cat", "a dog"]
+    kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=STEPS, seed=0,
+              height=HW, width=HW, return_latents=True, input_image=init, strength=0.8)
+    _, ref_lat = jpipeline.generate(prompts, models=tiny_models, tokenizer=tiny_tokenizer,
+                                    config=jconfig.tiny_sd_config(), fixed_noise=noise, **kw)
+    tok = make_test_tokenizer(WORDS, max_len=cfg.clip.max_len)
+    _, lat = pipeline.generate(prompts, models=models, tokenizer=tok, config=cfg,
+                               fixed_noise=_nchw_noise(noise), **kw)
+    assert lat.shape == (2, 4, 16, 16)
+    assert psnr(lat, to_nchw(ref_lat)) > 55.0
+    assert psnr(lat[0], lat[1]) < 40.0  # two images, two results
+    with pytest.raises(ValueError, match="init images"):
+        pipeline.generate_images(prompts + ["a cat"], models=models, tokenizer=tok,
+                                 config=cfg, height=HW, width=HW, n_inference_steps=2,
+                                 input_image=init)
 
 
 def test_unknown_keyword_is_an_error(slice_setup):
