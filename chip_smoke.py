@@ -34,8 +34,13 @@ Phases (any failure exits non-zero):
                 tokens), with its launch configuration; K2 at
                 the cross-attentions of a 4-window prompt at 512² (2|8, 8,
                 4096|1024|256|64, KV 308, Dh 40|80|160) on views of one
-                fused k/v projection, a ragged KV 300, a causal (1, 2,
-                1024, 1024, 64) and KV 9216 at Dh 40; K5 at
+                fused k/v projection, a ragged KV 300, causal cases across
+                64-, 128- and 192-row CTAs, with two q tiles a CTA and with
+                Sq < Sk, a KV of 77 tokens and of one, and KV 9216 at Dh
+                40, each with the schedule its bf16 launch takes (64-row
+                CTAs, K/V resident across a CTA's q tiles, or streamed),
+                and at the four level shapes every schedule that can run
+                them, timed; K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
                 SD-1.5 512² at batch 2 (with and without the time-embedding
@@ -50,7 +55,8 @@ Phases (any failure exits non-zero):
                 fail the same check.  Device times under torch.profiler of
                 the kernel and, where one PyTorch call computes the same
                 function, of that call (scaled_dot_product_attention, with
-                the bound and the exp floor beside K1's, K4's and K3's; for
+                the bound and the exp floor beside K1's, K4's, K3's and K2's
+                at each level shape; for
                 K5 cuDNN's conv on the already activated input, and the
                 plain tier's GroupNorm + SiLU + cuDNN conv), used nowhere in
                 the port; CUDA-event times of the plain versions.  Where the
@@ -501,34 +507,55 @@ def cross_views(b, sq, sk, heads, dh, dtype, g):
             for t in (q, *kv.split(c, dim=-1))]
 
 
+def k2_schedule_text(s):
+    return (f"{s['warpgroups']} consumer warpgroup(s) ({64 * s['warpgroups']} q rows), "
+            f"{s['ctas']} CTA(s) a head, {s['stages']} stages, {s['smem']} B")
+
+
 def phase_k2(fa, card, results):
     """K2 vs its plain version at the cross-attentions of a 4-window prompt
     at 512² (levels 1-3 and the mid block, CFG batch 2 and 8), a ragged KV,
-    a causal self-attention across tiles and the one-pass envelope's top
-    (KV 9216), in bf16 and fp32; the planted fault (KV short by one 64-token
-    tile) and the times at level 1."""
+    causal cases across 64-, 128- and 192-row CTAs and with several q tiles
+    a CTA, causal with Sq < Sk, a KV of one tile and less, and the one-pass
+    envelope's top (KV 9216), in bf16 and fp32, each with the schedule its
+    bf16 launch takes; the planted fault (KV short by 64 tokens); at the
+    four level shapes at CFG batch 2, and at levels 1 and 2 under a 5- and
+    a 6-window prompt (385 and 462 tokens: past the three 128-token stages
+    that keep a 308-token KV resident at Dh 80), the device time beside
+    SDPA's, the bound and the exp floor."""
     g = torch.Generator(device="cuda").manual_seed(5)
     wrapper, plain = fa.flash_attention_onepass, fa.flash_attention_onepass_plain
     rec = results["flash_attention_onepass"]
     levels = ((4096, 40), (1024, 80), (256, 160), (64, 160))
-    cases = [(b, sq, 308, dh, False, sq, "main" if (b, sq) == (2, 4096) else "time")
+    # B, H, Sq, Sk, Dh, causal, q rows checked, role
+    cases = [(b, 8, sq, 308, dh, False, sq,
+              "time" if b == 8 else "main" if sq == 4096 else "level")
              for b in (2, 8) for sq, dh in levels]
-    cases += [(2, 1000, 300, 40, False, 1000, ""), (1, 1024, 1024, 64, True, 1024, ""),
-              (2, 9216, 9216, 40, False, 2048, "")]
+    cases += [(2, 8, sq, sk, dh, False, sq, "level")
+              for sk in (385, 462) for sq, dh in levels[:2]]
+    cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
+              (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
+              (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
+              (1, 8, 2304, 2304, 40, True, 2304, ""),   # causal across 192-row CTAs
+              (2, 8, 2000, 700, 40, True, 2000, ""),    # causal, 2 q tiles a CTA
+              (2, 8, 700, 1100, 64, True, 700, ""),     # causal, Sq < Sk, ragged
+              (2, 8, 4096, 77, 40, False, 4096, ""),    # a KV of less than one tile
+              (1, 2, 130, 1, 80, False, 130, ""),       # one KV token
+              (2, 8, 9216, 9216, 40, False, 2048, "")]  # the envelope's top
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
-        for b, sq, sk, dh, causal, rows, role in cases:
-            h = 2 if causal else 8
-            args = fused_views(b, sq, sk, h, dh, dtype, g) if causal \
-                else cross_views(b, sq, sk, h, dh, dtype, g)
+        for b, h, sq, sk, dh, causal, rows, role in cases:
+            args = cross_views(b, sq, sk, h, dh, dtype, g)
             kw = {"causal": causal}
             err, tol, ref = _check_rows("K2", wrapper, plain, args, kw, rows, dtype, rec)
             line = (f"K2 {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
                     f"{' causal' if causal else ''}: max abs err {err:.3e} on "
                     f"{min(rows, sq)} q rows (tol {tol:.3e})")
+            if dtype == torch.bfloat16:
+                line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
             if role == "main":
                 line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
-            if role and dtype == torch.bfloat16:
+            if role in ("main", "level", "time") and dtype == torch.bfloat16:
                 # a call is shorter than its host launch cost, so CUDA events
                 # around back-to-back calls time the host: the recorded times
                 # are device times under the profiler
@@ -538,20 +565,18 @@ def phase_k2(fa, card, results):
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
-                if role == "main":
-                    pms = one_call_device_ms(lambda: plain(*args, causal))
+                if role in ("main", "level"):
                     lib, why = sdpa_ms(*args, timer=one_call_device_ms)
-                    lib_events, _ = sdpa_ms(*args)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
+                    line += (f"; sdpa {'none' if lib is None else f'{lib:.4f}'} ms device"
+                             f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, exp "
+                             f"floor {exp_floor_ms(b * h * sq * sk):.4f} ms")
+                if role == "main":
+                    pms = one_call_device_ms(lambda: plain(*args, causal))
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
                                timer=timer_since(n0))
-                    line += (f"; device: plain {pms:.4f} ms, sdpa "
-                             f"{'none' if lib is None else f'{lib:.4f}'} ms"
-                             f"{' ' + why if why else ''} "
-                             f"({'none' if lib_events is None else f'{lib_events:.4f}'} ms by "
-                             f"events); "
-                             f"bound {bms:.4f} ms by {by}")
+                    line += f"; plain {pms:.4f} ms device"
                 line += f"  [{card}]"
             print(line, flush=True)
             del args, ref

@@ -7,7 +7,7 @@
 // It computes what that kernel computes, softmax(Q K^T / sqrt(Dh)) V for every
 // (batch, head), over a KV of up to 9216 tokens (the router's bound; the
 // kernel itself takes any length):
-//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) and exp2f,
+//   * scores and softmax in fp32; 1/sqrt(Dh) folded with log2(e) and exp2,
 //     as the TPU kernel's log2-space logits;
 //   * optional causal mask col <= row; the KV tail of the last tile masked;
 //   * P rounded to the input dtype before P V (the TPU kernel's
@@ -18,25 +18,28 @@
 //
 // What is kept of the TPU kernel, and what is not.  On the TPU the whole
 // padded KV of one (batch, head) sits in VMEM, cut into independent chunks
-// merged in closed form so that the MXU overlaps the VPU's exp.  Here a CTA
-// has at most 227 KB of shared memory and the chunk merge buys nothing, so
-// the KV is walked with an online softmax (the same merge, one tile at a
-// time): one CTA of 128 threads owns a (64-row q tile, head, batch), K/V
-// tiles of 64 tokens come through a two-stage cp.async ring (tile j+1 in
-// flight while tile j computes; rows past Sk zero-filled by the copy), and
-// the running max m, sum l and accumulator stay in registers.  Causal: KV
-// tiles wholly above the diagonal are skipped.
+// merged in closed form so that the MXU overlaps the VPU's exp.  Here the KV
+// is walked with an online softmax (the same merge, one tile at a time).
 //
-// bf16 path: the tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), each of the four warps owning 16 q rows:
-//   * S = Q K^T: Q and K fragments by ldmatrix from shared memory; Dh is
-//     zero-padded in shared memory to a multiple of 16 (40 -> 48; 16, 64,
-//     80, 128 and 160 already are), the pad columns zeroed once;
-//   * the score accumulators of two n8 tiles are exactly the A fragment of
-//     a k16 step of P V, so P never leaves the registers;
-//   * V fragments by ldmatrix.trans (V is (token, Dh) row-major);
-//   * shared rows are Dh_pad + 8 elements apart, an odd number of 16-byte
-//     units, so the 8 rows an ldmatrix phase reads fall in distinct banks.
+// bf16 path: the wgmma + TMA template of K1 and K4 (flash_attention_tc.cuh:
+// a producer warpgroup, consumer warpgroups of 64 q rows taking turns on the
+// tensor cores, K/V tiles through an mbarrier ring, P V with P from
+// registers), in its ONEPASS form: a causal mode, several q tiles a CTA with
+// the head's K/V resident in the ring, and shared memory in swizzled atoms
+// of 16, 32 or 64 columns (atom_of) filled by TMA boxes of 32 to 128-byte
+// rows.  The launch picks one of three schedules by shape (plan()):
+//   * small grid: where every 64-row q tile of the call fits on the SMs in
+//     one wave (SD-1.5 512² level 3 and the mid block at CFG batch 2: 64
+//     and 16 tiles), one consumer warpgroup a CTA, so that the SMs that
+//     128-row CTAs would leave idle take half the rows each;
+//   * resident: where the KV tiles fit in the ring at once (308 tokens are
+//     three 128-token stages at Dh 40 and 80), about one CTA an SM, each
+//     walking several q tiles of one (batch, head): K/V are loaded once
+//     instead of once a q tile, and a q tile's Q loads while the previous
+//     one computes;
+//   * streamed: otherwise (up to 9216 tokens), one q tile a CTA and K/V
+//     streamed through the ring, as K1 and K4 run.
+// sdt_flash_attention_onepass_config reports the schedule of a call.
 // fp32 path (the FP32 policy's checks): K4's CUDA-core design
 // (csrc/flash_attention_streamed.cu) with the causal mask: thread (rg, cg)
 // owns q rows rg + 16*i and score columns cg + 8*j, P goes through shared
@@ -46,237 +49,34 @@
 // row strides (elements, 64-bit offsets) and a unit head-dim stride: the
 // UNet passes its q projection and its fused k/v projection of the context
 // (rows 2C apart) viewed as (B, H, S, Dh) without a copy, and the wrapper's
-// output is (B, S, H, Dh) memory, so merging the heads is free.
+// output is (B, S, H, Dh) memory, so merging the heads is free.  The bf16
+// path reads them through TMA: pointers and strides must be multiples of 16
+// bytes (the wrapper checks).
 //
 // What bounds it on the H100.  SD-1.5's level-1 cross-attention under a
 // 4-window prompt, (2, 8, 4096, 40) x KV 308, costs 4*Sq*Sk*Dh*B*H = 3.2
-// GFLOP (3.3 us at 989 TFLOP/s) and must move ~11 MB in bf16 (q and out
-// 10.5 MB, k and v 0.4 MB; 3.4 us at 3.35 TB/s): memory-bound, by a hair.
-// Left on the table: wgmma fed by TMA, Q held in registers, a deeper ring;
-// at this shape K/V are re-read from L2 by each of the 64 q tiles.
+// GFLOP (3.3 us at 989 TFLOP/s), must move ~11 MB in bf16 (q and out 10.5
+// MB, k and v 0.4 MB; 3.4 us at 3.35 TB/s) and needs 20.2 M exp2 (4.8 us at
+// 16 a clock on 132 SMs): the exponential sets the floor.  On the card
+// (PERF.md) the call takes about four times that: each q tile walks
+// only three KV tiles, so its chain (S, softmax, P V in turn) and epilogue
+// are exposed.  The smaller levels are latency: a CTA's chain of 3-5 KV
+// tiles and its prologue; with 8-column slabs their time followed the TMA
+// row requests of the tiles, which the wide atoms cut two to five times.
 #include <math_constants.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BLOCK_M = 64;   // q rows per CTA
-constexpr int BLOCK_N = 64;   // KV rows per tile
+constexpr int BLOCK_M = 64;   // q rows per CTA (fp32 path)
+constexpr int BLOCK_N = 64;   // KV rows per tile (fp32 path)
 constexpr int THREADS = 128;
-
-// ------------------------------------------------------------ bf16 path
-template <int DH>
-struct Bf16Layout {
-  static constexpr int DHP = (DH + 15) / 16 * 16;  // Dh padded to the MMA depth
-  static constexpr int LD = DHP + 8;               // shared row stride (elements)
-  static constexpr int TILE = BLOCK_M * LD;        // one 64-row tile (BLOCK_M == BLOCK_N)
-  static constexpr size_t SMEM = sizeof(bf16) * 5 * (size_t)TILE;  // Q + 2 x (K, V)
-  static_assert((LD * sizeof(bf16) / 16) % 2 == 1, "rows must be an odd number of 16 B units");
-};
-
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-onepass_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, int sq,
-                    int sk, int causal, float scale_log2) {
-  using L = Bf16Layout<DH>;
-  constexpr int DHP = L::DHP;
-  constexpr int LD = L::LD;
-  constexpr int KSTEPS = DHP / 16;  // k16 steps of Q K^T
-  constexpr int NT = DHP / 8;       // n8 tiles of the output
-  constexpr int ST = BLOCK_N / 8;   // n8 tiles of a score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + L::TILE;      // two stages
-  bf16* Vs = Ks + 2 * L::TILE;  // two stages
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const long long h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-
-  // the pad columns DH..DHP-1 of all five tiles: the copies never write them
-  if constexpr (DHP > DH) {
-    constexpr int PAD = DHP - DH;
-    for (int i = tid; i < 5 * BLOCK_M * PAD; i += THREADS)
-      Qs[(i / PAD) * LD + DH + i % PAD] = __float2bfloat16(0.f);
-  }
-
-  // group 0: the Q tile and KV tile 0
-  load_tile<bf16, DH, LD, BLOCK_M, THREADS>(Qs, qb, st.q_r, q0, sq, tid);
-  load_tile<bf16, DH, LD, BLOCK_N, THREADS>(Ks, kb, st.k_r, 0, sk, tid);
-  load_tile<bf16, DH, LD, BLOCK_N, THREADS>(Vs, vb, st.v_r, 0, sk, tid);
-  cp_async_commit();
-
-  int n_tiles = (sk + BLOCK_N - 1) / BLOCK_N;
-  if (causal) {  // skip the tiles wholly above the diagonal
-    const int last_row = min(q0 + BLOCK_M, sq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK_N + 1);
-  }
-
-  // this lane's rows: r0 + 8 * half of the warp's 16; columns 2 * (lane % 4)
-  // and +1 of each n8 tile
-  const int wr = warp * 16;
-  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
-  // ldmatrix row addresses: A (Q) rows wr + (lane & 15), k half lane >> 4;
-  // B (K) token (lane & 7) + 8 * (lane >> 4), k half (lane >> 3) & 1;
-  // B (V, transposed) token (lane & 7) + 8 * ((lane >> 3) & 1), d half lane >> 4
-  const bf16* qa = Qs + (wr + (lane & 15)) * LD + (lane >> 4) * 8;
-  const int kb_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int vb_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
-
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    const int kv0 = t * BLOCK_N;
-    if (t + 1 < n_tiles) {  // prefetch tile t+1 into the other stage
-      load_tile<bf16, DH, LD, BLOCK_N, THREADS>(Ks + (stage ^ 1) * L::TILE, kb, st.k_r,
-                                                kv0 + BLOCK_N, sk, tid);
-      load_tile<bf16, DH, LD, BLOCK_N, THREADS>(Vs + (stage ^ 1) * L::TILE, vb, st.v_r,
-                                                kv0 + BLOCK_N, sk, tid);
-    }
-    // always commit (an empty group on the last tile), so that "all but the
-    // newest group" is exactly "everything up to tile t"
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + stage * L::TILE;
-    const bf16* Vt = Vs + stage * L::TILE;
-
-    // S = Q K^T: 16 rows x 64 columns a warp
-    float s[ST][4];
-#pragma unroll
-    for (int j = 0; j < ST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      unsigned a[4];
-      ldmatrix_x4(a, qa + kk * 16);
-#pragma unroll
-      for (int nj = 0; nj < ST / 2; ++nj) {
-        unsigned bm[4];
-        ldmatrix_x4(bm, Kt + nj * 16 * LD + kb_off + kk * 16);
-        mma_bf16(s[2 * nj], a, bm[0], bm[1]);
-        mma_bf16(s[2 * nj + 1], a, bm[2], bm[3]);
-      }
-    }
-
-    // online softmax: scale, mask, merge with the running stats; the four
-    // lanes of a quad share a row
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = q0 + wr + r0 + 8 * half;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < ST; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kv0 + j * 8 + c0 + e;
-          const bool ok = col < sk && (!causal || col <= row);
-          const float x = ok ? s[j][2 * half + e] * scale_log2 : -CUDART_INF_F;
-          s[j][2 * half + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[half], mx);
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;  // fully masked guard
-      const float alpha = exp2f(m[half] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < ST; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(s[j][2 * half + e] - m_use);
-          s[j][2 * half + e] = p;
-          rs += p;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[half] = l[half] * alpha + rs;
-      m[half] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        acc[nt][2 * half] *= alpha;
-        acc[nt][2 * half + 1] *= alpha;
-      }
-    }
-
-    // acc += P V: the scores of n8 tiles 2j and 2j+1 are the A fragment of
-    // the j-th k16 step (rows r0 / r0 + 8, columns c0 / c0 + 8)
-#pragma unroll
-    for (int j = 0; j < ST / 2; ++j) {
-      const unsigned pa[4] = {pack_bf16x2(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16x2(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned bv[4];
-        ldmatrix_x4_trans(bv, Vt + j * 16 * LD + vb_off + np * 16);
-        mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // this stage's K/V are read before they are refilled
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wr + r0 + 8 * half;
-    if (row >= sq) continue;
-    const float inv = 1.f / fmaxf(l[half], 1e-30f);
-    bf16* orow = o + b * st.o_b + h * st.o_h + (long long)row * st.o_r;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = nt * 8 + c0;
-      if (col < DH)  // DH is a multiple of 8: col and col + 1 are both in or out
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(acc[nt][2 * half] * inv, acc[nt][2 * half + 1] * inv);
-    }
-  }
-}
 
 // ------------------------------------------------------------ fp32 path
 constexpr int F_ROWS = 4;                 // q rows per thread: rg + 16 * i
@@ -437,23 +237,126 @@ onepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ launch
+// The swizzle atom of each head dim (columns; see Cfg): as wide as keeps a
+// 308-token KV resident at 128 q rows a CTA, so that a tile's rows take
+// one to five TMA boxes instead of two to twenty
+__host__ __device__ constexpr int atom_of(int dh) { return dh == 16 ? 16 : dh == 80 || dh == 160 ? 32 : 64; }
+
+// K2's bf16 kernel: the template's body in its ONEPASS form
+template <int DH, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+onepass_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                  long long o_b, long long o_h, long long o_r, int sq, int sk,
+                  float scale_log2, int causal) {
+  sdt_tc::attention_tc_body<DH, NWG, true, atom_of(DH)>(&tm_q, &tm_k, &tm_v, o, o_b, o_h, o_r,
+                                                        sq, sk, scale_log2, causal != 0);
+}
+
+template <int DH, int NWG>
+using TcCfg = sdt_tc::Cfg<DH, NWG, 2, atom_of(DH)>;
+
+// A schedule: consumer warpgroups a CTA, CTAs a (head, batch) (each takes q
+// tiles x, x + ctas, ...), the ring's stages and the shared memory
+struct Plan {
+  int nwg, ctas, stages, smem;
+};
+
+template <int DH, int NWG>
+Plan plan_of(int ctas) {
+  return {NWG, ctas, TcCfg<DH, NWG>::STAGES, TcCfg<DH, NWG>::SMEM};
+}
+
+// The schedule of a bf16 call on `sms` SMs (the file header says why):
+//   * small grid: every 64-row q tile on an SM of its own, in one wave;
+//   * else CTAs of 128 or 192 rows (192 only where the ring keeps three
+//     stages): resident where the KV tiles the call walks fit in the ring
+//     (as many CTAs a (head, batch) as keep the CTAs within one wave, the q
+//     tiles dealt out among them), streamed otherwise (a q tile a CTA); of
+//     the two widths, the one whose busiest SM walks fewer 64-row q blocks,
+//     waves counted, and 192 rows on a tie (each K/V tile then serves more
+//     rows).
+template <int DH>
+Plan plan(int batch, int n_heads, int sq, int sk, bool causal, int sms) {
+  const long long bh = (long long)batch * n_heads;
+  if ((sq + 63) / 64 * bh <= sms) return plan_of<DH, 1>((sq + 63) / 64);
+  constexpr int BN = TcCfg<DH, 2>::BLOCK_N;
+  const int n_tiles = (sk + BN - 1) / BN;
+  const int walked = causal ? std::min(n_tiles, (sq - 1) / BN + 1) : n_tiles;
+  auto ctas_and_cost = [&](int nwg, int stages, int& ctas) {
+    const int n_q = (sq + 64 * nwg - 1) / (64 * nwg);
+    ctas = walked <= stages ? (int)std::max(1LL, std::min((long long)n_q, sms / bh)) : n_q;
+    return (n_q + ctas - 1) / ctas * ((ctas * bh + sms - 1) / sms) * nwg;
+  };
+  int c2 = 0, c3 = 0;
+  const long long cost2 = ctas_and_cost(2, TcCfg<DH, 2>::STAGES, c2);
+  if (TcCfg<DH, 3>::STAGES >= 3 && ctas_and_cost(3, TcCfg<DH, 3>::STAGES, c3) <= cost2)
+    return plan_of<DH, 3>(c3);
+  return plan_of<DH, 2>(c2);
+}
+
+template <int DH, int NWG>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                      int batch, int n_heads, int sq, int sk, int causal, int ctas,
+                      cudaStream_t stream) {
+  using C = TcCfg<DH, NWG>;
+  constexpr CUtensorMapSwizzle sw = C::COLS == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : C::COLS == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  if (!sdt_tc::make_map(&tq, q, DH, n_heads, sq, batch, st.q_h, st.q_r, st.q_b, C::BLOCK_M,
+                        C::COLS, sw) ||
+      !sdt_tc::make_map(&tk, k, DH, n_heads, sk, batch, st.k_h, st.k_r, st.k_b, C::BLOCK_N,
+                        C::COLS, sw) ||
+      !sdt_tc::make_map(&tv, v, DH, n_heads, sk, batch, st.v_h, st.v_r, st.v_b, C::BLOCK_N,
+                        C::COLS, sw))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      onepass_tc_kernel<DH, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ctas, n_heads, batch);
+  const float scale_log2 = LOG2E / sqrtf((float)DH);
+  onepass_tc_kernel<DH, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), st.o_b, st.o_h, st.o_r, sq, sk, scale_log2, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  return err == cudaSuccess
+             ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device)
+             : err;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const Plan& p, const void* q, const void* k, const void* v, void* o,
+                        const Strides& st, int batch, int n_heads, int sq, int sk, int causal,
+                        cudaStream_t stream) {
+  switch (p.nwg) {
+    case 1: return launch_tc<DH, 1>(q, k, v, o, st, batch, n_heads, sq, sk, causal, p.ctas, stream);
+    case 2: return launch_tc<DH, 2>(q, k, v, o, st, batch, n_heads, sq, sk, causal, p.ctas, stream);
+    default:
+      if constexpr (TcCfg<DH, 3>::STAGES >= 3)
+        return launch_tc<DH, 3>(q, k, v, o, st, batch, n_heads, sq, sk, causal, p.ctas, stream);
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int DH>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
                    const Strides& st, int batch, int n_heads, int sq, int sk, int causal,
                    cudaStream_t stream) {
+  if (dtype == 1) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const Plan p = plan<DH>(batch, n_heads, sq, sk, causal != 0, sms);
+    return launch_bf16<DH>(p, q, k, v, o, st, batch, n_heads, sq, sk, causal, stream);
+  }
   const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, n_heads, batch);
   const float scale_log2 = LOG2E / sqrtf((float)DH);
-  if (dtype == 1) {
-    const size_t smem = Bf16Layout<DH>::SMEM;
-    cudaError_t err = cudaFuncSetAttribute(onepass_bf16_kernel<DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    onepass_bf16_kernel<DH><<<grid, THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), st, sq, sk, causal, scale_log2);
-    return cudaGetLastError();
-  }
   const size_t smem = F32Layout<DH>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(onepass_f32_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -492,6 +395,30 @@ int sdt_flash_attention_onepass(const void* q, const void* k, const void* v, voi
     case 160: return launch<160>(dtype, q, k, v, o, st, batch, n_heads, sq, sk, causal, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The schedule the bf16 path takes for a call on this device: consumer
+// warpgroups a CTA, CTAs a (head, batch), ring stages, shared memory bytes
+// (out[0..3]).  Returns a cudaError_t (0 on success).
+int sdt_flash_attention_onepass_config(int batch, int n_heads, int sq, int sk, int head_dim,
+                                       int causal, int* out) {
+  if (batch <= 0 || sq <= 0 || n_heads <= 0 || sk <= 0) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  Plan p{};
+  switch (head_dim) {
+#define SDT_PLAN(D) \
+  case D: p = plan<D>(batch, n_heads, sq, sk, causal != 0, sms); break;
+    SDT_PLAN(16) SDT_PLAN(40) SDT_PLAN(64) SDT_PLAN(80) SDT_PLAN(128) SDT_PLAN(160)
+#undef SDT_PLAN
+    default: return cudaErrorInvalidValue;
+  }
+  out[0] = p.nwg;
+  out[1] = p.ctas;
+  out[2] = p.stages;
+  out[3] = p.smem;
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -15,7 +15,9 @@
 * K2, one-pass attention on head-split (B, H, S, Dh), Dh up to 160, causal
   or not, padded KV up to 9216: port of ``flash_attention``'s one-pass call
   (``_onepass_kernel`` with ``_chunk_softmax_stats``), CUDA kernel
-  ``csrc/flash_attention_onepass.cu`` (tensor cores in bf16).
+  ``csrc/flash_attention_onepass.cu`` (in bf16 the tensor-core template of
+  K1 and K4 with a causal mode, K/V resident across a CTA's q tiles where
+  they fit, and a 64-row schedule for small grids: :func:`onepass_schedule`).
 
 Each kernel's header says what bounds it on the H100 and what its
 design leaves on the table.  Which head dims each kernel takes is
@@ -336,6 +338,24 @@ def flash_attention_onepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _launch_bhsd("flash_attention_onepass", q, k, v, int(causal))
     flash_attention_onepass.launches += 1
     return out
+
+
+def onepass_schedule(batch: int, heads: int, sq: int, sk: int, dh: int,
+                     causal: bool) -> dict:
+    """The schedule K2's bf16 kernel takes for a call of this shape on the
+    current card (``plan`` in ``csrc/flash_attention_onepass.cu``):
+    consumer warpgroups a CTA (1, 2 or 3: 64, 128 or 192 q rows), CTAs a
+    (head, batch) (fewer than the q tiles where each CTA walks several with
+    its K/V resident), K/V ring stages and shared-memory bytes.  Builds the
+    kernel's library; for the card only."""
+    lib, _ = _entry("flash_attention_onepass")
+    fn = lib.sdt_flash_attention_onepass_config
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _raise_on_error(lib, "flash_attention_onepass_config",
+                    fn(batch, heads, sq, sk, dh, int(causal), out))
+    return dict(zip(("warpgroups", "ctas", "stages", "smem"), out))
 
 
 flash_attention_streamed.launches = 0

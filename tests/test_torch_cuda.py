@@ -196,20 +196,84 @@ def test_k3_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
 
 
 @pytest.mark.parametrize("b,h,sq,sk,dh,causal", [
-    (2, 8, 4096, 308, 40, False),    # SD-1.5 512² level 1 under a 4-window prompt
-    (2, 8, 1024, 308, 80, False),    # level 2
-    (2, 8, 256, 308, 160, False),    # level 3
-    (2, 8, 64, 308, 160, False),     # mid block
+    # SD-1.5 512² under a 4-window prompt, CFG batch 2 and 8: levels 1 and 2
+    # take the resident schedule (4 and 16 q tiles a CTA at level 1), level
+    # 3 at batch 2 and the mid block the 64-row one, level 3 at batch 8 the
+    # streamed one
+    (2, 8, 4096, 308, 40, False),
+    (8, 8, 4096, 308, 40, False),
+    (2, 8, 1024, 308, 80, False),
+    (8, 8, 1024, 308, 80, False),
+    (2, 8, 256, 308, 160, False),
+    (8, 8, 256, 308, 160, False),
+    (2, 8, 64, 308, 160, False),
+    # levels 1 and 2 under a 5- and a 6-window prompt: level 1 stays
+    # resident (six stages at Dh 40), level 2 streams (three at Dh 80)
+    (2, 8, 4096, 385, 40, False),
+    (2, 8, 1024, 385, 80, False),
+    (2, 8, 4096, 462, 40, False),
+    (2, 8, 1024, 462, 80, False),
     (1, 2, 1000, 300, 16, False),    # ragged q and KV tails
+    (2, 8, 1000, 300, 40, False),    # the same, resident
     (1, 2, 1024, 1024, 64, True),    # causal across tiles
     (1, 2, 333, 777, 128, True),     # causal, Sq < Sk, ragged
     (1, 1, 200, 9216, 40, False),    # the one-pass envelope's top
+    # causal across several 128- and 192-row CTAs, whose warpgroups stop at
+    # different KV tiles: streamed (128 and 192 rows at Dh 40 and at Dh 80;
+    # 128 with Sq > Sk), resident with two q tiles a CTA (the second walks
+    # more KV tiles)
+    (4, 8, 2000, 2000, 40, True),
+    (1, 8, 2304, 2304, 40, True),
+    (2, 8, 2048, 2048, 80, True),
+    (4, 8, 1500, 1500, 80, True),
+    (2, 8, 2000, 1000, 40, True),
+    (2, 8, 2000, 700, 40, True),
+    (2, 8, 700, 1100, 64, True),     # causal, Sq < Sk, ragged
+    # a KV of one tile and less (the kernel takes any length)
+    (2, 8, 4096, 77, 40, False),
+    (1, 2, 130, 1, 80, False),
+    (2, 8, 300, 64, 160, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_k2_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
     args = _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed=6)
     _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
                       args, {"causal": causal}, dtype)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 8, 4096, 308, 40, False), (2, 8)),     # level 1: resident, 4 q tiles a CTA
+    ((8, 8, 4096, 308, 40, False), (2, 2)),     # CFG batch 8: 16 q tiles a CTA
+    ((2, 8, 1024, 308, 80, False), (2, 8)),     # level 2: resident, one q tile a CTA
+    ((2, 8, 4096, 462, 40, False), (2, 8)),     # level 1, 6 windows: still resident
+    ((2, 8, 1024, 385, 80, False), (2, 8)),     # level 2, 5 windows: streamed, same grid
+    ((2, 8, 256, 308, 160, False), (1, 4)),     # level 3: 64-row CTAs
+    ((2, 8, 64, 308, 160, False), (1, 1)),      # mid block
+    ((8, 8, 256, 308, 160, False), (2, 2)),     # streamed, 128 rows
+    ((2, 8, 9216, 9216, 40, False), (3, 48)),   # streamed, 192 rows
+    ((2, 8, 2000, 700, 40, True), (2, 8)),      # causal, resident, 2 q tiles a CTA
+    ((1, 8, 2304, 2304, 40, True), (3, 12)),    # causal, streamed, 192 rows
+    ((4, 8, 2000, 2000, 40, True), (2, 16)),    # causal, streamed, 128 rows
+    ((2, 8, 2048, 2048, 80, True), (2, 16)),    # causal, streamed, 128 rows, Dh 80
+    ((4, 8, 1500, 1500, 80, True), (3, 8)),     # causal, streamed, 192 rows, Dh 80
+])
+def test_k2_schedule(cuda, shape, want):
+    """The schedule K2's launch picks at SD-1.5's level shapes and at the
+    edges the cases above rely on (an H100's 132 SMs)."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the expected schedules are an H100 SXM's (132 SMs)")
+    got = fa.onepass_schedule(*shape)
+    assert (got["warpgroups"], got["ctas"]) == want, got
+
+
+def test_k2_planted_fault_fails_the_check(cuda):
+    """KV short by 64 tokens must fail the tolerance at level 1's resident
+    schedule."""
+    q, k, v = _head_split_views(2, 8, 4096, 308, 40, torch.bfloat16, cuda, seed=10)
+    ref = fa.flash_attention_onepass_plain(q, k, v, False)
+    bad = fa.flash_attention_onepass(q, k[:, :, :-64], v[:, :, :-64], causal=False)
+    err = (bad.float() - ref.float()).abs().max().item()
+    assert err > tolerance(torch.bfloat16, ref), err
 
 
 def test_k3_planted_fault_fails_the_check(cuda):

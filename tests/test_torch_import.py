@@ -79,8 +79,30 @@ def test_every_kernel_header_is_built():
     assert "wgmma.mma_async" in text["wgmma.cuh"]
     assert "cp.async.bulk.tensor" in text["flash_attention_tc.cuh"]
     for name in ("flash_attention_bsc.cu", "flash_attention_streamed.cu",
-                 "flash_attention_multipass.cu", "scaled_silu_conv3x3.cu"):
+                 "flash_attention_onepass.cu", "flash_attention_multipass.cu",
+                 "scaled_silu_conv3x3.cu"):
         assert '#include "flash_attention_tc.cuh"' in text[name], name
+
+
+def test_k2_bf16_path_is_the_wgmma_template():
+    """K2's bf16 path is the wgmma + TMA template of K1 and K4 in its
+    one-pass form, with no mma.sync body left beside it; its fp32 path
+    stays on the CUDA cores."""
+    with open(os.path.join(PACKAGE, "csrc", "flash_attention_onepass.cu")) as f:
+        text = f.read()
+    with open(os.path.join(PACKAGE, "csrc", "flash_attention_tc.cuh")) as f:
+        template = f.read()
+    assert "mma.sync" not in text and "ldmatrix" not in text
+    assert "sdt_tc::attention_tc_body<DH, NWG, true, atom_of(DH)>" in text
+    assert "attention_tc_body<DH, NWG, false>" in template  # K1 and K4
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in text  # K2's wide, swizzled TMA boxes
+    assert "wgmma" in template and "mma.sync" not in template
+    assert "onepass_f32_kernel" in text
+    # the C interface the wrapper binds is unchanged
+    assert re.search(r"int sdt_flash_attention_onepass\(const void\* q, const void\* k, "
+                     r"const void\* v, void\* o,\s+const long long\* strides, int batch, "
+                     r"int n_heads, int sq,\s+int sk, int head_dim, int dtype, int causal, "
+                     r"void\* stream\)", text)
 
 
 def _built_widths(source, pattern):
@@ -120,6 +142,8 @@ def test_wrapper_head_dims_match_the_sources(kernel):
     assert dims, source
     assert dims == [dh for dh in range(1, 1025) if fa.takes_head_dim(kernel, dh)]
     assert not fa.takes_head_dim(kernel, max(dims) + 8)
+    if kernel == "onepass":  # the schedule report dispatches the same head dims
+        assert _built_widths(source, r"SDT_PLAN\((\d+)\)[ \n]") == dims
 
 
 def _sources():
