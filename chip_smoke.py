@@ -77,7 +77,11 @@ Phases (any failure exits non-zero):
                 so that K3 carries the VAE, once with
                 conv_backend="kernel_fold" (K5's fp32 path), and once with a
                 4-window prompt (emphasis, BREAK, clip_skip=2) so that K2
-                carries every cross-attention, with exact launch counts.
+                carries every cross-attention; then four sampler loops of
+                slice B on K1: dpm++_3m_sde on the Karras grid (4 steps),
+                heun, restart, and ddim with eta 0.5 on the zero-terminal-SNR
+                schedule and the trailing grid (3 steps); with exact launch
+                counts from each sampler's UNet evaluations.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -98,11 +102,23 @@ Phases (any failure exits non-zero):
                 clip_skip=2; (r) generate_images() x4 with long prompts
                 (CFG batch 8); (s) a prompt edit [..:..:25] in a long
                 prompt: K2 at every cross-attention, 16 a UNet evaluation.
-                The launch counters are zeroed before each path and every
-                request checks its K1/K3/K4/K5 launches against the counts
-                derived from the model's plan, the context length and the
-                documented dispatch thresholds (not from the port's
-                router); at 2048² these
+                Slice B, the samplers at 512² (BF16, batch 1, CFG 7.5, seed
+                1337): each of the 17 besides ddpm once, at 20 steps (lcm
+                4; dpm_adaptive at most 20 iterations), on the Karras grid
+                for dpm++, dpm++_sde, dpm++_3m_sde, euler, heun, dpm2 and
+                dpm2_a; img2img at strength 0.6 with dpm++ (Karras) and
+                restart; euler_a on conv_backend="kernel" (K5); dpm++ with
+                the 4-window prompt (K2); dpm++_sde and dpm_adaptive again
+                (bit-identical).  Each request's UNet evaluations are
+                counted from its sampler's schedule (n - s, 2(n - s) - 1
+                for heun and the dpm2 family, n + 1 - s for plms, 2 an op
+                of restart's plan, 3 a segment of dpm_fast's, 3 an
+                iteration of dpm_adaptive as its ``sample`` reports them).
+                The launch counters are zeroed before each path (each slice
+                B request) and every request checks its K1/K2/K3/K4/K5
+                launches against the counts derived from the model's plan,
+                the context length and the documented dispatch thresholds
+                (not from the port's router); at 2048² these
                 must also equal the per-step counts PERF.md states, and K5
                 must run 44 times a UNet evaluation on "kernel" and
                 "kernel_fold", never on "plain" and "fold".
@@ -863,7 +879,10 @@ def phase_small_reference(port, attention):
     """Full width, FP32, 128²: the card against the CPU plain path, first on
     K1, then on K4 (FLASH_ONLY_KV lowered) and K3 (VAE on the kernel
     backend), then on K5 and the folded norms (conv_backend="kernel_fold"),
-    then with a 4-window prompt (emphasis, BREAK, clip_skip=2) on K2."""
+    then with a 4-window prompt (emphasis, BREAK, clip_skip=2) on K2; then
+    the sampler loops of slice B on K1: dpm++_3m_sde on Karras (4 steps),
+    heun, restart, and ddim with eta 0.5 on the zero-terminal-SNR schedule
+    and the trailing grid (3 steps)."""
     import numpy as np
 
     cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
@@ -875,37 +894,60 @@ def phase_small_reference(port, attention):
     gpu_models = port.build_models(cfg_gpu, device="cuda", state_dicts=sds)
     del sds
     tok = _tokenizer()
-    kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=3, seed=11,
-              height=128, width=128, tokenizer=tok, return_latents=True)
-    long_kw = dict(emphasis=True, clip_skip=2)
-    refs = {prompt: port.generate(prompt, models=cpu_models, config=cfg_cpu, **opts, **kw)
-            for prompt, opts in ((PROMPTS[0], {}), (LONG_PROMPT, long_kw))}
+    kw = dict(uncond_prompt="", cfg_scale=7.5, seed=11, height=128, width=128,
+              tokenizer=tok, return_latents=True)
+    zero_snr = dataclasses.replace(cfg_gpu, zero_terminal_snr=True)
+
+    def opts(sampler_name="ddpm", n_inference_steps=3, **more):
+        return dict(sampler_name=sampler_name, n_inference_steps=n_inference_steps, **more)
+
+    runs = [  # label, card config, FLASH_ONLY_KV, prompt, options, context
+        ("K1", cfg_gpu, None, PROMPTS[0], opts(), 77),
+        ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256,
+         PROMPTS[0], opts(), 77),
+        ("K1+K5 kernel_fold", dataclasses.replace(cfg_gpu, conv_backend="kernel_fold"),
+         None, PROMPTS[0], opts(), 77),
+        ("K1+K2 4-window prompt", cfg_gpu, None, LONG_PROMPT,
+         opts(emphasis=True, clip_skip=2), 308),
+        ("K1 dpm++_3m_sde karras", cfg_gpu, None, PROMPTS[0],
+         opts("dpm++_3m_sde", 4, timestep_spacing="karras"), 77),
+        ("K1 heun", cfg_gpu, None, PROMPTS[0], opts("heun"), 77),
+        ("K1 restart", cfg_gpu, None, PROMPTS[0], opts("restart"), 77),
+        ("K1 ddim eta 0.5, zero-terminal SNR, trailing", zero_snr, None, PROMPTS[0],
+         opts("ddim", ddim_eta=0.5, timestep_spacing="trailing"), 77)]
+
+    def ref_key(cfg, prompt, options):
+        return cfg.zero_terminal_snr, prompt, tuple(sorted(options.items()))
+
+    refs = {}
+    for _, cfg, _, prompt, options, _ in runs:
+        if ref_key(cfg, prompt, options) not in refs:
+            refs[ref_key(cfg, prompt, options)] = port.generate(
+                prompt, models=cpu_models, **options, **kw,
+                config=dataclasses.replace(cfg_cpu, zero_terminal_snr=cfg.zero_terminal_snr))
     del cpu_models
-    runs = [("K1", cfg_gpu, None, PROMPTS[0], {}, 77),
-            ("K4+K3", dataclasses.replace(cfg_gpu, vae_attention_backend="kernel"), 256,
-             PROMPTS[0], {}, 77),
-            ("K1+K5 kernel_fold", dataclasses.replace(cfg_gpu, conv_backend="kernel_fold"),
-             None, PROMPTS[0], {}, 77),
-            ("K1+K2 4-window prompt", cfg_gpu, None, LONG_PROMPT, long_kw, 308)]
-    for label, cfg, flash_only, prompt, opts, context in runs:
+    for label, cfg, flash_only, prompt, options, context in runs:
+        steps = options["n_inference_steps"]
+        evals = sampler_evals(options["sampler_name"], steps, 0)
         saved = attention.FLASH_ONLY_KV
         if flash_only is not None:
             attention.FLASH_ONLY_KV = flash_only
         try:
-            want = expected_launches(cfg, 128, 128, steps=3, img2img=False,
+            want = expected_launches(cfg, 128, 128, steps=evals, img2img=False,
                                      flash_only=flash_only or FLASH_ONLY_KV, context=context)
             before = launch_counts()
             img_g, lat_g = port.generate(prompt, models=gpu_models, config=cfg,
-                                         device="cuda", **opts, **kw)
+                                         device="cuda", **options, **kw)
             torch.cuda.synchronize()
             got = {k: v - before[k] for k, v in launch_counts().items()}
         finally:
             attention.FLASH_ONLY_KV = saved
         check(got == want, f"small run ({label}) launched {got}, want {want}")
-        img_c, lat_c = refs[prompt]
+        img_c, lat_c = refs[ref_key(cfg, prompt, options)]
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-        print(f"small ({label}): full-width FP32 128² 3 steps, card vs CPU plain path: "
+        print(f"small ({label}): full-width FP32 128² {steps} steps, {evals} UNet "
+              f"evaluations, card vs CPU plain path: "
               f"latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
               f"{got} ({time.perf_counter() - t0:.1f} s)", flush=True)
         check(np.isfinite(lat_g).all(), "small run latents not finite")
@@ -1013,6 +1055,107 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
                         flash_only=flash_only), 2 if img2img else 1)
     return counts
+
+
+#: samplers of one UNet evaluation a step, and of two but on the final step
+#: (an Euler step there) — the samplers' documented schedules (ROADMAP §1)
+ONE_EVAL = ("ddpm", "ddim", "euler", "euler_a", "lcm", "dpm++", "dpm++_sde",
+            "dpm++_3m_sde", "unipc", "lms")
+TWO_EVAL = ("heun", "dpm2", "dpm2_a", "dpm++_2s_a")
+
+
+def sampler_evals(sampler, steps, start, iterations=None):
+    """UNet evaluations of one request from start step ``start`` of
+    ``steps``, from the sampler's documented schedule: n - s for the one-
+    evaluation samplers, 2(n - s) - 1 for heun and the dpm2 family, n + 1 - s
+    for plms, 2 an op of restart's plan from its img2img entry op, 3 a
+    segment of dpm_fast's plan from its entry segment, 3 an iteration of
+    dpm_adaptive (its ``iterations``, which ``sample`` reports)."""
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm, dpm_fast, restart
+
+    if sampler in ONE_EVAL:
+        return steps - start
+    if sampler in TWO_EVAL:
+        return 2 * (steps - start) - 1
+    if sampler == "plms":
+        return steps + 1 - start
+    if sampler == "restart":
+        plan = restart.build_plan(ddpm.make_schedule(), steps)
+        return 2 * (plan["n_ops"] - int(plan["op_start"][start]))
+    if sampler == "dpm_fast":
+        plan = dpm_fast.build_plan(ddpm.make_schedule(), steps)
+        return 3 * (plan["m"] - int(plan["seg_start"][start]))
+    check(sampler == "dpm_adaptive" and iterations is not None and 0 < iterations <= steps,
+          f"{sampler}: {iterations} iterations for a bound of {steps}")
+    return 3 * iterations
+
+
+#: slice B's requests: sampler -> (timestep_spacing, steps)
+SLICE_B = {"ddim": ("uniform", 20), "dpm++": ("karras", 20), "dpm++_sde": ("karras", 20),
+           "dpm++_3m_sde": ("karras", 20), "dpm++_2s_a": ("uniform", 20),
+           "euler": ("karras", 20), "euler_a": ("uniform", 20), "heun": ("karras", 20),
+           "unipc": ("uniform", 20), "lcm": ("uniform", 4), "plms": ("uniform", 20),
+           "lms": ("uniform", 20), "dpm2": ("karras", 20), "dpm2_a": ("karras", 20),
+           "restart": ("uniform", 20), "dpm_fast": ("uniform", 20),
+           "dpm_adaptive": ("uniform", 20)}
+
+
+def phase_slice_b(port, request, base, init_image, zero_counts, read_path):
+    """Slice B at 512², BF16, kernel attention, batch 1, CFG 7.5, seed 1337:
+    each of the 17 samplers besides ddpm once (txt2img), img2img at strength
+    0.6 with dpm++ on Karras and with restart, euler_a on conv_backend
+    "kernel" (K5) and dpm++ with the 4-window prompt (K2); dpm++_sde and
+    dpm_adaptive twice, bit-identical.  The counters are zeroed before each
+    request and read after it; each request's launches must equal those of
+    its UNet evaluations, counted from the sampler's schedule
+    (:func:`sampler_evals`); dpm_adaptive's iterations are read from
+    ``sample``'s report."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm, dpm_adaptive
+
+    real_sample, iterations = dpm_adaptive.sample, []
+
+    def recording(*args, **kwargs):
+        out = real_sample(*args, **kwargs)
+        iterations.append(len(out[1]))
+        return out
+
+    dpm_adaptive.sample = recording
+    img2img = dict(input_image=init_image, strength=0.6)
+    runs = [(s, s, sp, n, {}) for s, (sp, n) in SLICE_B.items()] + [
+        # label, sampler, spacing, steps, options
+        ("dpm++ img2img 0.6", "dpm++", "karras", 20, img2img),
+        ("restart img2img 0.6", "restart", "uniform", 20, img2img),
+        ("euler_a conv kernel", "euler_a", "uniform", 20,
+         dict(config=dataclasses.replace(base["config"], conv_backend="kernel"))),
+        ("dpm++ 4-window prompt", "dpm++", "karras", 20,
+         dict(prompt=LONG_PROMPT, emphasis=True, clip_skip=2)),
+        ("dpm++_sde again", "dpm++_sde", "karras", 20, {}),
+        ("dpm_adaptive again", "dpm_adaptive", "uniform", 20, {})]
+    images = {}
+    try:
+        for label, sampler, spacing, steps, options in runs:
+            kw = {**base, "prompt": PROMPTS[0], "seed": 1337, "return_latents": True,
+                  "sampler_name": sampler, "timestep_spacing": spacing,
+                  "n_inference_steps": steps, **options}
+            start = ddpm.start_step_for_strength(steps, kw["strength"]) \
+                if "input_image" in kw else 0
+            iterations.clear()
+            zero_counts()
+            images[label], _ = request(
+                f"B {label}: {sampler}, {spacing}", lambda: port.generate(**kw),
+                size=512, steps=steps, n_images=1, img2img="input_image" in kw,
+                config=kw["config"], context=308 if kw["prompt"] == LONG_PROMPT else 77,
+                evals=lambda: sampler_evals(sampler, steps, start,
+                                            iterations[-1] if iterations else None))
+            read_path()
+    finally:
+        dpm_adaptive.sample = real_sample
+    for label in ("dpm++_sde", "dpm_adaptive"):
+        check(np.array_equal(images[label], images[f"{label} again"]),
+              f"{label}: the same seed gave a different image")
+    print("requests B: dpm++_sde and dpm_adaptive again == first, bit-identical", flush=True)
 
 
 def phase_step(models, cfg, card, size=2048, context=77, batch=2):
@@ -1193,8 +1336,21 @@ def main():
                 n_inference_steps=50, models=models, tokenizer=tok, config=cfg,
                 device="cuda", height=512, width=512)
 
-    def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg, context=77):
-        # one batched UNet call a step serves every image of the request
+    def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg, context=77,
+                evals=None):
+        # one batched UNet call an evaluation serves every image of the request;
+        # ``evals``: the UNet evaluations where they are not one a step (a
+        # callable where only the run knows them: dpm_adaptive's iterations)
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        n_evals = evals() if callable(evals) else evals
+        if n_evals is not None:
+            name, steps = f"{name} ({steps} steps, {n_evals} UNet evaluations)", n_evals
         want = expected_launches(config, size, size, steps=steps, img2img=img2img,
                                  context=context)
         k5_stated = K5_PER_EVAL * steps if config.conv_backend in ("kernel", "kernel_fold") \
@@ -1208,12 +1364,6 @@ def main():
             stated = {k: n * steps for k, n in PER_STEP_2048.items()}
             stated.update(K2=k2_stated, K3=2 if img2img else 1, K5=k5_stated)
             check(want == stated, f"{name}: derived {want}, PERF.md states {stated}")
-        before = launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
         images = out[0] if isinstance(out, tuple) else out
         images = images if images.ndim == 4 else images[None]
         check(images.dtype == np.uint8 and images.shape == (n_images, size, size, 3),
@@ -1222,11 +1372,11 @@ def main():
             check(im.max() > im.min(), f"{name}: constant image")
         if isinstance(out, tuple):
             check(np.isfinite(out[1]).all(), f"{name}: latents not finite")
-        launched = {k: v - before[k] for k, v in launch_counts().items()}
         check(launched == want, f"{name}: launched {launched}, want {want}")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"request {name}: {dt:.2f} s wall, {dt / steps:.3f} s a step (wall / "
-              f"steps), {n_images} image(s) {size}², {steps} steps, launches "
+        unit = "UNet evaluation" if n_evals is not None else "step"
+        print(f"request {name}: {dt:.2f} s wall, {dt / steps:.3f} s a {unit} (wall / "
+              f"{unit}s), {n_images} image(s) {size}², {steps} {unit}s, launches "
               f"{launched}, peak {peak:.2f} GiB  [{card}]", flush=True)
         return out
 
@@ -1346,6 +1496,9 @@ def main():
     print(f"requests D1 (not gated): q vs a PSNR "
           f"{psnr(long_img.astype(np.float32), a.astype(np.float32)):.1f} dB, s vs q "
           f"{psnr(edit.astype(np.float32), long_img.astype(np.float32)):.1f} dB", flush=True)
+
+    # slice B: every other sampler through its own denoise loop at 512²
+    phase_slice_b(port, request, base, a, zero_counts, read_path)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")

@@ -1,14 +1,16 @@
 """Stable Diffusion in PyTorch for NVIDIA Hopper — the port of
 ``pytorch_stable_diffusion_tpu`` (JAX/TPU), which stays the reference.
 
-The port runs SD-1.5 txt2img and img2img with DDPM and CFG, up to 2048²
-(65536-token attention), with the tiled VAE for high resolutions.  Module
-paths mirror the JAX package (``core/``, ``ops/``, ``models/``,
-``sampling/``, ``weights/``, ``pipeline.py``); the TPU's Pallas flash
-attention kernels are hand-written CUDA kernels in ``csrc/``: K1
-``flash_attention_bsc.cu``, K4 ``flash_attention_streamed.cu`` and K3
-``flash_attention_multipass.cu``.  The package imports torch and numpy
-only, never jax.
+The port runs SD-1.5 txt2img and img2img with CFG and the JAX package's
+18 samplers and timestep grids, up to 2048² (65536-token attention), with
+the tiled VAE for high resolutions.  Module paths mirror the JAX package
+(``core/``, ``ops/``, ``models/``, ``sampling/``, ``weights/``,
+``pipeline.py``); the TPU's Pallas kernels are hand-written CUDA kernels
+in ``csrc/``: K1 ``flash_attention_bsc.cu``, K2
+``flash_attention_onepass.cu``, K4 ``flash_attention_streamed.cu``, K3
+``flash_attention_multipass.cu`` and K5 ``scaled_silu_conv3x3.cu``.  The
+package imports torch and numpy (and scipy for the "beta" grid), never
+jax.
 
 Quick start (random weights; checkpoint loading comes in a later slice)::
 

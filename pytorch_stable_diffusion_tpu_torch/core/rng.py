@@ -6,11 +6,15 @@ results do not depend on evaluation order or batch size.  Torch has no
 counter-based key, so each (seed, role tag, sample index, step) tuple is
 hashed into the seed of its own CPU generator.
 
-All noise of a request is drawn here on the CPU and copied to the device
-once: CPU and CUDA generators give different numbers for one seed, so this
-makes a seed give the same image on either device, and the denoise loop
-never waits on the host.  tests/test_torch_pipeline.py freezes the first
-values of each stream.
+Streams: 'latent_init', 'encoder_noise' (per sample), 'sampler' (per
+sample and step), and the streams of the samplers that run their own
+grids: 'restart' (per sample and op), 'dpm_fast' (per sample and
+segment) and 'dpm_adaptive' (per sample and iteration), as in the JAX
+package.  All noise of a request is drawn here on the CPU and copied to
+the device once: CPU and CUDA generators give different numbers for one
+seed, so this makes a seed give the same image on either device, and the
+denoise loop never waits on the host.  tests/test_torch_pipeline.py and
+tests/test_torch_samplers.py freeze the first values of each stream.
 """
 
 from __future__ import annotations
@@ -47,3 +51,11 @@ def batch_normal(seed: int, name: str, batch: int, shape: Sequence[int],
         torch.randn(tuple(shape), generator=generator(seed, name, i, step),
                     dtype=torch.float32)
         for i in range(batch)])
+
+
+def step_normals(seed: int, name: str, n: int, batch: int,
+                 shape: Sequence[int]) -> torch.Tensor:
+    """(n, batch, *shape): one ``batch_normal`` draw of stream ``name`` per
+    step, op, segment or iteration 0..n-1."""
+    return torch.stack([batch_normal(seed, name, batch, shape, step=i)
+                        for i in range(n)])

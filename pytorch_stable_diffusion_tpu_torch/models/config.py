@@ -237,8 +237,6 @@ def check_ported(cfg: SDConfig) -> None:
         _refuse("a second text tower (clip2, SDXL)", "slice C2")
     if cfg.prediction_type != "epsilon":
         _refuse(f"prediction_type={cfg.prediction_type!r} (SD-2.x)", "slice C2")
-    if cfg.zero_terminal_snr:
-        _refuse("zero_terminal_snr", "slice B")
     if c.hidden_act != "quick_gelu" or c.layout != "clip" or c.text_projection \
             or c.key_prefix is not None:
         _refuse("the OpenCLIP/SDXL text towers", "slice C2")

@@ -1,4 +1,5 @@
-"""txt2img / img2img generation (port of ``pipeline.py``: DDPM + CFG).
+"""txt2img / img2img generation (port of ``pipeline.py``: CFG and the 18
+samplers).
 
 Same public keyword surface as the JAX package's ``generate()`` and
 ``generate_images()``, in eager PyTorch:
@@ -7,17 +8,31 @@ Same public keyword surface as the JAX package's ``generate()`` and
   reference's ``generate`` does; by default it is the models' device.
   ``idle_device`` is accepted and ignored, as in the JAX package.
 * All noise of a request is drawn up front on CPU generators (named
-  streams 'latent_init' / 'encoder_noise' / 'sampler', per sample and per
-  step: ``core/rng.py``) and copied to the device once, so a seed gives
-  the same noise on any device and the loop never waits on the host.
-  Parity tests inject recorded noise with ``fixed_noise`` (NCHW arrays:
-  latent_init (B, 4, h, w), sampler_noise (steps, B, 4, h, w),
-  encoder_noise (B, 4, h, w)).
-* CFG runs cond and uncond as one batched UNet call per step, combined as
-  ``uncond + scale * (cond - uncond)`` in float32.
+  streams 'latent_init' / 'encoder_noise' / 'sampler', and 'restart' /
+  'dpm_fast' / 'dpm_adaptive' for the samplers of those names, per sample
+  and per step, op, segment or iteration: ``core/rng.py``) and copied to
+  the device once, so a seed gives the same noise on any device and the
+  loop never waits on the host.  Parity tests inject recorded noise with
+  ``fixed_noise`` (NCHW arrays: latent_init (B, 4, h, w), sampler_noise
+  (steps, B, 4, h, w), encoder_noise (B, 4, h, w)); restart, dpm_fast and
+  dpm_adaptive refuse it, and prompt editing, with ``ValueError``, as in
+  the JAX package.
+* Samplers (``sampler_name``, :data:`SAMPLERS`) and grids
+  (``timestep_spacing``, ``ddpm.timesteps_for``; lcm, dpm_fast and
+  dpm_adaptive take only "uniform" and raise ``ValueError`` otherwise),
+  ``ddim_eta`` and the config's ``zero_terminal_snr``, as in the JAX
+  package: see :func:`_sample` for the loops.  Every timestep a loop
+  evaluates is a Python int on the host that indexes a table of the
+  training timesteps put on the device once, so no step copies to the
+  device; every per-step scalar is computed on the host.  The loops make
+  no host sync, but for dpm_adaptive's one a 3-evaluation iteration
+  (``sampling/dpm_adaptive.py``).
+* CFG runs cond and uncond as one batched UNet call per evaluation,
+  combined as ``uncond + scale * (cond - uncond)`` in float32.
 * img2img encodes the init image (one for the whole batch, or a
   (B, H, W, 3) array of one per prompt), noises it to the timestep of
-  ``start_step_for_strength`` and denoises from there.
+  ``start_step_for_strength`` (restart and dpm_fast: of their own grids'
+  entry maps) and denoises from there.
 * ``encode_tile`` / ``decode_tile`` (latent px) run the VAE's
   image-resolution convs over overlapping tiles (``models/vae.py``), for
   high-resolution requests; the mid block's attention still runs whole.
@@ -55,13 +70,15 @@ from . import prompt_schedule
 from .core import rng as rng_mod
 from .models import vae as vae_mod
 from .models.config import SDConfig, check_ported, sd15_config, with_clip_skip
-from .sampling import ddpm
+from .sampling import (ddim, ddpm, dpm, dpm2, dpm_adaptive, dpm_fast, euler, lcm, lms,
+                       pndm, restart, unipc)
 
-#: samplers this slice ports; the JAX package's others come with slice B
-SAMPLERS = ("ddpm",)
-_LATER_SAMPLERS = ("ddim", "dpm++", "dpm++_sde", "dpm++_3m_sde", "dpm++_2s_a",
-                   "euler", "euler_a", "heun", "unipc", "lcm", "plms", "lms",
-                   "dpm2", "dpm2_a", "restart", "dpm_fast", "dpm_adaptive")
+#: the JAX package's samplers, all ported
+SAMPLERS = ("ddpm", "ddim", "dpm++", "dpm++_sde", "dpm++_3m_sde", "dpm++_2s_a",
+            "euler", "euler_a", "heun", "unipc", "lcm", "plms", "lms",
+            "dpm2", "dpm2_a", "restart", "dpm_fast", "dpm_adaptive")
+#: samplers that run their own op/segment/iteration grid and noise stream
+_OWN_GRID = ("restart", "dpm_fast", "dpm_adaptive")
 
 #: Largest global self-attention sequence (level-1 tokens) served: the JAX
 #: package's limit and ``ValueError`` contract (its ``pipeline.py``), which
@@ -75,7 +92,6 @@ _UNPORTED = {
     "mask_blur": (0, "slice C2"), "edit_image": (None, "slice C2"),
     "image_guidance_scale": (1.5, "slice C2"), "original_size": (None, "slice C2"),
     "crop_coords": ((0, 0), "slice C2"), "target_size": (None, "slice C2"),
-    "timestep_spacing": ("uniform", "slice B"), "ddim_eta": (0.0, "slice B"),
     "hypernetwork": (None, "slice D2"), "hypernetwork_strength": (1.0, "slice D2"),
     "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
     "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
@@ -98,17 +114,10 @@ _UNPORTED = {
 }
 
 
-#: the JAX package's timestep spacings; any other raises ValueError there
-TIMESTEP_SPACINGS = ("uniform", "trailing", "karras", "exponential", "sgm_uniform",
-                     "kl_optimal", "ays", "beta")
-
-
 def _check_unported(kwargs) -> None:
     for name, value in kwargs.items():
         if name not in _UNPORTED:
             raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
-        if name == "timestep_spacing" and value not in TIMESTEP_SPACINGS:
-            raise ValueError(f"unknown timestep_spacing {value!r}")
         default, where = _UNPORTED[name]
         if value is not None if default is None else value != default:
             raise NotImplementedError(
@@ -271,15 +280,13 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   encode_tile: Optional[int] = None,
                   long_prompts: bool = False, emphasis: bool = False,
                   clip_skip: Optional[int] = None,
+                  timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
                   **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32)."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
     _check_unported(unported)
     if not 0.0 < strength <= 1.0:
         raise ValueError("strength must be between 0 and 1")
-    if sampler_name in _LATER_SAMPLERS:
-        raise NotImplementedError(f"sampler {sampler_name!r} is not ported yet: "
-                                  f"it comes with slice B (ROADMAP.md §1)")
     if sampler_name not in SAMPLERS:
         raise ValueError(f"Unknown sampler value {sampler_name!r}")
     if models is None or tokenizer is None:
@@ -321,6 +328,15 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         else:  # the syntax resolved to a single conditioning
             prompts, uncond = list(realized[0][0]), list(realized[0][1])
             sched_idx = None
+    if sampler_name in _OWN_GRID:
+        # their op/segment grids replace the per-step arrays that the
+        # sampler noise and the per-step contexts key off
+        if sched_idx is not None:
+            raise ValueError(f"sampler {sampler_name!r} does not compose "
+                             "with prompt editing/alternation")
+        if fixed_noise is not None:
+            raise ValueError(f"sampler {sampler_name!r} is not supported "
+                             "in fixed_noise parity mode")
     _check_composable(prompts)
     cond_tokens, uncond_tokens, cond_w, uncond_w = _tokenize(
         tokenizer, prompts, uncond, cfg.clip.max_len, long_prompts=long_prompts,
@@ -340,6 +356,31 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     start_step = ddpm.start_step_for_strength(n_inference_steps, strength) \
         if img2img else 0
 
+    schedule = ddpm.make_schedule(
+        beta_start=ddpm.REFERENCE_BETA_START if cfg.reference_quirks
+        else ddpm.BETA_START, zero_terminal_snr=cfg.zero_terminal_snr)
+    if sampler_name in ("lcm", "dpm_fast", "dpm_adaptive") \
+            and timestep_spacing != "uniform":
+        raise ValueError(f"sampler {sampler_name!r} defines its own timesteps; "
+                         "timestep_spacing must be 'uniform'")
+    if sampler_name == "lcm":  # the distillation grid
+        timesteps = lcm.inference_timesteps(n_inference_steps)
+    else:
+        timesteps = ddpm.timesteps_for(schedule, timestep_spacing, n_inference_steps)
+    # the sampler's noise stream: one draw a step, op, segment or iteration.
+    # restart and dpm_fast run their own grids; the pipeline's maps the
+    # strength to their entry (``start_t``), where img2img noises the latents
+    plan, stream, n_draws = None, "sampler", n_inference_steps
+    if sampler_name == "restart":
+        plan = restart.build_plan(schedule, n_inference_steps)
+        stream, n_draws = "restart", plan["n_ops"]
+    elif sampler_name == "dpm_fast":
+        plan = dpm_fast.build_plan(schedule, n_inference_steps)
+        stream, n_draws = "dpm_fast", plan["m"]
+    elif sampler_name == "dpm_adaptive":
+        stream = "dpm_adaptive"
+    entry_ts = timesteps if plan is None else plan["start_t"]
+
     if device is None:
         device = next(models["diffusion"].parameters()).device
     device = torch.device(device)
@@ -358,20 +399,15 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     else:
         s = 0 if seed is None else int(seed)
         noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape),
-                 "sampler": torch.stack([
-                     rng_mod.batch_normal(s, "sampler", batch, lat_shape, step=i)
-                     for i in range(n_inference_steps)])}
+                 "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape)}
         if img2img:
             noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch,
                                                     lat_shape)
     noise = {k: v.to(device) for k, v in noise.items()}
 
-    schedule = ddpm.make_schedule(
-        beta_start=ddpm.REFERENCE_BETA_START if cfg.reference_quirks
-        else ddpm.BETA_START)
-    timesteps = ddpm.inference_timesteps(n_inference_steps)
-    prev_timesteps = np.append(timesteps[1:], -1)
-    t_dev = torch.as_tensor(timesteps.astype(np.float32)).to(device)
+    # every training timestep, on the device once: the loops index it with
+    # host ints, so no step copies a timestep to the device
+    t_all = torch.arange(schedule.num_train_timesteps, dtype=torch.float32).to(device)
     memory_format = torch.channels_last if device.type == "cuda" \
         else torch.contiguous_format
     vae_kw = dict(attention_backend=cfg.vae_attention_backend,
@@ -405,27 +441,31 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             else:
                 lat0 = models["encoder"](image, noise["encoder"], policy, **vae_kw)
             lat0 = lat0.float()
-            latents = ddpm.add_noise(schedule, lat0, int(timesteps[start_step]),
+            latents = ddpm.add_noise(schedule, lat0, int(entry_ts[start_step]),
                                      noise["latent_init"])
         else:
             latents = noise["latent_init"]
 
         unet = models["diffusion"]
-        for i in range(start_step, n_inference_steps):
-            lat_c = latents.to(policy.compute_dtype)
+
+        def eps_at(i: int, lat: torch.Tensor, t: int) -> torch.Tensor:
+            """CFG epsilon of the latents at training timestep ``t``; step
+            index ``i`` picks an edited prompt's conditioning."""
+            lat_c = lat.to(policy.compute_dtype)
             model_in = torch.cat([lat_c, lat_c]) if do_cfg else lat_c
             ctx = context if sched_idx is None else context[int(sched_idx[i])]
             eps = unet(model_in.contiguous(memory_format=memory_format), ctx,
-                       t_dev[i], policy, attention_backend=cfg.attention_backend,
+                       t_all[int(t)], policy, attention_backend=cfg.attention_backend,
                        reference_quirks=cfg.reference_quirks,
                        fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend).float()
             if do_cfg:
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
-            latents = ddpm.step(schedule, int(timesteps[i]), latents, eps,
-                                noise["sampler"][i],
-                                num_inference_steps=n_inference_steps,
-                                prev_t=int(prev_timesteps[i])).float()
+            return ddpm.to_epsilon(schedule, t, lat, eps, cfg.prediction_type)
+
+        latents = _sample(sampler_name, schedule, timesteps, latents.float(),
+                          noise["sampler"], eps_at, start_step=start_step, plan=plan,
+                          eta=float(ddim_eta), img2img=img2img)
 
         lat_in = latents.contiguous(memory_format=memory_format)
         if decode_tile:
@@ -436,6 +476,108 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         images = rescale(images.float(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         images = images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
         return images.cpu().numpy(), latents.cpu().numpy()
+
+
+def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor,
+            noise: torch.Tensor, eps_at, *, start_step: int, plan, eta: float,
+            img2img: bool) -> torch.Tensor:
+    """The denoise loop of ``sampler`` from ``start_step`` (JAX ``pipeline.py``'s
+    loops): float32 latents in and out, ``noise`` the sampler stream's
+    draws, ``eps_at(i, latents, t)`` one CFG UNet evaluation.  Heun and
+    the dpm2 family make no second evaluation on their final (Euler) step,
+    which the JAX package evaluates and discards."""
+    n = len(timesteps)
+    prev_ts = np.append(timesteps[1:], -1)
+    steps = [(i, int(timesteps[i]), int(prev_ts[i])) for i in range(start_step, n)]
+    if sampler in ("dpm++", "dpm++_sde", "dpm++_3m_sde", "unipc"):
+        state = dpm.init_state_3m() if sampler == "dpm++_3m_sde" \
+            else unipc.init_state() if sampler == "unipc" else dpm.init_state()
+        for i, t, prev in steps:
+            eps = eps_at(i, latents, t)
+            if sampler == "dpm++_sde":
+                latents, state = dpm.step_sde(schedule, t, latents, eps, noise[i], state,
+                                              prev_t=prev)
+            elif sampler == "dpm++_3m_sde":
+                latents, state = dpm.step_sde_3m(schedule, t, latents, eps, noise[i],
+                                                 state, prev_t=prev)
+            else:
+                latents, state = (unipc if sampler == "unipc" else dpm).step(
+                    schedule, t, latents, eps, state, prev_t=prev)
+    elif sampler == "plms":
+        # n + 1 iterations: the warm-up evaluates the second grid point twice
+        state = pndm.init_state()
+        for i in range(start_step, n + 1):
+            te = min(pndm.eval_index(i, start_step), n - 1)
+            eps = eps_at(te, latents, int(timesteps[te]))
+            latents, state = pndm.step(schedule, timesteps, prev_ts, i, start_step,
+                                       latents, eps, state, n_steps=n)
+    elif sampler == "lms":
+        table, hist = lms.coeff_table(schedule, timesteps), []
+        for i, t, prev in steps:
+            eps = eps_at(i, latents, t)
+            latents, hist = lms.step(schedule, table, i, start_step, t, latents, eps,
+                                     hist, prev_t=prev)
+    elif sampler in ("heun", "dpm2", "dpm2_a", "dpm++_2s_a"):
+        # a second evaluation at the next grid point (heun) or the log-space
+        # midpoint (the dpm2 family); none on the final step
+        mids = None if sampler == "heun" else dpm2.mid_timesteps(
+            schedule, timesteps, ancestral=sampler != "dpm2")
+        for i, t, prev in steps:
+            eps = eps_at(i, latents, t)
+            if prev < 0:
+                latents = euler.step(schedule, t, latents, eps, prev_t=prev)
+            elif sampler == "heun":
+                pred = euler.step(schedule, t, latents, eps, prev_t=prev)
+                eps2 = eps_at(i + 1, pred, prev)
+                latents = euler.step_heun_correct(schedule, t, latents, eps, eps2,
+                                                  prev_t=prev)
+            else:
+                t_mid = int(mids[i])
+                pred_mid = euler.step(schedule, t, latents, eps, prev_t=t_mid)
+                eps2 = eps_at(i, pred_mid, t_mid)
+                if sampler == "dpm2":
+                    latents = euler.step(schedule, t, latents, eps2, prev_t=prev)
+                elif sampler == "dpm2_a":
+                    latents = dpm2.step_ancestral_second(schedule, t, latents, eps2,
+                                                         noise[i], prev_t=prev)
+                else:
+                    latents = dpm.step_2s_ancestral_second(
+                        schedule, t, latents, pred_mid, eps2, t_mid, noise[i], prev_t=prev)
+    elif sampler in _OWN_GRID:
+        # no prompt editing here: every evaluation takes conditioning 0
+        def eval_eps(x, t):
+            return eps_at(0, x, t)
+
+        if sampler == "restart":
+            for i in range(int(plan["op_start"][start_step]), plan["n_ops"]):
+                latents = restart.run_op(schedule, plan, i, latents, noise[i], eval_eps)
+        elif sampler == "dpm_fast":
+            for i in range(int(plan["seg_start"][start_step]), plan["m"]):
+                latents = dpm_fast.run_segment(schedule, plan, i, latents, noise[i],
+                                               eval_eps)
+        else:
+            # txt2img enters at the full sigma_max; img2img at the grid
+            # timestep its latents were noised to, at any strength
+            t_entry = int(timesteps[min(start_step, n - 1)]) if img2img \
+                else schedule.num_train_timesteps - 1
+            latents, _ = dpm_adaptive.sample(schedule, latents, t_entry, eval_eps, noise,
+                                             max_iters=n)
+    else:
+        for i, t, prev in steps:
+            eps = eps_at(i, latents, t)
+            if sampler == "ddim":
+                latents = ddim.step(schedule, t, latents, eps, noise[i], eta=eta, prev_t=prev)
+            elif sampler == "euler":
+                latents = euler.step(schedule, t, latents, eps, prev_t=prev)
+            elif sampler == "euler_a":
+                latents = euler.step_ancestral(schedule, t, latents, eps, noise[i],
+                                               prev_t=prev)
+            elif sampler == "lcm":
+                latents = lcm.step(schedule, t, latents, eps, noise[i], prev_t=prev)
+            else:
+                latents = ddpm.step(schedule, t, latents, eps, noise[i],
+                                    num_inference_steps=n, prev_t=prev)
+    return latents
 
 
 def generate(prompt, uncond_prompt="", **kwargs):

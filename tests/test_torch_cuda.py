@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card.  Skipped where there is no CUDA device.
+card, and the sampler loops on the card against the CPU plain path.
+Skipped where there is no CUDA device.
 
 tests/conftest.py imports jax, which the GPU machine lacks, so on the card
 run this file without it (it imports only torch, numpy and the port):
@@ -7,6 +8,7 @@ run this file without it (it imports only torch, numpy and the port):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -371,3 +373,77 @@ def test_k5_refuses_what_it_does_not_take(cuda):
         k5.scaled_silu_conv3x3(x, scale, shift, weight.contiguous(), bias)
     with pytest.raises(ValueError, match="bfloat16"):
         k5.scaled_silu_conv3x3(x.half(), scale, shift, weight.half(), bias)
+
+
+# ------------------------------------------------- the sampler loops (slice B)
+def _psnr(a, b):
+    a, b = np.asarray(a, np.float32).ravel(), np.asarray(b, np.float32).ravel()
+    peak = max(np.abs(a).max(), 1e-12)
+    return 10.0 * np.log10(peak**2 / max(np.mean((a - b) ** 2), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def sd15_pair():
+    """Full-width SD-1.5 in FP32 on the CPU (plain path) and on the card
+    (kernel attention), the same weights from a seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
+
+    cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
+    cfg_gpu = port.sd15_config(policy=port.FP32, attention_backend="kernel")
+    cpu = port.build_models(cfg_cpu, device="cpu", generator=torch.Generator().manual_seed(7))
+    gpu = port.build_models(cfg_gpu, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    tok = make_test_tokenizer(["a", "photograph", "of", "an", "astronaut"], max_len=77)
+    return port, cfg_cpu, cpu, cfg_gpu, gpu, tok
+
+
+#: K1 launches of one UNet evaluation at 128² (a 16x16 latent): the five
+#: level-1 self-attentions over 256 tokens; level 2 (64 tokens) and the
+#: 77-token cross-attentions take materialized scores
+K1_PER_EVAL_128 = 5
+
+
+@pytest.mark.parametrize("sampler,spacing,steps,evals", [
+    ("euler_a", "uniform", 3, 3),        # one evaluation a step
+    ("heun", "karras", 3, 5),            # two a step, none past the final Euler step
+    ("dpm++_3m_sde", "karras", 4, 4),    # multistep state
+    ("restart", "uniform", 3, 6),        # 3 ops of 2 (no restart segment below 20 steps)
+    ("dpm_fast", "uniform", 3, 6),       # 2 segments of 3
+    ("dpm_adaptive", "uniform", 3, None),  # 3 an iteration, at most 3 iterations
+])
+def test_sampler_loop_card_matches_cpu(cuda, sd15_pair, sampler, spacing, steps, evals):
+    """A 128² FP32 request on the card against the CPU plain path: latents
+    > 55 dB, image > 40 dB, and K1 launched at every level-1
+    self-attention of every UNet evaluation of the loop."""
+    from unittest import mock
+
+    from pytorch_stable_diffusion_tpu_torch.sampling import dpm_adaptive
+
+    port, cfg_cpu, cpu, cfg_gpu, gpu, tok = sd15_pair
+    kw = dict(uncond_prompt="", cfg_scale=7.5, n_inference_steps=steps, seed=11,
+              height=128, width=128, tokenizer=tok, return_latents=True,
+              sampler_name=sampler, timestep_spacing=spacing)
+    img_c, lat_c = port.generate("a photograph of an astronaut", models=cpu,
+                                 config=cfg_cpu, **kw)
+    iterations, sample = [], dpm_adaptive.sample
+
+    def recording(*args, **kwargs):
+        out = sample(*args, **kwargs)
+        iterations.append(len(out[1]))
+        return out
+
+    before = fa.flash_attention_bsc.launches
+    with mock.patch.object(dpm_adaptive, "sample", recording):
+        img_g, lat_g = port.generate("a photograph of an astronaut", models=gpu,
+                                     config=cfg_gpu, device="cuda", **kw)
+    torch.cuda.synchronize()
+    if evals is None:
+        assert len(iterations) == 1 and 0 < iterations[0] <= steps
+        evals = 3 * iterations[0]
+    assert fa.flash_attention_bsc.launches - before == K1_PER_EVAL_128 * evals
+    assert np.isfinite(lat_g).all()
+    assert _psnr(lat_c, lat_g) > 55.0
+    assert _psnr(img_c, img_g) > 40.0

@@ -317,8 +317,8 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 @pytest.mark.parametrize("kwargs,where", [
     ({"mask_image": np.zeros((HW, HW))}, "slice C"),
-    ({"sampler_name": "euler"}, "slice B"),
-    ({"timestep_spacing": "karras"}, "slice B"),
+    ({"edit_image": np.zeros((HW, HW, 3))}, "slice C2"),
+    ({"freeu": (1.1, 1.2, 0.9, 0.2)}, "slice F"),
     ({"control_image": np.zeros((HW, HW, 3))}, "slice E"),
     ({"panorama": True}, "slice G"),
     ({"hypernetwork": "style.pt"}, "slice D2"),
@@ -339,15 +339,22 @@ def test_unported_features_raise(slice_setup, kwargs, where):
 @pytest.mark.parametrize("kwargs,match", [
     ({"config": tiny_sd_config(quant="int8")}, "quant tier"),
     ({"timestep_spacing": "bogus"}, "timestep_spacing"),
+    ({"sampler_name": "lcm", "timestep_spacing": "karras"}, "timestep_spacing"),
+    ({"sampler_name": "dpm_fast", "timestep_spacing": "karras"}, "timestep_spacing"),
+    ({"sampler_name": "restart", "fixed_noise": True}, "fixed_noise"),
 ])
 def test_unknown_option_values_raise_value_error(slice_setup, kwargs, match):
     """Values the JAX package does not know either raise ValueError there
     (``generate()``'s quant and timestep_spacing checks), and so here; the
-    JAX package's own tiers and spacings raise NotImplementedError above."""
-    cfg, models, _, _ = slice_setup
+    JAX package's own tiers raise NotImplementedError above.  So do the
+    samplers' refusals there: lcm and dpm_fast off the "uniform" spacing,
+    restart with injected noise."""
+    cfg, models, noise, _ = slice_setup
     kw = dict(prompt="a cat", models=models, config=cfg, height=HW, width=HW,
               tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len))
     kw.update(kwargs)
+    if kw.get("fixed_noise"):
+        kw["fixed_noise"] = _nchw_noise(noise)
     with pytest.raises(ValueError, match=match):
         pipeline.generate(**kw)
 
