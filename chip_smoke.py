@@ -34,7 +34,8 @@ Phases (any failure exits non-zero):
                 tokens), with its launch configuration; K2 at
                 the cross-attentions of a 4-window prompt at 512² (2|8, 8,
                 4096|1024|256|64, KV 308, Dh 40|80|160) on views of one
-                fused k/v projection, a ragged KV 300, causal cases across
+                fused k/v projection and, at batch 2, on k and v in two
+                allocations of their own (a hypernetwork's), a ragged KV 300, causal cases across
                 64-, 128- and 192-row CTAs, with two q tiles a CTA and with
                 Sq < Sk, a KV of 77 tokens and of one, and KV 9216 at Dh
                 40, each with the schedule its bf16 launch takes (64-row
@@ -122,6 +123,31 @@ Phases (any failure exits non-zero):
                 must also equal the per-step counts PERF.md states, and K5
                 must run 44 times a UNet evaluation on "kernel" and
                 "kernel_fold", never on "plain" and "fold".
+                Slice D (``phase_slice_d``, lines ``D ...``), BF16, kernel
+                attention, files in a temporary directory: a seeded
+                synthetic SD-1.5 state dict (1.07 B parameters) written as
+                fp16 .safetensors by the port's writer, loaded by
+                StableDiffusion.from_checkpoint and by
+                load_sd_checkpoint_streamed (each timed, with its peak host
+                memory; every parameter equal to the file's value cast to
+                bf16); a .ckpt VAE of another seed through with_vae and the
+                restricted unpickler, and a request with the VAE on K3; then
+                512² dpm++ Karras 20-step requests on conv_backend "kernel":
+                the base; with_lora of a kohya file over every UNet and
+                text-encoder conv/linear target (rank 8, alpha 4; every
+                merged element within one bf16 ulp of a CPU fp32 merge) and
+                at scale 0 (bit-identical to the base); an A1111 .pt
+                textual inversion (2 vectors: ids >= 49408, a different
+                image); an A1111 .pt hypernetwork (768, 1-2-1, one net with
+                a LayerNorm) at strength 0.7 under the 4-window prompt, K2
+                at all 16 cross-attentions an evaluation on k and v from
+                separate allocations, and at strength 0 (bit-identical to
+                the model without it); merged_with(alpha 0.3) equal to the
+                fp32 formula cast to bf16; generate_many of 6 prompts at
+                batch 4 (chunk 0 bit-identical to generate_images, chunk 1
+                different, at most one host sync, the final copy, under
+                torch's sync debug mode); a diffusers tree and a
+                save_safetensors round trip, bit-identical.
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -141,6 +167,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -523,6 +550,15 @@ def cross_views(b, sq, sk, heads, dh, dtype, g):
             for t in (q, *kv.split(c, dim=-1))]
 
 
+def separate_views(b, sq, sk, heads, dh, dtype, g):
+    """q, k and v each from its own contiguous (B, S, C) allocation, viewed as
+    (B, H, S, Dh): k and v as a hypernetwork's cross-attention makes them,
+    projected from contexts of their own."""
+    c = heads * dh
+    return [torch.randn(b, s, c, device="cuda", generator=g).to(dtype)
+            .reshape(b, s, heads, dh).transpose(1, 2) for s in (sq, sk, sk)]
+
+
 def k2_schedule_text(s):
     return (f"{s['warpgroups']} consumer warpgroup(s) ({64 * s['warpgroups']} q rows), "
             f"{s['ctas']} CTA(s) a head, {s['stages']} stages, {s['smem']} B")
@@ -530,7 +566,9 @@ def k2_schedule_text(s):
 
 def phase_k2(fa, card, results):
     """K2 vs its plain version at the cross-attentions of a 4-window prompt
-    at 512² (levels 1-3 and the mid block, CFG batch 2 and 8), a ragged KV,
+    at 512² (levels 1-3 and the mid block, CFG batch 2 and 8; at batch 2
+    also with k and v in two allocations of their own, as a hypernetwork's
+    k/v contexts give them), a ragged KV,
     causal cases across 64-, 128- and 192-row CTAs and with several q tiles
     a CTA, causal with Sq < Sk, a KV of one tile and less, and the one-pass
     envelope's top (KV 9216), in bf16 and fp32, each with the schedule its
@@ -549,6 +587,8 @@ def phase_k2(fa, card, results):
              for b in (2, 8) for sq, dh in levels]
     cases += [(2, 8, sq, sk, dh, False, sq, "level")
               for sk in (385, 462) for sq, dh in levels[:2]]
+    # k and v in two allocations of their own (a hypernetwork's k/v contexts)
+    cases += [(2, 8, sq, 308, dh, False, sq, "separate") for sq, dh in levels]
     cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
               (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
               (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
@@ -561,11 +601,14 @@ def phase_k2(fa, card, results):
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, sq, sk, dh, causal, rows, role in cases:
-            args = cross_views(b, sq, sk, h, dh, dtype, g)
+            views = separate_views if role == "separate" else cross_views
+            args = views(b, sq, sk, h, dh, dtype, g)
             kw = {"causal": causal}
             err, tol, ref = _check_rows("K2", wrapper, plain, args, kw, rows, dtype, rec)
             line = (f"K2 {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
-                    f"{' causal' if causal else ''}: max abs err {err:.3e} on "
+                    f"{' causal' if causal else ''}"
+                    f"{', k and v in separate allocations' if role == 'separate' else ''}"
+                    f": max abs err {err:.3e} on "
                     f"{min(rows, sq)} q rows (tol {tol:.3e})")
             if dtype == torch.bfloat16:
                 line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
@@ -1257,6 +1300,359 @@ def phase_vae(models, cfg, card, size=2048):
     print(f"vae ({size}², batch 1, decode): {wall:.4f} s wall, {dev}  [{card}]", flush=True)
 
 
+# ------------------------------------------------------------------ slice D
+class HostPeak:
+    """Peak VmRSS of this process while the block runs, sampled every 2 ms
+    by a thread, and its growth over the start.  VmRSS counts the pages of
+    a memory-mapped file that were read (the card machine's /proc has no
+    RssAnon to tell them apart)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f
+                        if line.startswith("VmRSS:"))
+
+    def _poll(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    def text(self):
+        return (f"peak host VmRSS {self.peak / 2**30:.2f} GiB "
+                f"(+{(self.peak - self.start) / 2**30:.2f} over the start)")
+
+
+def equal_to_file(models, cfg, want, label):
+    """Every parameter of ``models`` (on the card) against ``want`` (the
+    CompVis tensors on the card), bit for bit."""
+    from pytorch_stable_diffusion_tpu_torch.weights import convert
+
+    got = convert.deconvert(models, cfg)
+    check(set(got) == set(want), f"{label}: {len(set(got) ^ set(want))} keys differ")
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    check(not bad, f"{label}: {len(bad)} parameters differ from the file (first {bad[:3]})")
+    return len(want)
+
+
+def bf16_within_one_ulp(got, ref):
+    """Elements of bf16 ``got`` equal to bf16 ``ref``, and the largest gap
+    in units of ref's last place (one bf16 ulp: 2^(e-8) for |ref| = m·2^e,
+    m in [0.5, 1))."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(r)
+    ulps = ((g - r).abs() / torch.ldexp(torch.ones_like(r), e - 8)).max().item()
+    return (g == r).sum().item(), ulps
+
+
+def lora_file(models, cfg, path, g):
+    """A kohya LoRA over every UNet and text-encoder conv and linear target
+    of the port's diffusers rules, rank 8, alpha 4, fp16 factors; -> the
+    file's factors by target, on the CPU in fp32."""
+    from pytorch_stable_diffusion_tpu_torch.weights import lora, save
+
+    sds = {name: models[name].state_dict() for name in ("clip", "diffusion")}
+    tensors, factors = {}, {}
+    for dotted, targets in sorted(lora._weight_targets(cfg).items()):
+        model, dst, _ = targets[0]
+        w = sds[model][dst]
+        rank = 8
+        down_shape = (rank,) + tuple(w.shape[1:])
+        up_shape = (w.shape[0], rank) + ((1, 1) if w.dim() == 4 else ())
+        down = (torch.randn(down_shape, device="cuda", generator=g) * 0.02).half()
+        up = (torch.randn(up_shape, device="cuda", generator=g) * 0.02).half()
+        root, rest = dotted.split(".", 1)
+        name = ("lora_unet_" if root == "unet" else "lora_te_") + rest.replace(".", "_")
+        tensors[f"{name}.lora_down.weight"] = down
+        tensors[f"{name}.lora_up.weight"] = up
+        tensors[f"{name}.alpha"] = torch.tensor(4.0, dtype=torch.float16)
+        factors[(model, dst)] = (down.float().cpu(), up.float().cpu())
+    save.write_safetensors(tensors, path)
+    return factors
+
+
+def hypernetwork_file(path, width=768):
+    """An A1111 hypernetwork .pt for one context width, layer structure
+    1-2-1 (width -> 2·width -> width), relu; the k-net with a LayerNorm
+    after its first Linear (add_layer_norm), the v-net without; Sequential
+    indices with A1111's gaps for the parameterless modules."""
+    g = torch.Generator().manual_seed(13)
+
+    def lin(o, i):
+        return torch.randn(o, i, generator=g) * (0.5 / i ** 0.5), torch.randn(o, generator=g) * 0.01
+
+    w0, b0 = lin(2 * width, width)
+    w3, b3 = lin(width, 2 * width)
+    k_net = {"linear.0.weight": w0, "linear.0.bias": b0,
+             "linear.1.weight": 1.0 + 0.1 * torch.randn(2 * width, generator=g),
+             "linear.1.bias": 0.1 * torch.randn(2 * width, generator=g),
+             "linear.3.weight": w3, "linear.3.bias": b3}
+    w0, b0 = lin(2 * width, width)
+    w2, b2 = lin(width, 2 * width)
+    v_net = {"linear.0.weight": w0, "linear.0.bias": b0,
+             "linear.2.weight": w2, "linear.2.bias": b2}
+    torch.save({width: (k_net, v_net), "name": "smoke", "layer_structure": [1, 2, 1],
+                "activation_func": "relu", "add_layer_norm": True, "activate_output": False,
+                "use_dropout": False, "step": 1}, path)
+
+
+def phase_slice_d(port, card, request, zero_counts, read_path):
+    """Slice D at full width, BF16, kernel attention, on files written in
+    the real formats to a temporary directory (see the module docstring,
+    phase 6, slice D)."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import assemble
+    from pytorch_stable_diffusion_tpu_torch.ops import attention
+    from pytorch_stable_diffusion_tpu_torch.weights import (convert, diffusers, save,
+                                                            stream)
+
+    cfg = port.sd15_config(policy=port.BF16, attention_backend="kernel")
+    cfg_k5 = dataclasses.replace(cfg, conv_backend="kernel")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_d_")
+    d = tmp.name
+    tok = _tokenizer()
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(tok.encoder, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(
+            f"{a} {b}\n" for a, b in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)))
+    vocab, merges = os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+
+    # 1. the full model from a .safetensors file, eager and streamed
+    t0 = time.perf_counter()
+    file16 = {k: v.half() for k, v in
+              convert.synthetic_state_dict(cfg, seed=0, device="cuda").items()}
+    n_params = sum(v.numel() for v in file16.values())
+    ckpt = os.path.join(d, "sd15.safetensors")
+    save.write_safetensors(file16, ckpt)
+    want = {k: v.to(torch.bfloat16) for k, v in file16.items()}
+    del file16
+    print(f"D files: synthetic SD-1.5 state dict, {n_params} parameters, written as fp16 "
+          f".safetensors ({os.path.getsize(ckpt) / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(n_params == sum(SD15_COUNTS.values()), f"D: {n_params} parameters in the file")
+    with HostPeak() as peak:
+        t = time.perf_counter()
+        sd = port.StableDiffusion.from_checkpoint(ckpt, vocab, merges, config=cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    n = equal_to_file(sd.models, cfg, want, "from_checkpoint")
+    print(f"D load from_checkpoint (file -> card, eager): {dt:.2f} s, {peak.text()}; "
+          f"{n} tensors equal the file's fp16 values cast to bf16, bit for bit  [{card}]",
+          flush=True)
+    with HostPeak() as peak:
+        t = time.perf_counter()
+        streamed = assemble(cfg, stream.load_sd_checkpoint_streamed(ckpt, cfg))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    equal_to_file(streamed, cfg, want, "load_sd_checkpoint_streamed")
+    print(f"D load load_sd_checkpoint_streamed (file -> card, a tensor at a time): "
+          f"{dt:.2f} s, {peak.text()}; every tensor equal, bit for bit  [{card}]", flush=True)
+    del streamed, want
+    os.remove(ckpt)
+
+    kw = dict(uncond_prompt="", cfg_scale=7.5, sampler_name="dpm++", timestep_spacing="karras",
+              n_inference_steps=20, seed=1337, height=512, width=512, return_latents=True)
+
+    def run(label, bundle, prompt=PROMPTS[0], config=cfg_k5, context=77, **more):
+        zero_counts()
+        out = request(f"D {label}", lambda: bundle.txt2img(prompt, config=config,
+                                                           **{**kw, **more}),
+                      size=512, steps=20, n_images=1, config=config, context=context)
+        read_path()
+        return out[0]
+
+    # 2. a .ckpt VAE (another seed's), read by the restricted unpickler
+    other = port.build_models(cfg, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(1))
+    vae_ckpt = os.path.join(d, "vae.ckpt")
+    vae_sd = {k[len("first_stage_model."):]: v.float().cpu()
+              for k, v in convert.deconvert(other, cfg).items()
+              if k.startswith("first_stage_model.")}
+    torch.save({"state_dict": vae_sd}, vae_ckpt)
+    t = time.perf_counter()
+    sd_vae = sd.with_vae(vae_ckpt)
+    torch.cuda.synchronize()
+    print(f"D with_vae (.ckpt, {len(vae_sd)} tensors, file -> card): "
+          f"{time.perf_counter() - t:.2f} s  [{card}]", flush=True)
+    for name in ("encoder", "decoder"):
+        for k, v in sd_vae.models[name].state_dict().items():
+            check(torch.equal(v, other[name].state_dict()[k]), f"with_vae: {name}.{k}")
+    cfg_vae = dataclasses.replace(cfg_k5, vae_attention_backend="kernel")
+    run("txt2img, with_vae .ckpt VAE, vae_attention_backend=kernel (K3)", sd_vae,
+        config=cfg_vae)
+    del sd_vae, vae_sd
+    os.remove(vae_ckpt)
+
+    # 3. the base request
+    base = run("txt2img dpm++ karras 20 steps, conv_backend=kernel", sd)
+
+    # 4. LoRA
+    lora_path = os.path.join(d, "lora.safetensors")
+    factors = lora_file(sd.models, cfg, lora_path, torch.Generator(device="cuda").manual_seed(3))
+    t = time.perf_counter()
+    sd_lora = sd.with_lora(lora_path)
+    torch.cuda.synchronize()
+    print(f"D with_lora: {len(factors)} targets (rank 8, alpha 4), file read and merged on "
+          f"the card in {time.perf_counter() - t:.2f} s  [{card}]", flush=True)
+    exact = total = 0
+    worst = 0.0
+    for (model, dst), (down, up) in factors.items():
+        w = sd.models[model].state_dict()[dst]
+        delta = (up.reshape(up.shape[0], 8) @ down.reshape(8, -1)).reshape(w.shape)
+        ref = (w.float().cpu() + delta * (1.0 * 4.0 / 8)).to(torch.bfloat16)
+        got = sd_lora.models[model].state_dict()[dst].cpu()
+        eq, ulps = bf16_within_one_ulp(got, ref)
+        exact, total, worst = exact + eq, total + ref.numel(), max(worst, ulps)
+    print(f"D LoRA merge on the card vs the CPU fp32 merge cast to bf16: {exact}/{total} "
+          f"elements equal, the others within {worst:.2f} ulp (tolerance 1 bf16 ulp)",
+          flush=True)
+    check(worst <= 1.0, f"LoRA merge: {worst:.2f} bf16 ulps from the CPU merge")
+    lora_img = run("txt2img with_lora", sd_lora)
+    check(not np.array_equal(lora_img, base), "with_lora: the image did not change")
+    zero_img = run("txt2img with_lora(scale=0)", sd.with_lora(lora_path, scale=0.0))
+    check(np.array_equal(zero_img, base), "with_lora(scale=0): not bit-identical to the base")
+    os.remove(lora_path)
+    del sd_lora
+
+    # 5. textual inversion: an A1111 .pt of 2 vectors
+    ti_path = os.path.join(d, "sd-toy.pt")
+    torch.save({"string_to_param": {"*": torch.randn(2, 768, generator=torch.Generator()
+                                                     .manual_seed(4)) * 0.4},
+                "name": "sd-toy", "step": 1}, ti_path)
+    sd_ti = sd.with_textual_inversion(ti_path)
+    ti_prompt = "a photograph of sd-toy riding a horse"
+    ids = sd_ti.tokenizer.encode(ti_prompt)
+    check(sum(i >= 49408 for i in ids) == 2, f"textual inversion: token ids {ids[:12]}")
+    check(sd_ti.config.clip.vocab_size == 49410, "textual inversion: vocab size")
+    ti_img = run("txt2img with_textual_inversion (trigger in the prompt)", sd_ti, ti_prompt,
+                 config=dataclasses.replace(cfg_k5, clip=sd_ti.config.clip))
+    plain_img = run("txt2img, the same prompt without the embedding", sd, ti_prompt)
+    check(not np.array_equal(ti_img, plain_img), "textual inversion: the image did not change")
+    del sd_ti
+
+    # 6. hypernetwork under a 4-window prompt: K2 on separate k/v allocations
+    hn_path = os.path.join(d, "smoke-hn.pt")
+    hypernetwork_file(hn_path)
+    sd_hn = sd.with_hypernetwork(hn_path, strength=0.7)
+    long_kw = dict(context=308, emphasis=True, clip_skip=2)
+    separate = []
+    real_k2 = attention.flash_attention_onepass
+
+    def k2_spy(q, k, v, **kwargs):
+        separate.append(k.untyped_storage().data_ptr() != v.untyped_storage().data_ptr())
+        return real_k2(q, k, v, **kwargs)
+
+    attention.flash_attention_onepass = k2_spy
+    try:
+        hn_img = run("txt2img with_hypernetwork(0.7), 4-window prompt (K2)", sd_hn,
+                     LONG_PROMPT, **long_kw)
+        check(len(separate) == 16 * 20 and all(separate),
+              f"hypernetwork: {sum(separate)} of {len(separate)} K2 calls on separate k/v")
+        separate.clear()
+        long_img = run("txt2img 4-window prompt, no hypernetwork", sd, LONG_PROMPT, **long_kw)
+        check(len(separate) == 16 * 20 and not any(separate),
+              "without a hypernetwork K2 took k/v from separate allocations")
+        hn0 = run("txt2img with_hypernetwork(strength=0), 4-window prompt", sd_hn.with_hypernetwork(
+            hn_path, strength=0.0), LONG_PROMPT, **long_kw)
+    finally:
+        attention.flash_attention_onepass = real_k2
+    check(not np.array_equal(hn_img, long_img), "hypernetwork: the image did not change")
+    check(np.array_equal(hn0, long_img), "hypernetwork strength 0: not bit-identical")
+    del sd_hn
+
+    # 7. merge
+    t = time.perf_counter()
+    merged = sd.merged_with(other, alpha=0.3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    n = 0
+    for name in ("clip", "encoder", "decoder", "diffusion"):
+        sa, sb = sd.models[name].state_dict(), other[name].state_dict()
+        for k, v in merged.models[name].state_dict().items():
+            ref = ((1.0 - 0.3) * sa[k].float() + 0.3 * sb[k].float()).to(sa[k].dtype)
+            check(torch.equal(v, ref), f"merged_with: {name}.{k}")
+            n += 1
+    print(f"D merged_with(alpha=0.3): {dt:.2f} s; {n} tensors equal (1-a)·A + a·B in fp32 "
+          f"cast to bf16  [{card}]", flush=True)
+    del merged, other
+
+    # 8. generate_many: 6 prompts in chunks of 4
+    prompts = PROMPTS + PROMPTS[:2]
+    many_kw = {k: v for k, v in kw.items() if k not in ("uncond_prompt", "return_latents")}
+    zero_counts()
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            many = request("D generate_many 6 prompts, batch_size=4 (2 chunks, one padded)",
+                           lambda: sd.generate_many(prompts, batch_size=4, config=cfg_k5,
+                                                    **many_kw),
+                           size=512, steps=2 * 20, n_images=6, config=cfg_k5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    read_path()
+    syncs = [str(w.message).splitlines()[0] for w in syncs
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    first4 = sd.generate_batch(PROMPTS, config=cfg_k5, **many_kw)
+    check(np.array_equal(many[:4], first4), "generate_many: chunk 0 != generate_images")
+    check(not np.array_equal(many[4], many[0]), "generate_many: chunk 1 repeated chunk 0")
+    print(f"D generate_many: (6, 512, 512, 3); chunk 0 == generate_images bit-identical; "
+          f"prompt 0 in chunk 1 differs from chunk 0; host syncs in the call: {len(syncs)} "
+          f"({'; '.join(sorted(set(syncs)))[:300]})", flush=True)
+    check(len(syncs) <= 1, f"generate_many: {len(syncs)} host syncs (one, the final copy, "
+                           f"expected)")
+
+    # 9. a diffusers directory and the save round trip
+    unet_sd, vae_sd, te_sd = diffusers.deconvert_diffusers(sd.models, cfg)
+    root = os.path.join(d, "diffusers")
+    for sub, fname, tensors in (("unet", "diffusion_pytorch_model", unet_sd),
+                                ("vae", "diffusion_pytorch_model", vae_sd),
+                                ("text_encoder", "model", te_sd)):
+        os.makedirs(os.path.join(root, sub))
+        save.write_safetensors(tensors, os.path.join(root, sub, f"{fname}.safetensors"))
+    del unet_sd, vae_sd, te_sd
+    t = time.perf_counter()
+    loaded = diffusers.load_diffusers_pipeline(root, cfg)
+    dt = time.perf_counter() - t
+    n = 0
+    for name, sd_ in loaded.items():
+        for k, v in sd.models[name].state_dict().items():
+            check(torch.equal(sd_[k].to("cuda"), v), f"diffusers: {name}.{k}")
+            n += 1
+    print(f"D load_diffusers_pipeline (bf16 diffusers tree -> host): {dt:.2f} s; {n} tensors "
+          f"equal the source  [{card}]", flush=True)
+    del loaded
+    path = os.path.join(d, "saved.safetensors")
+    save.save_safetensors(sd.models, cfg, path, dtype=torch.bfloat16)
+    again = convert.load_sd_checkpoint(path, cfg)
+    for name, sd_ in again.items():
+        for k, v in sd.models[name].state_dict().items():
+            check(torch.equal(sd_[k].to("cuda"), v), f"save round trip: {name}.{k}")
+    print("D save_safetensors -> load_sd_checkpoint: bit-identical", flush=True)
+    del again, sd
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -1499,6 +1895,8 @@ def main():
 
     # slice B: every other sampler through its own denoise loop at 512²
     phase_slice_b(port, request, base, a, zero_counts, read_path)
+    # slice D: checkpoint files, the StableDiffusion API and the weight transforms
+    phase_slice_d(port, card, request, zero_counts, read_path)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")

@@ -10,11 +10,13 @@ Streams: 'latent_init', 'encoder_noise' (per sample), 'sampler' (per
 sample and step), and the streams of the samplers that run their own
 grids: 'restart' (per sample and op), 'dpm_fast' (per sample and
 segment) and 'dpm_adaptive' (per sample and iteration), as in the JAX
-package.  All noise of a request is drawn here on the CPU and copied to
-the device once: CPU and CUDA generators give different numbers for one
-seed, so this makes a seed give the same image on either device, and the
-denoise loop never waits on the host.  tests/test_torch_pipeline.py and
-tests/test_torch_samplers.py freeze the first values of each stream.
+package; and 'chunk', whose draw k is the seed of ``generate_many``'s
+chunk k > 0 (:func:`chunk_seed`).  All noise of a request is drawn here
+on the CPU and copied to the device once: CPU and CUDA generators give
+different numbers for one seed, so this makes a seed give the same image
+on either device, and the denoise loop never waits on the host.
+tests/test_torch_pipeline.py, tests/test_torch_samplers.py and
+tests/test_torch_weights.py freeze the first values of each stream.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ def stream_seed(seed: int, name: str, index: int = 0,
     """64-bit generator seed for one (seed, stream, sample, step) draw."""
     msg = f"{int(seed)}/{_tag(name)}/{int(index)}/{-1 if step is None else int(step)}"
     return int.from_bytes(hashlib.sha256(msg.encode()).digest()[:8], "little")
+
+
+def chunk_seed(seed: int, k: int) -> int:
+    """The seed of ``generate_many``'s chunk ``k``: the request's own for
+    chunk 0, so that a call of one chunk equals ``generate_images``, and the
+    'chunk' stream's draw ``k`` after it, so that no (seed, k > 0) repeats
+    the noise of another seed's chunk 0, as ``seed + k`` would."""
+    return int(seed) if k == 0 else stream_seed(seed, "chunk", k)
 
 
 def generator(seed: int, name: str, index: int = 0,

@@ -66,10 +66,43 @@ def build_models(cfg: SDConfig, *, device=None,
             reset_parameters(m, generator)
         else:
             m.load_state_dict(state_dicts[name], strict=True)
-        if device.type == "cuda":
-            m.to(memory_format=torch.channels_last)
-        m.eval().requires_grad_(False)
+        _finish(m, device)
     return models
+
+
+def _finish(m: nn.Module, device: torch.device) -> None:
+    if device.type == "cuda":
+        m.to(memory_format=torch.channels_last)
+    m.eval().requires_grad_(False)
+
+
+def assemble(cfg: SDConfig, state_dicts: Dict[str, Dict[str, torch.Tensor]]
+             ) -> Dict[str, nn.Module]:
+    """Models around the given tensors, with no copy: each parameter of the
+    returned models IS its state-dict tensor (strict key coverage).  Every
+    tensor must already sit on one device in ``cfg.policy.param_dtype``.
+    ``state_dicts`` may hold any of the four models; only those are built.
+    The weight transforms (``weights/``) build their results so, sharing
+    every parameter they leave unchanged with the models they started from."""
+    models = construct(cfg)
+    out = {}
+    for name, sd in state_dicts.items():
+        devices = {t.device for t in sd.values()}
+        dtypes = {t.dtype for t in sd.values()}
+        if len(devices) != 1 or dtypes != {cfg.policy.param_dtype}:
+            raise ValueError(f"assemble: {name} holds tensors on {devices} in {dtypes}; "
+                             f"need one device and {cfg.policy.param_dtype}")
+        m = models[name]
+        m.load_state_dict(sd, strict=True, assign=True)
+        _finish(m, devices.pop())
+        out[name] = m
+    return out
+
+
+def state_dicts(models: Dict[str, nn.Module]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The state dicts of the four models of ``models`` (tensors that share
+    the parameters' storage); other entries (a hypernetwork) are left out."""
+    return {name: models[name].state_dict() for name in MODEL_NAMES if name in models}
 
 
 def param_count(model: nn.Module) -> int:

@@ -42,7 +42,7 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0,
     """t: scalar or (B,) -> (B, dim) float32, [cos, sin] order."""
     t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(-1)
     half = dim // 2
-    freqs = torch.pow(torch.tensor(max_period, dtype=torch.float32, device=t.device),
+    freqs = torch.pow(torch.full((), max_period, dtype=torch.float32, device=t.device),
                       -torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
@@ -243,8 +243,9 @@ class UNet(nn.Module):
     def forward(self, latents, context, t, policy: Policy = FP32, *,
                 attention_backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, conv_backend: str = "plain"):
-        """latents: (B, in_ch, h, w); context: (B, S, d_context); t: scalar
-        or (B,) timestep.
+        """latents: (B, in_ch, h, w); context: (B, S, d_context), or a
+        hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t: scalar or
+        (B,) timestep.
 
         Returns the predicted noise (B, out_ch, h, w)."""
         cfg = self.cfg

@@ -153,18 +153,27 @@ def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
           *, n_heads: int, causal: bool = False, backend: str = "plain",
           policy: Policy = FP32, fuse: bool = True) -> torch.Tensor:
-    """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention."""
+    """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention, or a
+    ``(ctx_k, ctx_v)`` pair of such tensors (a hypernetwork's, as the JAX
+    package takes it), k projected from ``ctx_k`` and v from ``ctx_v``."""
     if context is None:
         if fuse:
             q, k, v = _fused_proj((p.q, p.k, p.v), x, policy)
         else:
             q, k, v = (linear.apply(m, x, policy) for m in (p.q, p.k, p.v))
     else:
+        # a hypernetwork gives k and v contexts of their own (a pair)
+        ctx_k, ctx_v = context if isinstance(context, tuple) else (context, context)
         q = linear.apply(p.q, x, policy)
         if fuse:
-            k, v = _fused_proj((p.k, p.v), context, policy)
+            # each context through the one fused k/v matmul of the
+            # single-context path, k kept from ctx_k's, v from ctx_v's: a
+            # pair of equal contexts gives that path's k and v bit for bit
+            k, v = _fused_proj((p.k, p.v), ctx_k, policy)
+            if ctx_v is not ctx_k:
+                v = _fused_proj((p.k, p.v), ctx_v, policy)[1]
         else:
-            k, v = (linear.apply(m, context, policy) for m in (p.k, p.v))
+            k, v = linear.apply(p.k, ctx_k, policy), linear.apply(p.v, ctx_v, policy)
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
                  cross=context is not None, backend=backend, cuda=q.is_cuda)
     if path == "bsc":

@@ -51,6 +51,13 @@ Same public keyword surface as the JAX package's ``generate()`` and
   ``clip_skip``.  A context of 256+ tokens (4+ windows at SD-1.5) sends
   every cross-attention to the one-pass flash kernel K2 on the kernel
   backend.
+* ``hypernetwork`` (slice D): the loader's (activation, activate_output)
+  pair, the nets in ``models["hypernetwork"]`` (``weights/hypernetwork.py``);
+  they transform the CFG batch's context once a request into a (ctx_k,
+  ctx_v) pair that every cross-attention projects k and v from.  Refused
+  with prompt editing, as in the JAX package.
+* :func:`generate_many` serves any number of prompts in chunks of one
+  batch size, the images left on the device until the last chunk.
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
@@ -92,7 +99,6 @@ _UNPORTED = {
     "mask_blur": (0, "slice C2"), "edit_image": (None, "slice C2"),
     "image_guidance_scale": (1.5, "slice C2"), "original_size": (None, "slice C2"),
     "crop_coords": ((0, 0), "slice C2"), "target_size": (None, "slice C2"),
-    "hypernetwork": (None, "slice D2"), "hypernetwork_strength": (1.0, "slice D2"),
     "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
     "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
     "ip_adapter_image": (None, "slice E"), "ip_adapter_scale": (1.0, "slice E"),
@@ -281,8 +287,10 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   long_prompts: bool = False, emphasis: bool = False,
                   clip_skip: Optional[int] = None,
                   timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
-                  **unported):
-    """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32)."""
+                  hypernetwork=None, hypernetwork_strength: float = 1.0,
+                  _device_output: bool = False, **unported):
+    """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
+    numpy arrays, or with ``_device_output`` tensors left on the device."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
     _check_unported(unported)
     if not 0.0 < strength <= 1.0:
@@ -338,6 +346,23 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             raise ValueError(f"sampler {sampler_name!r} is not supported "
                              "in fixed_noise parity mode")
     _check_composable(prompts)
+    # A1111 hypernetwork: ``hypernetwork`` is the loader's metadata
+    # (activation, activate_output); the nets ride in models["hypernetwork"]
+    hyper = None
+    if hypernetwork is not None:
+        if "hypernetwork" not in models:
+            raise ValueError("hypernetwork metadata given but models has no "
+                             "'hypernetwork' entry "
+                             "(weights/hypernetwork.load_hypernetwork)")
+        if sched_idx is not None:
+            raise ValueError("hypernetworks are not supported with prompt "
+                             "editing/alternation")
+        if str(cfg.unet.d_context) not in models["hypernetwork"].nets:
+            raise ValueError(
+                f"hypernetwork has no entry for context width {cfg.unet.d_context} "
+                f"(has {models['hypernetwork'].widths()})")
+        act, act_out = hypernetwork
+        hyper = (str(act), bool(act_out))
     cond_tokens, uncond_tokens, cond_w, uncond_w = _tokenize(
         tokenizer, prompts, uncond, cfg.clip.max_len, long_prompts=long_prompts,
         emphasis=emphasis)
@@ -403,11 +428,11 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         if img2img:
             noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch,
                                                     lat_shape)
-    noise = {k: v.to(device) for k, v in noise.items()}
+    noise = {k: _to_device(v, device) for k, v in noise.items()}
 
     # every training timestep, on the device once: the loops index it with
     # host ints, so no step copies a timestep to the device
-    t_all = torch.arange(schedule.num_train_timesteps, dtype=torch.float32).to(device)
+    t_all = torch.arange(schedule.num_train_timesteps, dtype=torch.float32, device=device)
     memory_format = torch.channels_last if device.type == "cuda" \
         else torch.contiguous_format
     vae_kw = dict(attention_backend=cfg.vae_attention_backend,
@@ -420,19 +445,30 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         weights = None
         if emphasis:
             weights = np.concatenate([cond_w, uncond_w]) if do_cfg else cond_w
-            weights = torch.as_tensor(weights).to(device)
-        context = _encode_text(models["clip"], torch.as_tensor(tokens).to(device),
+            weights = _to_device(torch.as_tensor(weights), device)
+        context = _encode_text(models["clip"], _to_device(torch.as_tensor(tokens), device),
                                weights, cfg)
         if sched_idx is not None:  # (K, [2]B, S, d): cond then uncond per K
             context = torch.cat(context.unflatten(0, (-1, batch)).chunk(
                 2 if do_cfg else 1), dim=1)
+        if hyper is not None:
+            # the hypernetwork transforms the whole CFG batch's context, k
+            # and v apart, once a request; the (ctx_k, ctx_v) pair rides
+            # through every cross-attention (ops/attention.apply)
+            from .weights import hypernetwork as hyper_mod
+
+            strength = torch.full((), float(hypernetwork_strength), dtype=torch.float32,
+                                  device=device)
+            context = hyper_mod.apply_hypernetwork(
+                models["hypernetwork"], context, strength, activation=hyper[0],
+                activate_output=hyper[1])
 
         if img2img:
             image = torch.as_tensor(_prepare_image(input_image, width, height))
             if image.shape[0] not in (1, batch):
                 raise ValueError(f"{image.shape[0]} init images for a batch of {batch}: "
                                  f"give one image, or one for each prompt")
-            image = image.to(device).expand(batch, -1, -1, -1) \
+            image = _to_device(image, device).expand(batch, -1, -1, -1) \
                 .contiguous(memory_format=memory_format)
             if encode_tile:
                 lat0 = vae_mod.apply_encoder_tiled(models["encoder"], image,
@@ -475,7 +511,18 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             images = models["decoder"](lat_in, policy, **vae_kw)
         images = rescale(images.float(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
         images = images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
+        if _device_output:
+            return images, latents
         return images.cpu().numpy(), latents.cpu().numpy()
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``; to a card through pinned memory without
+    blocking, so that a request's inputs reach the card without the host
+    waiting for the work queued before them (``generate_many``'s chunks)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor,
@@ -597,3 +644,57 @@ def generate_images(prompts, uncond_prompts="", **kwargs) -> np.ndarray:
     batched UNet call per step serves the whole batch (CFG doubles it)."""
     images, _ = _run_generate(list(prompts), uncond_prompts, **kwargs)
     return images
+
+
+def generate_many(prompts, uncond_prompts="", *, batch_size: int = 4,
+                  seed: Optional[int] = None, **kwargs) -> np.ndarray:
+    """Serving path: any number of prompts -> (N, H, W, 3) uint8.
+
+    Splits the prompts into ``batch_size`` chunks and runs them back to
+    back, every chunk's images left on the device until the last chunk is
+    queued: no chunk waits on the host for the one before it, and the
+    images come to the host in one copy at the end.
+
+    Chunk seeding: chunk 0 uses the request's seed (so a call that fits in
+    one batch bit-matches ``generate_images`` at the same seed), and chunk
+    ``k > 0`` the seed of the named 'chunk' stream's draw ``k``
+    (``core/rng.chunk_seed``), so distinct seeds never reproduce each
+    other's chunks (``seed + k`` would make call(seed=0) chunk 1 equal
+    call(seed=1) chunk 0).  The final partial chunk is padded by repeating
+    its last prompt, so every chunk has one batch size, and the padding is
+    sliced off.  A 4-D ``input_image`` (one init image a prompt) is chunked
+    alongside the prompts."""
+    prompts = list(prompts)
+    uncond = ([uncond_prompts] * len(prompts)
+              if isinstance(uncond_prompts, str) else list(uncond_prompts))
+    if len(uncond) != len(prompts):
+        raise ValueError("uncond_prompts length must match prompts")
+    n = len(prompts)
+    if n == 0:
+        return np.zeros((0, kwargs.get("height", 512), kwargs.get("width", 512), 3),
+                        np.uint8)
+    per_sample_img = None
+    img_arg = kwargs.get("input_image")
+    if img_arg is not None and np.ndim(img_arg) == 4:
+        per_sample_img = np.asarray(img_arg)
+        if len(per_sample_img) != n:
+            raise ValueError(f"{len(per_sample_img)} input images for {n} prompts")
+    root = 0 if seed is None else int(seed)
+    device_outs = []
+    for i in range(0, n, batch_size):
+        chunk = prompts[i:i + batch_size]
+        cu = uncond[i:i + batch_size]
+        ckw = dict(kwargs)
+        if per_sample_img is not None:
+            imgs = per_sample_img[i:i + batch_size]
+            if len(imgs) < batch_size:
+                pad = np.repeat(imgs[-1:], batch_size - len(imgs), axis=0)
+                imgs = np.concatenate([imgs, pad], axis=0)
+            ckw["input_image"] = imgs
+        while len(chunk) < batch_size:  # pad to keep one batch size
+            chunk.append(chunk[-1])
+            cu.append(cu[-1])
+        images, _ = _run_generate(chunk, cu, seed=rng_mod.chunk_seed(root, i // batch_size),
+                                  _device_output=True, **ckw)
+        device_outs.append(images)
+    return torch.cat(device_outs)[:n].cpu().numpy()

@@ -4,24 +4,31 @@ Two sources, both giving ``{"clip", "encoder", "decoder", "diffusion"}``
 state dicts for :func:`models.build_models`:
 
 * :func:`convert` — a CompVis SD-1.x state dict (any mapping of names to
-  arrays).  The rule tables mirror the JAX package's, but emit the port's
-  parameter names; because the port keeps PyTorch layouts, convs and
-  linears copy untransposed and only the VAE attention's 1x1 convs become
-  linear weights.  Coverage is exact both ways: a missing source key and an
-  unconsumed non-ignored source key both raise ``KeyError`` (and
-  ``load_state_dict(strict=True)`` checks the target side).
+  torch tensors or arrays, a lazy one included).  The rule tables mirror
+  the JAX package's, but emit the port's parameter names; because the port
+  keeps PyTorch layouts, convs and linears copy untransposed and only the
+  VAE attention's 1x1 convs become linear weights.  Coverage is exact both
+  ways: a missing source key and an unconsumed non-ignored source key both
+  raise ``KeyError`` (and ``load_state_dict(strict=True)`` checks the
+  target side).  :func:`deconvert` is its inverse.
 * :func:`from_jax_params` — the JAX package's parameter pytree (numpy
   leaves): pytree path ``a/0/b/kernel`` becomes ``a.0.b.weight``; a linear
   (in, out) kernel becomes an (out, in) weight, a conv HWIO kernel OIHW,
-  and a norm ``scale`` a ``weight``.
+  and a norm ``scale`` a ``weight``.  :func:`hypernetwork_from_jax` does
+  the same for a hypernetwork tree.
 
-Checkpoint file readers (``ckpt_reader``, safetensors) come in a later
-slice.
+Files: :func:`load_state_dict` reads a ``.safetensors`` file through the
+native reader (``weights/native_io.py``) and a torch zip ``.ckpt``/``.pt``/
+``.bin`` through the restricted unpickler (``weights/ckpt_reader.py``);
+:func:`load_sd_checkpoint`, :func:`load_vae` and :func:`convert_vae` build
+on it.  The loaders return CPU tensors in the file's dtype;
+``build_models`` casts them to the policy's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+import os
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,23 +36,33 @@ import torch
 from ..models import unet as unet_mod
 from ..models.config import SDConfig, check_ported
 
-# kind -> source array -> port array
+# kind -> source tensor -> port tensor.  Every kind but the VAE attention's
+# 1x1 convs is a copy; the names say what a rule's target is (the LoRA
+# resolver takes the conv and linear weights).
 _FWD = {
     "direct": lambda x: x,
+    "conv": lambda x: x,
+    "linear": lambda x: x,
+    "norm": lambda x: x,
     "conv1x1_linear": lambda x: x[:, :, 0, 0],
 }
+_INV = dict(_FWD, conv1x1_linear=lambda x: x[:, :, None, None])
 
 Rule = Tuple[str, str, str]  # (src_key, port_key, kind)
 
 
-def _conv(rules, src, dst, bias=True):
-    rules.append((f"{src}.weight", f"{dst}.weight", "direct"))
+def _conv(rules, src, dst, bias=True, kind="conv"):
+    rules.append((f"{src}.weight", f"{dst}.weight", kind))
     if bias:
-        rules.append((f"{src}.bias", f"{dst}.bias", "direct"))
+        rules.append((f"{src}.bias", f"{dst}.bias", "norm" if kind == "norm" else "direct"))
 
 
-_linear = _conv  # (out, in) weights: the same untransposed copy
-_norm = _conv
+def _linear(rules, src, dst, bias=True):
+    _conv(rules, src, dst, bias, kind="linear")
+
+
+def _norm(rules, src, dst):
+    _conv(rules, src, dst, kind="norm")
 
 
 # ------------------------------------------------------------------- UNet
@@ -221,24 +238,47 @@ _IGNORE_EXACT = {
 StateDicts = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _tensor(x) -> torch.Tensor:
+def as_tensor(x) -> torch.Tensor:
+    """A torch tensor of ``x`` (a tensor as it is; an array without a copy
+    where numpy allows one).  A ``uint16`` array is raw bf16 bits: the
+    restricted unpickler reads BF16 storages so, and no checkpoint tensor
+    type is unsigned 16-bit."""
+    if isinstance(x, torch.Tensor):
+        return x
     a = np.ascontiguousarray(np.asarray(x))
-    return torch.from_numpy(a if a.flags.writeable else a.copy())
+    t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t.view(torch.bfloat16) if a.dtype == np.uint16 else t
 
 
-def convert(state_dict: Mapping[str, np.ndarray], cfg: SDConfig) -> StateDicts:
-    """CompVis flat state dict -> port state dicts (exact coverage)."""
+def _convert_rules(state_dict, rules, name: str, place, consumed: set,
+                   what: str = "source key") -> Dict[str, torch.Tensor]:
+    sd = {}
+    for src_key, dst_key, kind in rules:
+        if src_key not in state_dict:
+            raise KeyError(f"[{name}] missing {what}: {src_key}")
+        sd[dst_key] = place(name, dst_key,
+                            _FWD[kind](as_tensor(state_dict[src_key])).contiguous())
+        consumed.add(src_key)
+    return sd
+
+
+def _keep(name, key, x):
+    return x
+
+
+def convert(state_dict: Mapping, cfg: SDConfig, *,
+            place: Optional[Callable] = None) -> StateDicts:
+    """CompVis flat state dict -> port state dicts (exact coverage).
+
+    ``state_dict`` may be any Mapping, a lazy one included (the streamed
+    loader's), in which case tensors are read one at a time in rule order;
+    ``place(model_name, port_key, tensor) -> tensor`` then moves each one
+    where it goes as it is read (by default it is kept as read)."""
     check_ported(cfg)
+    place = place or _keep
     consumed = set()
-    out = {}
-    for name, rule_fn in RULES.items():
-        sd = {}
-        for src_key, dst_key, kind in rule_fn(cfg):
-            if src_key not in state_dict:
-                raise KeyError(f"[{name}] missing source key: {src_key}")
-            sd[dst_key] = _tensor(_FWD[kind](np.asarray(state_dict[src_key])))
-            consumed.add(src_key)
-        out[name] = sd
+    out = {name: _convert_rules(state_dict, rule_fn(cfg), name, place, consumed)
+           for name, rule_fn in RULES.items()}
     leftover = [k for k in state_dict
                 if k not in consumed and k not in _IGNORE_EXACT
                 and not any(k.startswith(p) for p in _IGNORE_PREFIXES)]
@@ -248,6 +288,126 @@ def convert(state_dict: Mapping[str, np.ndarray], cfg: SDConfig) -> StateDicts:
     return out
 
 
+def deconvert(state_dicts: StateDicts, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`convert`: port state dicts (or models) -> a CompVis
+    flat state dict, on the tensors' device and in their dtype."""
+    check_ported(cfg)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, rule_fn in RULES.items():
+        flat = state_dicts[name]
+        flat = flat.state_dict() if isinstance(flat, torch.nn.Module) else flat
+        for src_key, dst_key, kind in rule_fn(cfg):
+            if dst_key not in flat:
+                raise KeyError(f"[{name}] missing target parameter: {dst_key}")
+            sd[src_key] = _INV[kind](flat[dst_key].detach()).contiguous()
+    return sd
+
+
+def synthetic_state_dict(cfg: SDConfig, seed: int = 0, *,
+                         device="cpu") -> Dict[str, torch.Tensor]:
+    """A CompVis-layout state dict of random weights (in
+    ``cfg.policy.param_dtype``, on ``device``), for loader tests: the
+    :func:`deconvert` of models built from a generator seeded with ``seed``."""
+    from ..models import build_models
+
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    return deconvert(build_models(cfg, device=device, generator=g), cfg)
+
+
+def load_state_dict(path: str, *,
+                    allow_unsafe_fallback: bool = False) -> Dict[str, torch.Tensor]:
+    """Read a checkpoint file into CPU tensors, in the file's dtypes:
+    ``.safetensors`` through the native reader (built with g++ at first use;
+    where that build fails this raises with the compiler's message), any
+    other file as a torch zip pickle (``.ckpt``, ``.pt``, ``.bin``) through
+    the torch-free *restricted* unpickler (``ckpt_reader.py``), which runs no
+    pickle code.
+
+    A file the restricted reader refuses for safety reasons
+    (``pickle.UnpicklingError``) is never retried through ``torch.load``:
+    that would hand the exact payload the restricted reader just blocked to
+    a full pickle VM.  Only genuinely pre-zip legacy containers
+    (``LegacyCkptError`` / ``zipfile.BadZipFile``) may fall back, and only
+    when the caller opts in with ``allow_unsafe_fallback=True`` — torch.load
+    on such files executes arbitrary code from the file."""
+    import zipfile
+
+    p = str(path)
+    if p.endswith(".safetensors"):
+        from . import native_io
+
+        return native_io.load_safetensors(p)
+    from .ckpt_reader import LegacyCkptError, load_torch_ckpt
+
+    try:
+        return {k: as_tensor(v) for k, v in load_torch_ckpt(p).items()}
+    except (LegacyCkptError, zipfile.BadZipFile) as e:
+        if not allow_unsafe_fallback:
+            raise ValueError(
+                f"{p} is not a torch zip-format checkpoint ({e}). Loading it "
+                "requires torch.load's full pickle execution, which runs "
+                "arbitrary code embedded in the file; pass "
+                "allow_unsafe_fallback=True only if you trust this file."
+            ) from e
+        ckpt = torch.load(p, map_location="cpu", weights_only=False)
+        sd = ckpt.get("state_dict", ckpt)
+        return {k: as_tensor(v) for k, v in sd.items()
+                if isinstance(v, (torch.Tensor, np.ndarray))}
+
+
+def convert_vae(state_dict: Mapping, cfg: SDConfig
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Standalone VAE checkpoint -> (encoder, decoder) state dicts.
+
+    The A1111 ``.vae.pt`` / ``.vae.safetensors`` convention (e.g.
+    ``vae-ft-mse-840000``): first-stage keys WITHOUT the full checkpoint's
+    ``first_stage_model.`` prefix; a prefixed (full-checkpoint) dict is
+    accepted too.  Training-only ``loss.*`` / ``model_ema.*`` keys are
+    ignored; every other VAE key must be consumed (exact coverage)."""
+    check_ported(cfg)
+    if not any(k.startswith("first_stage_model.") for k in state_dict):
+        state_dict = {"first_stage_model." + k: v for k, v in state_dict.items()}
+    consumed = set()
+    enc = _convert_rules(state_dict, vae_encoder_rules(cfg), "vae encoder", _keep,
+                         consumed)
+    dec = _convert_rules(state_dict, vae_decoder_rules(cfg), "vae decoder", _keep,
+                         consumed)
+    skip = ("first_stage_model.loss.", "first_stage_model.model_ema.")
+    leftover = [k for k in state_dict
+                if k.startswith("first_stage_model.") and k not in consumed
+                and not any(k.startswith(p) for p in skip)]
+    if leftover:
+        raise KeyError(f"{len(leftover)} unconsumed VAE keys (first 10): "
+                       f"{sorted(leftover)[:10]}")
+    return enc, dec
+
+
+def load_vae(path: str, cfg: SDConfig, *, allow_unsafe_fallback: bool = False
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Standalone VAE file (CompVis layout ``.pt``/``.ckpt``/
+    ``.safetensors``) or diffusers ``vae/`` directory -> (encoder, decoder)
+    state dicts — the A1111 "SD VAE" override."""
+    if os.path.isdir(path):
+        from . import diffusers as dif
+
+        for n in ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"):
+            p = os.path.join(path, n)
+            if os.path.exists(p):
+                return dif.convert_diffusers_vae(load_state_dict(p), cfg)
+        raise FileNotFoundError(f"no VAE weight file under {path}")
+    sd = load_state_dict(path, allow_unsafe_fallback=allow_unsafe_fallback)
+    return convert_vae(sd, cfg)
+
+
+def load_sd_checkpoint(path: str, cfg: SDConfig, *,
+                       allow_unsafe_fallback: bool = False) -> StateDicts:
+    """File path -> port state dicts (the ``preload_models_from_standard_
+    weights`` analog, ``model_loader.py:9``)."""
+    sd = load_state_dict(path, allow_unsafe_fallback=allow_unsafe_fallback)
+    return convert(sd, cfg)
+
+
+# ------------------------------------------------------- the JAX pytrees
 def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -272,12 +432,35 @@ def _from_jax_leaf(path: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
 def state_dict_from_jax_tree(tree) -> Dict[str, torch.Tensor]:
     """One JAX parameter pytree (nested dicts/lists of arrays) -> the state
     dict of the port module with the same structure."""
-    return dict((k, _tensor(v)) for k, v in
+    return dict((k, as_tensor(v)) for k, v in
                 (_from_jax_leaf(p, np.asarray(x)) for p, x in _flatten(tree)))
 
 
 def from_jax_params(params, cfg: SDConfig) -> StateDicts:
     """JAX parameter pytrees {"clip", "encoder", "decoder", "diffusion"} ->
-    port state dicts."""
+    port state dicts.  A CLIP whose token table textual inversion grew
+    converts as any other: build it with the grown ``cfg.clip.vocab_size``."""
     check_ported(cfg)
     return {name: state_dict_from_jax_tree(params[name]) for name in RULES}
+
+
+def hypernetwork_from_jax(tree):
+    """The JAX package's hypernetwork tree (``{str(width): {"k"|"v": [{"kernel",
+    "bias"} | {"ln_scale", "ln_bias"}, ...]}}``, (in, out) kernels) -> the
+    port's :class:`~.hypernetwork.Hypernetwork` (fp32, on the CPU)."""
+    from .hypernetwork import Hypernetwork
+
+    def layers(mods):
+        out = []
+        for m in mods:
+            if "kernel" in m:
+                b = m.get("bias")
+                out.append((as_tensor(np.asarray(m["kernel"], np.float32).T),
+                            None if b is None else as_tensor(np.asarray(b, np.float32))))
+            else:
+                out.append((as_tensor(np.asarray(m["ln_scale"], np.float32)),
+                            as_tensor(np.asarray(m["ln_bias"], np.float32))))
+        return out
+
+    return Hypernetwork({width: (layers(kv["k"]), layers(kv["v"]))
+                         for width, kv in tree.items()})

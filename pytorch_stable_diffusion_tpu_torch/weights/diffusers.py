@@ -1,0 +1,273 @@
+"""Diffusers-format checkpoints, SD-1.5 (port of ``weights/diffusers.py``).
+
+Modern SD-1.5 distributions ship the diffusers layout: separate ``unet/``,
+``vae/`` and ``text_encoder/`` weight files with their own key names.  The
+rules are generated from the architecture config as in
+``weights/convert.py``, with the same two-way coverage guarantee, and emit
+the port's parameter names; the port keeps PyTorch layouts, so every
+tensor copies as it is (diffusers' VAE attention is already Linear).
+
+Key-name correspondence (modern diffusers, Linear-based VAE attention):
+  unet:  down_blocks.{l}.resnets/attentions/downsamplers, mid_block,
+         up_blocks, time_embedding.linear_{1,2}, conv_in, conv_norm_out,
+         conv_out; resnet fields norm1/conv1/time_emb_proj/norm2/conv2/
+         conv_shortcut.
+  vae:   encoder.down_blocks..., decoder.up_blocks... (decoder up_blocks are
+         listed top-resolution-LAST, i.e. already in our processing order),
+         mid_block.resnets.{0,1} + attentions.0 (group_norm, to_q/k/v,
+         to_out.0 — Linear (C, C)), quant_conv, post_quant_conv.
+  text_encoder: text_model.* — same structure as the CompVis CLIP subtree.
+
+ControlNet and T2I-Adapter rules come with slice E (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Mapping, Tuple
+
+import torch
+
+from ..models import unet as unet_mod
+from ..models.config import SDConfig, check_ported
+from .convert import _INV, Rule, StateDicts, _conv, _convert_rules, _keep, _linear, _norm
+
+
+# ------------------------------------------------------------------- UNet
+def _res_rules(rules, src, dst, c_in, c_out):
+    _norm(rules, f"{src}.norm1", f"{dst}.norm1")
+    _conv(rules, f"{src}.conv1", f"{dst}.conv1")
+    _linear(rules, f"{src}.time_emb_proj", f"{dst}.time_proj")
+    _norm(rules, f"{src}.norm2", f"{dst}.norm2")
+    _conv(rules, f"{src}.conv2", f"{dst}.conv2")
+    if c_in != c_out:
+        _conv(rules, f"{src}.conv_shortcut", f"{dst}.shortcut")
+
+
+def _tx_rules(rules, src, dst):
+    """A depth-1 spatial transformer (the flat SD-1.x layout)."""
+    tb = f"{src}.transformer_blocks.0"
+    _norm(rules, f"{src}.norm", f"{dst}.norm")
+    _conv(rules, f"{src}.proj_in", f"{dst}.conv_in")
+    _norm(rules, f"{tb}.norm1", f"{dst}.ln1")
+    for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v")):
+        _linear(rules, f"{tb}.attn1.{theirs}", f"{dst}.self_attn.{ours}", bias=False)
+        _linear(rules, f"{tb}.attn2.{theirs}", f"{dst}.cross_attn.{ours}", bias=False)
+    _linear(rules, f"{tb}.attn1.to_out.0", f"{dst}.self_attn.out")
+    _linear(rules, f"{tb}.attn2.to_out.0", f"{dst}.cross_attn.out")
+    _norm(rules, f"{tb}.norm2", f"{dst}.ln2")
+    _norm(rules, f"{tb}.norm3", f"{dst}.ln3")
+    _linear(rules, f"{tb}.ff.net.0.proj", f"{dst}.geglu_proj")
+    _linear(rules, f"{tb}.ff.net.2", f"{dst}.geglu_out")
+    _conv(rules, f"{src}.proj_out", f"{dst}.conv_out")
+
+
+def unet_rules(cfg: SDConfig) -> List[Rule]:
+    u = cfg.unet
+    rules: List[Rule] = []
+    _linear(rules, "time_embedding.linear_1", "time_embed.fc1")
+    _linear(rules, "time_embedding.linear_2", "time_embed.fc2")
+    _conv(rules, "conv_in", "conv_in")
+
+    # our flat encoder-stage list <-> diffusers down_blocks.{l}.{resnets,...}
+    res_i = {lv: 0 for lv in range(len(u.ch_mults))}
+    level = 0
+    for i, st in enumerate(unet_mod.encoder_plan(u)[1:]):
+        dst = f"encoder.{i}"
+        if st["kind"] == "down":
+            _conv(rules, f"down_blocks.{level}.downsamplers.0.conv", f"{dst}.down")
+            level += 1
+        else:
+            r = res_i[level]
+            _res_rules(rules, f"down_blocks.{level}.resnets.{r}", f"{dst}.res",
+                       st["c_in"], st["c_out"])
+            if st["attn"]:
+                _tx_rules(rules, f"down_blocks.{level}.attentions.{r}", f"{dst}.attn")
+            res_i[level] += 1
+
+    c_mid = u.level_channels[-1]
+    _res_rules(rules, "mid_block.resnets.0", "bottleneck.res1", c_mid, c_mid)
+    _tx_rules(rules, "mid_block.attentions.0", "bottleneck.attn")
+    _res_rules(rules, "mid_block.resnets.1", "bottleneck.res2", c_mid, c_mid)
+
+    per_level = u.num_res_blocks + 1
+    for j, st in enumerate(unet_mod.decoder_plan(u)):
+        dst = f"decoder.{j}"
+        lv, r = divmod(j, per_level)
+        _res_rules(rules, f"up_blocks.{lv}.resnets.{r}", f"{dst}.res",
+                   st["c_in"], st["c_out"])
+        if st["attn"]:
+            _tx_rules(rules, f"up_blocks.{lv}.attentions.{r}", f"{dst}.attn")
+        if st["upsample"]:
+            _conv(rules, f"up_blocks.{lv}.upsamplers.0.conv", f"{dst}.upsample")
+
+    _norm(rules, "conv_norm_out", "norm_out")
+    _conv(rules, "conv_out", "conv_out")
+    return rules
+
+
+# -------------------------------------------------------------------- VAE
+def _vae_res_rules(rules, src, dst, c_in, c_out):
+    _norm(rules, f"{src}.norm1", f"{dst}.norm1")
+    _conv(rules, f"{src}.conv1", f"{dst}.conv1")
+    _norm(rules, f"{src}.norm2", f"{dst}.norm2")
+    _conv(rules, f"{src}.conv2", f"{dst}.conv2")
+    if c_in != c_out:
+        _conv(rules, f"{src}.conv_shortcut", f"{dst}.shortcut")
+
+
+def _vae_mid_rules(rules, src, dst, ch):
+    _vae_res_rules(rules, f"{src}.resnets.0", f"{dst}.res1", ch, ch)
+    a = f"{src}.attentions.0"
+    _norm(rules, f"{a}.group_norm", f"{dst}.attn.norm")
+    for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                         ("out", "to_out.0")):
+        _linear(rules, f"{a}.{theirs}", f"{dst}.attn.attn.{ours}")
+    _vae_res_rules(rules, f"{src}.resnets.1", f"{dst}.res2", ch, ch)
+
+
+def vae_encoder_rules(cfg: SDConfig) -> List[Rule]:
+    chs = cfg.vae.level_channels
+    rules: List[Rule] = []
+    _conv(rules, "encoder.conv_in", "conv_in")
+    c_prev = chs[0]
+    for lv, c in enumerate(chs):
+        _vae_res_rules(rules, f"encoder.down_blocks.{lv}.resnets.0",
+                       f"down.{lv}.res.0", c_prev, c)
+        _vae_res_rules(rules, f"encoder.down_blocks.{lv}.resnets.1",
+                       f"down.{lv}.res.1", c, c)
+        c_prev = c
+        if lv < len(chs) - 1:
+            _conv(rules, f"encoder.down_blocks.{lv}.downsamplers.0.conv",
+                  f"down.{lv}.downsample")
+    _vae_mid_rules(rules, "encoder.mid_block", "mid", chs[-1])
+    _norm(rules, "encoder.conv_norm_out", "norm_out")
+    _conv(rules, "encoder.conv_out", "conv_out")
+    _conv(rules, "quant_conv", "quant_conv")
+    return rules
+
+
+def vae_decoder_rules(cfg: SDConfig) -> List[Rule]:
+    chs = cfg.vae.level_channels
+    rules: List[Rule] = []
+    _conv(rules, "post_quant_conv", "post_quant_conv")
+    _conv(rules, "decoder.conv_in", "conv_in")
+    _vae_mid_rules(rules, "decoder.mid_block", "mid", chs[-1])
+    c_prev = chs[-1]
+    # diffusers decoder.up_blocks.{k} are already in processing order
+    for k, lv in enumerate(reversed(range(len(chs)))):
+        c = chs[lv]
+        for b in range(3):
+            _vae_res_rules(rules, f"decoder.up_blocks.{k}.resnets.{b}",
+                           f"up.{k}.res.{b}", c_prev if b == 0 else c, c)
+        c_prev = c
+        if lv > 0:
+            _conv(rules, f"decoder.up_blocks.{k}.upsamplers.0.conv", f"up.{k}.upsample")
+    _norm(rules, "decoder.conv_norm_out", "norm_out")
+    _conv(rules, "decoder.conv_out", "conv_out")
+    return rules
+
+
+# ------------------------------------------------------------------- CLIP
+def _clip_tower_rules(ccfg) -> List[Rule]:
+    """HF-layout (diffusers ``text_encoder``) rules for one tower config;
+    the LoRA resolver reads them too."""
+    src = "text_model"
+    rules: List[Rule] = [
+        (f"{src}.embeddings.token_embedding.weight", "token_embedding", "direct"),
+        (f"{src}.embeddings.position_embedding.weight", "position_embedding", "direct"),
+    ]
+    for i in range(ccfg.n_layers):
+        lyr = f"{src}.encoder.layers.{i}"
+        dst = f"layers.{i}"
+        _norm(rules, f"{lyr}.layer_norm1", f"{dst}.ln1")
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                             ("out", "out_proj")):
+            _linear(rules, f"{lyr}.self_attn.{theirs}", f"{dst}.attn.{ours}")
+        _norm(rules, f"{lyr}.layer_norm2", f"{dst}.ln2")
+        _linear(rules, f"{lyr}.mlp.fc1", f"{dst}.fc1")
+        _linear(rules, f"{lyr}.mlp.fc2", f"{dst}.fc2")
+    _norm(rules, f"{src}.final_layer_norm", "final_norm")
+    return rules
+
+
+def clip_rules(cfg: SDConfig) -> List[Rule]:
+    return _clip_tower_rules(cfg.clip)
+
+
+#: diffusers files carry these non-weight keys
+_IGNORE = ("text_model.embeddings.position_ids",)
+
+
+def _check_leftover(sd: Mapping, used: set, name: str) -> None:
+    leftover = [k for k in sd if k not in used and k not in _IGNORE]
+    if leftover:
+        raise KeyError(f"[{name}] {len(leftover)} unconsumed diffusers keys "
+                       f"(first 10): {sorted(leftover)[:10]}")
+
+
+def _convert_one(sd: Mapping, rules, name: str, used: set) -> Dict[str, torch.Tensor]:
+    return _convert_rules(sd, rules, name, _keep, used, what="diffusers key")
+
+
+def convert_diffusers_vae(vae_sd: Mapping, cfg: SDConfig
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A diffusers ``vae/`` state dict -> (encoder, decoder) state dicts
+    (exact coverage)."""
+    check_ported(cfg)
+    used: set = set()
+    enc = _convert_one(vae_sd, vae_encoder_rules(cfg), "vae", used)
+    dec = _convert_one(vae_sd, vae_decoder_rules(cfg), "vae", used)
+    _check_leftover(vae_sd, used, "vae")
+    return enc, dec
+
+
+def convert_diffusers(unet_sd: Mapping, vae_sd: Mapping, text_encoder_sd: Mapping,
+                      cfg: SDConfig) -> StateDicts:
+    """Diffusers state dicts -> the port's {'clip', 'encoder', 'decoder',
+    'diffusion'} state dicts; exact coverage on all inputs."""
+    check_ported(cfg)
+    used_u, used_c = set(), set()
+    out = {"diffusion": _convert_one(unet_sd, unet_rules(cfg), "unet", used_u)}
+    out["encoder"], out["decoder"] = convert_diffusers_vae(vae_sd, cfg)
+    out["clip"] = _convert_one(text_encoder_sd, clip_rules(cfg), "text_encoder", used_c)
+    _check_leftover(unet_sd, used_u, "unet")
+    _check_leftover(text_encoder_sd, used_c, "text_encoder")
+    return out
+
+
+def deconvert_diffusers(state_dicts, cfg: SDConfig):
+    """Inverse: port state dicts (or models) -> (unet_sd, vae_sd,
+    text_encoder_sd), on the tensors' device and in their dtype."""
+    check_ported(cfg)
+
+    def inv(rules, flat, sink):
+        flat = flat.state_dict() if isinstance(flat, torch.nn.Module) else flat
+        for src_key, dst_key, kind in rules:
+            sink[src_key] = _INV[kind](flat[dst_key].detach()).contiguous()
+        return sink
+
+    unet_sd = inv(unet_rules(cfg), state_dicts["diffusion"], {})
+    vae_sd = inv(vae_encoder_rules(cfg), state_dicts["encoder"], {})
+    inv(vae_decoder_rules(cfg), state_dicts["decoder"], vae_sd)
+    te_sd = inv(clip_rules(cfg), state_dicts["clip"], {})
+    return unet_sd, vae_sd, te_sd
+
+
+def load_diffusers_pipeline(root: str, cfg: SDConfig) -> StateDicts:
+    """Load a diffusers directory: root/{unet,vae,text_encoder}/
+    diffusion_pytorch_model.safetensors (or .bin; the text encoder's
+    model.safetensors or pytorch_model.bin) -> port state dicts."""
+    from .convert import load_state_dict
+
+    def find(sub, names):
+        for n in names:
+            p = os.path.join(root, sub, n)
+            if os.path.exists(p):
+                return load_state_dict(p)
+        raise FileNotFoundError(f"no weight file for {sub} under {root}")
+
+    model = ["diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"]
+    return convert_diffusers(find("unet", model), find("vae", model),
+                             find("text_encoder", ["model.safetensors", "pytorch_model.bin"]),
+                             cfg)

@@ -447,3 +447,78 @@ def test_sampler_loop_card_matches_cpu(cuda, sd15_pair, sampler, spacing, steps,
     assert np.isfinite(lat_g).all()
     assert _psnr(lat_c, lat_g) > 55.0
     assert _psnr(img_c, img_g) > 40.0
+
+
+# ------------------------------------------------------------------ slice D
+@pytest.mark.parametrize("b,sq,dh", [(2, 4096, 40), (2, 1024, 80), (2, 256, 160),
+                                     (2, 64, 160)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k2_separate_kv_allocations_match_plain(cuda, b, sq, dh, dtype):
+    """A hypernetwork's cross-attention: k and v projected from contexts of
+    their own, two contiguous (B, 308, C) allocations, at the four level
+    shapes of 512² under a 4-window prompt."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    c = 8 * dh
+    q, k, v = (torch.randn(b, s, c, device=cuda, generator=g).to(dtype)
+               for s in (sq, 308, 308))
+    assert k.untyped_storage().data_ptr() != v.untyped_storage().data_ptr()
+    args = [t.reshape(b, t.shape[1], 8, dh).transpose(1, 2) for t in (q, k, v)]
+    _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
+                      args, {"causal": False}, dtype)
+
+
+def test_native_reader_builds_and_reads(cuda, tmp_path):
+    """The native safetensors reader builds with g++ into build/native/ and
+    reads what the port writes, BF16 included, on the card's machine."""
+    from pytorch_stable_diffusion_tpu_torch.weights import native_io, save
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tensors = {"a": torch.randn(64, 32, device=cuda, generator=g).to(torch.bfloat16),
+               "b": torch.randn(5, device=cuda, generator=g),
+               "c": torch.randn(3, 3, 2, 2, device=cuda, generator=g).half()}
+    path = str(tmp_path / "t.safetensors")
+    save.write_safetensors(tensors, path)
+    got = native_io.load_safetensors(path)
+    assert native_io.available() and native_io.library_path().exists()
+    for k, v in tensors.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k].to(cuda), v), k
+
+
+def test_tiny_checkpoint_lora_request_card_matches_cpu(cuda, tmp_path):
+    """from_checkpoint -> with_lora -> txt2img on the card against the same
+    on the CPU plain path, FP32 at the tiny config (its head dims take the
+    materialized path on either device)."""
+    import json
+
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.weights import convert, lora, save
+    from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
+
+    cfg = port.tiny_sd_config(attention_backend="kernel")
+    save.write_safetensors(convert.synthetic_state_dict(cfg, 4), str(tmp_path / "m.safetensors"))
+    tok = make_test_tokenizer(["a", "cat", "dog"], max_len=16)
+    with open(tmp_path / "vocab.json", "w") as f:
+        json.dump(tok.encoder, f)
+    with open(tmp_path / "merges.txt", "w") as f:
+        f.write("#version: 0.2\n" + "".join(
+            f"{a} {b}\n" for a, b in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)))
+    picked = sorted(lora._weight_targets(cfg).items())[::7]
+    images = {}
+    for device in ("cpu", "cuda"):
+        sd = port.StableDiffusion.from_checkpoint(
+            str(tmp_path / "m.safetensors"), str(tmp_path / "vocab.json"),
+            str(tmp_path / "merges.txt"), config=cfg, device=device)
+        factors = {}
+        for name, targets in picked:
+            model, dst, _ = targets[0]
+            w = sd.models[model].state_dict()[dst]
+            rs = np.random.RandomState(len(name))
+            if w.dim() == 4 and w.shape[2] == 3:
+                down, up = rs.randn(2, w.shape[1], 3, 3), rs.randn(w.shape[0], 2, 1, 1)
+            else:
+                down, up = rs.randn(2, w.shape[1]), rs.randn(w.shape[0], 2)
+            factors[f"{name}.lora_A.weight"] = (down * 0.1).astype(np.float32)
+            factors[f"{name}.lora_B.weight"] = (up * 0.1).astype(np.float32)
+        images[device] = sd.with_lora(factors, 0.8).txt2img(
+            "a cat", seed=3, n_inference_steps=3, height=32, width=32)
+    assert _psnr(images["cpu"], images["cuda"]) > 40.0

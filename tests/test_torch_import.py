@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 
 from pytorch_stable_diffusion_tpu import prompt_schedule as jax_schedule
+from pytorch_stable_diffusion_tpu.weights import ckpt_reader as jax_ckpt_reader
 from pytorch_stable_diffusion_tpu.weights import tokenizer as jax_tokenizer
 from pytorch_stable_diffusion_tpu_torch import prompt_schedule as torch_schedule
+from pytorch_stable_diffusion_tpu_torch.weights import ckpt_reader as torch_ckpt_reader
 from pytorch_stable_diffusion_tpu_torch.weights import tokenizer as torch_tokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +42,10 @@ def test_port_imports_without_jax():
     assert "BAD []" in out.stdout, out.stdout
     names = re.search(r"IMPORTED (.*)", out.stdout).group(1).split()
     assert len(names) >= 24  # every module of the slices was imported
-    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline"):
+    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline", "api") + tuple(
+            f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
+                                     "textual_inversion", "hypernetwork", "merge", "stream",
+                                     "save")):
         assert f"pytorch_stable_diffusion_tpu_torch.{mod}" in names, mod
 
 
@@ -187,6 +192,20 @@ def _body(mod):
 def test_tokenizer_copy_is_verbatim_below_the_docstring():
     """The copy may differ from the original only in its module docstring."""
     assert _body(torch_tokenizer) == _body(jax_tokenizer)
+
+
+def test_ckpt_reader_copy_differs_only_in_its_bf16_view():
+    """Below the docstring the copy is the original but for ``_bf16``, which
+    reads BF16 storages as raw uint16 instead of importing ml_dtypes."""
+    import difflib
+
+    diff = [line for line in difflib.unified_diff(
+        _body(jax_ckpt_reader).splitlines(), _body(torch_ckpt_reader).splitlines(),
+        lineterm="", n=0) if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    assert diff == ["-    import ml_dtypes", "-",
+                    "-    return np.dtype(ml_dtypes.bfloat16)",
+                    "+    return np.dtype(np.uint16)  # raw bf16 bits: no storage type here "
+                    "is uint16"]
 
 
 def test_prompt_schedule_copy_is_verbatim_below_the_docstring():
