@@ -41,7 +41,19 @@ Phases (any failure exits non-zero):
                 40, each with the schedule its bf16 launch takes (64-row
                 CTAs, K/V resident across a CTA's q tiles, or streamed),
                 and at the four level shapes every schedule that can run
-                them, timed; K5 at
+                them, timed; slice C2's shapes, all at Dh 64, in bf16 and
+                fp32 and timed in bf16: K1 at SDXL 1024² (2, 4096, 640)
+                with 10 heads and (2, 1024, 1280) with 20 (also at CFG
+                batch 4, generate_many's), the refiner's (2, 4096, 768)
+                with 12, (2, 1024, 1536) and (2, 256, 1536) with 24, SD-2.1
+                768²'s (2, 9216, 320) with 5, (2, 2304, 640) with 10 and
+                (2, 576, 1280) with 20, with a planted fault at SDXL's
+                level 1; K2 at those levels under a 4-window prompt (KV
+                308); K3 at the 1024² and 768² VAE mid blocks (1|2, 1,
+                16384|9216, 512); K4 at Dh 64 over 40960 KV tokens; K5 at
+                every res-block conv of SDXL and the refiner at 1024² and
+                SD-2.1 at 768² (batch 2, SDXL's also at 4), timed at four;
+                K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
                 SD-1.5 512² at batch 2 (with and without the time-embedding
@@ -83,6 +95,13 @@ Phases (any failure exits non-zero):
                 heun, restart, and ddim with eta 0.5 on the zero-terminal-SNR
                 schedule and the trailing grid (3 steps); with exact launch
                 counts from each sampler's UNet evaluations.
+                Slice C2 (``phase_small_c2``, lines ``small C2``): SDXL
+                and SD-2.1 768-v at full width, FP32, 256², 2 DDPM+CFG
+                steps, card against the CPU plain path (> 55 dB latents,
+                > 40 dB image): SDXL with K1 at level 1 (256 tokens, Dh 64)
+                and K3 in the VAE; SD-2.1 with FLASH_ONLY_KV lowered to 1024
+                so that K4 carries level 1 at Dh 64; the CPU side's host
+                memory and time printed.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -148,6 +167,28 @@ Phases (any failure exits non-zero):
                 different, at most one host sync, the final copy, under
                 torch's sync debug mode); a diffusers tree and a
                 save_safetensors round trip, bit-identical.
+                Slice C2 (``phase_slice_c2``, lines ``C2 ...``), run after
+                phase 7 with the SD-1.5 models freed: BF16, full width,
+                attention, conv and VAE on the kernels, batch 1: (a) SDXL
+                base 1024², dpm++ Karras 20 steps, CFG 5, and (a') again,
+                bit-identical; (b) with the 4-window prompt (K2 at all 70
+                cross-attention layers an evaluation); (c) with
+                original_size=(2048, 2048), crop_coords=(64, 64); (d) the
+                refiner at 1024² over (a)'s latents through init_latents,
+                strength 0.3; (e) SD-2.1 768-v at 768², euler_a 20 steps on
+                the trailing grid; (f) generate_many of 3 SDXL prompts at
+                batch 2 (at most one host sync); then files: a full-width
+                SDXL fp16 .safetensors in the sgm key schema ((C, C)
+                proj_in/proj_out, bigG's logit_scale, CLIP-L's
+                position_ids) loaded eagerly and streamed, each tensor equal
+                to the file's; 8-step requests on that bundle, with a kohya
+                LoRA over CLIP-L, bigG and the UNet (lora_te1_, lora_te2_,
+                lora_unet_; scale 0 bit-identical) and a dual-tower
+                embedding's trigger.  Each request's launches are held to
+                the plan (C2_PER_EVAL: K1 70/44/15 and K5 34/44/44 an
+                evaluation for SDXL, the refiner and SD-2.1; K2 70 under the
+                long prompt); one SDXL 1024² evaluation is profiled as in
+                phase 7, with a 77- and a 308-token context.
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -173,6 +214,8 @@ import torch
 
 SD15_COUNTS = {"diffusion": 859_520_964, "clip": 123_060_480,
                "encoder": 34_163_664, "decoder": 49_490_199}
+SDXL_COUNTS = {"clip": 123_060_480, "clip2": 694_659_840, "encoder": 34_163_664,
+               "decoder": 49_490_199, "diffusion": 2_567_463_684}
 CSRC = "pytorch_stable_diffusion_tpu_torch/csrc/"
 PALLAS = "pytorch_stable_diffusion_tpu/ops/pallas/flash_attention.py"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -200,6 +243,23 @@ K5_PER_EVAL = 44
 #: K2 launches of one UNet evaluation under a context of 256+ tokens
 #: (PERF.md): every one of its 16 cross-attentions
 K2_PER_EVAL = 16
+#: launches of one UNet evaluation of the slice-C2 families at their native
+#: sizes (PERF.md §6), by family and kernel: K1 at every self-attention layer
+#: (SDXL 1024²: 10 at level 1, 60 at level 2 and the mid block; the refiner:
+#: 20, 20 and 4 at its 256-token mid block; SD-2.1 768²: 5 a level, its
+#: 144-token mid block materialized), K2 at every cross-attention layer under
+#: a 256+-token context, K5 at both halves of every res block on "kernel"
+C2_PER_EVAL = {"sdxl": {"K1": 70, "K2": 70, "K5": 34},
+               "refiner": {"K1": 44, "K2": 44, "K5": 44},
+               "sd21": {"K1": 15, "K2": 15, "K5": 44}}
+#: slice C2's K1 shapes at CFG batch 2, all Dh 64: (tokens, channels, heads)
+#: of SDXL 1024² levels 1 and 2, the refiner's levels 1 and 2 and mid
+#: block, SD-2.1 768² levels 1-3
+K1_C2 = ((4096, 640, 10), (1024, 1280, 20), (4096, 768, 12), (1024, 1536, 24),
+         (256, 1536, 24), (9216, 320, 5), (2304, 640, 10), (576, 1280, 20))
+#: slice C2's K2 shapes under a 4-window prompt (KV 308), Dh 64: (q tokens,
+#: heads) of SDXL's and the refiner's levels 1 and 2 and SD-2.1's level 1
+K2_C2 = ((4096, 10), (1024, 20), (4096, 12), (1024, 24), (9216, 5))
 #: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 on the
 #: CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -334,9 +394,14 @@ def phase_k1(fa, card, results):
               (2, 1024, 1024, 1280, 8, 1024)]
     # Dh 64: SD-1.5's level 1 at 5 heads (SD-2.x/SDXL's head dim), and ragged
     cases += [(2, 4096, 4096, 320, 5, 4096), (1, 300, 333, 128, 2, 300)]
+    # slice C2, all at Dh 64: SDXL 1024² (levels 1 and 2), the refiner's
+    # (levels 1 and 2, its mid block), SD-2.1 768² (levels 1-3)
+    cases += [(2, s, s, c, h, min(s, 2048)) for s, c, h in K1_C2]
+    cases += [(4, s, s, c, h, 1024) for s, c, h in K1_C2[:2]]  # SDXL generate_many, batch 2
     timed = {(b, s, s, c, 8) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))}
     timed |= {(2, 16384, 16384, 640, 8), (2, 4096, 4096, 1280, 8), (2, 4096, 4096, 320, 5)}
+    timed |= {(2, s, s, c, h) for s, c, h in K1_C2}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, sk, c, heads, rows in cases:
@@ -355,8 +420,11 @@ def phase_k1(fa, card, results):
             line = (f"K1 {str(dtype)[6:]} B={b} Sq={sq} Sk={sk} C={c} H={heads} "
                     f"Dh={c // heads}: max abs err {err:.3e} on {rows} q rows (tol {tol:.3e})")
             main = dtype == torch.bfloat16 and (b, sq, c, heads) == (2, 4096, 320, 8)
-            if main:  # KV short by one 128-token tile must fail the check
-                bad = fa.flash_attention_bsc(q, k[:, :-128], v[:, :-128], n_heads=heads)
+            if main or (dtype == torch.bfloat16 and (b, sq, c, heads) == (2, 4096, 640, 10)):
+                # KV short by one 128-token tile must fail the check (SD-1.5's
+                # level 1, and SDXL's at Dh 64)
+                bad = fa.flash_attention_bsc(q[:, :rows], k[:, :-128], v[:, :-128],
+                                             n_heads=heads)
                 bad_err = max_err(bad, ref)
                 check(bad_err > tol, f"K1: a call missing 128 KV tokens passed the check "
                                      f"(max abs err {bad_err:.3e} <= {tol:.3e})")
@@ -377,6 +445,10 @@ def phase_k1(fa, card, results):
                     line += (f", sdpa {'none' if lib is None else f'{lib:.4f}'} ms device"
                              f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, exp "
                              f"floor {exp_floor_ms(exps):.4f} ms ({exps / 1e6:.0f} M exp2)")
+                    if (sq, c, heads) in K1_C2:
+                        rec["c2_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
+                                                     library_ms=lib, bound_ms=bms,
+                                                     bound_by=by))
                     if main:
                         pms = one_call_device_ms(
                             lambda: fa.flash_attention_bsc_plain(q, k, v, heads))
@@ -479,6 +551,15 @@ def phase_long(fa, card, results):
         ("K3", 1, 999, 40960, 2, 80, f32, False, 999, ""),
         ("K3", 1, 1500, 41000, 1, 320, bf, False, 1500, ""),
         ("K3", 1, 3001, 3001, 2, 128, bf, True, 3001, ""),
+        # slice C2: the VAE mid block at 1024² (SDXL, the refiner) and 768²
+        # (SD-2.1); K4 at Dh 64 (SD-2.1's level 1 from 40960 tokens)
+        ("K3", 1, 16384, 16384, 1, 512, bf, False, 4096, "c2"),
+        ("K3", 1, 16384, 16384, 1, 512, f32, False, 2048, ""),
+        ("K3", 2, 16384, 16384, 1, 512, bf, False, 2048, ""),  # generate_many's decode
+        ("K3", 1, 9216, 9216, 1, 512, bf, False, 4096, "c2"),
+        ("K3", 1, 9216, 9216, 1, 512, f32, False, 2048, ""),
+        ("K4", 1, 2048, 40960, 5, 64, bf, False, 2048, "c2"),
+        ("K4", 1, 2048, 40960, 5, 64, f32, False, 1024, ""),
     ]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
@@ -515,6 +596,9 @@ def phase_long(fa, card, results):
                 rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
                            timer=timer_since(n0))
                 line += f"; plain {pms:.3f} ms"
+            if role == "c2":
+                rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
+                                             bound_ms=bms, bound_by=by))
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
@@ -589,6 +673,9 @@ def phase_k2(fa, card, results):
               for sk in (385, 462) for sq, dh in levels[:2]]
     # k and v in two allocations of their own (a hypernetwork's k/v contexts)
     cases += [(2, 8, sq, 308, dh, False, sq, "separate") for sq, dh in levels]
+    # slice C2 under a 4-window prompt, Dh 64: SDXL's and the refiner's levels
+    # 1 and 2 at 1024², SD-2.1's level 1 at 768²
+    cases += [(2, h, sq, 308, 64, False, min(sq, 2048), "c2") for sq, h in K2_C2]
     cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
               (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
               (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
@@ -614,7 +701,7 @@ def phase_k2(fa, card, results):
                 line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
             if role == "main":
                 line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
-            if role in ("main", "level", "time") and dtype == torch.bfloat16:
+            if role in ("main", "level", "time", "c2") and dtype == torch.bfloat16:
                 # a call is shorter than its host launch cost, so CUDA events
                 # around back-to-back calls time the host: the recorded times
                 # are device times under the profiler
@@ -624,13 +711,16 @@ def phase_k2(fa, card, results):
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
-                if role in ("main", "level"):
+                if role in ("main", "level", "c2"):
                     lib, why = sdpa_ms(*args, timer=one_call_device_ms)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
                     line += (f"; sdpa {'none' if lib is None else f'{lib:.4f}'} ms device"
                              f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, exp "
                              f"floor {exp_floor_ms(b * h * sq * sk):.4f} ms")
+                if role == "c2":
+                    rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
+                                                 library_ms=lib, bound_ms=bms, bound_by=by))
                 if role == "main":
                     pms = one_call_device_ms(lambda: plain(*args, causal))
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -725,6 +815,16 @@ def phase_k5(k5, card, results):
     cases += [(8, *s, False) for s in shapes]
     cases += [(2, *s, False) for size in (2048, 128) for s in distinct(res_convs(cfg, size, size))]
     cases += [(2, 10, 12, 64, 128, True)]
+    # slice C2: SDXL's and the refiner's res-block convs at 1024², SD-2.1's at
+    # 768² (SD-1.5's widths), batch 2, with the time-embedding fold
+    c2 = distinct([s for name, size in (("sdxl_config", 1024), ("sdxl_refiner_config", 1024),
+                                        ("sd21_config", 768))
+                   for s in res_convs(getattr(port, name)(), size, size)])
+    cases += [(2, *s, True) for s in c2 if (2, *s, True) not in cases]
+    # SDXL's generate_many at batch 2: CFG batch 4
+    cases += [(4, *s, True) for s in distinct(res_convs(port.sdxl_config(), 1024, 1024))]
+    c2_timed = {(2, 128, 128, 384, 384), (2, 128, 128, 960, 320), (2, 32, 32, 3072, 1536),
+                (2, 96, 96, 320, 320)}
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         worst = (0.0, None)
@@ -754,8 +854,8 @@ def phase_k5(k5, card, results):
                 print(f"K5 {str(dtype)[6:]} {main}: max abs err {err:.3e} (tol {tol:.3e}); "
                       f"planted fault (padding before the activation) caught: max abs "
                       f"err {bad_err:.3e}", flush=True)
-            if dtype == torch.bfloat16 and not with_temb and (b, h, w, cin, cout) in (
-                    main, (2, 256, 256, 320, 320)):
+            if dtype == torch.bfloat16 and (not with_temb and (b, h, w, cin, cout) in (
+                    main, (2, 256, 256, 320, 320)) or (b, h, w, cin, cout) in c2_timed):
                 flops = conv_flops(b, h, w, cin, cout)
                 n0 = FALLBACKS[0]
                 ms = one_call_device_ms(
@@ -776,6 +876,9 @@ def phase_k5(k5, card, results):
                 if (b, h, w, cin, cout) == main:
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
                                timer=timer_since(n0))
+                if (b, h, w, cin, cout) in c2_timed:
+                    rec["c2_shapes"].append(dict(shape=[b, h, w, cin, cout], ms=ms,
+                                                 library_ms=lib, bound_ms=bms, bound_by=by))
                 print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.4f} ms device "
                       f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.3f} ms "
                       f"(events), cuDNN conv alone on the activated input {lib:.4f} ms "
@@ -1058,9 +1161,10 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
                       context=77):
     """Kernel launches of one request, derived from the UNet's plan (which
-    stages carry attention, at which level; its res blocks), the length of
-    the cross-attention context, the VAE's mid block and
-    :func:`expected_kernel`."""
+    stages carry attention, at which level, of how many stacked layers,
+    at which head width; its res blocks), the length of the
+    cross-attention context, the VAE's mid block and
+    :func:`expected_kernel`.  The CPU tests import it too."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
     counts = {"K1": 0, "K2": 0, "K4": 0, "K3": 0, "K5": 0}
@@ -1072,25 +1176,27 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     u = cfg.unet
     h = height // cfg.vae.downsample_factor
     w = width // cfg.vae.downsample_factor
-    per_step = []  # (tokens, channels) of every UNet transformer block
+    per_step = []  # (tokens, channels, layers) of every UNet transformer block
     level = 0
     for st in unet.encoder_plan(u)[1:]:
         if st["kind"] == "down":
             level += 1
         elif st["attn"]:
-            per_step.append(((h >> level) * (w >> level), st["c_out"]))
-    per_step.append(((h >> level) * (w >> level), u.level_channels[-1]))  # bottleneck
+            per_step.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
+    per_step.append(((h >> level) * (w >> level), u.level_channels[-1],  # bottleneck
+                     u.depth_for(len(u.ch_mults) - 1)))
     for st in unet.decoder_plan(u):
         if st["attn"]:
-            per_step.append(((h >> level) * (w >> level), st["c_out"]))
+            per_step.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
         if st["upsample"]:
             level -= 1
-    for tokens, c in per_step:
+    for tokens, c, layers in per_step:
         dh = c // u.heads_for(c)
         add(expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
-                            flash_only=flash_only), steps)
+                            flash_only=flash_only), steps * layers)
         add(expected_kernel(context, dh, cross=True,
-                            backend=cfg.attention_backend, flash_only=flash_only), steps)
+                            backend=cfg.attention_backend, flash_only=flash_only),
+            steps * layers)
     if cfg.conv_backend in ("kernel", "kernel_fold"):  # both halves of every res block
         counts["K5"] += 2 * steps * (sum(st["kind"] == "block" for st in unet.encoder_plan(u))
                                      + 2 + len(unet.decoder_plan(u)))
@@ -1201,10 +1307,11 @@ def phase_slice_b(port, request, base, init_image, zero_counts, read_path):
     print("requests B: dpm++_sde and dpm_adaptive again == first, bit-identical", flush=True)
 
 
-def phase_step(models, cfg, card, size=2048, context=77, batch=2):
-    """One UNet evaluation at ``size``² of CFG batch ``batch`` under a
-    ``context``-token context: its wall time, its device busy share under
-    torch.profiler, and the device time of K1, K4 and K2 in it."""
+def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"):
+    """One UNet evaluation of ``cfg``'s family at ``size``² of CFG batch
+    ``batch`` under a ``context``-token context (and random added
+    conditioning, SDXL): its wall time, its device busy share under
+    torch.profiler, and the device time of K1, K4, K2 and K5 in it."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1212,14 +1319,16 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2):
     lat = size // cfg.vae.downsample_factor
     x = torch.randn(batch, 4, lat, lat, device="cuda", generator=g).to(dtype) \
         .contiguous(memory_format=torch.channels_last)
-    ctx = torch.randn(batch, context, 768, device="cuda", generator=g).to(dtype)
+    ctx = torch.randn(batch, context, cfg.unet.d_context, device="cuda", generator=g).to(dtype)
+    add = None if cfg.unet.add_embed_dim is None else \
+        torch.randn(batch, cfg.unet.add_embed_dim, device="cuda", generator=g)
     t = torch.tensor(500.0, device="cuda")
 
     def step():
         with torch.inference_mode():
             return models["diffusion"](x, ctx, t, cfg.policy,
                                        attention_backend=cfg.attention_backend,
-                                       conv_backend=cfg.conv_backend)
+                                       conv_backend=cfg.conv_backend, add_cond=add)
 
     step()
     torch.cuda.synchronize()
@@ -1250,17 +1359,19 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2):
 
     times = {}
     for e in rows:
-        label = kernel_of(e.key)
-        if label:
-            times[label] = times.get(label, 0.0) + e.self_device_time_total / 1e6
-    parts = [f"{label} {t * 1e3:.3f} ms "
+        kernel = kernel_of(e.key)
+        if kernel:
+            times[kernel] = times.get(kernel, 0.0) + e.self_device_time_total / 1e6
+    parts = [f"{kernel} {t * 1e3:.3f} ms "
              f"({f'{t / busy:.3f}' if busy > 0 else 'not measured'} of the device time)"
-             for label, t in sorted(times.items())]
+             for kernel, t in sorted(times.items())]
+    launches = sum(e.count for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
-    print(f"step ({size}², batch {batch}, {context}-token context, {cfg.conv_backend}): one "
+    print(f"step {label} ({size}², batch {batch}, {context}-token context, "
+          f"{cfg.conv_backend}): one "
           f"UNet evaluation {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
-          f"device busy, busy share {share}; {'; '.join(parts)}; top: "
+          f"device busy, busy share {share}, {launches} kernels; {'; '.join(parts)}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
 
@@ -1360,22 +1471,28 @@ def bf16_within_one_ulp(got, ref):
 
 def lora_file(models, cfg, path, g):
     """A kohya LoRA over every UNet and text-encoder conv and linear target
-    of the port's diffusers rules, rank 8, alpha 4, fp16 factors; -> the
-    file's factors by target, on the CPU in fp32."""
+    of the port's diffusers rules (SDXL: ``lora_te1_`` for CLIP-L,
+    ``lora_te2_`` for bigG), rank 8, alpha 4, fp16 factors; -> the file's
+    factors by target, on the CPU in fp32."""
     from pytorch_stable_diffusion_tpu_torch.weights import lora, save
 
-    sds = {name: models[name].state_dict() for name in ("clip", "diffusion")}
+    sds = {name: models[name].state_dict() for name in ("clip", "clip2", "diffusion")
+           if name in models}
     tensors, factors = {}, {}
+    prefix = {"unet": "lora_unet_", "text_encoder": "lora_te1_" if "clip2" in models
+              else "lora_te_", "text_encoder_2": "lora_te2_"}
     for dotted, targets in sorted(lora._weight_targets(cfg).items()):
-        model, dst, _ = targets[0]
+        model, dst, kind = targets[0]
         w = sds[model][dst]
+        if kind == "linear_t":  # the text projection, kept (in, out); the file's is (out, in)
+            w = w.t()
         rank = 8
         down_shape = (rank,) + tuple(w.shape[1:])
         up_shape = (w.shape[0], rank) + ((1, 1) if w.dim() == 4 else ())
         down = (torch.randn(down_shape, device="cuda", generator=g) * 0.02).half()
         up = (torch.randn(up_shape, device="cuda", generator=g) * 0.02).half()
         root, rest = dotted.split(".", 1)
-        name = ("lora_unet_" if root == "unet" else "lora_te_") + rest.replace(".", "_")
+        name = prefix[root] + rest.replace(".", "_")
         tensors[f"{name}.lora_down.weight"] = down
         tensors[f"{name}.lora_up.weight"] = up
         tensors[f"{name}.alpha"] = torch.tensor(4.0, dtype=torch.float16)
@@ -1429,12 +1546,7 @@ def phase_slice_d(port, card, request, zero_counts, read_path):
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_d_")
     d = tmp.name
     tok = _tokenizer()
-    with open(os.path.join(d, "vocab.json"), "w") as f:
-        json.dump(tok.encoder, f)
-    with open(os.path.join(d, "merges.txt"), "w") as f:
-        f.write("#version: 0.2\n" + "".join(
-            f"{a} {b}\n" for a, b in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)))
-    vocab, merges = os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+    vocab, merges = _tokenizer_files(tok, d)
 
     # 1. the full model from a .safetensors file, eager and streamed
     t0 = time.perf_counter()
@@ -1653,6 +1765,264 @@ def phase_slice_d(port, card, request, zero_counts, read_path):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- slice C2
+def phase_small_c2(port, attention):
+    """Full width, FP32, 256², 2 DDPM+CFG steps, the card against the CPU
+    plain path on the same seeded weights and noise: SDXL (K1 at level 1's
+    256 tokens, Dh 64; the VAE's mid block on K3), and SD-2.1 768-v with
+    FLASH_ONLY_KV lowered to 1024 so that K4 carries level 1 (1024 tokens,
+    Dh 64), K1 level 2 and K3 the VAE.  Prints the host memory and time the
+    CPU side takes."""
+    import ctypes
+    import gc
+
+    import numpy as np
+
+    tok = _tokenizer()
+    kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
+              tokenizer=tok, return_latents=True, sampler_name="ddpm", n_inference_steps=2)
+    kernels = dict(attention_backend="kernel", vae_attention_backend="kernel")
+    for label, make, flash_only in (("SDXL", port.sdxl_config, None),
+                                    ("SD-2.1 768-v", port.sd21_config, 1024)):
+        t0 = time.perf_counter()
+        cfg_cpu = make(policy=port.FP32)
+        cfg_gpu = make(policy=port.FP32, **kernels)
+        with HostPeak() as peak:
+            cpu = port.build_models(cfg_cpu, device="cpu",
+                                    generator=torch.Generator().manual_seed(29))
+            t_build = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            img_c, lat_c = port.generate(PROMPTS[0], models=cpu, config=cfg_cpu, device="cpu",
+                                         **kw)
+            t_cpu = time.perf_counter() - t1
+            gpu = port.build_models(cfg_gpu, device="cuda",
+                                    state_dicts={k: m.state_dict() for k, m in cpu.items()})
+        del cpu
+        gc.collect()
+        ctypes.CDLL("libc.so.6").malloc_trim(0)  # so the next family's peak starts clean
+        saved = attention.FLASH_ONLY_KV
+        if flash_only is not None:
+            attention.FLASH_ONLY_KV = flash_only
+        try:
+            want = expected_launches(cfg_gpu, 256, 256, steps=2, img2img=False,
+                                     flash_only=flash_only or FLASH_ONLY_KV)
+            before = launch_counts()
+            img_g, lat_g = port.generate(PROMPTS[0], models=gpu, config=cfg_gpu,
+                                         device="cuda", **kw)
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+        finally:
+            attention.FLASH_ONLY_KV = saved
+        del gpu
+        torch.cuda.empty_cache()
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small C2 ({label}): full-width FP32 256², 2 DDPM steps, CFG 5, card vs CPU "
+              f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, "
+              f"launches {got}; CPU side: models built in {t_build:.1f} s, the request in "
+              f"{t_cpu:.1f} s, {peak.text()} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(got == want, f"small C2 ({label}) launched {got}, want {want}")
+        check(np.isfinite(lat_g).all(), f"small C2 ({label}): latents not finite")
+        check(lat_db > 55.0, f"small C2 ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small C2 ({label}) image PSNR {img_db:.1f} dB <= 40")
+
+
+def sgm_file(cfg, path, seed):
+    """A full-width SDXL state dict in the sgm key schema (the port's
+    ``deconvert``: (C, C) proj_in/proj_out, the bigG q/k/v fused into
+    in_proj), with the towers' extras real files carry (bigG's
+    ``logit_scale``, CLIP-L's ``position_ids``), written as fp16
+    ``.safetensors``; -> the written tensors, on the card in bf16."""
+    from pytorch_stable_diffusion_tpu_torch.weights import convert, save
+
+    file16 = {k: v.half() for k, v in
+              convert.synthetic_state_dict(cfg, seed=seed, device="cuda").items()}
+    proj = [k for k in file16 if k.endswith("proj_in.weight") and "diffusion_model" in k]
+    check(proj and all(file16[k].dim() == 2 for k in proj), "sgm file: proj_in not (C, C)")
+    extras = {"conditioner.embedders.1.model.logit_scale": torch.tensor(4.6052).half(),
+              "conditioner.embedders.0.transformer.text_model.embeddings.position_ids":
+                  torch.arange(77, dtype=torch.int64)[None]}
+    save.write_safetensors({**file16, **extras}, path)
+    return {k: v.to(torch.bfloat16) for k, v in file16.items()}, len(proj)
+
+
+def phase_slice_c2(port, card, request, zero_counts, read_path):
+    """Slice C2 at full width, BF16, kernel attention, conv and VAE (the
+    module docstring, phase 6, slice C2)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import assemble, param_count
+    from pytorch_stable_diffusion_tpu_torch.weights import lora, stream
+
+    kernels = dict(attention_backend="kernel", conv_backend="kernel",
+                   vae_attention_backend="kernel")
+    xl_cfg = port.sdxl_config(policy=port.BF16, **kernels)
+    t0 = time.perf_counter()
+    xl = port.build_models(xl_cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(21))
+    counts = {k: param_count(m) for k, m in xl.items()}
+    check(counts == SDXL_COUNTS, f"SDXL parameter counts {counts}")
+    torch.cuda.synchronize()
+    print(f"C2 model: SDXL base BF16 on the card, counts {counts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    tok = _tokenizer()
+    base = dict(uncond_prompt="", cfg_scale=5.0, sampler_name="dpm++", timestep_spacing="karras",
+                n_inference_steps=20, tokenizer=tok, device="cuda", height=1024, width=1024,
+                return_latents=True, seed=1337)
+
+    def run(label, fn, family, *, size=1024, steps=20, n_images=1, config=xl_cfg, context=77):
+        zero_counts()
+        out = request(f"C2 {label}", fn, size=size, steps=steps, n_images=n_images,
+                      config=config, context=context, per_eval=C2_PER_EVAL[family])
+        read_path()
+        return out
+
+    def xl_request(prompt=PROMPTS[0], models=None, **more):
+        return lambda: port.generate(prompt, models=models or xl,
+                                     **{**base, "config": xl_cfg, **more})
+
+    a, lat_a = run("a SDXL 1024² dpm++ karras 20 steps, CFG 5, seed 1337", xl_request(), "sdxl")
+    a2, _ = run("a' the same again", xl_request(), "sdxl")
+    check(np.array_equal(a, a2), "SDXL: the same seed gave a different image")
+    long_img, _ = run("b 4-window prompt (emphasis, BREAK): K2", xl_request(
+        LONG_PROMPT, emphasis=True), "sdxl", context=308)
+    micro, _ = run("c original_size=(2048, 2048), crop_coords=(64, 64)", xl_request(
+        original_size=(2048, 2048), crop_coords=(64, 64)), "sdxl")
+    check(not np.array_equal(micro, a), "micro-conditioning: the image did not change")
+    print(f"requests C2: a' == a bit-identical; not gated: b vs a "
+          f"{psnr(long_img.astype(np.float32), a.astype(np.float32)):.1f} dB, c vs a "
+          f"{psnr(micro.astype(np.float32), a.astype(np.float32)):.1f} dB", flush=True)
+
+    # the refiner over the base's latents (no VAE encode)
+    rf_cfg = port.sdxl_refiner_config(policy=port.BF16, **kernels)
+    rf = port.build_models(rf_cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(22))
+    start = 20 - int(20 * 0.3)
+    refined, _ = run("d refiner 1024² over a's latents (init_latents), strength 0.3",
+                     lambda: port.generate(PROMPTS[0], models=rf, init_latents=lat_a,
+                                           strength=0.3, **{**base, "config": rf_cfg}),
+                     "refiner", steps=20 - start, config=rf_cfg)
+    check(not np.array_equal(refined, a), "refiner: the image did not change")
+    del rf
+    torch.cuda.empty_cache()
+
+    # SD-2.1 768-v
+    v_cfg = port.sd21_config(policy=port.BF16, **kernels)
+    v_models = port.build_models(v_cfg, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(23))
+    run("e SD-2.1 768-v 768² euler_a 20 steps, trailing",
+        lambda: port.generate(PROMPTS[1], models=v_models, **{
+            **base, "config": v_cfg, "height": 768, "width": 768, "sampler_name": "euler_a",
+            "timestep_spacing": "trailing", "cfg_scale": 7.0}),
+        "sd21", size=768, config=v_cfg)
+    del v_models
+    torch.cuda.empty_cache()
+
+    # generate_many: 3 prompts at batch 2 (2 chunks of CFG batch 4); the VAE on
+    # the plain backend (one K3 call a decode would count per chunk)
+    many_cfg = dataclasses.replace(xl_cfg, vae_attention_backend="plain")
+    many_kw = {k: v for k, v in base.items() if k not in ("uncond_prompt", "return_latents")}
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            many = run("f generate_many 3 prompts, batch_size=2 (2 chunks, one padded)",
+                       lambda: port.generate_many(PROMPTS[:3], batch_size=2, models=xl,
+                                                  **{**many_kw, "config": many_cfg}),
+                       "sdxl", steps=2 * 20, n_images=3, config=many_cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in syncs
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"C2 generate_many: {many.shape}; host syncs in the call: {len(syncs)}", flush=True)
+    check(len(syncs) <= 1, f"C2 generate_many: {len(syncs)} host syncs (one, the final copy, "
+                           f"expected)")
+
+    # files: an sgm .safetensors, eager and streamed; a kohya LoRA over both
+    # towers and the UNet; a dual-tower embedding
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_c2_")
+    d = tmp.name
+    ckpt = os.path.join(d, "sdxl.safetensors")
+    t = time.perf_counter()
+    want, n_proj = sgm_file(xl_cfg, ckpt, seed=24)
+    print(f"C2 files: synthetic SDXL state dict, {sum(v.numel() for v in want.values())} "
+          f"parameters, sgm keys, {n_proj} proj_in as (C, C), bigG logit_scale, written as "
+          f"fp16 .safetensors ({os.path.getsize(ckpt) / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    vocab, merges = _tokenizer_files(tok, d)
+    with HostPeak() as peak:
+        t = time.perf_counter()
+        sd = port.StableDiffusion.from_checkpoint(ckpt, vocab, merges, config=xl_cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    n = equal_to_file(sd.models, xl_cfg, want, "SDXL from_checkpoint")
+    print(f"C2 load from_checkpoint (eager): {dt:.2f} s, {peak.text()}; {n} tensors equal "
+          f"the file's, bit for bit  [{card}]", flush=True)
+    with HostPeak() as peak:
+        t = time.perf_counter()
+        streamed = assemble(xl_cfg, stream.load_sd_checkpoint_streamed(ckpt, xl_cfg))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    equal_to_file(streamed, xl_cfg, want, "SDXL load_sd_checkpoint_streamed")
+    print(f"C2 load load_sd_checkpoint_streamed: {dt:.2f} s, {peak.text()}; every tensor "
+          f"equal, bit for bit  [{card}]", flush=True)
+    del streamed, want
+    os.remove(ckpt)
+    files_kw = dict(steps=8)
+    # the bundles' requests: their own tokenizer (textual inversion's
+    # placeholders), 8 steps
+    bkw = {k: v for k, v in base.items() if k not in ("tokenizer", "device")}
+    bkw["n_inference_steps"] = 8
+    f_base, _ = run("g from_checkpoint bundle, 8 steps", lambda: sd.txt2img(PROMPTS[0], **bkw),
+                    "sdxl", **files_kw)
+    lora_path = os.path.join(d, "lora.safetensors")
+    factors = lora_file(sd.models, xl_cfg, lora_path,
+                        torch.Generator(device="cuda").manual_seed(25))
+    roots = sorted({dotted.split(".")[0] for dotted in lora._weight_targets(xl_cfg)})
+    sd_lora = sd.with_lora(lora_path)
+    changed = [m for m in sd.models if sd_lora.models[m] is not sd.models[m]]
+    check(changed == ["clip", "clip2", "diffusion"], f"SDXL LoRA changed {changed}")
+    lora_img, _ = run("h with_lora (kohya: lora_te1_, lora_te2_, lora_unet_)", lambda:
+                      sd_lora.txt2img(PROMPTS[0], **bkw), "sdxl", **files_kw)
+    zero_img, _ = run("i with_lora(scale=0)", lambda: sd.with_lora(lora_path, scale=0.0)
+                      .txt2img(PROMPTS[0], **bkw), "sdxl", **files_kw)
+    check(not np.array_equal(lora_img, f_base), "SDXL with_lora: the image did not change")
+    check(np.array_equal(zero_img, f_base), "SDXL with_lora(scale=0): not bit-identical")
+    print(f"C2 LoRA: {len(factors)} targets over {roots}; scale 0 bit-identical to the base",
+          flush=True)
+    del sd_lora
+    g = torch.Generator().manual_seed(26)
+    emb = {"clip_l": torch.randn(2, 768, generator=g) * 0.4,
+           "clip_g": torch.randn(2, 1280, generator=g) * 0.4}
+    sd_ti = sd.with_textual_inversion(emb, token="xl-toy")
+    ti_prompt = "a photograph of xl-toy riding a horse"
+    check(sum(i >= 49408 for i in sd_ti.tokenizer.encode(ti_prompt)) == 2,
+          "SDXL textual inversion: token ids")
+    ti_img, _ = run("j with_textual_inversion (dual-tower, trigger in the prompt)", lambda:
+                    sd_ti.txt2img(ti_prompt, **bkw), "sdxl", config=sd_ti.config, **files_kw)
+    check(not np.array_equal(ti_img, f_base), "SDXL textual inversion: the same image")
+    del sd_ti, sd
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return xl, xl_cfg
+
+
+def _tokenizer_files(tok, d):
+    """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
+    import os
+
+    vocab, merges = os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+    with open(vocab, "w") as f:
+        json.dump(tok.encoder, f)
+    with open(merges, "w") as f:
+        f.write("#version: 0.2\n" + "".join(
+            f"{a} {b}\n" for a, b in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)))
+    return vocab, merges
+
+
 # ------------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -1704,7 +2074,7 @@ def main():
 
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0}
+                      "launches": 0, "max_abs_err": 0.0, "c2_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -1733,7 +2103,7 @@ def main():
                 device="cuda", height=512, width=512)
 
     def request(name, fn, *, size, steps, n_images, img2img=False, config=cfg, context=77,
-                evals=None):
+                evals=None, per_eval=None):
         # one batched UNet call an evaluation serves every image of the request;
         # ``evals``: the UNet evaluations where they are not one a step (a
         # callable where only the run knows them: dpm_adaptive's iterations)
@@ -1749,13 +2119,20 @@ def main():
             name, steps = f"{name} ({steps} steps, {n_evals} UNet evaluations)", n_evals
         want = expected_launches(config, size, size, steps=steps, img2img=img2img,
                                  context=context)
-        k5_stated = K5_PER_EVAL * steps if config.conv_backend in ("kernel", "kernel_fold") \
-            else 0
+        # ``per_eval``: a slice-C2 family's stated launches an evaluation
+        # (C2_PER_EVAL); else SD-1.5's (K5_PER_EVAL, K2_PER_EVAL)
+        stated = per_eval or {"K5": K5_PER_EVAL, "K2": K2_PER_EVAL}
+        k5_stated = stated["K5"] * steps \
+            if config.conv_backend in ("kernel", "kernel_fold") else 0
         check(want["K5"] == k5_stated, f"{name}: derived {want['K5']} K5 launches, "
                                        f"PERF.md states {k5_stated}")
-        k2_stated = K2_PER_EVAL * steps if context >= 256 else 0
+        k2_stated = stated["K2"] * steps if context >= 256 else 0
         check(want["K2"] == k2_stated, f"{name}: derived {want['K2']} K2 launches, "
                                        f"PERF.md states {k2_stated}")
+        if per_eval is not None:
+            check(want["K1"] == per_eval["K1"] * steps,
+                  f"{name}: derived {want['K1']} K1 launches, PERF.md states "
+                  f"{per_eval['K1'] * steps}")
         if size == 2048:
             stated = {k: n * steps for k, n in PER_STEP_2048.items()}
             stated.update(K2=k2_stated, K3=2 if img2img else 1, K5=k5_stated)
@@ -1897,9 +2274,6 @@ def main():
     phase_slice_b(port, request, base, a, zero_counts, read_path)
     # slice D: checkpoint files, the StableDiffusion API and the weight transforms
     phase_slice_d(port, card, request, zero_counts, read_path)
-    for name, short in SHORT.items():
-        results[name]["launches"] = main_launches[short]
-        check(main_launches[short] > 0, f"{short} was not launched on the main paths")
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -1908,6 +2282,18 @@ def main():
     phase_step(models, cfg, card, size=512, context=77)
     phase_step(models, cfg, card, size=512, context=308)
     phase_step(models, cfg, card, size=512, context=77, batch=8)
+
+    # slice C2: SD-2.1, SDXL and the refiner, with the SD-1.5 models freed
+    del models, base, batch_kw, long_kw
+    torch.cuda.empty_cache()
+    phase_small_c2(port, attention)
+    xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)
+    phase_step(xl, xl_cfg, card, size=1024, label="SDXL")
+    phase_step(xl, xl_cfg, card, size=1024, context=308, label="SDXL")
+    del xl
+    for name, short in SHORT.items():
+        results[name]["launches"] = main_launches[short]
+        check(main_launches[short] > 0, f"{short} was not launched on the main paths")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

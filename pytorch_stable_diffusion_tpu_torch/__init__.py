@@ -1,8 +1,11 @@
 """Stable Diffusion in PyTorch for NVIDIA Hopper — the port of
 ``pytorch_stable_diffusion_tpu`` (JAX/TPU), which stays the reference.
 
-The port runs SD-1.5 txt2img and img2img with CFG and the JAX package's
-18 samplers and timestep grids, up to 2048² (65536-token attention), with
+The port runs SD-1.5, SD-2.1 (the OpenCLIP ViT-H tower, v-prediction),
+SDXL base and the SDXL refiner (two text towers, pooled and size
+conditioning, stacked transformer depth; base -> refiner through
+``init_latents``), txt2img and img2img with CFG and the JAX package's 18
+samplers and timestep grids, up to 2048² (65536-token attention), with
 the tiled VAE for high resolutions; it loads CompVis checkpoints
 (``.safetensors`` through a native reader, ``.ckpt`` through a restricted
 unpickler) and diffusers directories, and applies LoRA, textual inversion,
@@ -33,11 +36,13 @@ Everything runs on the card unless ``device=`` names another device.
 
 from .core.dtypes import BF16, FP32, Policy
 from .models import build_models
-from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig,
-                            sd15_config, tiny_sd_config)
+from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig, sd15_config,
+                            sd21_config, sdxl_config, sdxl_refiner_config, tiny_sd_config,
+                            tiny_sdxl_config)
 from .pipeline import generate, generate_images, generate_many
 from .api import StableDiffusion
 
 __all__ = ["BF16", "FP32", "Policy", "build_models", "CLIPConfig", "SDConfig",
-           "UNetConfig", "VAEConfig", "sd15_config", "tiny_sd_config",
+           "UNetConfig", "VAEConfig", "sd15_config", "sd21_config", "sdxl_config",
+           "sdxl_refiner_config", "tiny_sd_config", "tiny_sdxl_config",
            "generate", "generate_images", "generate_many", "StableDiffusion"]

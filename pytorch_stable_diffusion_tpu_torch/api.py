@@ -55,6 +55,9 @@ class StableDiffusion:
         sd = StableDiffusion.from_checkpoint(
             "v1-5.safetensors", "vocab.json", "merges.txt",
             config=sd15_config(policy=BF16, attention_backend="kernel"))
+        # SD-2.1 768-v: config=sd21_config(...); SDXL: sdxl_config(...),
+        # and its refiner sdxl_refiner_config(...) over the base's latents:
+        # refiner.txt2img(prompt, init_latents=latents, strength=0.3)
         image = sd.txt2img("a photo of a dog", seed=1337)
         image = sd.img2img("a cat", init_image, strength=0.8)
         images = sd.generate_many(["a dog"] * 8, seed=0, batch_size=4)
@@ -162,15 +165,19 @@ class StableDiffusion:
     def with_textual_inversion(self, embedding, token: Optional[str] = None):
         """A bundle with a textual-inversion embedding installed
         (``weights/textual_inversion.py``): ``embedding`` is a ``.pt``/
-        ``.safetensors`` path or a ready ``{trigger: (n, d)}`` dict; ``token``
-        overrides the trigger word.  The trigger then works in any prompt:
-        ``sd.txt2img("a photo of <my-style>")``."""
+        ``.safetensors`` path or a ready ``{trigger: (n, d)}`` dict (SDXL:
+        ``{trigger: {"clip_l": (n, 768), "clip_g": (n, 1280)}}``, or the pair
+        itself with ``token=``); ``token`` overrides the trigger word.  The
+        trigger then works in any prompt: ``sd.txt2img("a photo of
+        <my-style>")``."""
         from .weights import textual_inversion as ti
 
         if isinstance(embedding, str):
             embs = ti.load_embedding(embedding, token)
-        elif isinstance(embedding, dict) and set(embedding) >= {"clip_l", "clip_g"}:
-            ti.refuse_dual_tower()
+        elif ti.is_dual(embedding):
+            if token is None:
+                raise ValueError("a dual-tower embedding dict needs token=")
+            embs = {token: embedding}
         else:
             embs = {token: embedding} if token is not None else dict(embedding)
         models, tok, cfg = ti.add_embeddings(self.models, self.tokenizer, self.config,
@@ -257,13 +264,13 @@ class StableDiffusion:
 
     # ------------------------------------------------ later slices' methods
     def edit(self, *args, **kwargs):
-        _unported("StableDiffusion.edit (InstructPix2Pix)", "slice C2")
+        _unported("StableDiffusion.edit (InstructPix2Pix)", "slice C3")
 
     def hires_fix(self, *args, **kwargs):
-        _unported("StableDiffusion.hires_fix", "slice C2")
+        _unported("StableDiffusion.hires_fix", "slice C3")
 
     def inpaint(self, *args, **kwargs):
-        _unported("StableDiffusion.inpaint", "slice C2")
+        _unported("StableDiffusion.inpaint", "slice C3")
 
     def with_controlnet(self, *args, **kwargs):
         _unported("StableDiffusion.with_controlnet", "slice E")

@@ -1,6 +1,7 @@
-"""The four SD models and how to build them.
+"""The SD models and how to build them.
 
-``build_models`` constructs CLIP, the VAE encoder/decoder and the UNet on
+``build_models`` constructs CLIP (and SDXL's second tower, ``clip2``), the
+VAE encoder/decoder and the UNet on
 the ``meta`` device, materializes them on the target device, and fills
 them either from port state dicts (``weights/convert.py``) or with random
 weights from an explicit ``torch.Generator`` (the JAX init's distributions:
@@ -18,19 +19,23 @@ import torch
 from torch import nn
 
 from .clip import CLIP
-from .config import SDConfig, check_ported
+from .config import SDConfig, check_ported, model_names
 from .unet import UNet
 from .vae import Decoder, Encoder
 
-MODEL_NAMES = ("clip", "encoder", "decoder", "diffusion")
+#: every model a family may hold; ``config.model_names`` gives a family's
+MODEL_NAMES = ("clip", "clip2", "encoder", "decoder", "diffusion")
 
 
 def construct(cfg: SDConfig, device="meta") -> Dict[str, nn.Module]:
     """Uninitialized models (``device="meta"`` allocates nothing)."""
     check_ported(cfg)
     kw = dict(dtype=cfg.policy.param_dtype, device=device)
-    return {"clip": CLIP(cfg.clip, **kw), "encoder": Encoder(cfg.vae, **kw),
-            "decoder": Decoder(cfg.vae, **kw), "diffusion": UNet(cfg.unet, **kw)}
+    out = {"clip": CLIP(cfg.clip, **kw), "encoder": Encoder(cfg.vae, **kw),
+           "decoder": Decoder(cfg.vae, **kw), "diffusion": UNet(cfg.unet, **kw)}
+    if cfg.clip2 is not None:
+        out["clip2"] = CLIP(cfg.clip2, **kw)
+    return {name: out[name] for name in model_names(cfg)}
 
 
 def reset_parameters(model: nn.Module,
@@ -45,7 +50,8 @@ def build_models(cfg: SDConfig, *, device=None,
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, nn.Module]:
-    """-> {"clip", "encoder", "decoder", "diffusion"} ready for inference.
+    """-> {"clip", ["clip2",] "encoder", "decoder", "diffusion"} ready for
+    inference.
 
     The models are built on the card (``"cuda"``) unless ``device`` names
     another one; with no device given and no card present this raises
@@ -81,7 +87,7 @@ def assemble(cfg: SDConfig, state_dicts: Dict[str, Dict[str, torch.Tensor]]
     """Models around the given tensors, with no copy: each parameter of the
     returned models IS its state-dict tensor (strict key coverage).  Every
     tensor must already sit on one device in ``cfg.policy.param_dtype``.
-    ``state_dicts`` may hold any of the four models; only those are built.
+    ``state_dicts`` may hold any of the models; only those are built.
     The weight transforms (``weights/``) build their results so, sharing
     every parameter they leave unchanged with the models they started from."""
     models = construct(cfg)
@@ -100,7 +106,7 @@ def assemble(cfg: SDConfig, state_dicts: Dict[str, Dict[str, torch.Tensor]]
 
 
 def state_dicts(models: Dict[str, nn.Module]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The state dicts of the four models of ``models`` (tensors that share
+    """The state dicts of the SD models of ``models`` (tensors that share
     the parameters' storage); other entries (a hypernetwork) are left out."""
     return {name: models[name].state_dict() for name in MODEL_NAMES if name in models}
 

@@ -1,10 +1,16 @@
 """Model/architecture configuration (port of ``models/config.py``).
 
 The dataclasses keep every field of the JAX package's configs so a config
-reads the same in both packages.  The port runs SD-1.5 txt2img/img2img up
-to 2048², with CLIP skip (:func:`with_clip_skip`); :func:`check_ported`
-refuses every field value that names a feature a later slice brings
-(ROADMAP.md §1), instead of ignoring it.
+reads the same in both packages, and every family preset is here field
+for field.  The port runs SD-1.5 (:func:`sd15_config`), SD-2.1
+(:func:`sd21_config`: the OpenCLIP ViT-H tower, head width 64,
+v-prediction), SDXL base (:func:`sdxl_config`: CLIP-L and OpenCLIP bigG,
+stacked transformer depth, pooled and size conditioning) and the SDXL
+refiner (:func:`sdxl_refiner_config`), txt2img/img2img up to 2048², with
+CLIP skip (:func:`with_clip_skip`); :func:`check_ported` refuses every
+field value that names a feature a later slice brings (ROADMAP.md §1),
+instead of ignoring it: the inpaint, InstructPix2Pix and LCM presets are
+here, and refused, until slice C3.
 
 Attention backends are named for what runs: ``"plain"`` is the
 materialized-scores path (the JAX package's ``"xla"``) and ``"kernel"``
@@ -32,7 +38,8 @@ QUANT_TIERS = ("none", "wide", "conv", "w8")
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    """CLIP ViT-L/14 text tower."""
+    """A CLIP text tower: ViT-L/14 by default; OpenCLIP ViT-H (SD-2.x) and
+    bigG (SDXL) through the presets."""
 
     vocab_size: int = 49408
     d_model: int = 768
@@ -46,7 +53,8 @@ class CLIPConfig:
     stop_at_layer: int = None
     #: apply the final LayerNorm to the truncated hidden.
     penultimate_norm: bool = True
-    #: OpenCLIP pooled-text head (SDXL bigG).
+    #: OpenCLIP pooled-text head (SDXL bigG): a (d, d) matrix applied as
+    #: ``x @ W`` to the final-normed EOT row (``CLIP.forward_with_pooled``).
     text_projection: bool = False
     #: checkpoint key namespace: "clip" (SD-1.x) or "open_clip" (SD-2.x).
     layout: str = "clip"
@@ -91,11 +99,15 @@ class UNetConfig:
     head_dim: int = None
     d_context: int = 768
     groups: int = 32
-    #: per-level transformer depth (SDXL); None -> depth 1 everywhere.
+    #: per-level transformer depth (SDXL); None -> depth 1 everywhere.  The
+    #: bottleneck takes the deepest level's.
     transformer_depth: Tuple[int, ...] = None
-    #: SDXL added-conditioning width.
+    #: SDXL added-conditioning width: the pooled text and the size ids'
+    #: sinusoidal embeddings (SDXL 1280 + 6 x 256 = 2816).
     add_embed_dim: int = None
-    #: number of SDXL add_time_ids.
+    #: number of SDXL add_time_ids: 6 for the base (orig_h, orig_w,
+    #: crop_top, crop_left, tgt_h, tgt_w), 5 for the refiner (the last the
+    #: aesthetic score).
     add_time_ids: int = 6
     #: LCM guidance-embedding width.
     time_cond_dim: int = None
@@ -179,8 +191,142 @@ def tiny_sd_config(policy: Policy = FP32, **kw) -> SDConfig:
     )
 
 
+def tiny_sdxl_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """Scaled-down SDXL config (dual towers, per-level transformer depth,
+    added conditioning) for fast CPU tests: the knobs of
+    :func:`sdxl_config` at tiny dims."""
+    return SDConfig(
+        clip=CLIPConfig(vocab_size=1024, d_model=16, max_len=16, n_layers=2,
+                        n_heads=2, d_ff=32, stop_at_layer=1,
+                        penultimate_norm=False,
+                        key_prefix="conditioner.embedders.0.transformer.text_model"),
+        clip2=CLIPConfig(vocab_size=1024, d_model=32, max_len=16, n_layers=3,
+                         n_heads=4, d_ff=64, hidden_act="gelu",
+                         stop_at_layer=2, penultimate_norm=False,
+                         text_projection=True, layout="open_clip",
+                         key_prefix="conditioner.embedders.1.model"),
+        vae=VAEConfig(base_channels=16, ch_mults=(1, 2), groups=4,
+                      scale_factor=0.13025),
+        unet=UNetConfig(model_channels=16, ch_mults=(1, 2),
+                        attn_levels=(False, True), transformer_depth=(1, 2),
+                        head_dim=8, d_context=48, groups=4,
+                        add_embed_dim=32 + 6 * 4),  # pooled 32 + 6x4 sizes
+        policy=policy,
+        **kw,
+    )
+
+
 def sd15_config(policy: Policy = FP32, **kw) -> SDConfig:
     return SDConfig(policy=policy, **kw)
+
+
+def sd15_lcm_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SD-1.5 LCM-distilled architecture: the SD-1.5 topology plus the
+    256-wide guidance-embedding projection (slice C3)."""
+    return SDConfig(unet=UNetConfig(time_cond_dim=256), policy=policy, **kw)
+
+
+def sd15_inpaint_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SD-1.5 inpainting architecture: a 9-channel conv_in (slice C3)."""
+    return SDConfig(unet=UNetConfig(in_channels=9), policy=policy, **kw)
+
+
+def sd15_ip2p_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """InstructPix2Pix: an 8-channel conv_in (slice C3)."""
+    return SDConfig(unet=UNetConfig(in_channels=8), policy=policy, **kw)
+
+
+def sd2_inpaint_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SD-2.0 inpainting: SD-2 512-base (epsilon) with the 9-channel
+    conv_in (slice C3)."""
+    base = sd21_config(policy=policy, v_prediction=False, **kw)
+    return dataclasses.replace(base, unet=dataclasses.replace(base.unet, in_channels=9))
+
+
+def sd21_config(policy: Policy = FP32, v_prediction: bool = True, **kw) -> SDConfig:
+    """SD-2.1: the OpenCLIP ViT-H tower (24 layers, d 1024, exact GELU,
+    conditioning on the penultimate layer, final-normed), a UNet of head
+    width 64 and 1024-d context; the 768-v checkpoints predict v."""
+    return SDConfig(
+        clip=CLIPConfig(vocab_size=49408, d_model=1024, max_len=77,
+                        n_layers=24, n_heads=16, d_ff=4096,
+                        hidden_act="gelu", stop_at_layer=23,
+                        layout="open_clip"),
+        vae=VAEConfig(),
+        unet=UNetConfig(model_channels=320, ch_mults=(1, 2, 4, 4),
+                        attn_levels=(True, True, True, False),
+                        n_heads=8, head_dim=64, d_context=1024),
+        policy=policy,
+        prediction_type="v" if v_prediction else "epsilon",
+        **kw,
+    )
+
+
+def sdxl_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SDXL base: CLIP-L (penultimate, un-normed) and OpenCLIP bigG
+    (penultimate, un-normed; pooled through ``text_projection``)
+    concatenated to a 2048-d context; a 3-level UNet (320/640/1280) of
+    transformer depths (1, 2, 10), head width 64, and the 2816-d added
+    conditioning (pooled 1280 + 6 x 256 size ids); VAE scale 0.13025."""
+    return SDConfig(
+        clip=CLIPConfig(vocab_size=49408, d_model=768, max_len=77,
+                        n_layers=12, n_heads=12, d_ff=3072,
+                        hidden_act="quick_gelu", stop_at_layer=11,
+                        penultimate_norm=False,
+                        key_prefix="conditioner.embedders.0.transformer.text_model"),
+        clip2=CLIPConfig(vocab_size=49408, d_model=1280, max_len=77,
+                         n_layers=32, n_heads=20, d_ff=5120,
+                         hidden_act="gelu", stop_at_layer=31,
+                         penultimate_norm=False, text_projection=True,
+                         layout="open_clip",
+                         key_prefix="conditioner.embedders.1.model"),
+        vae=VAEConfig(scale_factor=0.13025),
+        unet=UNetConfig(model_channels=320, ch_mults=(1, 2, 4),
+                        attn_levels=(False, True, True),
+                        transformer_depth=(1, 2, 10),
+                        head_dim=64, d_context=2048, add_embed_dim=2816),
+        policy=policy,
+        **kw,
+    )
+
+
+def sdxl_inpaint_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SDXL inpainting: SDXL base with the 9-channel conv_in (slice C3)."""
+    base = sdxl_config(policy=policy, **kw)
+    return dataclasses.replace(base, unet=dataclasses.replace(base.unet, in_channels=9))
+
+
+def sdxl_lcm_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SDXL LCM-distilled: SDXL base plus the 256-wide guidance-embedding
+    projection (slice C3)."""
+    base = sdxl_config(policy=policy, **kw)
+    return dataclasses.replace(base, unet=dataclasses.replace(base.unet, time_cond_dim=256))
+
+
+def sdxl_refiner_config(policy: Policy = FP32, **kw) -> SDConfig:
+    """SDXL refiner: one OpenCLIP bigG tower whose penultimate hidden is the
+    1280-d context and whose pooled vector feeds the added conditioning (no
+    CLIP-L); a 4-level UNet (384/768/1536/1536) of transformer depth 4 at
+    the two attention levels and the bottleneck; added conditioning pooled
+    1280 + 5 x 256 ids (the last the aesthetic score); VAE scale 0.13025."""
+    return SDConfig(
+        clip=CLIPConfig(vocab_size=49408, d_model=1280, max_len=77,
+                        n_layers=32, n_heads=20, d_ff=5120,
+                        hidden_act="gelu", stop_at_layer=31,
+                        penultimate_norm=False, text_projection=True,
+                        layout="open_clip",
+                        key_prefix="conditioner.embedders.0.model"),
+        vae=VAEConfig(scale_factor=0.13025),
+        # transformer_depth[-1] feeds only the bottleneck (depth_for(len-1));
+        # level 3 itself has no attention
+        unet=UNetConfig(model_channels=384, ch_mults=(1, 2, 4, 4),
+                        attn_levels=(False, True, True, False),
+                        transformer_depth=(0, 4, 4, 4),
+                        head_dim=64, d_context=1280,
+                        add_embed_dim=2560, add_time_ids=5),
+        policy=policy,
+        **kw,
+    )
 
 
 def with_clip_skip(cfg: SDConfig, clip_skip: int) -> SDConfig:
@@ -188,8 +334,10 @@ def with_clip_skip(cfg: SDConfig, clip_skip: int) -> SDConfig:
     encoder layer.  ``clip_skip=1`` is the family default (no change);
     each increment stops one transformer layer earlier than that default
     (SD-1.x: 2 == penultimate layer + final LN, the webui setting used by
-    anime-style checkpoints).  Port of the JAX package's ``with_clip_skip``,
-    whose second tower (SDXL) the port does not run."""
+    anime-style checkpoints; SD-2.x and SDXL already condition on their
+    penultimate layer, so 2 is the antepenultimate there).  Both towers of
+    SDXL shift; the pooled vector still comes from the full stack.  Port of
+    the JAX package's ``with_clip_skip``."""
     if clip_skip < 1:
         raise ValueError(f"clip_skip must be >= 1, got {clip_skip}")
     if clip_skip == 1:
@@ -214,11 +362,19 @@ def _refuse(what: str, where: str):
         f"{what} is not ported yet: it comes with {where} (ROADMAP.md §1)")
 
 
+def _check_tower(c: CLIPConfig, name: str) -> None:
+    if c.hidden_act not in ("quick_gelu", "gelu"):
+        raise ValueError(f"{name}.hidden_act must be 'quick_gelu' or 'gelu', got "
+                         f"{c.hidden_act!r}")
+    if c.layout not in ("clip", "open_clip"):
+        raise ValueError(f"unknown CLIP layout {c.layout!r}")
+
+
 def check_ported(cfg: SDConfig) -> None:
     """Raise ``NotImplementedError`` for any field value this slice does not
     run, naming the slice of ROADMAP.md §1 that brings it, and ``ValueError``
     for a value the JAX package does not know either."""
-    c, u = cfg.clip, cfg.unet
+    u = cfg.unet
     if cfg.attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"attention_backend must be one of "
                          f"{ATTENTION_BACKENDS}, got {cfg.attention_backend!r}")
@@ -231,27 +387,29 @@ def check_ported(cfg: SDConfig) -> None:
     if cfg.quant not in QUANT_TIERS:
         raise ValueError(f"unknown quant tier {cfg.quant!r}: the JAX package's tiers "
                          f"are {QUANT_TIERS}")
+    if cfg.prediction_type not in ("epsilon", "v"):
+        raise ValueError(f"prediction_type must be 'epsilon' or 'v', got "
+                         f"{cfg.prediction_type!r}")
+    _check_tower(cfg.clip, "clip")
+    if cfg.clip2 is not None:
+        _check_tower(cfg.clip2, "clip2")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
-    if cfg.clip2 is not None:
-        _refuse("a second text tower (clip2, SDXL)", "slice C2")
-    if cfg.prediction_type != "epsilon":
-        _refuse(f"prediction_type={cfg.prediction_type!r} (SD-2.x)", "slice C2")
-    if c.hidden_act != "quick_gelu" or c.layout != "clip" or c.text_projection \
-            or c.key_prefix is not None:
-        _refuse("the OpenCLIP/SDXL text towers", "slice C2")
     if u.in_channels != 4:
-        _refuse(f"a {u.in_channels}-channel UNet (inpaint/ip2p presets)",
-                "slice C2")
-    if u.head_dim is not None or u.transformer_depth is not None \
-            or u.add_embed_dim is not None:
-        _refuse("SD-2.x/SDXL UNet topologies (head_dim, transformer_depth, "
-                "add_embed_dim)", "slice C2")
+        _refuse(f"a {u.in_channels}-channel UNet (inpaint/ip2p presets)", "slice C3")
     if u.time_cond_dim is not None:
-        _refuse("the LCM guidance embedding (time_cond_dim)", "slice C2")
+        _refuse("the LCM guidance embedding (time_cond_dim)", "slice C3")
     if u.freeu is not None:
         _refuse("FreeU", "slice F")
     if u.tome is not None:
         _refuse("ToMe token merging", "slice F")
     if u.hypertile is not None:
         _refuse("Hypertile", "slice F")
+
+
+def model_names(cfg: SDConfig) -> Tuple[str, ...]:
+    """The models of ``cfg``'s family: ("clip", ["clip2",] "encoder",
+    "decoder", "diffusion"), "clip2" with a second text tower (SDXL)."""
+    return ("clip",) + (("clip2",) if cfg.clip2 is not None else ()) \
+        + ("encoder", "decoder", "diffusion")
+

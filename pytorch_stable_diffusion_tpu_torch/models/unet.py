@@ -1,16 +1,23 @@
-"""SD-1.5 UNet denoiser (port of ``models/unet.py``).
+"""The UNet denoiser of SD-1.x, SD-2.x, SDXL and the SDXL refiner (port of
+``models/unet.py``); one code path, the topology from ``UNetConfig``.
 
 * Sinusoidal timestep embedding, [cos, sin] order, fp32; time MLP
-  320 -> 1280 -> 1280 with SiLU.
+  320 -> 1280 -> 1280 with SiLU.  With ``add_embed_dim`` (SDXL) the added
+  conditioning (pooled text + size-id embeddings) joins it:
+  ``t_emb += fc2(silu(fc1(add_cond)))``.
 * Res blocks: GN->SiLU->conv, + SiLU->Linear of the time embedding,
   GN->SiLU->conv, + identity/1x1 skip.
 * Spatial transformer blocks on (B, HW, C) tokens: GN + 1x1 proj_in,
-  LN->self-attn (no qkv bias), LN->cross-attn vs the 768-d context,
-  LN->GeGLU FFN, 1x1 proj_out + long residual.  The reference drops the
-  GeGLU gate — reproduced under ``reference_quirks``.
+  then ``depth`` layers of LN->self-attn (no qkv bias), LN->cross-attn vs
+  the context, LN->GeGLU FFN, then 1x1 proj_out + long residual.  Depth 1
+  keeps the flat SD-1.x parameter layout; deeper blocks (SDXL) hold
+  ``blocks.{j}``, as the JAX pytree does.  Heads: ``n_heads``, or channels
+  / ``head_dim`` (SD-2.x/SDXL).  The reference drops the GeGLU gate —
+  reproduced under ``reference_quirks``.
 * Encoder: conv_in + levels of (res [+ attn]) with stride-2 pad-1
-  downsamples; bottleneck res/attn/res; decoder levels of (res [+ attn])
-  over skip-concats with nearest-2x upsample + conv between levels.
+  downsamples; bottleneck res/attn/res (the attention at the deepest
+  level's depth); decoder levels of (res [+ attn]) over skip-concats with
+  nearest-2x upsample + conv between levels.
 * ``conv_backend`` (``models/config.py``): "kernel" runs both halves of
   every res block through K5 (``ops/cuda/conv.py``), the time-embedding
   add folded into the second half's affine; "fold" applies every GN/LN
@@ -23,7 +30,7 @@ the JAX pytree paths (``encoder.1.attn.self_attn.q.weight``).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -135,27 +142,47 @@ def _proj1x1(p: conv.Conv, x: torch.Tensor, policy: Policy) -> torch.Tensor:
     return torch.nn.functional.linear(x.to(policy.compute_dtype), w, b)
 
 
-class AttnBlock(nn.Module):
-    """Depth-1 spatial transformer (the SD-1.x flat layout)."""
+def _add_layer(m: nn.Module, channels: int, d_context: int, **kw) -> None:
+    """The parameters of one self + cross + FFN transformer layer, on ``m``."""
+    m.ln1 = norm.Norm(channels, **kw)
+    m.self_attn = attention.Attention(channels, in_bias=False, **kw)
+    m.ln2 = norm.Norm(channels, **kw)
+    m.cross_attn = attention.Attention(channels, d_cross=d_context, in_bias=False, **kw)
+    m.ln3 = norm.Norm(channels, **kw)
+    m.geglu_proj = linear.Linear(channels, 8 * channels, **kw)
+    m.geglu_out = linear.Linear(4 * channels, channels, **kw)
+
+
+class TransformerLayer(nn.Module):
+    """One layer of a stacked (depth > 1) spatial transformer."""
 
     def __init__(self, channels: int, d_context: int, **kw):
         super().__init__()
+        _add_layer(self, channels, d_context, **kw)
+
+
+class AttnBlock(nn.Module):
+    """Spatial transformer: depth 1 in the flat SD-1.x layout, deeper ones
+    (SDXL) with their layers in ``blocks``."""
+
+    def __init__(self, channels: int, d_context: int, depth: int = 1, **kw):
+        super().__init__()
         self.norm = norm.Norm(channels, **kw)
         self.conv_in = conv.Conv(channels, channels, 1, **kw)
-        self.ln1 = norm.Norm(channels, **kw)
-        self.self_attn = attention.Attention(channels, in_bias=False, **kw)
-        self.ln2 = norm.Norm(channels, **kw)
-        self.cross_attn = attention.Attention(channels, d_cross=d_context,
-                                              in_bias=False, **kw)
-        self.ln3 = norm.Norm(channels, **kw)
-        self.geglu_proj = linear.Linear(channels, 8 * channels, **kw)
-        self.geglu_out = linear.Linear(4 * channels, channels, **kw)
+        if depth == 1:
+            _add_layer(self, channels, d_context, **kw)
+        else:
+            self.blocks = nn.ModuleList(TransformerLayer(channels, d_context, **kw)
+                                        for _ in range(depth))
         self.conv_out = conv.Conv(channels, channels, 1, **kw)
+
+    def layers(self):
+        return list(self.blocks) if hasattr(self, "blocks") else [self]
 
     def forward(self, x, context, n_heads: int, groups: int, policy: Policy, *,
                 backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, fold_norms: bool = False):
-        """``fold_norms``: the GroupNorm and the three LayerNorms apply their
+        """``fold_norms``: the GroupNorm and the LayerNorms apply their
         normalize as compute-dtype affines (``conv_backend`` "fold" and
         "kernel_fold")."""
         n, c, h, w = x.shape
@@ -172,15 +199,16 @@ class AttnBlock(nn.Module):
             ln = norm.layer_norm
         y0 = tokens(x)
         y = _proj1x1(self.conv_in, tokens(gn), policy)
-        t = ln(self.ln1, y, policy=policy)
-        y = y + attention.apply(self.self_attn, t, n_heads=n_heads,
-                                backend=backend, policy=policy, fuse=fuse_qkv)
-        t = ln(self.ln2, y, policy=policy)
-        y = y + attention.apply(self.cross_attn, t, context, n_heads=n_heads,
-                                backend=backend, policy=policy, fuse=fuse_qkv)
-        t = ln(self.ln3, y, policy=policy)
-        t = geglu(linear.apply(self.geglu_proj, t, policy), reference_quirks)
-        y = y + linear.apply(self.geglu_out, t, policy)
+        for lp in self.layers():
+            t = ln(lp.ln1, y, policy=policy)
+            y = y + attention.apply(lp.self_attn, t, n_heads=n_heads,
+                                    backend=backend, policy=policy, fuse=fuse_qkv)
+            t = ln(lp.ln2, y, policy=policy)
+            y = y + attention.apply(lp.cross_attn, t, context, n_heads=n_heads,
+                                    backend=backend, policy=policy, fuse=fuse_qkv)
+            t = ln(lp.ln3, y, policy=policy)
+            t = geglu(linear.apply(lp.geglu_proj, t, policy), reference_quirks)
+            y = y + linear.apply(lp.geglu_out, t, policy)
         y = _proj1x1(self.conv_out, y, policy) + y0
         return y.reshape(n, h, w, c).permute(0, 3, 1, 2)
 
@@ -196,14 +224,17 @@ class Stage(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, c: int, t_dim: int, d_context: int, **kw):
+    def __init__(self, c: int, t_dim: int, d_context: int, depth: int, **kw):
         super().__init__()
         self.res1 = ResBlock(c, c, t_dim, **kw)
-        self.attn = AttnBlock(c, d_context, **kw)
+        self.attn = AttnBlock(c, d_context, depth, **kw)
         self.res2 = ResBlock(c, c, t_dim, **kw)
 
 
 class TimeEmbed(nn.Module):
+    """The time MLP (``c`` = model channels), and SDXL's added-conditioning
+    MLP of the same shape (``c`` = add_embed_dim)."""
+
     def __init__(self, c: int, t_dim: int, **kw):
         super().__init__()
         self.fc1 = linear.Linear(c, t_dim, **kw)
@@ -217,6 +248,8 @@ class UNet(nn.Module):
         self.cfg = cfg
         t_dim = cfg.time_embed_dim
         self.time_embed = TimeEmbed(cfg.model_channels, t_dim, **kw)
+        if cfg.add_embed_dim:
+            self.add_embed = TimeEmbed(cfg.add_embed_dim, t_dim, **kw)
         self.conv_in = conv.Conv(cfg.in_channels, cfg.model_channels, 3, **kw)
         enc = []
         for st in encoder_plan(cfg)[1:]:
@@ -225,14 +258,14 @@ class UNet(nn.Module):
             else:
                 enc.append(Stage(
                     res=ResBlock(st["c_in"], st["c_out"], t_dim, **kw),
-                    attn=AttnBlock(st["c_out"], cfg.d_context, **kw)
+                    attn=AttnBlock(st["c_out"], cfg.d_context, st["depth"], **kw)
                     if st["attn"] else None))
         self.encoder = nn.ModuleList(enc)
-        self.bottleneck = Bottleneck(cfg.level_channels[-1], t_dim,
-                                     cfg.d_context, **kw)
+        self.bottleneck = Bottleneck(cfg.level_channels[-1], t_dim, cfg.d_context,
+                                     cfg.depth_for(len(cfg.ch_mults) - 1), **kw)
         self.decoder = nn.ModuleList(
             Stage(res=ResBlock(st["c_in"], st["c_out"], t_dim, **kw),
-                  attn=AttnBlock(st["c_out"], cfg.d_context, **kw)
+                  attn=AttnBlock(st["c_out"], cfg.d_context, st["depth"], **kw)
                   if st["attn"] else None,
                   upsample=conv.Conv(st["c_out"], st["c_out"], 3, **kw)
                   if st["upsample"] else None)
@@ -242,16 +275,22 @@ class UNet(nn.Module):
 
     def forward(self, latents, context, t, policy: Policy = FP32, *,
                 attention_backend: str = "plain", reference_quirks: bool = False,
-                fuse_qkv: bool = True, conv_backend: str = "plain"):
+                fuse_qkv: bool = True, conv_backend: str = "plain",
+                add_cond: Optional[torch.Tensor] = None):
         """latents: (B, in_ch, h, w); context: (B, S, d_context), or a
         hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t: scalar or
-        (B,) timestep.
+        (B,) timestep; ``add_cond``: SDXL's (B, add_embed_dim) added
+        conditioning.
 
-        Returns the predicted noise (B, out_ch, h, w)."""
+        Returns the model output (B, out_ch, h, w): the predicted noise, or
+        v for a v-prediction checkpoint."""
         cfg = self.cfg
         t_emb = timestep_embedding(t, cfg.model_channels, device=latents.device)
         t_emb = linear.apply(self.time_embed.fc1, t_emb, policy)
         t_emb = linear.apply(self.time_embed.fc2, silu(t_emb), policy)
+        if add_cond is not None:
+            a = linear.apply(self.add_embed.fc1, add_cond.to(policy.compute_dtype), policy)
+            t_emb = t_emb + linear.apply(self.add_embed.fc2, silu(a), policy)
         fold_norms = conv_backend in ("fold", "kernel_fold")
 
         def block(res, attn, x):

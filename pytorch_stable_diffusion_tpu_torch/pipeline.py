@@ -32,7 +32,21 @@ Same public keyword surface as the JAX package's ``generate()`` and
 * img2img encodes the init image (one for the whole batch, or a
   (B, H, W, 3) array of one per prompt), noises it to the timestep of
   ``start_step_for_strength`` (restart and dpm_fast: of their own grids'
-  entry maps) and denoises from there.
+  entry maps) and denoises from there.  ``init_latents`` is img2img in
+  latent space: ready latents in the port's layout, (B|1, 4, h, w) as
+  ``generate(return_latents=True)`` returns them (SDXL base -> refiner),
+  skip the VAE encoder.
+* Families (``models/config.py``): SD-1.x and SD-2.x condition the UNet
+  on one tower's hidden state (SD-2.x: the OpenCLIP ViT-H penultimate
+  layer, final-normed; "v" prediction is turned into epsilon at every
+  evaluation); SDXL on the CLIP-L and bigG penultimate hidden states
+  concatenated (2048 features), with the added conditioning of the bigG
+  pooled vector and six size ids (``original_size``, ``crop_coords``,
+  ``target_size``: :func:`canonical_size_ids`), each sinusoidally embedded;
+  the refiner on one bigG tower, its hidden state the context and its
+  pooled vector the added conditioning, with five ids (the last
+  ``cfg.aesthetic_score``).  Each CFG lane's added conditioning comes from
+  its own prompt; long prompts pool window 0 only.
 * ``encode_tile`` / ``decode_tile`` (latent px) run the VAE's
   image-resolution convs over overlapping tiles (``models/vae.py``), for
   high-resolution requests; the mid block's attention still runs whole.
@@ -75,6 +89,7 @@ import torch
 
 from . import prompt_schedule
 from .core import rng as rng_mod
+from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .models.config import SDConfig, check_ported, sd15_config, with_clip_skip
 from .sampling import (ddim, ddpm, dpm, dpm2, dpm_adaptive, dpm_fast, euler, lcm, lms,
@@ -95,10 +110,8 @@ MAX_VALIDATED_ATTN_TOKENS = 65536
 
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "init_latents": (None, "slice C2"), "mask_image": (None, "slice C2"),
-    "mask_blur": (0, "slice C2"), "edit_image": (None, "slice C2"),
-    "image_guidance_scale": (1.5, "slice C2"), "original_size": (None, "slice C2"),
-    "crop_coords": ((0, 0), "slice C2"), "target_size": (None, "slice C2"),
+    "mask_image": (None, "slice C3"), "mask_blur": (0, "slice C3"),
+    "edit_image": (None, "slice C3"), "image_guidance_scale": (1.5, "slice C3"),
     "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
     "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
     "ip_adapter_image": (None, "slice E"), "ip_adapter_scale": (1.0, "slice E"),
@@ -223,23 +236,91 @@ def _emphasize(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (hf * wf * ratio).to(h.dtype)
 
 
+def canonical_size_ids(cfg: SDConfig, height: int, width: int,
+                       original_size, crop_coords, target_size):
+    """SDXL micro-conditioning (diffusers ``original_size`` /
+    ``crops_coords_top_left`` / ``target_size``) as the 6-tuple (orig_h,
+    orig_w, crop_top, crop_left, tgt_h, tgt_w) of floats, or None where it
+    equals the implicit ids (h, w, 0, 0, h, w); ``ValueError`` for a
+    family without added conditioning, and for ``target_size`` on the
+    refiner (5 ids), as in the JAX package."""
+    if original_size is None and tuple(crop_coords) == (0, 0) and target_size is None:
+        return None
+    if cfg.unet.add_embed_dim is None:
+        raise ValueError("original_size/crop_coords/target_size are SDXL "
+                         "micro-conditioning (add_embed families only)")
+    if cfg.unet.add_time_ids == 5 and target_size is not None:
+        raise ValueError("refiner families (5 add_time_ids) have no target_size id; "
+                         "drop target_size")
+    oh, ow = original_size or (height, width)
+    tgt_h, tgt_w = target_size or (height, width)
+    size_ids = (float(oh), float(ow), float(crop_coords[0]), float(crop_coords[1]),
+                float(tgt_h), float(tgt_w))
+    if size_ids == (float(height), float(width), 0.0, 0.0, float(height), float(width)):
+        return None
+    return size_ids
+
+
+def _size_embedding(cfg: SDConfig, height: int, width: int, size_ids) -> torch.Tensor:
+    """(1, n_ids * size_dim) float32 on the host: each add_time_id
+    sinusoidally embedded at (add_embed_dim - pooled width) / n_ids
+    features (SDXL 256).  The base's 6 ids (orig_h, orig_w, crop_top,
+    crop_left, tgt_h, tgt_w) or the refiner's 5 (the last the aesthetic
+    score)."""
+    n_ids = cfg.unet.add_time_ids
+    pooled_dim = (cfg.clip if cfg.clip2 is None else cfg.clip2).d_model
+    base4 = size_ids[:4] if size_ids else (height, width, 0, 0)
+    if n_ids == 5:
+        ids = list(base4) + [cfg.aesthetic_score]
+    else:
+        ids = list(base4) + list(size_ids[4:6] if size_ids else (height, width))
+    size_dim = (cfg.unet.add_embed_dim - pooled_dim) // n_ids
+    return unet_mod.timestep_embedding(torch.tensor(ids, dtype=torch.float32),
+                                       size_dim).reshape(1, -1)
+
+
 def _encode_text(clip, tokens: torch.Tensor, weights: Optional[torch.Tensor],
-                 cfg: SDConfig) -> torch.Tensor:
+                 cfg: SDConfig, *, tower=None, pooled: bool = False):
     """(N, L) or (N, k, L) tokens -> (N, [k *] L, d) context: the k windows
-    of every prompt go through one batched CLIP call, each weighted on its
-    own, and their hiddens are concatenated."""
+    of every prompt go through one batched call of the tower (``tower``,
+    by default ``cfg.clip``), each weighted on its own, and their hiddens
+    are concatenated.  With ``pooled`` -> (context, (N, d) pooled vector of
+    window 0)."""
     win_k = None
     if tokens.dim() == 3:
         n, win_k, length = tokens.shape
         tokens = tokens.reshape(n * win_k, length)
         if weights is not None:
             weights = weights.reshape(tokens.shape)
-    h = clip(tokens, cfg.policy, fuse_qkv=cfg.fuse_qkv, cfg=cfg.clip)
+    kw = dict(fuse_qkv=cfg.fuse_qkv, cfg=tower or cfg.clip)
+    h, pool = clip.forward_with_pooled(tokens, cfg.policy, **kw) if pooled \
+        else (clip(tokens, cfg.policy, **kw), None)
     if weights is not None:
         h = _emphasize(h, weights)
     if win_k is not None:
         h = h.reshape(n, win_k * h.shape[1], h.shape[2])
-    return h
+        pool = None if pool is None else pool.reshape(n, win_k, -1)[:, 0]
+    return (h, pool) if pooled else h
+
+
+def _encode_prompts(models, tokens: torch.Tensor, weights: Optional[torch.Tensor],
+                    cfg: SDConfig, size_emb: Optional[torch.Tensor] = None):
+    """Tokens -> (context, add_cond) of the family (:func:`_encode_text` for
+    each tower).  ``add_cond`` is None for the single-tower families; for
+    SDXL (the CLIP-L and bigG hiddens side by side, bigG's pool) and the
+    refiner (one tower, context and pool) the (N, add_embed_dim) float32
+    concatenation of the pooled vector and ``size_emb`` (on the device)."""
+    if cfg.unet.add_embed_dim is None:
+        return _encode_text(models["clip"], tokens, weights, cfg), None
+    if cfg.clip2 is None:
+        context, pooled = _encode_text(models["clip"], tokens, weights, cfg, pooled=True)
+    else:
+        hidden2, pooled = _encode_text(models["clip2"], tokens, weights, cfg,
+                                       tower=cfg.clip2, pooled=True)
+        context = torch.cat([_encode_text(models["clip"], tokens, weights, cfg), hidden2],
+                            dim=-1)
+    add_cond = torch.cat([pooled.float(), size_emb.expand(pooled.shape[0], -1)], dim=-1)
+    return context, add_cond
 
 
 # ------------------------------------------------------------ image helpers
@@ -288,10 +369,16 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   clip_skip: Optional[int] = None,
                   timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
                   hypernetwork=None, hypernetwork_strength: float = 1.0,
-                  _device_output: bool = False, **unported):
+                  init_latents=None, original_size=None, crop_coords=(0, 0),
+                  target_size=None, _device_output: bool = False, **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
+    if init_latents is not None:
+        if input_image is not None:
+            raise ValueError("pass input_image OR init_latents, not both")
+        if unported.get("mask_image") is not None:
+            raise ValueError("inpainting needs pixel input_image, not init_latents")
     _check_unported(unported)
     if not 0.0 < strength <= 1.0:
         raise ValueError("strength must be between 0 and 1")
@@ -377,7 +464,19 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                          f"got {height}x{width}")
     h_lat, w_lat = height // factor, width // factor
     lat_shape = (cfg.vae.latent_channels, h_lat, w_lat)
-    img2img = input_image is not None
+    size_ids = canonical_size_ids(cfg, height, width, original_size, crop_coords,
+                                  target_size)
+    if init_latents is not None:
+        # latent-space img2img: the port's (B|1, 4, h, w) layout
+        init_latents = torch.as_tensor(init_latents if isinstance(init_latents, torch.Tensor)
+                                       else np.asarray(init_latents, np.float32)).float()
+        if init_latents.dim() == 3:
+            init_latents = init_latents[None]
+        if tuple(init_latents.shape[1:]) != lat_shape \
+                or init_latents.shape[0] not in (1, batch):
+            raise ValueError(f"init_latents shape {tuple(init_latents.shape)} is not "
+                             f"(1 or {batch}, *{lat_shape}) for {height}x{width}")
+    img2img = input_image is not None or init_latents is not None
     start_step = ddpm.start_step_for_strength(n_inference_steps, strength) \
         if img2img else 0
 
@@ -391,7 +490,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     if sampler_name == "lcm":  # the distillation grid
         timesteps = lcm.inference_timesteps(n_inference_steps)
     else:
-        timesteps = ddpm.timesteps_for(schedule, timestep_spacing, n_inference_steps)
+        timesteps = ddpm.timesteps_for(schedule, timestep_spacing, n_inference_steps,
+                                       sdxl=cfg.unet.add_embed_dim is not None)
     # the sampler's noise stream: one draw a step, op, segment or iteration.
     # restart and dpm_fast run their own grids; the pipeline's maps the
     # strength to their entry (``start_t``), where img2img noises the latents
@@ -417,7 +517,7 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         noise = {"latent_init": np.reshape(fixed_noise["latent_init"], (batch,) + lat_shape),
                  "sampler": np.reshape(fixed_noise["sampler_noise"],
                                        (n_inference_steps, batch) + lat_shape)}
-        if img2img:
+        if input_image is not None:
             noise["encoder"] = np.reshape(fixed_noise["encoder_noise"],
                                           (batch,) + lat_shape)
         noise = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in noise.items()}
@@ -425,7 +525,7 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         s = 0 if seed is None else int(seed)
         noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape),
                  "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape)}
-        if img2img:
+        if input_image is not None:
             noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch,
                                                     lat_shape)
     noise = {k: _to_device(v, device) for k, v in noise.items()}
@@ -446,11 +546,16 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         if emphasis:
             weights = np.concatenate([cond_w, uncond_w]) if do_cfg else cond_w
             weights = _to_device(torch.as_tensor(weights), device)
-        context = _encode_text(models["clip"], _to_device(torch.as_tensor(tokens), device),
-                               weights, cfg)
-        if sched_idx is not None:  # (K, [2]B, S, d): cond then uncond per K
-            context = torch.cat(context.unflatten(0, (-1, batch)).chunk(
-                2 if do_cfg else 1), dim=1)
+        size_emb = None if cfg.unet.add_embed_dim is None else \
+            _to_device(_size_embedding(cfg, height, width, size_ids), device)
+        context, add_cond = _encode_prompts(models, _to_device(torch.as_tensor(tokens), device),
+                                            weights, cfg, size_emb)
+        if sched_idx is not None:  # (K, [2]B, ...): cond then uncond per K
+            def per_k(x):
+                return torch.cat(x.unflatten(0, (-1, batch)).chunk(2 if do_cfg else 1), dim=1)
+
+            context = per_k(context)
+            add_cond = None if add_cond is None else per_k(add_cond)
         if hyper is not None:
             # the hypernetwork transforms the whole CFG batch's context, k
             # and v apart, once a request; the (ctx_k, ctx_v) pair rides
@@ -463,7 +568,12 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 models["hypernetwork"], context, strength, activation=hyper[0],
                 activate_output=hyper[1])
 
-        if img2img:
+        if init_latents is not None:
+            lat0 = init_latents.to(device) if init_latents.is_cuda \
+                else _to_device(init_latents, device)
+            latents = ddpm.add_noise(schedule, lat0.expand(batch, -1, -1, -1),
+                                     int(entry_ts[start_step]), noise["latent_init"])
+        elif img2img:
             image = torch.as_tensor(_prepare_image(input_image, width, height))
             if image.shape[0] not in (1, batch):
                 raise ValueError(f"{image.shape[0]} init images for a batch of {batch}: "
@@ -485,15 +595,20 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         unet = models["diffusion"]
 
         def eps_at(i: int, lat: torch.Tensor, t: int) -> torch.Tensor:
-            """CFG epsilon of the latents at training timestep ``t``; step
-            index ``i`` picks an edited prompt's conditioning."""
+            """CFG epsilon of the latents at training timestep ``t`` (a
+            v-prediction model's output turned into epsilon); step index
+            ``i`` picks an edited prompt's conditioning."""
             lat_c = lat.to(policy.compute_dtype)
             model_in = torch.cat([lat_c, lat_c]) if do_cfg else lat_c
-            ctx = context if sched_idx is None else context[int(sched_idx[i])]
+            ctx, add = context, add_cond
+            if sched_idx is not None:
+                ctx = context[int(sched_idx[i])]
+                add = None if add_cond is None else add_cond[int(sched_idx[i])]
             eps = unet(model_in.contiguous(memory_format=memory_format), ctx,
                        t_all[int(t)], policy, attention_backend=cfg.attention_backend,
                        reference_quirks=cfg.reference_quirks,
-                       fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend).float()
+                       fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend,
+                       add_cond=add).float()
             if do_cfg:
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)

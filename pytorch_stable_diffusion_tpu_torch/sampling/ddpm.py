@@ -194,9 +194,10 @@ def _sigmas_to_timesteps(sigmas_all: np.ndarray,
 
 
 def timesteps_for(schedule: DDPMSchedule, spacing: str,
-                  num_inference_steps: int) -> np.ndarray:
-    """The descending grid of one ``timestep_spacing`` value ("ays": the SD
-    table; the SDXL family, which takes the other, is not ported)."""
+                  num_inference_steps: int, *, sdxl: bool = False) -> np.ndarray:
+    """The descending grid of one ``timestep_spacing`` value ("ays": the
+    SDXL table for the added-conditioning families, ``sdxl``, the SD table
+    for the others, as in the JAX package)."""
     n = num_inference_steps
     grids = {
         "uniform": lambda: inference_timesteps(n),
@@ -205,7 +206,8 @@ def timesteps_for(schedule: DDPMSchedule, spacing: str,
         "exponential": lambda: exponential_timesteps(schedule, n),
         "sgm_uniform": lambda: sgm_uniform_timesteps(n),
         "kl_optimal": lambda: kl_optimal_timesteps(schedule, n),
-        "ays": lambda: ays_timesteps(schedule, n),
+        "ays": lambda: ays_timesteps(schedule, n,
+                                     table=AYS_SIGMAS_SDXL if sdxl else AYS_SIGMAS_SD),
         "beta": lambda: beta_timesteps(schedule, n),
     }
     if spacing not in grids:

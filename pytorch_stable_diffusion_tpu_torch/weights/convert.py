@@ -1,16 +1,27 @@
 """Weights into the port's state dicts (port of ``weights/convert.py``).
 
-Two sources, both giving ``{"clip", "encoder", "decoder", "diffusion"}``
-state dicts for :func:`models.build_models`:
+Two sources, both giving ``{"clip", ["clip2",] "encoder", "decoder",
+"diffusion"}`` state dicts for :func:`models.build_models`:
 
-* :func:`convert` — a CompVis SD-1.x state dict (any mapping of names to
-  torch tensors or arrays, a lazy one included).  The rule tables mirror
-  the JAX package's, but emit the port's parameter names; because the port
-  keeps PyTorch layouts, convs and linears copy untransposed and only the
-  VAE attention's 1x1 convs become linear weights.  Coverage is exact both
-  ways: a missing source key and an unconsumed non-ignored source key both
-  raise ``KeyError`` (and ``load_state_dict(strict=True)`` checks the
-  target side).  :func:`deconvert` is its inverse.
+* :func:`convert` — a CompVis/sgm state dict of SD-1.x, SD-2.x, SDXL or
+  the SDXL refiner (any mapping of names to torch tensors or arrays, a
+  lazy one included).  The rule tables mirror the JAX package's, but emit
+  the port's parameter names; because the port keeps PyTorch layouts,
+  convs and linears copy untransposed and only the VAE attention's 1x1
+  convs become linear weights.  The OpenCLIP towers (SD-2.x's ViT-H under
+  ``cond_stage_model.model``, SDXL's bigG under
+  ``conditioner.embedders.{0,1}.model``) store each layer's q/k/v as one
+  fused ``attn.in_proj_weight``/``in_proj_bias``, split here into the
+  port's q, k and v.  The transformer blocks' ``proj_in``/``proj_out`` are
+  read as (C, C, 1, 1) convs or (C, C) linears, whichever the file holds
+  (SD-2.x and SDXL store linears; the JAX package reads convs only), and
+  the towers' ``logit_scale``, ``position_ids`` and unused
+  ``text_projection`` are ignored (the JAX package's ignore lists name only
+  SD-1.x/2.x's; ROADMAP.md §3).  Coverage is exact both ways: a missing
+  source key and an unconsumed non-ignored source key both raise
+  ``KeyError`` (and ``load_state_dict(strict=True)`` checks the target
+  side).  :func:`deconvert` is its inverse, writing the layout of the
+  family's published files.
 * :func:`from_jax_params` — the JAX package's parameter pytree (numpy
   leaves): pytree path ``a/0/b/kernel`` becomes ``a.0.b.weight``; a linear
   (in, out) kernel becomes an (out, in) weight, a conv HWIO kernel OIHW,
@@ -34,21 +45,45 @@ import numpy as np
 import torch
 
 from ..models import unet as unet_mod
-from ..models.config import SDConfig, check_ported
+from ..models.config import SDConfig, check_ported, model_names
+
+
+def _as_1x1(x):
+    return x if x.dim() == 4 else x[:, :, None, None]
+
 
 # kind -> source tensor -> port tensor.  Every kind but the VAE attention's
-# 1x1 convs is a copy; the names say what a rule's target is (the LoRA
-# resolver takes the conv and linear weights).
+# 1x1 convs, the transformer projections stored as linears and diffusers'
+# text projection is a copy; the names say what a rule's target is (the
+# LoRA resolver takes the kinds of WEIGHT_KINDS).  "proj" and
+# "proj_linear" read a (C, C, 1, 1) or a (C, C) tensor alike, and write
+# back the conv or the linear form.
 _FWD = {
     "direct": lambda x: x,
     "conv": lambda x: x,
     "linear": lambda x: x,
     "norm": lambda x: x,
     "conv1x1_linear": lambda x: x[:, :, 0, 0],
+    "proj": _as_1x1,
+    "proj_linear": _as_1x1,
+    "linear_t": lambda x: x.t(),
 }
-_INV = dict(_FWD, conv1x1_linear=lambda x: x[:, :, None, None])
+_INV = dict(_FWD, conv1x1_linear=lambda x: x[:, :, None, None],
+            proj_linear=lambda x: x[:, :, 0, 0])
+#: the kinds of conv and linear weights (LoRA targets)
+WEIGHT_KINDS = ("conv", "linear", "conv1x1_linear", "proj", "proj_linear", "linear_t")
 
-Rule = Tuple[str, str, str]  # (src_key, port_key, kind)
+# (src_key, port_key, kind); kind may be ("split3", i): part i of the three
+# row blocks of a fused (3d, ...) OpenCLIP in_proj tensor
+Rule = Tuple[str, str, object]
+
+
+def fwd(kind, x: torch.Tensor) -> torch.Tensor:
+    """A source tensor in the port's layout, by rule kind."""
+    if isinstance(kind, tuple):
+        d = x.shape[0] // 3
+        return x[kind[1] * d:(kind[1] + 1) * d]
+    return _FWD[kind](x)
 
 
 def _conv(rules, src, dst, bias=True, kind="conv"):
@@ -76,10 +111,10 @@ def _unet_res_rules(rules, src, dst, c_in, c_out):
         _conv(rules, f"{src}.skip_connection", f"{dst}.shortcut")
 
 
-def _unet_attn_rules(rules, src, dst):
-    tb = f"{src}.transformer_blocks.0"
-    _norm(rules, f"{src}.norm", f"{dst}.norm")
-    _conv(rules, f"{src}.proj_in", f"{dst}.conv_in")
+def _transformer_layer_rules(rules, tb, dst):
+    """One self + cross + FFN layer ``tb`` (CompVis and diffusers name
+    them alike) -> the port's ``dst`` (an AttnBlock, or one of its
+    ``blocks``)."""
     _norm(rules, f"{tb}.norm1", f"{dst}.ln1")
     for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v")):
         _linear(rules, f"{tb}.attn1.{theirs}", f"{dst}.self_attn.{ours}", bias=False)
@@ -90,12 +125,36 @@ def _unet_attn_rules(rules, src, dst):
     _norm(rules, f"{tb}.norm3", f"{dst}.ln3")
     _linear(rules, f"{tb}.ff.net.0.proj", f"{dst}.geglu_proj")
     _linear(rules, f"{tb}.ff.net.2", f"{dst}.geglu_out")
-    _conv(rules, f"{src}.proj_out", f"{dst}.conv_out")
+
+
+def attn_block_rules(rules, src, dst, depth: int, proj: str):
+    """A spatial transformer of ``depth`` layers (depth 1: the flat SD-1.x
+    layout; deeper: ``blocks.{j}``); ``proj`` the kind of its
+    proj_in/proj_out."""
+    _norm(rules, f"{src}.norm", f"{dst}.norm")
+    _conv(rules, f"{src}.proj_in", f"{dst}.conv_in", kind=proj)
+    if depth == 1:
+        _transformer_layer_rules(rules, f"{src}.transformer_blocks.0", dst)
+    else:
+        for j in range(depth):
+            _transformer_layer_rules(rules, f"{src}.transformer_blocks.{j}",
+                                     f"{dst}.blocks.{j}")
+    _conv(rules, f"{src}.proj_out", f"{dst}.conv_out", kind=proj)
+
+
+def proj_kind(cfg: SDConfig) -> str:
+    """How the family's published checkpoints store the transformer
+    blocks' proj_in/proj_out: (C, C) linears for SD-2.x and SDXL
+    (``use_linear_in_transformer``, the families with a fixed head width),
+    (C, C, 1, 1) convs for SD-1.x.  Either is read; this is the one
+    written."""
+    return "proj_linear" if cfg.unet.head_dim is not None else "proj"
 
 
 def unet_rules(cfg: SDConfig) -> List[Rule]:
     u = cfg.unet
     src = "model.diffusion_model"
+    proj = proj_kind(cfg)
     rules: List[Rule] = []
     _linear(rules, f"{src}.time_embed.0", "time_embed.fc1")
     _linear(rules, f"{src}.time_embed.2", "time_embed.fc2")
@@ -108,10 +167,11 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
         else:
             _unet_res_rules(rules, f"{blk}.0", f"{dst}.res", st["c_in"], st["c_out"])
             if st["attn"]:
-                _unet_attn_rules(rules, f"{blk}.1", f"{dst}.attn")
+                attn_block_rules(rules, f"{blk}.1", f"{dst}.attn", st["depth"], proj)
     mid_c = u.level_channels[-1]
     _unet_res_rules(rules, f"{src}.middle_block.0", "bottleneck.res1", mid_c, mid_c)
-    _unet_attn_rules(rules, f"{src}.middle_block.1", "bottleneck.attn")
+    attn_block_rules(rules, f"{src}.middle_block.1", "bottleneck.attn",
+                     u.depth_for(len(u.ch_mults) - 1), proj)
     _unet_res_rules(rules, f"{src}.middle_block.2", "bottleneck.res2", mid_c, mid_c)
     for j, st in enumerate(unet_mod.decoder_plan(u)):
         blk = f"{src}.output_blocks.{j}"
@@ -119,10 +179,14 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
         _unet_res_rules(rules, f"{blk}.0", f"{dst}.res", st["c_in"], st["c_out"])
         nxt = 1
         if st["attn"]:
-            _unet_attn_rules(rules, f"{blk}.1", f"{dst}.attn")
+            attn_block_rules(rules, f"{blk}.1", f"{dst}.attn", st["depth"], proj)
             nxt = 2
         if st["upsample"]:
             _conv(rules, f"{blk}.{nxt}.conv", f"{dst}.upsample")
+    if u.add_embed_dim:
+        # SDXL's added-conditioning MLP (sgm: label_emb.0.{0,2})
+        _linear(rules, f"{src}.label_emb.0.0", "add_embed.fc1")
+        _linear(rules, f"{src}.label_emb.0.2", "add_embed.fc2")
     _norm(rules, f"{src}.out.0", "norm_out")
     _conv(rules, f"{src}.out.2", "conv_out")
     return rules
@@ -194,15 +258,14 @@ def vae_decoder_rules(cfg: SDConfig) -> List[Rule]:
 
 
 # ------------------------------------------------------------------- CLIP
-def clip_rules(cfg: SDConfig) -> List[Rule]:
-    """The SD-1.x (transformers-style) text tower."""
-    src = "cond_stage_model.transformer.text_model"
+def _hf_clip_rules(ccfg, src: str) -> List[Rule]:
+    """A transformers-layout tower (SD-1.x, SDXL's CLIP-L)."""
     rules: List[Rule] = [
         (f"{src}.embeddings.token_embedding.weight", "token_embedding", "direct"),
         (f"{src}.embeddings.position_embedding.weight", "position_embedding",
          "direct"),
     ]
-    for i in range(cfg.clip.n_layers):
+    for i in range(ccfg.n_layers):
         lyr = f"{src}.encoder.layers.{i}"
         dst = f"layers.{i}"
         _norm(rules, f"{lyr}.layer_norm1", f"{dst}.ln1")
@@ -216,17 +279,68 @@ def clip_rules(cfg: SDConfig) -> List[Rule]:
     return rules
 
 
+def _open_clip_rules(ccfg, src: str) -> List[Rule]:
+    """An OpenCLIP tower (SD-2.x ViT-H, SDXL bigG): a bare
+    ``positional_embedding``, ``transformer.resblocks.{i}`` with
+    ``ln_1``/``ln_2``, ``mlp.c_fc``/``c_proj`` and the fused
+    ``attn.in_proj_weight``/``in_proj_bias`` (3d, d)/(3d,) split into q, k
+    and v; bigG's ``text_projection`` (d, d) applied as ``x @ W``, kept so."""
+    rules: List[Rule] = [
+        (f"{src}.token_embedding.weight", "token_embedding", "direct"),
+        (f"{src}.positional_embedding", "position_embedding", "direct"),
+    ]
+    if ccfg.text_projection:
+        rules.append((f"{src}.text_projection", "text_projection", "direct"))
+    for i in range(ccfg.n_layers):
+        lyr = f"{src}.transformer.resblocks.{i}"
+        dst = f"layers.{i}"
+        _norm(rules, f"{lyr}.ln_1", f"{dst}.ln1")
+        for j, ours in enumerate(("q", "k", "v")):
+            rules.append((f"{lyr}.attn.in_proj_weight", f"{dst}.attn.{ours}.weight",
+                          ("split3", j)))
+            rules.append((f"{lyr}.attn.in_proj_bias", f"{dst}.attn.{ours}.bias",
+                          ("split3", j)))
+        _linear(rules, f"{lyr}.attn.out_proj", f"{dst}.attn.out")
+        _norm(rules, f"{lyr}.ln_2", f"{dst}.ln2")
+        _linear(rules, f"{lyr}.mlp.c_fc", f"{dst}.fc1")
+        _linear(rules, f"{lyr}.mlp.c_proj", f"{dst}.fc2")
+    _norm(rules, f"{src}.ln_final", "final_norm")
+    return rules
+
+
+def _tower_prefix(ccfg) -> str:
+    if ccfg.key_prefix:
+        return ccfg.key_prefix
+    return "cond_stage_model.model" if ccfg.layout == "open_clip" \
+        else "cond_stage_model.transformer.text_model"
+
+
+def tower_rules(ccfg) -> List[Rule]:
+    """The CompVis/sgm rules of one text tower, by its layout and prefix."""
+    rules = _open_clip_rules if ccfg.layout == "open_clip" else _hf_clip_rules
+    return rules(ccfg, _tower_prefix(ccfg))
+
+
+def clip_rules(cfg: SDConfig) -> List[Rule]:
+    return tower_rules(cfg.clip)
+
+
+def clip2_rules(cfg: SDConfig) -> List[Rule]:
+    """SDXL's second text tower."""
+    return tower_rules(cfg.clip2)
+
+
 # --------------------------------------------------------------- execution
 RULES = {
     "clip": clip_rules,
+    "clip2": clip2_rules,
     "encoder": vae_encoder_rules,
     "decoder": vae_decoder_rules,
     "diffusion": unet_rules,
 }
 
 #: source keys that exist in CompVis ckpts but carry no model weight we need
-_IGNORE_PREFIXES = ("model_ema.", "cond_stage_model.transformer.text_model."
-                    "embeddings.position_ids")
+_IGNORE_PREFIXES = ("model_ema.",)
 _IGNORE_EXACT = {
     "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
     "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
@@ -234,6 +348,26 @@ _IGNORE_EXACT = {
     "posterior_variance", "posterior_log_variance_clipped",
     "posterior_mean_coef1", "posterior_mean_coef2", "logvar",
 }
+
+
+def _ignored(cfg: SDConfig) -> Tuple[set, tuple]:
+    """(exact keys, prefixes) a checkpoint of ``cfg``'s family may hold and
+    no model consumes: the static lists, and for each text tower its
+    ``position_ids`` (transformers layout), or its ``logit_scale`` and an
+    unconsumed ``text_projection`` (OpenCLIP: the image-text heads)."""
+    exact, prefixes = set(_IGNORE_EXACT), list(_IGNORE_PREFIXES)
+    for tower in (cfg.clip, cfg.clip2):
+        if tower is None:
+            continue
+        src = _tower_prefix(tower)
+        if tower.layout == "open_clip":
+            exact.add(f"{src}.logit_scale")
+            if not tower.text_projection:
+                exact.add(f"{src}.text_projection")
+        else:
+            prefixes.append(f"{src}.embeddings.position_ids")
+    return exact, tuple(prefixes)
+
 
 StateDicts = Dict[str, Dict[str, torch.Tensor]]
 
@@ -257,9 +391,26 @@ def _convert_rules(state_dict, rules, name: str, place, consumed: set,
         if src_key not in state_dict:
             raise KeyError(f"[{name}] missing {what}: {src_key}")
         sd[dst_key] = place(name, dst_key,
-                            _FWD[kind](as_tensor(state_dict[src_key])).contiguous())
+                            fwd(kind, as_tensor(state_dict[src_key])).contiguous())
         consumed.add(src_key)
     return sd
+
+
+def invert_rules(rules, flat, sink: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Port parameters ``flat`` -> the source tensors of ``rules``, into
+    ``sink`` (the three parts of a fused in_proj concatenated back)."""
+    fused: Dict[str, list] = {}
+    for src_key, dst_key, kind in rules:
+        if dst_key not in flat:
+            raise KeyError(f"missing target parameter: {dst_key}")
+        t = flat[dst_key].detach()
+        if isinstance(kind, tuple):
+            fused.setdefault(src_key, [None] * 3)[kind[1]] = t
+        else:
+            sink[src_key] = _INV[kind](t).contiguous()
+    for src_key, parts in fused.items():
+        sink[src_key] = torch.cat(parts, dim=0)
+    return sink
 
 
 def _keep(name, key, x):
@@ -277,11 +428,12 @@ def convert(state_dict: Mapping, cfg: SDConfig, *,
     check_ported(cfg)
     place = place or _keep
     consumed = set()
-    out = {name: _convert_rules(state_dict, rule_fn(cfg), name, place, consumed)
-           for name, rule_fn in RULES.items()}
+    out = {name: _convert_rules(state_dict, RULES[name](cfg), name, place, consumed)
+           for name in model_names(cfg)}
+    exact, prefixes = _ignored(cfg)
     leftover = [k for k in state_dict
-                if k not in consumed and k not in _IGNORE_EXACT
-                and not any(k.startswith(p) for p in _IGNORE_PREFIXES)]
+                if k not in consumed and k not in exact
+                and not any(k.startswith(p) for p in prefixes)]
     if leftover:
         raise KeyError(f"{len(leftover)} unconsumed source keys (first 10): "
                        f"{sorted(leftover)[:10]}")
@@ -290,16 +442,18 @@ def convert(state_dict: Mapping, cfg: SDConfig, *,
 
 def deconvert(state_dicts: StateDicts, cfg: SDConfig) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`convert`: port state dicts (or models) -> a CompVis
-    flat state dict, on the tensors' device and in their dtype."""
+    flat state dict, on the tensors' device and in their dtype, in the
+    layout of the family's published files (SD-2.x/SDXL proj_in/proj_out
+    as (C, C) linears, the OpenCLIP q/k/v fused into in_proj)."""
     check_ported(cfg)
     sd: Dict[str, torch.Tensor] = {}
-    for name, rule_fn in RULES.items():
+    for name in model_names(cfg):
         flat = state_dicts[name]
         flat = flat.state_dict() if isinstance(flat, torch.nn.Module) else flat
-        for src_key, dst_key, kind in rule_fn(cfg):
-            if dst_key not in flat:
-                raise KeyError(f"[{name}] missing target parameter: {dst_key}")
-            sd[src_key] = _INV[kind](flat[dst_key].detach()).contiguous()
+        try:
+            invert_rules(RULES[name](cfg), flat, sd)
+        except KeyError as e:
+            raise KeyError(f"[{name}] {e.args[0]}") from None
     return sd
 
 
@@ -437,11 +591,12 @@ def state_dict_from_jax_tree(tree) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params, cfg: SDConfig) -> StateDicts:
-    """JAX parameter pytrees {"clip", "encoder", "decoder", "diffusion"} ->
-    port state dicts.  A CLIP whose token table textual inversion grew
-    converts as any other: build it with the grown ``cfg.clip.vocab_size``."""
+    """JAX parameter pytrees {"clip", ["clip2",] "encoder", "decoder",
+    "diffusion"} -> port state dicts.  A CLIP whose token table textual
+    inversion grew converts as any other: build it with the grown
+    ``cfg.clip.vocab_size``."""
     check_ported(cfg)
-    return {name: state_dict_from_jax_tree(params[name]) for name in RULES}
+    return {name: state_dict_from_jax_tree(params[name]) for name in model_names(cfg)}
 
 
 def hypernetwork_from_jax(tree):

@@ -1,22 +1,31 @@
-"""Diffusers-format checkpoints, SD-1.5 (port of ``weights/diffusers.py``).
+"""Diffusers-format checkpoints (port of ``weights/diffusers.py``).
 
-Modern SD-1.5 distributions ship the diffusers layout: separate ``unet/``,
-``vae/`` and ``text_encoder/`` weight files with their own key names.  The
-rules are generated from the architecture config as in
-``weights/convert.py``, with the same two-way coverage guarantee, and emit
-the port's parameter names; the port keeps PyTorch layouts, so every
-tensor copies as it is (diffusers' VAE attention is already Linear).
+Modern distributions ship the diffusers layout: separate ``unet/``,
+``vae/`` and ``text_encoder/`` weight files with their own key names, and
+for SDXL ``text_encoder_2/`` (the bigG tower, in the transformers layout
+with its ``text_projection`` an ``nn.Linear``); the SDXL refiner's tree
+holds only ``text_encoder_2/``, its one tower.  The rules are generated
+from the architecture config as in ``weights/convert.py``, with the same
+two-way coverage guarantee, and emit the port's parameter names; the port
+keeps PyTorch layouts, so every tensor copies as it is (diffusers' VAE
+attention is already Linear) but for the text projection, whose (out, in)
+Linear weight becomes the (in, out) matrix ``x @ W`` takes, and the
+transformer blocks' ``proj_in``/``proj_out``, read as convs or linears
+(SD-2.x and SDXL: ``use_linear_projection``) and written as the family's
+files store them.
 
 Key-name correspondence (modern diffusers, Linear-based VAE attention):
   unet:  down_blocks.{l}.resnets/attentions/downsamplers, mid_block,
-         up_blocks, time_embedding.linear_{1,2}, conv_in, conv_norm_out,
-         conv_out; resnet fields norm1/conv1/time_emb_proj/norm2/conv2/
-         conv_shortcut.
+         up_blocks, time_embedding.linear_{1,2}, add_embedding.linear_{1,2}
+         (SDXL), conv_in, conv_norm_out, conv_out; resnet fields norm1/
+         conv1/time_emb_proj/norm2/conv2/conv_shortcut; attentions.{r}.
+         transformer_blocks.{j} for each layer of a stacked block.
   vae:   encoder.down_blocks..., decoder.up_blocks... (decoder up_blocks are
          listed top-resolution-LAST, i.e. already in our processing order),
          mid_block.resnets.{0,1} + attentions.0 (group_norm, to_q/k/v,
          to_out.0 — Linear (C, C)), quant_conv, post_quant_conv.
-  text_encoder: text_model.* — same structure as the CompVis CLIP subtree.
+  text_encoder[_2]: text_model.* — the transformers layout, for every
+         tower (OpenCLIP's included), + text_projection.weight (bigG).
 
 ControlNet and T2I-Adapter rules come with slice E (ROADMAP.md §1).
 """
@@ -24,13 +33,14 @@ ControlNet and T2I-Adapter rules come with slice E (ROADMAP.md §1).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from ..models import unet as unet_mod
 from ..models.config import SDConfig, check_ported
-from .convert import _INV, Rule, StateDicts, _conv, _convert_rules, _keep, _linear, _norm
+from .convert import (Rule, StateDicts, _conv, _convert_rules, _keep, _linear, _norm,
+                      attn_block_rules, invert_rules, proj_kind)
 
 
 # ------------------------------------------------------------------- UNet
@@ -44,26 +54,9 @@ def _res_rules(rules, src, dst, c_in, c_out):
         _conv(rules, f"{src}.conv_shortcut", f"{dst}.shortcut")
 
 
-def _tx_rules(rules, src, dst):
-    """A depth-1 spatial transformer (the flat SD-1.x layout)."""
-    tb = f"{src}.transformer_blocks.0"
-    _norm(rules, f"{src}.norm", f"{dst}.norm")
-    _conv(rules, f"{src}.proj_in", f"{dst}.conv_in")
-    _norm(rules, f"{tb}.norm1", f"{dst}.ln1")
-    for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v")):
-        _linear(rules, f"{tb}.attn1.{theirs}", f"{dst}.self_attn.{ours}", bias=False)
-        _linear(rules, f"{tb}.attn2.{theirs}", f"{dst}.cross_attn.{ours}", bias=False)
-    _linear(rules, f"{tb}.attn1.to_out.0", f"{dst}.self_attn.out")
-    _linear(rules, f"{tb}.attn2.to_out.0", f"{dst}.cross_attn.out")
-    _norm(rules, f"{tb}.norm2", f"{dst}.ln2")
-    _norm(rules, f"{tb}.norm3", f"{dst}.ln3")
-    _linear(rules, f"{tb}.ff.net.0.proj", f"{dst}.geglu_proj")
-    _linear(rules, f"{tb}.ff.net.2", f"{dst}.geglu_out")
-    _conv(rules, f"{src}.proj_out", f"{dst}.conv_out")
-
-
 def unet_rules(cfg: SDConfig) -> List[Rule]:
     u = cfg.unet
+    proj = proj_kind(cfg)
     rules: List[Rule] = []
     _linear(rules, "time_embedding.linear_1", "time_embed.fc1")
     _linear(rules, "time_embedding.linear_2", "time_embed.fc2")
@@ -82,12 +75,14 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
             _res_rules(rules, f"down_blocks.{level}.resnets.{r}", f"{dst}.res",
                        st["c_in"], st["c_out"])
             if st["attn"]:
-                _tx_rules(rules, f"down_blocks.{level}.attentions.{r}", f"{dst}.attn")
+                attn_block_rules(rules, f"down_blocks.{level}.attentions.{r}",
+                                 f"{dst}.attn", st["depth"], proj)
             res_i[level] += 1
 
     c_mid = u.level_channels[-1]
     _res_rules(rules, "mid_block.resnets.0", "bottleneck.res1", c_mid, c_mid)
-    _tx_rules(rules, "mid_block.attentions.0", "bottleneck.attn")
+    attn_block_rules(rules, "mid_block.attentions.0", "bottleneck.attn",
+                     u.depth_for(len(u.ch_mults) - 1), proj)
     _res_rules(rules, "mid_block.resnets.1", "bottleneck.res2", c_mid, c_mid)
 
     per_level = u.num_res_blocks + 1
@@ -97,10 +92,15 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
         _res_rules(rules, f"up_blocks.{lv}.resnets.{r}", f"{dst}.res",
                    st["c_in"], st["c_out"])
         if st["attn"]:
-            _tx_rules(rules, f"up_blocks.{lv}.attentions.{r}", f"{dst}.attn")
+            attn_block_rules(rules, f"up_blocks.{lv}.attentions.{r}", f"{dst}.attn",
+                             st["depth"], proj)
         if st["upsample"]:
             _conv(rules, f"up_blocks.{lv}.upsamplers.0.conv", f"{dst}.upsample")
 
+    if u.add_embed_dim:
+        # SDXL's added-conditioning MLP
+        _linear(rules, "add_embedding.linear_1", "add_embed.fc1")
+        _linear(rules, "add_embedding.linear_2", "add_embed.fc2")
     _norm(rules, "conv_norm_out", "norm_out")
     _conv(rules, "conv_out", "conv_out")
     return rules
@@ -170,8 +170,8 @@ def vae_decoder_rules(cfg: SDConfig) -> List[Rule]:
 
 # ------------------------------------------------------------------- CLIP
 def _clip_tower_rules(ccfg) -> List[Rule]:
-    """HF-layout (diffusers ``text_encoder``) rules for one tower config;
-    the LoRA resolver reads them too."""
+    """HF-layout (diffusers ``text_encoder``/``text_encoder_2``) rules for
+    one tower config, OpenCLIP's too; the LoRA resolver reads them."""
     src = "text_model"
     rules: List[Rule] = [
         (f"{src}.embeddings.token_embedding.weight", "token_embedding", "direct"),
@@ -188,11 +188,18 @@ def _clip_tower_rules(ccfg) -> List[Rule]:
         _linear(rules, f"{lyr}.mlp.fc1", f"{dst}.fc1")
         _linear(rules, f"{lyr}.mlp.fc2", f"{dst}.fc2")
     _norm(rules, f"{src}.final_layer_norm", "final_norm")
+    if ccfg.text_projection:
+        # CLIPTextModelWithProjection: a top-level (out, in) Linear, x @ W.T
+        rules.append(("text_projection.weight", "text_projection", "linear_t"))
     return rules
 
 
 def clip_rules(cfg: SDConfig) -> List[Rule]:
     return _clip_tower_rules(cfg.clip)
+
+
+def clip2_rules(cfg: SDConfig) -> List[Rule]:
+    return _clip_tower_rules(cfg.clip2)
 
 
 #: diffusers files carry these non-weight keys
@@ -223,9 +230,12 @@ def convert_diffusers_vae(vae_sd: Mapping, cfg: SDConfig
 
 
 def convert_diffusers(unet_sd: Mapping, vae_sd: Mapping, text_encoder_sd: Mapping,
-                      cfg: SDConfig) -> StateDicts:
-    """Diffusers state dicts -> the port's {'clip', 'encoder', 'decoder',
-    'diffusion'} state dicts; exact coverage on all inputs."""
+                      cfg: SDConfig, text_encoder_2_sd: Optional[Mapping] = None
+                      ) -> StateDicts:
+    """Diffusers state dicts -> the port's {'clip', ['clip2',] 'encoder',
+    'decoder', 'diffusion'} state dicts; exact coverage on all inputs.  A
+    family with a second tower (SDXL, ``cfg.clip2``) needs
+    ``text_encoder_2_sd``."""
     check_ported(cfg)
     used_u, used_c = set(), set()
     out = {"diffusion": _convert_one(unet_sd, unet_rules(cfg), "unet", used_u)}
@@ -233,31 +243,41 @@ def convert_diffusers(unet_sd: Mapping, vae_sd: Mapping, text_encoder_sd: Mappin
     out["clip"] = _convert_one(text_encoder_sd, clip_rules(cfg), "text_encoder", used_c)
     _check_leftover(unet_sd, used_u, "unet")
     _check_leftover(text_encoder_sd, used_c, "text_encoder")
+    if cfg.clip2 is not None:
+        if text_encoder_2_sd is None:
+            raise ValueError("SDXL config (clip2 set) requires text_encoder_2_sd")
+        used_c2: set = set()
+        out["clip2"] = _convert_one(text_encoder_2_sd, clip2_rules(cfg),
+                                    "text_encoder_2", used_c2)
+        _check_leftover(text_encoder_2_sd, used_c2, "text_encoder_2")
     return out
 
 
 def deconvert_diffusers(state_dicts, cfg: SDConfig):
     """Inverse: port state dicts (or models) -> (unet_sd, vae_sd,
-    text_encoder_sd), on the tensors' device and in their dtype."""
+    text_encoder_sd), with text_encoder_2_sd appended for a family with a
+    second tower (SDXL), on the tensors' device and in their dtype."""
     check_ported(cfg)
 
     def inv(rules, flat, sink):
         flat = flat.state_dict() if isinstance(flat, torch.nn.Module) else flat
-        for src_key, dst_key, kind in rules:
-            sink[src_key] = _INV[kind](flat[dst_key].detach()).contiguous()
-        return sink
+        return invert_rules(rules, flat, sink)
 
     unet_sd = inv(unet_rules(cfg), state_dicts["diffusion"], {})
     vae_sd = inv(vae_encoder_rules(cfg), state_dicts["encoder"], {})
     inv(vae_decoder_rules(cfg), state_dicts["decoder"], vae_sd)
     te_sd = inv(clip_rules(cfg), state_dicts["clip"], {})
+    if cfg.clip2 is not None:
+        return unet_sd, vae_sd, te_sd, inv(clip2_rules(cfg), state_dicts["clip2"], {})
     return unet_sd, vae_sd, te_sd
 
 
 def load_diffusers_pipeline(root: str, cfg: SDConfig) -> StateDicts:
-    """Load a diffusers directory: root/{unet,vae,text_encoder}/
-    diffusion_pytorch_model.safetensors (or .bin; the text encoder's
-    model.safetensors or pytorch_model.bin) -> port state dicts."""
+    """Load a diffusers directory: root/{unet,vae,text_encoder[,
+    text_encoder_2]}/diffusion_pytorch_model.safetensors (or .bin; the text
+    encoders' model.safetensors or pytorch_model.bin) -> port state dicts.
+    An SDXL-refiner tree holds only ``text_encoder_2/``: with one tower
+    configured and no ``text_encoder/``, that is the tower read."""
     from .convert import load_state_dict
 
     def find(sub, names):
@@ -268,6 +288,8 @@ def load_diffusers_pipeline(root: str, cfg: SDConfig) -> StateDicts:
         raise FileNotFoundError(f"no weight file for {sub} under {root}")
 
     model = ["diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"]
-    return convert_diffusers(find("unet", model), find("vae", model),
-                             find("text_encoder", ["model.safetensors", "pytorch_model.bin"]),
-                             cfg)
+    te = ["model.safetensors", "pytorch_model.bin"]
+    te_dir = "text_encoder_2" if cfg.clip2 is None and not os.path.isdir(
+        os.path.join(root, "text_encoder")) else "text_encoder"
+    return convert_diffusers(find("unet", model), find("vae", model), find(te_dir, te), cfg,
+                             find("text_encoder_2", te) if cfg.clip2 is not None else None)

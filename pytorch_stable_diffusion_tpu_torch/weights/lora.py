@@ -11,23 +11,29 @@ Supported formats (auto-detected per key):
   ``lora_unet_{module}.lora_down.weight`` / ``.lora_up.weight`` /
   ``.alpha`` where ``{module}`` is the diffusers module path with dots
   flattened to underscores (``down_blocks_0_attentions_0_...``), plus
-  ``lora_te_`` / ``lora_te1_`` for the text encoder.
+  ``lora_te_`` / ``lora_te1_`` for the (first) text encoder and
+  ``lora_te2_`` for SDXL's bigG tower.
 * **diffusers / PEFT**: dotted module paths with ``.lora_A.weight`` (down)
-  / ``.lora_B.weight`` (up) under ``unet.`` / ``text_encoder.`` roots,
+  / ``.lora_B.weight`` (up) under ``unet.`` / ``text_encoder.`` /
+  ``text_encoder_2.`` roots,
   or with PEFT's adapter name (``.lora_A.default.weight``), which the JAX
   package's grouping refuses although its comment names the form.  PEFT
   stores no per-module alpha in the state dict; alpha defaults to the
   rank (scaling 1), the PEFT default.
 
 Targets are the port's parameter names, reached through the diffusers
-rules (``weights/diffusers.py``); the SDXL second tower's (``lora_te2_``,
-``text_encoder_2.``) come with slice C2.  Merge rule per target weight
-``W``, in the torch layout ``(out, in[, kh, kw])`` the port keeps::
+rules (``weights/diffusers.py``): every conv and linear weight of the UNet
+(each layer of a stacked transformer block its own target) and of each
+text tower.  Merge rule per target weight ``W``, in the torch layout
+``(out, in[, kh, kw])`` the port keeps::
 
     W' = (fp32(W) + fp32(scale * (alpha / rank) * up @ down)).to(W.dtype)
 
 with the product in fp32 on the models' device, the same order of
-operations as the JAX package (so the bf16 rounding agrees).  Conv LoRAs
+operations as the JAX package (so the bf16 rounding agrees); a
+linear-factored delta on a 1x1 conv target (``proj_in`` stored as a conv)
+gains the conv's two unit axes, and the text projection, kept as the
+(in, out) matrix, takes the delta transposed.  Conv LoRAs
 (LoCon-style 3x3 down + 1x1 up) are supported; Hadamard/Kronecker
 factorizations (LoHa/LoKr) are not and raise.
 """
@@ -38,21 +44,23 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..models import MODEL_NAMES, assemble
-from ..models.config import SDConfig
+from ..models import assemble
+from ..models.config import SDConfig, model_names
 from . import diffusers as dif
-from .convert import as_tensor
+from .convert import WEIGHT_KINDS, as_tensor
 
 
 def _weight_targets(cfg: SDConfig) -> Dict[str, List[Tuple[str, str, str]]]:
     """Dotted diffusers module path (no ``.weight``) -> list of (model_name,
     port parameter, kind) for every conv and linear weight."""
     towers = [("unet.", "diffusion", dif.unet_rules(cfg)),
-              ("text_encoder.", "clip", dif._clip_tower_rules(cfg.clip))]
+              ("text_encoder.", "clip", dif.clip_rules(cfg))]
+    if cfg.clip2 is not None:
+        towers.append(("text_encoder_2.", "clip2", dif.clip2_rules(cfg)))
     out: Dict[str, List[Tuple[str, str, str]]] = {}
     for root, model, rules in towers:
         for src, dst, kind in rules:
-            if src.endswith(".weight") and kind in ("conv", "linear", "conv1x1_linear"):
+            if src.endswith(".weight") and kind in WEIGHT_KINDS:
                 out.setdefault(root + src[:-len(".weight")], []).append((model, dst, kind))
     return out
 
@@ -60,6 +68,7 @@ def _weight_targets(cfg: SDConfig) -> Dict[str, List[Tuple[str, str, str]]]:
 #: kohya prefix -> dotted root it stands for
 _KOHYA_ROOTS = (("lora_unet_", "unet."),
                 ("lora_te1_", "text_encoder."),
+                ("lora_te2_", "text_encoder_2."),
                 ("lora_te_", "text_encoder."))
 
 
@@ -109,7 +118,7 @@ def apply_lora(models, cfg: SDConfig, lora_sd, scale: float = 1.0, *,
         und_index[(root + ".", rest.replace(".", "_"))] = k
     groups = _group_lora_keys(lora_sd)
 
-    flats = {m: models[m].state_dict() for m in MODEL_NAMES}
+    flats = {m: models[m].state_dict() for m in model_names(cfg)}
     changed = set()
     unmatched, matched = [], 0
     for name, g in sorted(groups.items()):
@@ -133,9 +142,11 @@ def apply_lora(models, cfg: SDConfig, lora_sd, scale: float = 1.0, *,
             (up.shape[0],) + tuple(down.shape[1:]))
         for model, dst, kind in targets[dotted]:
             dl = delta
-            if kind == "conv" and dl.dim() == 2:
-                dl = dl[:, :, None, None]  # linear-factored LoRA on a 1x1 conv
             leaf = flats[model][dst]
+            if kind == "linear_t":
+                dl = dl.t()  # the text projection is kept as (in, out)
+            elif leaf.dim() == 4 and dl.dim() == 2:
+                dl = dl[:, :, None, None]  # linear-factored LoRA on a 1x1 conv
             d = dl * (scale * alpha / rank)
             if d.shape != leaf.shape:
                 raise ValueError(

@@ -17,7 +17,8 @@ def merge_models(a, b, cfg: SDConfig, alpha: float = 0.5, c=None):
     add-difference ``A + alpha·(B − C)``.
 
     ``a``/``b``/``c`` are models dicts of one architecture (``cfg``); the
-    four models that ``a`` holds are merged and returned as new models.
+    SD models that ``a`` holds (``clip2`` with SDXL) are merged and returned
+    as new models.
     Arithmetic runs in fp32 and casts back to A's parameter dtypes."""
     alpha = float(alpha)
     out = {}

@@ -59,16 +59,18 @@ def write_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
 
 def save_safetensors(models, cfg: SDConfig, path: str,
                      dtype: torch.dtype = torch.float32) -> None:
-    """Export the four models (or their state dicts) to a CompVis-layout
-    ``.safetensors`` file in ``dtype`` (fp32 by default, as the JAX package
-    writes it)."""
+    """Export the family's models (or their state dicts) to a
+    CompVis/sgm-layout ``.safetensors`` file in ``dtype`` (fp32 by default,
+    as the JAX package writes it), in the layout the family's published
+    files use (``convert.deconvert``)."""
     sd = convert_mod.deconvert(models, cfg)
     write_safetensors({k: v.to(dtype) for k, v in sd.items()}, path)
 
 
 def save_native(models, path: str) -> None:
-    """The port's state dicts of the four models (or the state dicts
-    themselves), unconverted, in one ``torch.save`` file."""
+    """The port's state dicts of the SD models (or the state dicts
+    themselves; ``clip2`` with SDXL), unconverted, in one ``torch.save``
+    file."""
     sds = {name: (m.state_dict() if isinstance(m, torch.nn.Module) else m)
            for name, m in models.items() if name in MODEL_NAMES}
     torch.save({name: {k: v.detach().cpu() for k, v in sd.items()}

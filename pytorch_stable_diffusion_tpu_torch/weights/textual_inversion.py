@@ -6,13 +6,18 @@ The community formats:
     read through the restricted torch unpickler (no pickle execution,
     ``ckpt_reader.load_torch_object``);
   * A1111 ``.safetensors``: ``{"emb_params": (n, d)}``;
-  * diffusers ``.safetensors``/``.pt``/``.bin``: ``{"<token>": (n, d)}``.
+  * diffusers ``.safetensors``/``.pt``/``.bin``: ``{"<token>": (n, d)}``;
+  * SDXL dual-tower ``.safetensors``: ``{"clip_l": (n, 768), "clip_g":
+    (n, 1280)}``, one trigger, a row-aligned pair of tables.
 
 An embedding adds ``n`` new rows to CLIP's token-embedding table and
 registers a trigger word with the tokenizer that expands to those ids
 (``tokenizer.add_placeholder``): a weight and vocabulary transform, after
-which the pipeline runs as on any model.  The SDXL dual-tower form
-(``{"clip_l": ..., "clip_g": ...}``) comes with slice C2.
+which the pipeline runs as on any model.  A dual-tower model (SDXL) feeds
+the same ids to both towers, so both tables grow together, each by its
+half of a dual-tower embedding; it refuses single-tower embeddings, and a
+single-tower model refuses dual-tower ones, with ``ValueError`` as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ from ..models.config import SDConfig
 from .convert import as_tensor
 
 
-def refuse_dual_tower():
-    raise NotImplementedError(
-        "dual-tower (SDXL) textual-inversion embeddings are not ported yet: they "
-        "come with slice C2 (ROADMAP.md §1)")
+DUAL = ("clip_l", "clip_g")
+
+
+def is_dual(embedding) -> bool:
+    """Whether ``embedding`` is the SDXL dual-tower form."""
+    return isinstance(embedding, dict) and set(embedding) >= set(DUAL)
 
 
 def load_embedding(path: str, token: Optional[str] = None) -> Dict[str, torch.Tensor]:
@@ -45,8 +52,14 @@ def load_embedding(path: str, token: Optional[str] = None) -> Dict[str, torch.Te
         from . import native_io
 
         sd = native_io.load_safetensors(path)
-        if set(sd) >= {"clip_l", "clip_g"}:
-            refuse_dual_tower()
+        if is_dual(sd):
+            pair = {k: sd[k].float().reshape(-1, sd[k].shape[-1]) for k in DUAL}
+            if pair["clip_l"].shape[0] != pair["clip_g"].shape[0]:
+                raise ValueError(
+                    "dual-tower embedding has mismatched vector counts: "
+                    f"clip_l {pair['clip_l'].shape[0]} vs clip_g "
+                    f"{pair['clip_g'].shape[0]}")
+            return {token or stem: pair}
         if "emb_params" in sd:  # A1111 layout
             return {token or stem: sd["emb_params"].float()}
         if len(sd) == 1:  # diffusers layout: the key IS the trigger
@@ -72,34 +85,51 @@ def load_embedding(path: str, token: Optional[str] = None) -> Dict[str, torch.Te
 
 
 def add_embeddings(models: dict, tokenizer, cfg: SDConfig,
-                   embeddings: Dict[str, torch.Tensor]) -> Tuple[dict, object, SDConfig]:
-    """Extend the CLIP embedding table and tokenizer with trigger words.
+                   embeddings: Dict[str, object]) -> Tuple[dict, object, SDConfig]:
+    """Extend the CLIP embedding table(s) and tokenizer with trigger words.
 
     Returns (models, tokenizer, cfg) — all fresh objects; the originals are
-    untouched, and the new CLIP shares every parameter but its token table
-    with the old one.  ``cfg.clip.vocab_size`` grows so the pipeline's
-    token-bound validation accepts the new ids."""
-    if cfg.clip2 is not None:
-        refuse_dual_tower()
-    clip_sd = models["clip"].state_dict()
-    emb = clip_sd["token_embedding"]
-    d = emb.shape[1]
+    untouched, and the new towers share every parameter but their token
+    tables with the old ones.  ``cfg.clip.vocab_size`` (and
+    ``cfg.clip2.vocab_size``) grow so the pipeline's token-bound validation
+    accepts the new ids.  A dual-tower model takes ``{"clip_l": (n, d1),
+    "clip_g": (n, d2)}`` embeddings only; a single-tower one ``(n, d)``."""
+    dual = cfg.clip2 is not None
+    names = ("clip", "clip2") if dual else ("clip",)
+    sds = {name: models[name].state_dict() for name in names}
+    embs = [sds[name]["token_embedding"] for name in names]
+    if dual and embs[1].shape[0] != embs[0].shape[0]:
+        raise ValueError(f"tower vocab mismatch: clip {embs[0].shape[0]} vs clip2 "
+                         f"{embs[1].shape[0]} — cannot share new token ids")
     tok = tokenizer.clone()
-    rows = [emb]
-    next_id = emb.shape[0]
+    rows = [[e] for e in embs]
+    next_id = embs[0].shape[0]
     for trigger, arr in embeddings.items():
-        if isinstance(arr, dict):
-            refuse_dual_tower()
-        arr = as_tensor(arr).to(device=emb.device, dtype=emb.dtype)
-        arr = arr[None] if arr.dim() == 1 else arr
-        if arr.shape[1] != d:
-            raise ValueError(f"embedding '{trigger}' has dim {arr.shape[1]}, "
-                             f"model expects {d}")
-        n = arr.shape[0]
-        rows.append(arr)
+        if is_dual(arr) != dual:
+            raise ValueError(
+                f"embedding '{trigger}' is dual-tower (SDXL) but the model has a single "
+                f"text tower" if not dual else
+                f"embedding '{trigger}' is single-tower but the model is dual-tower "
+                "(SDXL) — need {'clip_l': ..., 'clip_g': ...} vectors for both towers")
+        parts = [arr[k] for k in DUAL] if dual else [arr]
+        parts = [as_tensor(a).to(device=e.device, dtype=e.dtype) for a, e in zip(parts, embs)]
+        parts = [a[None] if a.dim() == 1 else a for a in parts]
+        if dual and parts[0].shape[0] != parts[1].shape[0]:
+            raise ValueError(f"embedding '{trigger}': clip_l has {parts[0].shape[0]} "
+                             f"vectors, clip_g {parts[1].shape[0]}")
+        dims = tuple(a.shape[1] for a in parts)
+        want = tuple(e.shape[1] for e in embs)
+        if dims != want:
+            raise ValueError(f"embedding '{trigger}' has dim {dims if dual else dims[0]}, "
+                             f"model expects {want if dual else want[0]}")
+        n = parts[0].shape[0]
+        for r, a in zip(rows, parts):
+            r.append(a)
         tok.add_placeholder(trigger, list(range(next_id, next_id + n)))
         next_id += n
     new_cfg = dataclasses.replace(
-        cfg, clip=dataclasses.replace(cfg.clip, vocab_size=next_id))
-    clip_sd["token_embedding"] = torch.cat(rows, dim=0)
-    return dict(models, **assemble(new_cfg, {"clip": clip_sd})), tok, new_cfg
+        cfg, clip=dataclasses.replace(cfg.clip, vocab_size=next_id),
+        clip2=None if not dual else dataclasses.replace(cfg.clip2, vocab_size=next_id))
+    for name, r in zip(names, rows):
+        sds[name]["token_embedding"] = torch.cat(r, dim=0)
+    return dict(models, **assemble(new_cfg, sds)), tok, new_cfg

@@ -208,7 +208,7 @@ def test_with_methods_leave_the_original_untouched(sd):
 
 
 @pytest.mark.parametrize("method,where", [
-    ("edit", "slice C2"), ("hires_fix", "slice C2"), ("inpaint", "slice C2"),
+    ("edit", "slice C3"), ("hires_fix", "slice C3"), ("inpaint", "slice C3"),
     ("with_controlnet", "slice E"), ("with_ip_adapter", "slice E"),
     ("with_t2i_adapter", "slice E"), ("with_motion", "slice G"), ("animate", "slice G"),
     ("with_upscaler", "slice G"), ("upscale", "slice G"), ("outpaint", "slice G"),

@@ -117,6 +117,27 @@ def test_k1_refuses_fp16(cuda):
         fa.flash_attention_bsc(q, q, q, n_heads=1)
 
 
+@pytest.mark.parametrize("b,sq,c,heads", [
+    (2, 4096, 640, 10),    # SDXL 1024², level 1 (10 layers a block at level 2)
+    (2, 1024, 1280, 20),   # SDXL 1024², level 2 and the mid block
+    (2, 4096, 768, 12),    # refiner 1024², level 1
+    (2, 1024, 1536, 24),   # refiner 1024², level 2
+    (2, 256, 1536, 24),    # refiner 1024², the mid block
+    (2, 9216, 320, 5),     # SD-2.1 768², level 1
+    (2, 2304, 640, 10),    # SD-2.1 768², level 2
+    (2, 576, 1280, 20),    # SD-2.1 768², level 3
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k1_matches_plain_at_the_c2_shapes(cuda, b, sq, c, heads, dtype):
+    """K1 at Dh 64 with the SD-2.1/SDXL head counts (slice C2)."""
+    q, k, v = _k1_views(b, sq, sq, c, dtype, cuda, seed=7)
+    got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bsc_plain(q, k, v, heads)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.shape == (b, sq, c) and err <= tolerance(dtype, ref), err
+
+
 def _head_split_views(b, h, sq, sk, dh, dtype, cuda, seed):
     """q from its own (B, Sq, C) projection, k and v as the two halves of a
     fused (B, Sk, 2C) one, all viewed as (B, H, S, Dh) without a copy."""
@@ -243,6 +264,27 @@ def test_k2_matches_plain(cuda, b, h, sq, sk, dh, causal, dtype):
                       args, {"causal": causal}, dtype)
 
 
+@pytest.mark.parametrize("b,h,sq,sk", [
+    (2, 10, 4096, 308), (2, 20, 1024, 308),   # SDXL 1024² under a 4-window prompt
+    (2, 12, 4096, 308), (2, 24, 1024, 308),   # the refiner's widths
+    (2, 5, 9216, 308),                        # SD-2.1 768², level 1
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k2_matches_plain_at_the_c2_shapes(cuda, b, h, sq, sk, dtype):
+    """K2 at Dh 64 with the SD-2.1/SDXL head counts (slice C2)."""
+    args = _head_split_views(b, h, sq, sk, 64, dtype, cuda, seed=8)
+    _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
+                      args, {"causal": False}, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k3_matches_plain_at_the_1024_vae(cuda, dtype):
+    """K3 at the 1024² VAE mid block (SDXL and the refiner decode 1024²)."""
+    args = _head_split_views(1, 1, 16384, 16384, 512, dtype, cuda, seed=9)
+    _check_head_split(fa.flash_attention_multipass, fa.flash_attention_multipass_plain,
+                      args, {"causal": False}, dtype)
+
+
 @pytest.mark.parametrize("shape,want", [
     ((2, 8, 4096, 308, 40, False), (2, 8)),     # level 1: resident, 4 q tiles a CTA
     ((8, 8, 4096, 308, 40, False), (2, 2)),     # CFG batch 8: 16 q tiles a CTA
@@ -346,6 +388,27 @@ def test_k5_matches_plain(cuda, b, cin, h, w, cout, dtype):
     err = (got.float() - ref.float()).abs().max().item()
     # relative to the largest output: bf16 rounds a conv's outputs (several
     # units) relatively
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [
+    (2, 384, 128, 128, 384),    # refiner 1024², level 0
+    (2, 1152, 128, 128, 384),   # refiner, level-0 decoder concat (768 + 384)
+    (2, 768, 64, 64, 768),      # refiner, level 1
+    (2, 1536, 32, 32, 1536),    # refiner, levels 2 and 3
+    (2, 3072, 16, 16, 1536),    # refiner, level-3 decoder concat
+    (2, 960, 128, 128, 320),    # SDXL 1024², level-0 decoder concat
+    (2, 2560, 32, 32, 1280),    # SDXL, level-2 decoder concat
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k5_matches_plain_at_the_c2_widths(cuda, b, cin, h, w, cout, dtype):
+    """K5 at the refiner's 384·k channels and SDXL's 1024² convs (slice C2)."""
+    args = _k5_inputs(b, cin, h, w, cout, dtype, cuda, seed=10)
+    got = k5.scaled_silu_conv3x3(*args)
+    torch.cuda.synchronize()
+    ref = k5.scaled_silu_conv3x3_plain(*args)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.shape == (b, cout, h, w)
     assert err <= TOL[dtype] * ref.float().abs().max().item(), err
 
 

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from conftest import psnr, to_nchw
+from test_torch_families import families  # noqa: F401  (the tiny SDXL, refiner, SD-2)
 
 from pytorch_stable_diffusion_tpu import pipeline as jpipeline
 from pytorch_stable_diffusion_tpu.models import config as jconfig
@@ -42,7 +43,7 @@ from pytorch_stable_diffusion_tpu.weights import textual_inversion as jti
 from pytorch_stable_diffusion_tpu.weights import tokenizer as jtokenizer
 from pytorch_stable_diffusion_tpu_torch import pipeline
 from pytorch_stable_diffusion_tpu_torch.core import rng
-from pytorch_stable_diffusion_tpu_torch.models import build_models, state_dicts
+from pytorch_stable_diffusion_tpu_torch.models import build_models, config, state_dicts
 from pytorch_stable_diffusion_tpu_torch.models.config import tiny_sd_config
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
 from pytorch_stable_diffusion_tpu_torch.weights import convert
@@ -395,9 +396,11 @@ def test_add_embeddings_matches_jax(models, jparams):
     assert got["diffusion"] is models["diffusion"]
     with pytest.raises(ValueError, match="dim"):
         ti.add_embeddings(models, tok, CFG, {"<bad>": np.zeros((1, 8), np.float32)})
-    with pytest.raises(NotImplementedError, match="slice C2"):
-        ti.add_embeddings(models, tok, CFG, {"<xl>": {"clip_l": np.zeros((1, 32)),
-                                                      "clip_g": np.zeros((1, 64))}})
+    xl = {"<xl>": {"clip_l": np.zeros((1, 32)), "clip_g": np.zeros((1, 64))}}
+    with pytest.raises(ValueError, match="dual-tower"):  # as the JAX package
+        jti.add_embeddings(jparams, jtok, jconfig.tiny_sd_config(), xl)
+    with pytest.raises(ValueError, match="dual-tower"):
+        ti.add_embeddings(models, tok, CFG, xl)
 
 
 def test_load_embedding_formats_match_jax(tmp_path):
@@ -417,8 +420,11 @@ def test_load_embedding_formats_match_jax(tmp_path):
         np.testing.assert_array_equal(next(iter(got.values())).numpy(),
                                       next(iter(ref.values())))
     assert list(ti.load_embedding(str(tmp_path / "a1111.pt"), token="<t>")) == ["<t>"]
-    with pytest.raises(NotImplementedError, match="slice C2"):
-        ti.load_embedding(str(tmp_path / "xl.safetensors"))
+    got, ref = ti.load_embedding(str(tmp_path / "xl.safetensors")), \
+        jti.load_embedding(str(tmp_path / "xl.safetensors"))
+    assert list(got) == list(ref) == ["xl"]
+    for k in ("clip_l", "clip_g"):  # the SDXL dual-tower pair, one trigger
+        np.testing.assert_array_equal(got["xl"][k].numpy(), ref["xl"][k])
 
 
 # ---------------------------------------------------------- hypernetwork
@@ -593,3 +599,84 @@ def test_generate_many_matches_jax(models, jparams):
                                  config=CFG, fixed_noise=_nchw(noise), **kw)
     assert got.shape == ref.shape == (5, 16, 16, 3) and got.dtype == np.uint8
     assert psnr(got.astype(np.float32), ref.astype(np.float32)) > 40.0
+
+
+# ------------------------------------------------- SDXL (slice C2)
+def _sdxl_lora_sd(models, cfg, fmt, seed=5):
+    """A LoRA over SDXL targets: CLIP-L (``lora_te1_``) and bigG
+    (``lora_te2_``, its text projection too) linears, the UNet's linears in
+    a stacked block's second layer, its 1x1 proj convs (linear factors) and
+    a 3x3 res conv (LoCon)."""
+    r = np.random.RandomState(seed)
+    targets = lora._weight_targets(cfg)
+    picked = [k for k in sorted(targets)
+              if any(s in k for s in ("transformer_blocks.1.attn1.to_q", "attn2.to_v",
+                                      "proj_in", "resnets.0.conv1", "self_attn.k_proj",
+                                      "mlp.fc1", "text_projection", "add_embedding.linear_1"))]
+    assert any(k.startswith("text_encoder_2.") for k in picked)
+    assert "text_encoder_2.text_projection" in picked
+    sds = state_dicts(models)
+    sd = {}
+    for k in picked:
+        model, dst, kind = targets[k][0]
+        shape = sds[model][dst].shape
+        if kind == "linear_t":  # the port keeps (in, out); the file's Linear is (out, in)
+            shape = shape[::-1]
+        rank = 4
+        if len(shape) == 4 and shape[2] == 3:
+            down, up = r.randn(rank, shape[1], 3, 3), r.randn(shape[0], rank, 1, 1)
+        else:
+            down, up = r.randn(rank, shape[1]), r.randn(shape[0], rank)
+        root, rest = k.split(".", 1)
+        if fmt == "kohya":
+            name = {"unet": "lora_unet_", "text_encoder": "lora_te1_",
+                    "text_encoder_2": "lora_te2_"}[root] + rest.replace(".", "_")
+            sd[f"{name}.lora_down.weight"] = down.astype(np.float32) * 0.1
+            sd[f"{name}.lora_up.weight"] = up.astype(np.float32) * 0.1
+            sd[f"{name}.alpha"] = np.float32(2.0)
+        else:
+            sd[f"{k}.lora_A.weight"] = down.astype(np.float32) * 0.1
+            sd[f"{k}.lora_B.weight"] = up.astype(np.float32) * 0.1
+    return sd
+
+
+@pytest.mark.parametrize("fmt", ["kohya", "peft"])
+def test_sdxl_lora_merge_matches_jax(families, fmt):
+    """Both towers' roots (``lora_te1_``/``lora_te2_``, ``text_encoder.`` /
+    ``text_encoder_2.``) and the stacked layers' UNet targets, merged
+    against JAX ``weights/lora.py`` on the same weights, within 1e-6."""
+    cfg, jcfg, jp, xl_models = families["sdxl"]
+    sd = _sdxl_lora_sd(xl_models, cfg, fmt)
+    got = lora.apply_lora(xl_models, cfg, sd, 0.7)
+    ref = jlora.apply_lora(jp, jcfg, sd, 0.7)
+    _assert_state_dicts_equal(state_dicts(got), convert.from_jax_params(ref, cfg),
+                              rtol=1e-6, atol=1e-7)
+    assert [n for n in config.model_names(cfg) if got[n] is not xl_models[n]] == \
+        ["clip", "clip2", "diffusion"]
+
+
+def test_sdxl_dual_tower_textual_inversion_matches_jax(families):
+    """A dual-tower embedding grows both token tables together, with the
+    same ids, as the JAX package's; a single-tower embedding on SDXL raises
+    ValueError in both."""
+    cfg, jcfg, jp, xl_models = families["sdxl"]
+    r = np.random.RandomState(6)
+    embs = {"<xl-toy>": {"clip_l": r.randn(2, 16).astype(np.float32),
+                         "clip_g": r.randn(2, 32).astype(np.float32)}}
+    got, gtok, gcfg = ti.add_embeddings(xl_models, make_test_tokenizer(WORDS, max_len=16),
+                                        cfg, embs)
+    ref, rtok, rcfg = jti.add_embeddings(jp, jtokenizer.make_test_tokenizer(WORDS, max_len=16),
+                                         jcfg, embs)
+    assert gcfg.clip.vocab_size == gcfg.clip2.vocab_size == rcfg.clip2.vocab_size == 1026
+    for tower in ("clip", "clip2"):
+        np.testing.assert_array_equal(got[tower].token_embedding.numpy(),
+                                      np.asarray(ref[tower]["token_embedding"]))
+    assert gtok.encode("a <xl-toy> cat") == rtok.encode("a <xl-toy> cat")
+    assert got["diffusion"] is xl_models["diffusion"]
+    single = {"<one>": np.zeros((1, 16), np.float32)}
+    for fn, m, t, c in ((ti.add_embeddings, xl_models, make_test_tokenizer(WORDS, max_len=16),
+                         cfg),
+                        (jti.add_embeddings, jp, jtokenizer.make_test_tokenizer(WORDS, max_len=16),
+                         jcfg)):
+        with pytest.raises(ValueError, match="single-tower"):
+            fn(m, t, c, single)
