@@ -53,6 +53,14 @@ Phases (any failure exits non-zero):
                 16384|9216, 512); K4 at Dh 64 over 40960 KV tokens; K5 at
                 every res-block conv of SDXL and the refiner at 1024² and
                 SD-2.1 at 768² (batch 2, SDXL's also at 4), timed at four;
+                slice C3's lane counts and shapes, from the UNet's plan
+                (``C3_PLANS``, ``plan_shapes``): K1, K5 at SD-1.5 512² with
+                one lane (LCM without CFG) and three (InstructPix2Pix),
+                at 1024² (hires_fix's second pass) and on outpaint's
+                640x512 canvas, and at SDXL 1024² with one lane; K2 at
+                three lanes under a 4-window prompt; K3 at the canvas's
+                VAE mid block (5120 tokens); each timed (K5 at each
+                request's largest conv);
                 K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
@@ -102,6 +110,13 @@ Phases (any failure exits non-zero):
                 and K3 in the VAE; SD-2.1 with FLASH_ONLY_KV lowered to 1024
                 so that K4 carries level 1 at Dh 64; the CPU side's host
                 memory and time printed.
+                Slice C3 (``phase_small_c3``, lines ``small C3``): SD-1.5
+                at full width, FP32, 256², 2 steps, CFG 5, card against
+                the CPU plain path (> 55 dB latents, > 40 dB image, the
+                plan's launches): 9-channel inpainting, latent-blend
+                inpainting (mask_blur 4), InstructPix2Pix and LCM without
+                CFG, each UNet SD-1.5's with its conv_in or cond_proj
+                drawn from a seed.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -189,6 +204,31 @@ Phases (any failure exits non-zero):
                 evaluation for SDXL, the refiner and SD-2.1; K2 70 under the
                 long prompt); one SDXL 1024² evaluation is profiled as in
                 phase 7, with a 77- and a 308-token context.
+                Slice C3 (``phase_slice_c3`` after slice D, lines ``C3
+                ...``): BF16, full width, attention, conv and VAE on the
+                kernels, seed 1337, the inpaint, InstructPix2Pix and LCM
+                UNets phase 5's with conv_in or cond_proj drawn
+                (``c3_variant``): (a) 9-channel inpainting at 512², dpm++
+                Karras 20 steps, the right half masked, strength 1.0, and
+                (a') again, bit-identical; (b) latent-blend inpainting on
+                the 4-channel model at strength 0.75, mask_blur 4, on
+                euler_a and heun: the final latents equal the init image's
+                encoded latents wherever the latent mask is 0; (c)
+                inpaint(full_res=True) of a 96x96 mask in a 768x512 image:
+                every pixel outside the crop equal to the input's; (d)
+                masked_content="fill"; (e) outpaint 64 px left and right
+                (a 640x512 canvas); (f) img2img with color_correction; (g)
+                edit, euler_a 20 steps, CFG 7.5, image guidance 1.5, also
+                with the 4-window prompt (K2 at three lanes); (h) LCM 4
+                steps without CFG; (i) hires_fix 512² -> 1024² at strength
+                0.6, bilinear and lanczos3.  After slice C2, on SDXL
+                (``phase_slice_c3_xl``): (j) 9-channel inpainting at 1024²,
+                20 steps; (k) LCM 1024², 4 steps, without CFG.  Each
+                request's launches are held to the plan of its generate()
+                calls (``c3_run``: VAE encodes, two passes for hires_fix);
+                its wall time and peak memory printed; one InstructPix2Pix
+                (batch 3) and one LCM (batch 1) evaluation at 512², and one
+                SDXL LCM evaluation at 1024², profiled as in phase 7.
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -398,10 +438,15 @@ def phase_k1(fa, card, results):
     # (levels 1 and 2, its mid block), SD-2.1 768² (levels 1-3)
     cases += [(2, s, s, c, h, min(s, 2048)) for s, c, h in K1_C2]
     cases += [(4, s, s, c, h, 1024) for s, c, h in K1_C2[:2]]  # SDXL generate_many, batch 2
+    # slice C3's lane counts and shapes, from the UNet's plan (C3_PLANS)
+    c3 = c3_shapes("K1")
+    cases += [(b, s, s, c, h, min(s, 2048)) for b, s, c, h in c3
+              if (b, s, s, c, h, min(s, 2048)) not in cases]
     timed = {(b, s, s, c, 8) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))}
     timed |= {(2, 16384, 16384, 640, 8), (2, 4096, 4096, 1280, 8), (2, 4096, 4096, 320, 5)}
     timed |= {(2, s, s, c, h) for s, c, h in K1_C2}
+    timed |= {(b, s, s, c, h) for b, s, c, h in c3}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, sk, c, heads, rows in cases:
@@ -445,10 +490,16 @@ def phase_k1(fa, card, results):
                     line += (f", sdpa {'none' if lib is None else f'{lib:.4f}'} ms device"
                              f"{' ' + why if why else ''}; bound {bms:.4f} ms by {by}, exp "
                              f"floor {exp_floor_ms(exps):.4f} ms ({exps / 1e6:.0f} M exp2)")
-                    if (sq, c, heads) in K1_C2:
+                    if (sq, c, heads) in K1_C2 and b == 2:
                         rec["c2_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
                                                      library_ms=lib, bound_ms=bms,
                                                      bound_by=by))
+                    if (b, sq, c, heads) in c3:
+                        n, label = c3[(b, sq, c, heads)]
+                        rec["c3_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
+                                                     library_ms=lib, bound_ms=bms,
+                                                     bound_by=by, per_eval=n,
+                                                     request=label))
                     if main:
                         pms = one_call_device_ms(
                             lambda: fa.flash_attention_bsc_plain(q, k, v, heads))
@@ -560,6 +611,9 @@ def phase_long(fa, card, results):
         ("K3", 1, 9216, 9216, 1, 512, f32, False, 2048, ""),
         ("K4", 1, 2048, 40960, 5, 64, bf, False, 2048, "c2"),
         ("K4", 1, 2048, 40960, 5, 64, f32, False, 1024, ""),
+        # slice C3: the VAE mid block of outpaint's 640x512 canvas
+        ("K3", 1, 5120, 5120, 1, 512, bf, False, 5120, "c3"),
+        ("K3", 1, 5120, 5120, 1, 512, f32, False, 2048, ""),
     ]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
@@ -596,9 +650,9 @@ def phase_long(fa, card, results):
                 rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
                            timer=timer_since(n0))
                 line += f"; plain {pms:.3f} ms"
-            if role == "c2":
-                rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
-                                             bound_ms=bms, bound_by=by))
+            if role in ("c2", "c3"):
+                rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
+                                                  library_ms=lib, bound_ms=bms, bound_by=by))
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
@@ -676,6 +730,9 @@ def phase_k2(fa, card, results):
     # slice C2 under a 4-window prompt, Dh 64: SDXL's and the refiner's levels
     # 1 and 2 at 1024², SD-2.1's level 1 at 768²
     cases += [(2, h, sq, 308, 64, False, min(sq, 2048), "c2") for sq, h in K2_C2]
+    # slice C3: InstructPix2Pix's three lanes under a 4-window prompt (C3_PLANS)
+    c3 = c3_shapes("K2")
+    cases += [(b, h, sq, sk, dh, False, min(sq, 2048), "c3") for b, h, sq, sk, dh in c3]
     cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
               (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
               (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
@@ -701,7 +758,7 @@ def phase_k2(fa, card, results):
                 line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
             if role == "main":
                 line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
-            if role in ("main", "level", "time", "c2") and dtype == torch.bfloat16:
+            if role in ("main", "level", "time", "c2", "c3") and dtype == torch.bfloat16:
                 # a call is shorter than its host launch cost, so CUDA events
                 # around back-to-back calls time the host: the recorded times
                 # are device times under the profiler
@@ -711,7 +768,7 @@ def phase_k2(fa, card, results):
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
-                if role in ("main", "level", "c2"):
+                if role in ("main", "level", "c2", "c3"):
                     lib, why = sdpa_ms(*args, timer=one_call_device_ms)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
@@ -721,6 +778,11 @@ def phase_k2(fa, card, results):
                 if role == "c2":
                     rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                  library_ms=lib, bound_ms=bms, bound_by=by))
+                if role == "c3":
+                    n, label = c3[(b, h, sq, sk, dh)]
+                    rec["c3_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
+                                                 library_ms=lib, bound_ms=bms, bound_by=by,
+                                                 per_eval=n, request=label))
                 if role == "main":
                     pms = one_call_device_ms(lambda: plain(*args, causal))
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -825,6 +887,13 @@ def phase_k5(k5, card, results):
     cases += [(4, *s, True) for s in distinct(res_convs(port.sdxl_config(), 1024, 1024))]
     c2_timed = {(2, 128, 128, 384, 384), (2, 128, 128, 960, 320), (2, 32, 32, 3072, 1536),
                 (2, 96, 96, 320, 320)}
+    # slice C3's lane counts and shapes (C3_PLANS); timed at each request's
+    # conv of the most operations (of two, the one at the larger level)
+    c3 = c3_shapes("K5")
+    cases += [(*key, True) for key in c3 if (*key, True) not in cases]
+    c3_timed = {max((key for key in c3 if c3[key][1] == label),
+                    key=lambda k: (conv_flops(*k), k[1]))  # ties: the larger level
+                for label in {v[1] for v in c3.values()}}
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         worst = (0.0, None)
@@ -854,8 +923,10 @@ def phase_k5(k5, card, results):
                 print(f"K5 {str(dtype)[6:]} {main}: max abs err {err:.3e} (tol {tol:.3e}); "
                       f"planted fault (padding before the activation) caught: max abs "
                       f"err {bad_err:.3e}", flush=True)
-            if dtype == torch.bfloat16 and (not with_temb and (b, h, w, cin, cout) in (
-                    main, (2, 256, 256, 320, 320)) or (b, h, w, cin, cout) in c2_timed):
+            key = (b, h, w, cin, cout)
+            if dtype == torch.bfloat16 and (not with_temb and key in (
+                    main, (2, 256, 256, 320, 320)) or key in c2_timed
+                    or with_temb and key in c3_timed):
                 flops = conv_flops(b, h, w, cin, cout)
                 n0 = FALLBACKS[0]
                 ms = one_call_device_ms(
@@ -876,9 +947,14 @@ def phase_k5(k5, card, results):
                 if (b, h, w, cin, cout) == main:
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
                                timer=timer_since(n0))
-                if (b, h, w, cin, cout) in c2_timed:
+                if key in c2_timed:
                     rec["c2_shapes"].append(dict(shape=[b, h, w, cin, cout], ms=ms,
                                                  library_ms=lib, bound_ms=bms, bound_by=by))
+                if key in c3_timed and with_temb:
+                    n, label = c3[key]
+                    rec["c3_shapes"].append(dict(shape=[b, h, w, cin, cout], ms=ms,
+                                                 library_ms=lib, bound_ms=bms, bound_by=by,
+                                                 per_eval=n, request=label))
                 print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.4f} ms device "
                       f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.3f} ms "
                       f"(events), cuDNN conv alone on the activated input {lib:.4f} ms "
@@ -1158,13 +1234,44 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     return "K1" if dh in K1_DH else "K3" if k3 else None
 
 
+def attention_blocks(cfg, height, width):
+    """(tokens, channels, layers) of every transformer block of one UNet
+    evaluation at ``height`` x ``width``, in order, from the UNet's plan."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
+
+    u = cfg.unet
+    h = height // cfg.vae.downsample_factor
+    w = width // cfg.vae.downsample_factor
+    blocks = []
+    level = 0
+    for st in unet.encoder_plan(u)[1:]:
+        if st["kind"] == "down":
+            level += 1
+        elif st["attn"]:
+            blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
+    blocks.append(((h >> level) * (w >> level), u.level_channels[-1],  # bottleneck
+                   u.depth_for(len(u.ch_mults) - 1)))
+    for st in unet.decoder_plan(u):
+        if st["attn"]:
+            blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
+        if st["upsample"]:
+            level -= 1
+    return blocks
+
+
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
-                      context=77):
+                      context=77, encodes=None):
     """Kernel launches of one request, derived from the UNet's plan (which
     stages carry attention, at which level, of how many stacked layers,
     at which head width; its res blocks), the length of the
     cross-attention context, the VAE's mid block and
-    :func:`expected_kernel`.  The CPU tests import it too."""
+    :func:`expected_kernel`.  ``encodes``: the VAE encodes besides the one
+    decode (by default one with ``img2img``, else none; slice C3's: two
+    for 9-channel inpainting with an init image, the image and the masked
+    image, one for InstructPix2Pix's edit image).  One launch serves every
+    lane of an evaluation, so the lane count (1 without CFG, 2 with it, 3
+    for InstructPix2Pix) does not enter the counts; it enters the shapes
+    phase 3 holds (:func:`plan_shapes`).  The CPU tests import it too."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
     counts = {"K1": 0, "K2": 0, "K4": 0, "K3": 0, "K5": 0}
@@ -1176,21 +1283,7 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     u = cfg.unet
     h = height // cfg.vae.downsample_factor
     w = width // cfg.vae.downsample_factor
-    per_step = []  # (tokens, channels, layers) of every UNet transformer block
-    level = 0
-    for st in unet.encoder_plan(u)[1:]:
-        if st["kind"] == "down":
-            level += 1
-        elif st["attn"]:
-            per_step.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
-    per_step.append(((h >> level) * (w >> level), u.level_channels[-1],  # bottleneck
-                     u.depth_for(len(u.ch_mults) - 1)))
-    for st in unet.decoder_plan(u):
-        if st["attn"]:
-            per_step.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
-        if st["upsample"]:
-            level -= 1
-    for tokens, c, layers in per_step:
+    for tokens, c, layers in attention_blocks(cfg, height, width):
         dh = c // u.heads_for(c)
         add(expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
                             flash_only=flash_only), steps * layers)
@@ -1202,8 +1295,55 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                                      + 2 + len(unet.decoder_plan(u)))
     mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
-                        flash_only=flash_only), 2 if img2img else 1)
+                        flash_only=flash_only),
+        1 + (int(img2img) if encodes is None else encodes))
     return counts
+
+
+def plan_shapes(cfg, height, width, lanes, context=77):
+    """The shapes one UNet evaluation of ``lanes`` lanes at ``height`` x
+    ``width`` gives K1, K2 and K5 on the kernel backends, from the UNet's
+    plan and :func:`expected_kernel`, each with its launches an evaluation:
+    {"K1": {(B, S, C, heads): n}, "K2": {(B, heads, S, KV, Dh): n},
+    "K5": {(B, H, W, Cin, Cout): n}}."""
+    out = {"K1": {}, "K2": {}, "K5": {}}
+
+    def add(kernel, key, n):
+        out[kernel][key] = out[kernel].get(key, 0) + n
+
+    u = cfg.unet
+    for tokens, c, layers in attention_blocks(cfg, height, width):
+        heads = u.heads_for(c)
+        if expected_kernel(tokens, c // heads, cross=False, backend="kernel") == "K1":
+            add("K1", (lanes, tokens, c, heads), layers)
+        if expected_kernel(context, c // heads, cross=True, backend="kernel") == "K2":
+            add("K2", (lanes, heads, tokens, context, c // heads), layers)
+    for h, w, cin, cout in res_convs(cfg, height, width):
+        add("K5", (lanes, h, w, cin, cout), 1)
+    return out
+
+
+#: slice C3's requests that give K1, K2 and K5 a lane count or a shape the
+#: earlier slices' do not: (preset, height, width, lanes, context, request)
+C3_PLANS = (("sd15_config", 512, 512, 1, 77, "h: LCM, no CFG"),
+            ("sd15_config", 512, 512, 3, 77, "g: InstructPix2Pix"),
+            ("sd15_config", 512, 512, 3, 308, "g: InstructPix2Pix, 4-window prompt"),
+            ("sd15_config", 1024, 1024, 2, 77, "i: hires_fix's 1024² pass"),
+            ("sd15_config", 512, 640, 2, 77, "e: outpaint's 640x512 canvas"),
+            ("sdxl_config", 1024, 1024, 1, 77, "k: SDXL LCM, no CFG"))
+
+
+def c3_shapes(kernel):
+    """{shape: (launches an evaluation, request)} of ``kernel`` over
+    :data:`C3_PLANS`."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    out = {}
+    for preset, height, width, lanes, context, label in C3_PLANS:
+        for key, n in plan_shapes(getattr(port, preset)(), height, width, lanes,
+                                  context)[kernel].items():
+            out.setdefault(key, (n, label))
+    return out
 
 
 #: samplers of one UNet evaluation a step, and of two but on the final step
@@ -1310,25 +1450,31 @@ def phase_slice_b(port, request, base, init_image, zero_counts, read_path):
 def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"):
     """One UNet evaluation of ``cfg``'s family at ``size``² of CFG batch
     ``batch`` under a ``context``-token context (and random added
-    conditioning, SDXL): its wall time, its device busy share under
-    torch.profiler, and the device time of K1, K4, K2 and K5 in it."""
+    conditioning, SDXL; the UNet's input channels, 8 for InstructPix2Pix;
+    LCM's guidance embedding where the UNet takes one): its wall time, its
+    device busy share under torch.profiler, and the device time of K1, K4,
+    K2 and K5 in it."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
     dtype = cfg.policy.compute_dtype
     lat = size // cfg.vae.downsample_factor
-    x = torch.randn(batch, 4, lat, lat, device="cuda", generator=g).to(dtype) \
-        .contiguous(memory_format=torch.channels_last)
+    x = torch.randn(batch, cfg.unet.in_channels, lat, lat, device="cuda", generator=g) \
+        .to(dtype).contiguous(memory_format=torch.channels_last)
     ctx = torch.randn(batch, context, cfg.unet.d_context, device="cuda", generator=g).to(dtype)
     add = None if cfg.unet.add_embed_dim is None else \
         torch.randn(batch, cfg.unet.add_embed_dim, device="cuda", generator=g)
     t = torch.tensor(500.0, device="cuda")
+    t_cond = None if cfg.unet.time_cond_dim is None else \
+        unet.guidance_scale_embedding(7.0, cfg.unet.time_cond_dim, device="cuda")
 
     def step():
         with torch.inference_mode():
             return models["diffusion"](x, ctx, t, cfg.policy,
                                        attention_backend=cfg.attention_backend,
-                                       conv_backend=cfg.conv_backend, add_cond=add)
+                                       conv_backend=cfg.conv_backend, add_cond=add,
+                                       t_cond=t_cond)
 
     step()
     torch.cuda.synchronize()
@@ -2010,6 +2156,319 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
     return xl, xl_cfg
 
 
+# ------------------------------------------------------------------ slice C3
+def c3_variant(port, models, cfg, preset, seed):
+    """The models of ``preset`` (a slice-C3 preset of ``cfg``'s family, on
+    ``cfg``'s policy and backends) around ``models``' tensors: every UNet
+    tensor the preset shares with the family's is the same tensor; those it
+    changes or adds (a 9- or 8-channel conv_in weight, LCM's cond_proj) are
+    drawn U(-1/sqrt(fan in), 1/sqrt(fan in)) from ``seed`` on the models'
+    device, as the port's initializers draw them."""
+    import math
+
+    from pytorch_stable_diffusion_tpu_torch.models import assemble, construct
+
+    new = dataclasses.replace(
+        getattr(port, preset)(policy=cfg.policy), attention_backend=cfg.attention_backend,
+        vae_attention_backend=cfg.vae_attention_backend, conv_backend=cfg.conv_backend)
+    sd = dict(models["diffusion"].state_dict())
+    dev = next(iter(sd.values())).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for k, v in construct(new)["diffusion"].state_dict().items():
+        if k not in sd or sd[k].shape != v.shape:
+            check("conv_in" in k or "cond_proj" in k, f"{preset}: {k} differs from the base")
+            bound = 1.0 / math.sqrt(math.prod(v.shape[1:]))
+            sd[k] = ((torch.rand(v.shape, generator=g, device=dev) * 2 - 1) * bound) \
+                .to(cfg.policy.param_dtype)
+    return new, dict(models, diffusion=assemble(new, {"diffusion": sd})["diffusion"])
+
+
+def _c3_mask(height, width, box):
+    import numpy as np
+
+    y0, y1, x0, x1 = box
+    m = np.zeros((height, width), np.float32)
+    m[y0:y1, x0:x1] = 1.0
+    return m
+
+
+def phase_small_c3(port):
+    """Full width, FP32, 256², 2 steps, CFG 5, the card against the port's
+    CPU plain path on the same seeded weights and noise (> 55 dB latents,
+    > 40 dB image, the launches of the plan): SD-1.5 9-channel inpainting
+    (unet9), latent-blend inpainting on the 4-channel model, InstructPix2Pix
+    (three lanes) and LCM without CFG (one lane, the guidance embedding).
+    The variants share SD-1.5's CPU tensors (:func:`c3_variant`); each is
+    copied to the card in turn."""
+    import numpy as np
+
+    import ctypes
+    import gc
+
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
+
+    tok = _tokenizer()
+    r = np.random.RandomState(33)
+    image = r.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    mask = _c3_mask(256, 256, (64, 160, 96, 224))
+    kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
+              tokenizer=tok, return_latents=True, n_inference_steps=2)
+    kernels = dict(attention_backend="kernel", vae_attention_backend="kernel")
+    t0 = time.perf_counter()
+    base = port.sd15_config(policy=port.FP32)
+    with HostPeak() as peak:
+        cpu = port.build_models(base, device="cpu", generator=torch.Generator().manual_seed(31))
+    print(f"small C3: SD-1.5 FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
+          f"{peak.text()}", flush=True)
+    requests = (  # label, preset, options, VAE encodes
+        ("unet9 inpaint", "sd15_inpaint_config",
+         dict(input_image=image, mask_image=mask, strength=1.0, sampler_name="ddpm"), 2),
+        ("blend inpaint", "sd15_config",
+         dict(input_image=image, mask_image=mask, strength=0.5, mask_blur=4,
+              sampler_name="euler_a"), 1),
+        ("InstructPix2Pix", "sd15_ip2p_config",
+         dict(edit_image=image, image_guidance_scale=1.5, sampler_name="euler_a"), 1),
+        ("LCM, no CFG", "sd15_lcm_config", dict(do_cfg=False, sampler_name="lcm"), 0))
+    for i, (label, preset, opts, encodes) in enumerate(requests):
+        t1 = time.perf_counter()
+        cfg_c, cpu_m = c3_variant(port, cpu, base, preset, seed=60 + i)
+        img_c, lat_c = port.generate(PROMPTS[0], models=cpu_m, config=cfg_c, device="cpu",
+                                     **kw, **opts)
+        t_cpu = time.perf_counter() - t1
+        cfg_g = dataclasses.replace(cfg_c, **kernels)
+        gpu_m = port.build_models(cfg_g, device="cuda",
+                                  state_dicts={k: m.state_dict() for k, m in cpu_m.items()})
+        evals = 2 - ddpm.start_step_for_strength(2, opts.get("strength", 1.0)) \
+            if "input_image" in opts else 2
+        want = expected_launches(cfg_g, 256, 256, steps=evals, img2img=False, encodes=encodes)
+        before = launch_counts()
+        img_g, lat_g = port.generate(PROMPTS[0], models=gpu_m, config=cfg_g, device="cuda",
+                                     **kw, **opts)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small C3 ({label}): full-width FP32 256², {evals} UNet evaluations, CFG 5, "
+              f"card vs CPU plain path: latents PSNR {lat_db:.1f} dB, image PSNR "
+              f"{img_db:.1f} dB, launches {got}; CPU side {t_cpu:.1f} s", flush=True)
+        check(got == want, f"small C3 ({label}) launched {got}, want {want}")
+        check(np.isfinite(lat_g).all(), f"small C3 ({label}): latents not finite")
+        check(lat_db > 55.0, f"small C3 ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small C3 ({label}) image PSNR {img_db:.1f} dB <= 40")
+        del cpu_m, gpu_m
+        torch.cuda.empty_cache()
+    del cpu
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def c3_run(label, fn, parts, shape, card, zero_counts, read_path):
+    """One slice-C3 request: the launch counters zeroed before it and read
+    after; its launches held to the plan of its ``parts`` (each a
+    generate() call: (config, height, width, UNet evaluations, VAE encodes,
+    context tokens)); its output's shape; its wall time and peak memory."""
+    import numpy as np
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launched = launch_counts()
+    read_path()
+    want = {k: 0 for k in launched}
+    evals = 0
+    for cfg, height, width, n, encodes, context in parts:
+        evals += n
+        per = expected_launches(cfg, height, width, steps=n, img2img=False, encodes=encodes,
+                                context=context)
+        family = "sdxl" if cfg.clip2 is not None else None
+        stated = C2_PER_EVAL[family] if family else {"K5": K5_PER_EVAL, "K2": K2_PER_EVAL}
+        check(per["K5"] == stated["K5"] * n, f"C3 {label}: derived {per['K5']} K5 launches, "
+                                             f"PERF.md states {stated['K5'] * n}")
+        check(per["K2"] == (stated["K2"] * n if context >= 256 else 0),
+              f"C3 {label}: derived {per['K2']} K2 launches")
+        for k, v in per.items():
+            want[k] += v
+    images = out[0] if isinstance(out, tuple) else out
+    check(images.dtype == np.uint8 and images.shape == shape,
+          f"C3 {label}: output {images.dtype} {images.shape}, want {shape}")
+    check(images.max() > images.min(), f"C3 {label}: constant image")
+    if isinstance(out, tuple):
+        check(np.isfinite(out[1]).all(), f"C3 {label}: latents not finite")
+    check(launched == want, f"C3 {label}: launched {launched}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"request C3 {label}: {dt:.2f} s wall, {evals} UNet evaluations, output "
+          f"{shape[1]}x{shape[0]}, launches {launched}, peak {peak:.2f} GiB  [{card}]",
+          flush=True)
+    return out
+
+
+def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
+    """Slice C3 at SD-1.5 512², full width, BF16, kernel attention, conv and
+    VAE (the module docstring, phase 6, slice C3); the inpaint, InstructPix2Pix
+    and LCM UNets are the phase-5 models' with their conv_in or cond_proj
+    drawn (:func:`c3_variant`); one InstructPix2Pix and one no-CFG LCM
+    evaluation profiled as in phase 7."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch import pipeline
+    from pytorch_stable_diffusion_tpu_torch.core import rng
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
+    from pytorch_stable_diffusion_tpu_torch.utils.annotators import blur
+
+    base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
+    inp_cfg, inp = c3_variant(port, models, base_cfg, "sd15_inpaint_config", seed=41)
+    ip_cfg, ip = c3_variant(port, models, base_cfg, "sd15_ip2p_config", seed=42)
+    lcm_cfg, lcm = c3_variant(port, models, base_cfg, "sd15_lcm_config", seed=43)
+    tok = _tokenizer()
+    r = np.random.RandomState(34)
+    image = r.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    half = _c3_mask(512, 512, (0, 512, 256, 512))  # the right half
+    kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+
+    def run(label, fn, parts, shape):
+        return c3_run(label, fn, parts, shape, card, zero_counts, read_path)
+
+    def gen(models_, cfg_, **more):
+        return lambda: port.generate(PROMPTS[0], models=models_, config=cfg_,
+                                     return_latents=True, **{**kw, **more})
+
+    sq = (512, 512, 3)
+    a, lat_a = run("a unet9 inpaint 512², dpm++ karras 20 steps, half mask, strength 1.0",
+                   gen(inp, inp_cfg, input_image=image, mask_image=half, strength=1.0),
+                   [(inp_cfg, 512, 512, 20, 2, 77)], sq)
+    a2, lat_a2 = run("a' the same again", gen(inp, inp_cfg, input_image=image, mask_image=half,
+                                             strength=1.0),
+                     [(inp_cfg, 512, 512, 20, 2, 77)], sq)
+    check(np.array_equal(a, a2) and np.array_equal(lat_a, lat_a2),
+          "C3 unet9 inpaint: the same seed gave a different result")
+    kept = a[:, :256].astype(np.float32)
+    print(f"C3 a: a' == a bit-identical; kept half vs the init image PSNR "
+          f"{psnr(kept, image[:, :256].astype(np.float32)):.1f} dB (not gated)", flush=True)
+
+    # (b) latent blend on the 4-channel model: the kept latents are the init's
+    mask_b = _c3_mask(512, 512, (128, 384, 192, 448))
+    start = ddpm.start_step_for_strength(20, 0.75)
+    pixels = torch.as_tensor(pipeline._prepare_image(image, 512, 512)).cuda()
+    pixels = pixels.contiguous(memory_format=torch.channels_last if pixels.is_cuda
+                               else torch.contiguous_format)  # the pipeline's layout
+    with torch.inference_mode():
+        lat0 = pipeline.encode_image(
+            models, pixels, rng.batch_normal(1337, "encoder_noise", 1, (4, 64, 64)).cuda(),
+            base_cfg).float().cpu().numpy()
+    blurred = np.clip(blur(pipeline._prepare_mask(mask_b, 512, 512)[0, ..., 0], sigma=4.0),
+                      0.0, 1.0)[None, ..., None].astype(np.float32)
+    keep = pipeline.mask_to_latent_area(blurred, 8)[0, ..., 0] == 0
+    for sampler, evals in (("euler_a", 20 - start), ("heun", 2 * (20 - start) - 1)):
+        _, lat_b = run(f"b blend inpaint, {sampler}, strength 0.75, mask_blur=4",
+                       gen(models, base_cfg, input_image=image, mask_image=mask_b,
+                           strength=0.75, mask_blur=4, sampler_name=sampler,
+                           timestep_spacing="uniform"),
+                       [(base_cfg, 512, 512, evals, 1, 77)], sq)
+        check(np.array_equal(lat_b[:, :, keep], lat0[:, :, keep]),
+              f"C3 b ({sampler}): the kept latents differ from the init image's")
+        print(f"C3 b ({sampler}): {int(keep.sum())} of {keep.size} latent pixels kept, each "
+              f"equal to the init image's encoded latents", flush=True)
+
+    # (c) inpaint at full resolution: a 96x96 mask in a 768x512 image
+    wide = r.randint(0, 256, (512, 768, 3)).astype(np.uint8)
+    box = (200, 296, 300, 396)
+    sd_inp = port.StableDiffusion(inp, tok, inp_cfg, device="cuda")
+    full = run("c inpaint(full_res=True), a 96x96 mask in a 768x512 image",
+               lambda: sd_inp.inpaint(PROMPTS[0], wide, _c3_mask(512, 768, box), full_res=True,
+                                      **{k: v for k, v in kw.items() if k != "tokenizer"}),
+               [(inp_cfg, 512, 512, 20, 2, 77)], (512, 768, 3))
+    pad = 32  # full_res_padding: a 160x160 crop, square as the 512² processing size
+    crop = np.zeros((512, 768), bool)
+    crop[box[0] - pad:box[1] + pad, box[2] - pad:box[3] + pad] = True
+    check(np.array_equal(full[~crop], wide[~crop]),
+          "C3 c: pixels outside the crop differ from the input")
+    check(not np.array_equal(full[crop], wide[crop]), "C3 c: the crop did not change")
+    print(f"C3 c: {int((~crop).sum())} pixels outside the crop equal to the input's",
+          flush=True)
+
+    # (d) masked_content="fill" on the 4-channel model; (e) outpaint on unet9
+    sd_base = port.StableDiffusion(models, tok, base_cfg, device="cuda")
+    skw = {k: v for k, v in kw.items() if k != "tokenizer"}
+    run("d inpaint(masked_content='fill'), blend, strength 0.75",
+        lambda: sd_base.inpaint(PROMPTS[0], image, mask_b, strength=0.75,
+                                masked_content="fill", height=512, width=512, **skw),
+        [(base_cfg, 512, 512, 20 - start, 1, 77)], sq)
+    out_e = run("e outpaint 64 px left and right (640x512 canvas), unet9",
+                lambda: sd_inp.outpaint(PROMPTS[0], image, pixels=64,
+                                        directions=("left", "right"), **skw),
+                [(inp_cfg, 512, 640, 20, 2, 77)], (512, 640, 3))
+    check(out_e.shape == (512, 640, 3), "C3 e: canvas shape")
+    start_f = ddpm.start_step_for_strength(20, 0.6)
+    f_img, _ = run("f img2img strength 0.6 with color_correction",
+                   gen(models, base_cfg, input_image=image, strength=0.6,
+                       color_correction=True),
+                   [(base_cfg, 512, 512, 20 - start_f, 1, 77)], sq)
+
+    # (g) InstructPix2Pix: three lanes; with a 4-window prompt K2 at lane count 3
+    sd_ip = port.StableDiffusion(ip, tok, ip_cfg, device="cuda")
+    ekw = dict(skw, sampler_name="euler_a", timestep_spacing="uniform")
+    run("g edit, euler_a 20 steps, CFG 7.5, image guidance 1.5",
+        lambda: sd_ip.edit(PROMPTS[0], image, image_guidance_scale=1.5, **ekw),
+        [(ip_cfg, 512, 512, 20, 1, 77)], sq)
+    run("g' edit with the 4-window prompt (K2 at lane count 3)",
+        lambda: sd_ip.edit(LONG_PROMPT, image, image_guidance_scale=1.5, emphasis=True,
+                           **ekw),
+        [(ip_cfg, 512, 512, 20, 1, 308)], sq)
+
+    # (h) LCM, 4 steps, no CFG: one lane and the guidance embedding
+    run("h LCM 4 steps, do_cfg=False", gen(lcm, lcm_cfg, do_cfg=False, sampler_name="lcm",
+                                          timestep_spacing="uniform", n_inference_steps=4),
+        [(lcm_cfg, 512, 512, 4, 0, 77)], sq)
+
+    # (i) hires_fix 512² -> 1024², strength 0.6
+    start_i = ddpm.start_step_for_strength(20, 0.6)
+    for method in ("bilinear", "lanczos3"):
+        run(f"i hires_fix 512² -> 1024², strength 0.6, {method}",
+            lambda: sd_base.hires_fix(PROMPTS[0], height=1024, width=1024, strength=0.6,
+                                      upscale_method=method, **skw),
+            [(base_cfg, 512, 512, 20, 0, 77), (base_cfg, 1024, 1024, 20 - start_i, 0, 77)],
+            (1024, 1024, 3))
+
+    # one evaluation of each new lane count, profiled
+    phase_step(ip, ip_cfg, card, size=512, batch=3, label="SD-1.5 InstructPix2Pix")
+    phase_step(lcm, lcm_cfg, card, size=512, batch=1, label="SD-1.5 LCM, no CFG")
+    del inp, ip, lcm, sd_inp, sd_ip, sd_base
+    torch.cuda.empty_cache()
+
+
+def phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path):
+    """Slice C3 on SDXL 1024² (after slice C2, the SD-1.5 models freed):
+    (j) unet9 inpainting, 20 dpm++ Karras steps, and (k) LCM, 4 steps,
+    without CFG; the UNets are C2's SDXL base with its conv_in or cond_proj
+    drawn (:func:`c3_variant`)."""
+    import numpy as np
+
+    inp_cfg, inp = c3_variant(port, xl, xl_cfg, "sdxl_inpaint_config", seed=44)
+    lcm_cfg, lcm = c3_variant(port, xl, xl_cfg, "sdxl_lcm_config", seed=45)
+    r = np.random.RandomState(35)
+    image = r.randint(0, 256, (1024, 1024, 3)).astype(np.uint8)
+    kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
+              device="cuda", height=1024, width=1024, return_latents=True,
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+    c3_run("j SDXL unet9 inpaint 1024², dpm++ karras 20 steps, strength 1.0",
+           lambda: port.generate(PROMPTS[0], models=inp, config=inp_cfg, input_image=image,
+                                 mask_image=_c3_mask(1024, 1024, (256, 768, 256, 768)),
+                                 strength=1.0, **kw),
+           [(inp_cfg, 1024, 1024, 20, 2, 77)], (1024, 1024, 3), card, zero_counts, read_path)
+    c3_run("k SDXL LCM 1024², 4 steps, do_cfg=False",
+           lambda: port.generate(PROMPTS[0], models=lcm, config=lcm_cfg, do_cfg=False,
+                                 **{**kw, "sampler_name": "lcm", "timestep_spacing": "uniform",
+                                    "n_inference_steps": 4, "cfg_scale": 8.0}),
+           [(lcm_cfg, 1024, 1024, 4, 0, 77)], (1024, 1024, 3), card, zero_counts, read_path)
+    phase_step(lcm, lcm_cfg, card, size=1024, batch=1, label="SDXL LCM, no CFG")
+    del inp, lcm
+    torch.cuda.empty_cache()
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -2074,7 +2533,7 @@ def main():
 
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "c2_shapes": []}
+                      "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -2274,6 +2733,8 @@ def main():
     phase_slice_b(port, request, base, a, zero_counts, read_path)
     # slice D: checkpoint files, the StableDiffusion API and the weight transforms
     phase_slice_d(port, card, request, zero_counts, read_path)
+    # slice C3: inpainting, InstructPix2Pix, LCM and hires_fix at 512²
+    phase_slice_c3(port, card, models, cfg, zero_counts, read_path)
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -2287,9 +2748,12 @@ def main():
     del models, base, batch_kw, long_kw
     torch.cuda.empty_cache()
     phase_small_c2(port, attention)
+    phase_small_c3(port)
     xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)
     phase_step(xl, xl_cfg, card, size=1024, label="SDXL")
     phase_step(xl, xl_cfg, card, size=1024, context=308, label="SDXL")
+    # slice C3 on SDXL: 9-channel inpainting and LCM at 1024²
+    phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path)
     del xl
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]

@@ -9,8 +9,10 @@ samplers and timestep grids, up to 2048² (65536-token attention), with
 the tiled VAE for high resolutions; it loads CompVis checkpoints
 (``.safetensors`` through a native reader, ``.ckpt`` through a restricted
 unpickler) and diffusers directories, and applies LoRA, textual inversion,
-hypernetworks, VAE overrides and merges (``weights/``), behind the
-``StableDiffusion`` object of ``api.py``.  Module paths mirror the JAX
+hypernetworks, VAE overrides and merges (``weights/``); it inpaints
+(9-channel checkpoints or latent blending, full-resolution, fill,
+outpaint), edits with InstructPix2Pix, runs LCM's embedded guidance and the
+two-pass hires fix, behind the ``StableDiffusion`` object of ``api.py``.  Module paths mirror the JAX
 package (``core/``, ``ops/``, ``models/``, ``sampling/``, ``weights/``,
 ``pipeline.py``, ``api.py``); the TPU's Pallas kernels are hand-written
 CUDA kernels in ``csrc/``: K1 ``flash_attention_bsc.cu``, K2
@@ -36,13 +38,17 @@ Everything runs on the card unless ``device=`` names another device.
 
 from .core.dtypes import BF16, FP32, Policy
 from .models import build_models
-from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig, sd15_config,
-                            sd21_config, sdxl_config, sdxl_refiner_config, tiny_sd_config,
+from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig, sd2_inpaint_config,
+                            sd15_config, sd15_inpaint_config, sd15_ip2p_config,
+                            sd15_lcm_config, sd21_config, sdxl_config, sdxl_inpaint_config,
+                            sdxl_lcm_config, sdxl_refiner_config, tiny_sd_config,
                             tiny_sdxl_config)
 from .pipeline import generate, generate_images, generate_many
 from .api import StableDiffusion
 
 __all__ = ["BF16", "FP32", "Policy", "build_models", "CLIPConfig", "SDConfig",
            "UNetConfig", "VAEConfig", "sd15_config", "sd21_config", "sdxl_config",
-           "sdxl_refiner_config", "tiny_sd_config", "tiny_sdxl_config",
+           "sdxl_refiner_config", "sd15_inpaint_config", "sd15_ip2p_config",
+           "sd15_lcm_config", "sd2_inpaint_config", "sdxl_inpaint_config", "sdxl_lcm_config",
+           "tiny_sd_config", "tiny_sdxl_config",
            "generate", "generate_images", "generate_many", "StableDiffusion"]

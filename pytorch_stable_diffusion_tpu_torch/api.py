@@ -30,6 +30,33 @@ def _unported(what: str, where: str):
                               f"(ROADMAP.md §1)")
 
 
+def _to_rgb_float(image) -> np.ndarray:
+    """Any image input -> (H, W, 3) float32 in 0..255 (grayscale stacked,
+    alpha dropped, [0, 1]-ranged FLOAT inputs rescaled — integer inputs
+    are always 0..255 already; a near-black uint8 image whose max pixel
+    is 1 must NOT be blown up to white)."""
+    arr = np.asarray(image)
+    is_float = arr.dtype.kind == "f"
+    img = arr.astype(np.float32)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    img = img[..., :3]
+    if is_float and img.max() <= 1.0:
+        img = img * 255.0
+    return img
+
+
+def _mask_array(mask_image) -> np.ndarray:
+    """A PIL or array mask -> (H, W) float32, 0..255 inputs scaled to [0, 1]."""
+    m = np.asarray(mask_image.convert("L") if hasattr(mask_image, "convert")
+                   else mask_image, np.float32)
+    if m.ndim == 3:
+        m = m[..., 0]
+    if m.max() > 1.0:
+        m = m / 255.0
+    return m
+
+
 def _device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -61,6 +88,10 @@ class StableDiffusion:
         image = sd.txt2img("a photo of a dog", seed=1337)
         image = sd.img2img("a cat", init_image, strength=0.8)
         images = sd.generate_many(["a dog"] * 8, seed=0, batch_size=4)
+        # slice C3: inpaint (9-channel sd15_inpaint_config, or latent blend on
+        # any other), outpaint, InstructPix2Pix (sd15_ip2p_config), hires fix
+        image = sd.inpaint("a cat", init_image, mask, full_res=True)
+        image = sd.hires_fix("a cat", height=1024, width=1024, strength=0.6)
     """
 
     def __init__(self, models, tokenizer, config: Optional[SDConfig] = None,
@@ -262,16 +293,175 @@ class StableDiffusion:
             rows.append(np.concatenate(row, axis=1))
         return np.concatenate(rows, axis=0)
 
+    def edit(self, prompt: str, image, image_guidance_scale: float = 1.5,
+             uncond_prompt: str = "", **kwargs) -> np.ndarray:
+        """InstructPix2Pix editing: ``prompt`` is the edit instruction ("make
+        it a watercolor"), ``image`` the picture to edit.  Needs an 8-channel
+        checkpoint (``sd15_ip2p_config``).  Denoising runs from pure noise
+        under dual guidance: ``cfg_scale`` pulls toward the instruction,
+        ``image_guidance_scale`` toward the input image (Brooks et al. 2023;
+        diffusers' instruct_pix2pix semantics)."""
+        return pipeline_mod.generate(prompt, uncond_prompt, edit_image=image,
+                                     image_guidance_scale=image_guidance_scale,
+                                     **self._kw(kwargs))
+
+    def hires_fix(self, prompt: str, uncond_prompt: str = "", *,
+                  height: int = 1024, width: int = 1024,
+                  base_height: Optional[int] = None, base_width: Optional[int] = None,
+                  strength: float = 0.6, upscale_method: str = "bilinear",
+                  **kwargs) -> np.ndarray:
+        """Two-pass hi-res generation (the community "highres fix").
+
+        Pass 1 runs txt2img at the base resolution (default: half the
+        target); its latents are resized (``upscale_method``: "bilinear",
+        "nearest", "cubic" or "lanczos3", as ``jax.image.resize`` computes
+        them: ``utils/image.py``) and denoised again at the target size
+        through latent-space img2img (``init_latents``: no decode/encode
+        round trip).  ``strength`` is the second pass's denoise strength.
+        ``"esrgan"`` (a pixel-space upscaler) comes with slice G."""
+        from .utils.image import METHODS, resize
+
+        if upscale_method == "esrgan":
+            _unported("hires_fix(upscale_method='esrgan')", "slice G")
+        if upscale_method not in METHODS:
+            raise ValueError(f"unknown upscale_method {upscale_method!r}")
+        bh, bw = base_height or height // 2, base_width or width // 2
+        kw = self._kw(dict(kwargs))
+        _, lat = pipeline_mod.generate(prompt, uncond_prompt, height=bh, width=bw,
+                                       return_latents=True, **kw)
+        f = self.config.vae.downsample_factor
+        up = resize(lat, lat.shape[:2] + (height // f, width // f), upscale_method)
+        return pipeline_mod.generate(prompt, uncond_prompt, height=height, width=width,
+                                     init_latents=up, strength=strength, **kw)
+
+    @staticmethod
+    def _fill_masked(init_image, mask_image, sigma: float = 8.0):
+        """A1111 "masked content: fill": seed the repaint region with a
+        heavy blur of the surrounding content (masked pixels first replaced
+        by the unmasked mean so they don't bleed into the fill).  Host-side
+        preprocessing; returns a uint8 image."""
+        from .utils.annotators import blur
+
+        img = _to_rgb_float(init_image)
+        m = _mask_array(mask_image)
+        if m.shape != img.shape[:2]:
+            raise ValueError(f"mask shape {m.shape} != image {img.shape[:2]}")
+        keep = (m <= 0.5)
+        mean = img[keep].reshape(-1, 3).mean(axis=0) if keep.any() \
+            else np.full(3, 127.5, np.float32)
+        seeded = np.where(keep[..., None], img, mean)
+        blurred = np.stack([blur(seeded[..., c] / 255.0, sigma=sigma)
+                            for c in range(3)], axis=-1) * 255.0
+        out = np.where(keep[..., None], img, blurred)
+        return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+    def inpaint(self, prompt: str, init_image, mask_image, strength: float = 1.0,
+                uncond_prompt: str = "", *, full_res: bool = False,
+                full_res_padding: int = 32, masked_content: str = "original",
+                **kwargs) -> np.ndarray:
+        """Repaint the masked region (mask 1 = repaint, 0 = keep).
+
+        With a 9-channel inpaint checkpoint (``sd15_inpaint_config``,
+        ``sd2_inpaint_config``, ``sdxl_inpaint_config``) the mask conditions
+        the UNet; with any 4-channel checkpoint the pipeline blends latents
+        (the kept region re-noised to every step's level, and exactly the
+        original's at the end).  ``strength`` works as in img2img.
+
+        ``full_res=True`` is A1111's "inpaint at full resolution": the
+        mask's bounding box (+ ``full_res_padding`` pixels, grown toward the
+        processing aspect ratio) is cropped, inpainted at ``height`` x
+        ``width``, resized back and blended into the original image, which
+        is returned at its own size; pixels outside the crop are the
+        input's.  ``masked_content``: "original" (the image under the mask
+        is the denoise start) or "fill" (seeded with a heavy blur of the
+        surroundings)."""
+        from .utils.image import resize
+
+        if masked_content not in ("original", "fill"):
+            raise ValueError(f"unknown masked_content {masked_content!r} "
+                             "(original | fill)")
+        if masked_content == "fill":
+            init_image = self._fill_masked(init_image, mask_image)
+        if not full_res:
+            return pipeline_mod.generate(prompt, uncond_prompt, input_image=init_image,
+                                         mask_image=mask_image, strength=strength,
+                                         **self._kw(kwargs))
+        h = kwargs.get("height", 512)
+        w = kwargs.get("width", 512)
+        img = _to_rgb_float(init_image)  # (H0, W0, 3), 0..255
+        m = _mask_array(mask_image)
+        H0, W0 = img.shape[:2]
+        if m.shape != (H0, W0):
+            raise ValueError(f"mask shape {m.shape} != image {(H0, W0)}")
+        ys, xs = np.nonzero(m > 0.5)
+        if len(ys) == 0:  # empty mask: nothing to crop around
+            return pipeline_mod.generate(prompt, uncond_prompt, input_image=init_image,
+                                         mask_image=mask_image, strength=strength,
+                                         **self._kw(kwargs))
+        y0 = max(int(ys.min()) - full_res_padding, 0)
+        y1 = min(int(ys.max()) + 1 + full_res_padding, H0)
+        x0 = max(int(xs.min()) - full_res_padding, 0)
+        x1 = min(int(xs.max()) + 1 + full_res_padding, W0)
+        # grow the short side toward the processing aspect ratio (h/w),
+        # clamped to the image: keeps the upscale near-isotropic
+        ch, cw = y1 - y0, x1 - x0
+        if ch * w < cw * h:  # too wide: grow the height
+            want = min(int(round(cw * h / w)), H0)
+            extra = want - ch
+            y0 = max(y0 - extra // 2, 0)
+            y1 = min(y0 + want, H0)
+            y0 = max(y1 - want, 0)
+        elif cw * h < ch * w:  # too tall: grow the width
+            want = min(int(round(ch * w / h)), W0)
+            extra = want - cw
+            x0 = max(x0 - extra // 2, 0)
+            x1 = min(x0 + want, W0)
+            x0 = max(x1 - want, 0)
+        crop = img[y0:y1, x0:x1]
+        mcrop = m[y0:y1, x0:x1]
+        up_img = resize(crop, (h, w, 3), "bilinear")
+        up_mask = resize(mcrop, (h, w), "bilinear")
+        out = pipeline_mod.generate(prompt, uncond_prompt,
+                                    input_image=np.clip(up_img, 0, 255).astype(np.uint8),
+                                    mask_image=np.clip(up_mask, 0, 1), strength=strength,
+                                    **self._kw(kwargs))
+        back = resize(out.astype(np.float32), (y1 - y0, x1 - x0, 3), "bilinear")
+        blend = mcrop[..., None]
+        result = img.copy()
+        result[y0:y1, x0:x1] = blend * back + (1.0 - blend) * crop
+        return np.clip(np.round(result), 0, 255).astype(np.uint8)
+
+    def outpaint(self, prompt: str, image, *, pixels: int = 64,
+                 directions=("left", "right", "up", "down"), strength: float = 1.0,
+                 mask_blur: int = 4, uncond_prompt: str = "", **kwargs) -> np.ndarray:
+        """A1111's "poor man's outpainting": grow the canvas by ``pixels`` in
+        the given directions, seed the new area with edge-replicated
+        content, and inpaint it (the kept region is the original image).
+        The processing resolution is the padded canvas, which must stay a
+        multiple of the VAE factor.  Returns the padded canvas (uint8)."""
+        img = _to_rgb_float(image)
+        h0, w0 = img.shape[:2]
+        top = pixels if "up" in directions else 0
+        bot = pixels if "down" in directions else 0
+        lef = pixels if "left" in directions else 0
+        rig = pixels if "right" in directions else 0
+        if not (top or bot or lef or rig):
+            raise ValueError("no outpaint directions given")
+        canvas = np.pad(img, ((top, bot), (lef, rig), (0, 0)), mode="edge")
+        mask = np.ones(canvas.shape[:2], np.float32)
+        mask[top:top + h0, lef:lef + w0] = 0.0  # keep the original
+        h, w = canvas.shape[:2]
+        f = self.config.vae.downsample_factor
+        if h % f or w % f:
+            raise ValueError(f"padded canvas {h}x{w} must be a multiple of "
+                             f"{f}; adjust pixels/image size")
+        kwargs.pop("height", None), kwargs.pop("width", None)
+        return pipeline_mod.generate(
+            prompt, uncond_prompt, input_image=np.clip(canvas, 0, 255).astype(np.uint8),
+            mask_image=mask, mask_blur=mask_blur, strength=strength,
+            height=h, width=w, **self._kw(kwargs))
+
     # ------------------------------------------------ later slices' methods
-    def edit(self, *args, **kwargs):
-        _unported("StableDiffusion.edit (InstructPix2Pix)", "slice C3")
-
-    def hires_fix(self, *args, **kwargs):
-        _unported("StableDiffusion.hires_fix", "slice C3")
-
-    def inpaint(self, *args, **kwargs):
-        _unported("StableDiffusion.inpaint", "slice C3")
-
     def with_controlnet(self, *args, **kwargs):
         _unported("StableDiffusion.with_controlnet", "slice E")
 
@@ -292,9 +482,6 @@ class StableDiffusion:
 
     def upscale(self, *args, **kwargs):
         _unported("StableDiffusion.upscale (ESRGAN)", "slice G")
-
-    def outpaint(self, *args, **kwargs):
-        _unported("StableDiffusion.outpaint", "slice G")
 
     def sd_upscale(self, *args, **kwargs):
         _unported("StableDiffusion.sd_upscale", "slice G")

@@ -395,10 +395,6 @@ def check_ported(cfg: SDConfig) -> None:
         _check_tower(cfg.clip2, "clip2")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
-    if u.in_channels != 4:
-        _refuse(f"a {u.in_channels}-channel UNet (inpaint/ip2p presets)", "slice C3")
-    if u.time_cond_dim is not None:
-        _refuse("the LCM guidance embedding (time_cond_dim)", "slice C3")
     if u.freeu is not None:
         _refuse("FreeU", "slice F")
     if u.tome is not None:

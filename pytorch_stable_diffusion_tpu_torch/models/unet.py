@@ -2,7 +2,8 @@
 ``models/unet.py``); one code path, the topology from ``UNetConfig``.
 
 * Sinusoidal timestep embedding, [cos, sin] order, fp32; time MLP
-  320 -> 1280 -> 1280 with SiLU.  With ``add_embed_dim`` (SDXL) the added
+  320 -> 1280 -> 1280 with SiLU.  LCM-distilled UNets add the projected
+  guidance embedding (``cond_proj``) to it before the MLP.  With ``add_embed_dim`` (SDXL) the added
   conditioning (pooled text + size-id embeddings) joins it:
   ``t_emb += fc2(silu(fc1(add_cond)))``.
 * Res blocks: GN->SiLU->conv, + SiLU->Linear of the time embedding,
@@ -53,6 +54,27 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0,
                       -torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def guidance_scale_embedding(w, dim: int, max_period: float = 10000.0,
+                             device=None) -> torch.Tensor:
+    """LCM guidance-scale embedding (the diffusers convention fed to
+    ``time_embed.cond_proj``): w scaled by 1000, a frequency ladder over
+    ``half - 1``, **[sin, cos]** order, an odd ``dim`` zero-padded; all
+    three differ from :func:`timestep_embedding`, and distilled weights
+    bake them in.  w: scalar or (B,) -> (B, dim) float32.  Callers pass
+    ``cfg_scale - 1``."""
+    w = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(-1) * 1000.0
+    half = dim // 2
+    freqs = torch.exp(-torch.log(torch.full((), max_period, dtype=torch.float32,
+                                            device=w.device))
+                      * torch.arange(half, dtype=torch.float32, device=w.device)
+                      / (half - 1))
+    args = w[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb
 
 
 # ------------------------------------------------------------- architecture plan
@@ -233,12 +255,15 @@ class Bottleneck(nn.Module):
 
 class TimeEmbed(nn.Module):
     """The time MLP (``c`` = model channels), and SDXL's added-conditioning
-    MLP of the same shape (``c`` = add_embed_dim)."""
+    MLP of the same shape (``c`` = add_embed_dim).  ``cond_dim``: LCM's
+    bias-free ``cond_proj`` of the guidance embedding to ``c``."""
 
-    def __init__(self, c: int, t_dim: int, **kw):
+    def __init__(self, c: int, t_dim: int, cond_dim: Optional[int] = None, **kw):
         super().__init__()
         self.fc1 = linear.Linear(c, t_dim, **kw)
         self.fc2 = linear.Linear(t_dim, t_dim, **kw)
+        if cond_dim:
+            self.cond_proj = linear.Linear(cond_dim, c, bias=False, **kw)
 
 
 class UNet(nn.Module):
@@ -247,7 +272,7 @@ class UNet(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
         t_dim = cfg.time_embed_dim
-        self.time_embed = TimeEmbed(cfg.model_channels, t_dim, **kw)
+        self.time_embed = TimeEmbed(cfg.model_channels, t_dim, cfg.time_cond_dim, **kw)
         if cfg.add_embed_dim:
             self.add_embed = TimeEmbed(cfg.add_embed_dim, t_dim, **kw)
         self.conv_in = conv.Conv(cfg.in_channels, cfg.model_channels, 3, **kw)
@@ -276,16 +301,22 @@ class UNet(nn.Module):
     def forward(self, latents, context, t, policy: Policy = FP32, *,
                 attention_backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, conv_backend: str = "plain",
-                add_cond: Optional[torch.Tensor] = None):
-        """latents: (B, in_ch, h, w); context: (B, S, d_context), or a
-        hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t: scalar or
-        (B,) timestep; ``add_cond``: SDXL's (B, add_embed_dim) added
-        conditioning.
+                add_cond: Optional[torch.Tensor] = None,
+                t_cond: Optional[torch.Tensor] = None):
+        """latents: (B, in_ch, h, w) (in_ch 9 for inpainting, 8 for
+        InstructPix2Pix: plain convs, never K5); context: (B, S, d_context),
+        or a hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t:
+        scalar or (B,) timestep; ``add_cond``: SDXL's (B, add_embed_dim)
+        added conditioning; ``t_cond``: LCM's (1|B, time_cond_dim)
+        :func:`guidance_scale_embedding`, projected by ``cond_proj`` in the
+        compute dtype and added to the sinusoidal embedding.
 
         Returns the model output (B, out_ch, h, w): the predicted noise, or
         v for a v-prediction checkpoint."""
         cfg = self.cfg
         t_emb = timestep_embedding(t, cfg.model_channels, device=latents.device)
+        if t_cond is not None:
+            t_emb = t_emb + linear.apply(self.time_embed.cond_proj, t_cond, policy)
         t_emb = linear.apply(self.time_embed.fc1, t_emb, policy)
         t_emb = linear.apply(self.time_embed.fc2, silu(t_emb), policy)
         if add_cond is not None:

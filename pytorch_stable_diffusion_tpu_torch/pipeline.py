@@ -1,5 +1,5 @@
-"""txt2img / img2img generation (port of ``pipeline.py``: CFG and the 18
-samplers).
+"""txt2img / img2img / inpainting / InstructPix2Pix generation (port of
+``pipeline.py``: CFG, the 18 samplers and slice C3's families).
 
 Same public keyword surface as the JAX package's ``generate()`` and
 ``generate_images()``, in eager PyTorch:
@@ -12,9 +12,14 @@ Same public keyword surface as the JAX package's ``generate()`` and
   'dpm_fast' / 'dpm_adaptive' for the samplers of those names, per sample
   and per step, op, segment or iteration: ``core/rng.py``) and copied to
   the device once, so a seed gives the same noise on any device and the
-  loop never waits on the host.  Parity tests inject recorded noise with
-  ``fixed_noise`` (NCHW arrays: latent_init (B, 4, h, w), sampler_noise
-  (steps, B, 4, h, w), encoder_noise (B, 4, h, w)); restart, dpm_fast and
+  loop never waits on the host.  Inpainting adds 'mask_encoder_noise'
+  (per sample: the 9-channel UNet's masked-image encode) and 'inpaint'
+  (per sample and step: the latent blend's re-noising).  Parity tests
+  inject recorded noise with ``fixed_noise`` (NCHW arrays: latent_init
+  (B, 4, h, w), sampler_noise (steps, B, 4, h, w), encoder_noise and
+  mask_encoder_noise (B, 4, h, w); without mask_encoder_noise that encode
+  takes zeros, and the blend re-uses sampler_noise, as in the JAX
+  package); restart, dpm_fast and
   dpm_adaptive refuse it, and prompt editing, with ``ValueError``, as in
   the JAX package.
 * Samplers (``sampler_name``, :data:`SAMPLERS`) and grids
@@ -72,6 +77,21 @@ Same public keyword surface as the JAX package's ``generate()`` and
   with prompt editing, as in the JAX package.
 * :func:`generate_many` serves any number of prompts in chunks of one
   batch size, the images left on the device until the last chunk.
+* Slice C3, as in the JAX package.  ``mask_image`` (1 = repaint) with an
+  init image inpaints: a 9-channel UNet (``sd15_inpaint_config``,
+  ``sd2_inpaint_config``, ``sdxl_inpaint_config``) takes [latents, the
+  nearest-downsampled mask, the latents of the masked image] at every
+  evaluation; any other blends latents, re-noising the init's to each
+  step's level in the kept region and pasting them exactly at the end
+  (``mask_blur`` softens the mask first).  ``edit_image`` runs
+  InstructPix2Pix (``sd15_ip2p_config``): three lanes [text + image, image,
+  neither], the edit image's latents the encoder's mode divided by the
+  scale factor, combined as ``e_u + cfg_scale (e_t - e_i) +
+  image_guidance_scale (e_i - e_u)``.  An LCM-distilled UNet
+  (``time_cond_dim``) takes the guidance embedding of ``cfg_scale - 1``,
+  usually with ``do_cfg=False``.  ``color_correction`` histogram-matches
+  each output to its init image on the host.  The own-grid samplers
+  refuse inpainting, with ``ValueError``.
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
@@ -110,8 +130,6 @@ MAX_VALIDATED_ATTN_TOKENS = 65536
 
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "mask_image": (None, "slice C3"), "mask_blur": (0, "slice C3"),
-    "edit_image": (None, "slice C3"), "image_guidance_scale": (1.5, "slice C3"),
     "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
     "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
     "ip_adapter_image": (None, "slice E"), "ip_adapter_scale": (1.0, "slice E"),
@@ -127,7 +145,6 @@ _UNPORTED = {
     "panorama": (False, "slice G"), "panorama_window": (512, "slice G"),
     "panorama_stride": (None, "slice G"), "n_frames": (None, "slice G"),
     "motion_window": (None, "slice G"), "motion_stride": (None, "slice G"),
-    "color_correction": (False, "slice G"),
     "mesh": (None, "slice H"), "sequence_parallel": (False, "slice H"),
     "progress": (False, "slice H"),
 }
@@ -354,6 +371,128 @@ def _prepare_image(input_image, width: int, height: int) -> np.ndarray:
     return np.ascontiguousarray(arr.transpose(0, 3, 1, 2))
 
 
+def _prepare_mask(mask_image, width: int, height: int) -> np.ndarray:
+    """PIL image / array -> (1, H, W, 1) float32 in [0, 1].
+
+    Convention (diffusers-compatible): 1 = repaint, 0 = keep original.
+    """
+    if not isinstance(mask_image, np.ndarray) and hasattr(mask_image, "resize"):
+        m = mask_image.convert("L") if hasattr(mask_image, "convert") else mask_image
+        arr = np.asarray(m.resize((width, height)), np.float32) / 255.0
+    else:
+        arr = np.asarray(mask_image, np.float32)
+        if arr.ndim == 3:
+            arr = arr[..., 0]
+        if arr.shape != (height, width):
+            raise ValueError(f"mask must be {height}x{width}, got {arr.shape}")
+        if arr.max() > 1.0:
+            arr = arr / 255.0
+    return np.clip(arr, 0.0, 1.0)[None, ..., None]
+
+
+def mask_to_latent_nearest(mask, factor: int):
+    """(B, H, W, 1) -> (B, H/f, W/f, 1) by nearest sampling (the 9-channel
+    inpaint UNet's training-time mask conditioning; diffusers uses
+    ``interpolate(mode="nearest")`` which picks the top-left of each cell)."""
+    return mask[:, ::factor, ::factor, :]
+
+
+def mask_to_latent_area(mask, factor: int):
+    """(B, H, W, 1) -> (B, H/f, W/f, 1) by area mean — soft edges for the
+    latent-blend inpaint mode (keeps the seam smooth after decode)."""
+    b, h, w, _ = mask.shape
+    return mask.reshape(b, h // factor, factor, w // factor, factor, 1).mean(
+        axis=(2, 4))
+
+
+def match_histograms(src: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Per-channel exact histogram matching (skimage ``match_histograms``
+    semantics) — A1111's img2img "apply color correction" uses this to pin
+    the output's palette to the init image's.  uint8 HWC in/out."""
+    out = np.empty_like(src)
+    for c in range(src.shape[-1]):
+        s = src[..., c].ravel().astype(np.float64)
+        r = ref[..., c].ravel().astype(np.float64)
+        s_vals, s_inv, s_counts = np.unique(s, return_inverse=True,
+                                            return_counts=True)
+        r_vals, r_counts = np.unique(r, return_counts=True)
+        s_q = np.cumsum(s_counts) / s.size
+        r_q = np.cumsum(r_counts) / r.size
+        mapped = np.interp(s_q, r_q, r_vals)
+        out[..., c] = mapped[s_inv].reshape(src.shape[:-1])
+    return out.astype(src.dtype)
+
+
+def _nchw(x: np.ndarray) -> torch.Tensor:
+    """(B, H, W, C) host array -> (B, C, H, W) float32 tensor."""
+    return torch.from_numpy(np.array(np.asarray(x).transpose(0, 3, 1, 2), np.float32))
+
+
+def _inpaint_mode(cfg: SDConfig, mask_image, input_image, init_latents) -> Optional[str]:
+    """"unet9" for a 9-channel inpaint checkpoint (the mask conditions the
+    UNet), "blend" for a mask on any other (latent-blend masking), else
+    None; the JAX package's ValueErrors."""
+    inpaint = None
+    if cfg.unet.in_channels == 9:
+        inpaint = "unet9"
+        if mask_image is None and input_image is not None:
+            raise ValueError("inpaint checkpoint: mask_image is required "
+                             "with input_image")
+    elif mask_image is not None:
+        if init_latents is not None:
+            raise ValueError("inpainting needs pixel input_image, not init_latents")
+        if input_image is None:
+            raise ValueError("mask_image requires input_image (the region "
+                             "outside the mask is kept from it)")
+        inpaint = "blend"
+    if init_latents is not None:
+        if input_image is not None:
+            raise ValueError("pass input_image OR init_latents, not both")
+        if inpaint is not None:
+            raise ValueError("inpainting needs pixel input_image, not init_latents")
+    return inpaint
+
+
+def _check_ip2p(cfg: SDConfig, *, img2img: bool, do_cfg: bool, mask_image,
+                edited: bool) -> None:
+    """InstructPix2Pix's ValueErrors, as in the JAX package (``edited``:
+    the prompt has edits/alternations)."""
+    if cfg.unet.in_channels != 2 * cfg.vae.latent_channels:
+        raise ValueError(
+            "edit_image needs an InstructPix2Pix checkpoint "
+            f"({2 * cfg.vae.latent_channels}-channel UNet — "
+            f"sd15_ip2p_config; this config has "
+            f"{cfg.unet.in_channels})")
+    if img2img:
+        raise ValueError("edit_image replaces input_image for "
+                         "InstructPix2Pix (denoising starts from pure "
+                         "noise; edit strength rides the two guidance "
+                         "scales)")
+    if not do_cfg:
+        raise ValueError("InstructPix2Pix needs do_cfg=True (dual "
+                         "text/image guidance)")
+    if mask_image is not None:
+        raise ValueError("InstructPix2Pix does not compose with mask_image")
+    if edited:
+        raise ValueError("InstructPix2Pix does not compose with "
+                         "PAG/SAG/AND/prompt-editing (its three "
+                         "guidance lanes replace the CFG stack)")
+
+
+def encode_image(models, image: torch.Tensor, noise: torch.Tensor, cfg: SDConfig, *,
+                 encode_tile: Optional[int] = None) -> torch.Tensor:
+    """(B, 3, H, W) pixels in [-1, 1] -> scaled latents (B, 4, h, w) in the
+    compute dtype, through the whole or the tiled encoder: every encode of a
+    request (img2img's init image, inpainting's masked image) goes through
+    here."""
+    vae_kw = dict(attention_backend=cfg.vae_attention_backend,
+                  reference_quirks=cfg.reference_quirks)
+    if encode_tile:
+        return vae_mod.apply_encoder_tiled(models["encoder"], image, noise, cfg.policy,
+                                           tile=encode_tile, **vae_kw)
+    return models["encoder"](image, noise, cfg.policy, **vae_kw)
+
+
 # -------------------------------------------------------------- public API
 def _run_generate(prompt, uncond_prompt="", input_image=None,
                   strength: float = 0.8, do_cfg: bool = True,
@@ -370,23 +509,28 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
                   hypernetwork=None, hypernetwork_strength: float = 1.0,
                   init_latents=None, original_size=None, crop_coords=(0, 0),
-                  target_size=None, _device_output: bool = False, **unported):
+                  target_size=None, mask_image=None, mask_blur: float = 0,
+                  edit_image=None, image_guidance_scale: float = 1.5,
+                  color_correction: bool = False, _device_output: bool = False,
+                  **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
-    if init_latents is not None:
-        if input_image is not None:
-            raise ValueError("pass input_image OR init_latents, not both")
-        if unported.get("mask_image") is not None:
-            raise ValueError("inpainting needs pixel input_image, not init_latents")
+    cfg = config or sd15_config()
+    inpaint = _inpaint_mode(cfg, mask_image, input_image, init_latents)
     _check_unported(unported)
+    if color_correction:
+        if _device_output:
+            raise ValueError("color_correction is not supported on the "
+                             "async generate_many path")
+        if input_image is None:
+            raise ValueError("color_correction requires input_image")
     if not 0.0 < strength <= 1.0:
         raise ValueError("strength must be between 0 and 1")
     if sampler_name not in SAMPLERS:
         raise ValueError(f"Unknown sampler value {sampler_name!r}")
     if models is None or tokenizer is None:
         raise ValueError("models dict and tokenizer are required")
-    cfg = config or sd15_config()
     if clip_skip is not None:
         cfg = with_clip_skip(cfg, int(clip_skip))
     check_ported(cfg)
@@ -423,9 +567,19 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         else:  # the syntax resolved to a single conditioning
             prompts, uncond = list(realized[0][0]), list(realized[0][1])
             sched_idx = None
+    ip2p = edit_image is not None
+    if ip2p:
+        _check_ip2p(cfg, img2img=input_image is not None or init_latents is not None,
+                    do_cfg=do_cfg, mask_image=mask_image, edited=sched_idx is not None)
+    elif cfg.unet.in_channels == 2 * cfg.vae.latent_channels:
+        raise ValueError(f"an {cfg.unet.in_channels}-channel (InstructPix2Pix) UNet "
+                         "needs edit_image")
     if sampler_name in _OWN_GRID:
         # their op/segment grids replace the per-step arrays that the
-        # sampler noise and the per-step contexts key off
+        # sampler noise, the inpainting blend and the per-step contexts key off
+        if inpaint is not None:
+            raise ValueError(f"sampler {sampler_name!r} does not support "
+                             "inpainting")
         if sched_idx is not None:
             raise ValueError(f"sampler {sampler_name!r} does not compose "
                              "with prompt editing/alternation")
@@ -506,6 +660,31 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         stream = "dpm_adaptive"
     entry_ts = timesteps if plan is None else plan["start_t"]
 
+    # the pixels the request encodes (img2img's and inpainting's init image,
+    # InstructPix2Pix's edit image; zeros for inpainting from text) and the
+    # inpainting mask, (B|1, H, W, 1) in [0, 1], blurred by ``mask_blur``
+    pixels = None
+    if input_image is not None:
+        pixels = _prepare_image(input_image, width, height)
+    elif ip2p:
+        pixels = _prepare_image(edit_image, width, height)
+    elif inpaint == "unet9":
+        pixels = np.zeros((1, 3, height, width), np.float32)
+    if pixels is not None and pixels.shape[0] not in (1, batch):
+        raise ValueError(f"{pixels.shape[0]} init images for a batch of {batch}: "
+                         f"give one image, or one for each prompt")
+    mask = None
+    if inpaint is not None:
+        mask = np.ones((1, height, width, 1), np.float32) if mask_image is None \
+            else _prepare_mask(mask_image, width, height)
+        if mask_blur:
+            # A1111 mask blur: gaussian-soften the repaint boundary
+            from .utils.annotators import blur
+
+            mask = np.clip(blur(mask[0, ..., 0], sigma=float(mask_blur)),
+                           0.0, 1.0)[None, ..., None].astype(np.float32)
+        mask = np.broadcast_to(mask, (batch, height, width, 1))
+
     if device is None:
         device = next(models["diffusion"].parameters()).device
     device = torch.device(device)
@@ -520,6 +699,11 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         if input_image is not None:
             noise["encoder"] = np.reshape(fixed_noise["encoder_noise"],
                                           (batch,) + lat_shape)
+        if inpaint == "unet9":  # zeros where the injected noise has none
+            noise["mask_encoder"] = np.reshape(fixed_noise["mask_encoder_noise"],
+                                               (batch,) + lat_shape) \
+                if "mask_encoder_noise" in fixed_noise \
+                else np.zeros((batch,) + lat_shape, np.float32)
         noise = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in noise.items()}
     else:
         s = 0 if seed is None else int(seed)
@@ -527,6 +711,12 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                  "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape)}
         if input_image is not None:
             noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch,
+                                                    lat_shape)
+        if inpaint == "unet9":
+            noise["mask_encoder"] = rng_mod.batch_normal(s, "mask_encoder_noise", batch,
+                                                         lat_shape)
+        elif inpaint == "blend":
+            noise["inpaint"] = rng_mod.step_normals(s, "inpaint", n_inference_steps, batch,
                                                     lat_shape)
     noise = {k: _to_device(v, device) for k, v in noise.items()}
 
@@ -556,6 +746,11 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
 
             context = per_k(context)
             add_cond = None if add_cond is None else per_k(add_cond)
+        if ip2p:
+            # InstructPix2Pix's three lanes: [text + image, image only (the
+            # uncond text), unconditional]
+            context = torch.cat([context, context[batch:]])
+            add_cond = None if add_cond is None else torch.cat([add_cond, add_cond[batch:]])
         if hyper is not None:
             # the hypernetwork transforms the whole CFG batch's context, k
             # and v apart, once a request; the (ctx_k, ctx_v) pair rides
@@ -568,29 +763,66 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 models["hypernetwork"], context, strength, activation=hyper[0],
                 activate_output=hyper[1])
 
+        image = None
+        if pixels is not None:
+            image = _to_device(torch.as_tensor(pixels), device).expand(batch, -1, -1, -1) \
+                .contiguous(memory_format=memory_format)
         if init_latents is not None:
             lat0 = init_latents.to(device) if init_latents.is_cuda \
                 else _to_device(init_latents, device)
             latents = ddpm.add_noise(schedule, lat0.expand(batch, -1, -1, -1),
                                      int(entry_ts[start_step]), noise["latent_init"])
         elif img2img:
-            image = torch.as_tensor(_prepare_image(input_image, width, height))
-            if image.shape[0] not in (1, batch):
-                raise ValueError(f"{image.shape[0]} init images for a batch of {batch}: "
-                                 f"give one image, or one for each prompt")
-            image = _to_device(image, device).expand(batch, -1, -1, -1) \
-                .contiguous(memory_format=memory_format)
-            if encode_tile:
-                lat0 = vae_mod.apply_encoder_tiled(models["encoder"], image,
-                                                   noise["encoder"], policy,
-                                                   tile=encode_tile, **vae_kw)
-            else:
-                lat0 = models["encoder"](image, noise["encoder"], policy, **vae_kw)
-            lat0 = lat0.float()
+            lat0 = encode_image(models, image, noise["encoder"], cfg,
+                                encode_tile=encode_tile).float()
             latents = ddpm.add_noise(schedule, lat0, int(entry_ts[start_step]),
                                      noise["latent_init"])
         else:
             latents = noise["latent_init"]
+
+        cd = policy.compute_dtype
+        ip2p_extra = inpaint_extra = m_lat = None
+        if ip2p:
+            # the edit image's latents: the encoder's mode (zero noise) and,
+            # a published quirk of the family, not multiplied by the latent
+            # scale factor, so the encoder's x scale_factor is divided out;
+            # zeros in the unconditional lane
+            img_lat = models["encoder"](image, torch.zeros_like(latents), policy,
+                                        **vae_kw).float() / cfg.vae.scale_factor
+            ip2p_extra = torch.cat([img_lat, img_lat, torch.zeros_like(img_lat)]).to(cd)
+        if inpaint == "unet9":
+            # conditioning channels: the nearest-downsampled mask and the
+            # latents of the masked image (the repaint region zeroed)
+            factor = cfg.vae.downsample_factor
+            mask_dev = _to_device(_nchw(mask), device)
+            binm = (mask_dev > 0.5).to(image.dtype)
+            masked = (image * (1.0 - binm)).contiguous(memory_format=memory_format)
+            masked_lat = encode_image(models, masked, noise["mask_encoder"], cfg,
+                                      encode_tile=encode_tile)
+            inpaint_extra = torch.cat(
+                [_to_device(_nchw(mask_to_latent_nearest(mask, factor)), device).to(cd),
+                 masked_lat.to(cd)], dim=1)
+        elif inpaint == "blend":
+            # the soft (area-mean) latent mask keeps the seam smooth; the
+            # blend re-noises the original latents with the "inpaint" draws,
+            # or under fixed_noise with the sampler's
+            m_lat = _to_device(_nchw(mask_to_latent_area(mask, cfg.vae.downsample_factor)),
+                               device)
+            blend_noise = noise["inpaint"] if "inpaint" in noise else noise["sampler"]
+
+        def blend(i: int, lat: torch.Tensor) -> torch.Tensor:
+            """Re-noise the original latents to step ``i``'s level and paste
+            them into the kept region (the latent-blend inpaint mode)."""
+            noised0 = ddpm.add_noise(schedule, lat0, int(timesteps[i]), blend_noise[i])
+            return m_lat * lat + (1.0 - m_lat) * noised0
+
+        t_cond = None
+        if cfg.unet.time_cond_dim:
+            # LCM's embedded guidance: the distilled UNet takes w = cfg_scale - 1
+            # through its cond_proj (usually with do_cfg=False)
+            t_cond = _to_device(unet_mod.guidance_scale_embedding(
+                torch.tensor(cfg_scale, dtype=torch.float32) - 1.0,
+                cfg.unet.time_cond_dim), device)
 
         unet = models["diffusion"]
 
@@ -598,8 +830,15 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             """CFG epsilon of the latents at training timestep ``t`` (a
             v-prediction model's output turned into epsilon); step index
             ``i`` picks an edited prompt's conditioning."""
-            lat_c = lat.to(policy.compute_dtype)
-            model_in = torch.cat([lat_c, lat_c]) if do_cfg else lat_c
+            lat_in = lat.to(cd)
+            if inpaint_extra is not None:
+                # [latents, mask, masked-image latents] (diffusers' order)
+                lat_in = torch.cat([lat_in, inpaint_extra], dim=1)
+            if ip2p:
+                # three lanes, each with its edit-image channels appended
+                model_in = torch.cat([torch.cat([lat_in] * 3), ip2p_extra], dim=1)
+            else:
+                model_in = torch.cat([lat_in, lat_in]) if do_cfg else lat_in
             ctx, add = context, add_cond
             if sched_idx is not None:
                 ctx = context[int(sched_idx[i])]
@@ -608,15 +847,23 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                        t_all[int(t)], policy, attention_backend=cfg.attention_backend,
                        reference_quirks=cfg.reference_quirks,
                        fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend,
-                       add_cond=add).float()
-            if do_cfg:
+                       add_cond=add, t_cond=t_cond).float()
+            if ip2p:
+                # dual guidance (Brooks et al. 2023, eq. 3)
+                e_t, e_i, e_u = eps.chunk(3)
+                eps = e_u + cfg_scale * (e_t - e_i) + image_guidance_scale * (e_i - e_u)
+            elif do_cfg:
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
             return ddpm.to_epsilon(schedule, t, lat, eps, cfg.prediction_type)
 
         latents = _sample(sampler_name, schedule, timesteps, latents.float(),
                           noise["sampler"], eps_at, start_step=start_step, plan=plan,
-                          eta=float(ddim_eta), img2img=img2img)
+                          eta=float(ddim_eta), img2img=img2img,
+                          blend=blend if inpaint == "blend" else None)
+        if inpaint == "blend":
+            # the exact final projection: the kept region is the original
+            latents = m_lat * latents + (1.0 - m_lat) * lat0
 
         lat_in = latents.contiguous(memory_format=memory_format)
         if decode_tile:
@@ -628,7 +875,15 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         images = images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
         if _device_output:
             return images, latents
-        return images.cpu().numpy(), latents.cpu().numpy()
+        out = images.cpu().numpy()
+        if color_correction:
+            # A1111 img2img "apply color correction": histogram-match each
+            # output to its init image (host-side post-processing)
+            ref = np.broadcast_to(np.clip(rescale(pixels.transpose(0, 2, 3, 1), (-1.0, 1.0),
+                                                  (0.0, 255.0)), 0, 255).astype(np.uint8),
+                                  out.shape)
+            out = np.stack([match_histograms(out[i], ref[i]) for i in range(out.shape[0])])
+        return out, latents.cpu().numpy()
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -642,12 +897,18 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor,
             noise: torch.Tensor, eps_at, *, start_step: int, plan, eta: float,
-            img2img: bool) -> torch.Tensor:
+            img2img: bool, blend=None) -> torch.Tensor:
     """The denoise loop of ``sampler`` from ``start_step`` (JAX ``pipeline.py``'s
     loops): float32 latents in and out, ``noise`` the sampler stream's
     draws, ``eps_at(i, latents, t)`` one CFG UNet evaluation.  Heun and
     the dpm2 family make no second evaluation on their final (Euler) step,
-    which the JAX package evaluates and discards."""
+    which the JAX package evaluates and discards.  ``blend(i, latents)``
+    (latent-blend inpainting) runs at the top of every step of the
+    pipeline's grid, before its first evaluation; the own-grid samplers
+    take none."""
+    if blend is None:
+        def blend(i, lat):
+            return lat
     n = len(timesteps)
     prev_ts = np.append(timesteps[1:], -1)
     steps = [(i, int(timesteps[i]), int(prev_ts[i])) for i in range(start_step, n)]
@@ -655,6 +916,7 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
         state = dpm.init_state_3m() if sampler == "dpm++_3m_sde" \
             else unipc.init_state() if sampler == "unipc" else dpm.init_state()
         for i, t, prev in steps:
+            latents = blend(i, latents)
             eps = eps_at(i, latents, t)
             if sampler == "dpm++_sde":
                 latents, state = dpm.step_sde(schedule, t, latents, eps, noise[i], state,
@@ -670,12 +932,14 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
         state = pndm.init_state()
         for i in range(start_step, n + 1):
             te = min(pndm.eval_index(i, start_step), n - 1)
+            latents = blend(te, latents)
             eps = eps_at(te, latents, int(timesteps[te]))
             latents, state = pndm.step(schedule, timesteps, prev_ts, i, start_step,
                                        latents, eps, state, n_steps=n)
     elif sampler == "lms":
         table, hist = lms.coeff_table(schedule, timesteps), []
         for i, t, prev in steps:
+            latents = blend(i, latents)
             eps = eps_at(i, latents, t)
             latents, hist = lms.step(schedule, table, i, start_step, t, latents, eps,
                                      hist, prev_t=prev)
@@ -685,6 +949,7 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
         mids = None if sampler == "heun" else dpm2.mid_timesteps(
             schedule, timesteps, ancestral=sampler != "dpm2")
         for i, t, prev in steps:
+            latents = blend(i, latents)
             eps = eps_at(i, latents, t)
             if prev < 0:
                 latents = euler.step(schedule, t, latents, eps, prev_t=prev)
@@ -726,6 +991,7 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
                                              max_iters=n)
     else:
         for i, t, prev in steps:
+            latents = blend(i, latents)
             eps = eps_at(i, latents, t)
             if sampler == "ddim":
                 latents = ddim.step(schedule, t, latents, eps, noise[i], eta=eta, prev_t=prev)

@@ -158,6 +158,10 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
     rules: List[Rule] = []
     _linear(rules, f"{src}.time_embed.0", "time_embed.fc1")
     _linear(rules, f"{src}.time_embed.2", "time_embed.fc2")
+    if u.time_cond_dim:
+        # LCM's guidance projection; CompVis-layout LCM exports keep the
+        # diffusers attribute name under time_embed
+        _linear(rules, f"{src}.time_embed.cond_proj", "time_embed.cond_proj", bias=False)
     _conv(rules, f"{src}.input_blocks.0.0", "conv_in")
     for i, st in enumerate(unet_mod.encoder_plan(u)[1:]):
         blk = f"{src}.input_blocks.{i + 1}"

@@ -60,6 +60,9 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
     rules: List[Rule] = []
     _linear(rules, "time_embedding.linear_1", "time_embed.fc1")
     _linear(rules, "time_embedding.linear_2", "time_embed.fc2")
+    if u.time_cond_dim:
+        # LCM's guidance projection (time_cond_proj_dim checkpoints)
+        _linear(rules, "time_embedding.cond_proj", "time_embed.cond_proj", bias=False)
     _conv(rules, "conv_in", "conv_in")
 
     # our flat encoder-stage list <-> diffusers down_blocks.{l}.{resnets,...}

@@ -585,3 +585,86 @@ def test_tiny_checkpoint_lora_request_card_matches_cpu(cuda, tmp_path):
         images[device] = sd.with_lora(factors, 0.8).txt2img(
             "a cat", seed=3, n_inference_steps=3, height=32, width=32)
     assert _psnr(images["cpu"], images["cuda"]) > 40.0
+
+
+# ------------------------------------------------------------------ slice C3
+@pytest.mark.parametrize("b,sq,c,heads", [
+    (1, 4096, 320, 8), (1, 1024, 640, 8), (1, 256, 1280, 8),   # SD-1.5 512², LCM without CFG
+    (3, 4096, 320, 8), (3, 1024, 640, 8), (3, 256, 1280, 8),   # InstructPix2Pix's three lanes
+    (2, 5120, 320, 8), (2, 1280, 640, 8), (2, 320, 1280, 8),   # outpaint's 640x512 canvas
+    (1, 4096, 640, 10), (1, 1024, 1280, 20),                   # SDXL 1024², LCM without CFG
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k1_matches_plain_at_the_c3_lane_counts(cuda, b, sq, c, heads, dtype):
+    """K1 at slice C3's lane counts (1 without CFG, 3 for InstructPix2Pix)
+    and outpaint's canvas (chip_smoke.C3_PLANS)."""
+    q, k, v = _k1_views(b, sq, sq, c, dtype, cuda, seed=11)
+    got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bsc_plain(q, k, v, heads)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.shape == (b, sq, c) and err <= tolerance(dtype, ref), err
+
+
+@pytest.mark.parametrize("sq,dh", [(4096, 40), (1024, 80), (256, 160), (64, 160)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k2_matches_plain_at_the_c3_lane_count(cuda, sq, dh, dtype):
+    """K2 under a 4-window prompt at InstructPix2Pix's three lanes."""
+    args = _head_split_views(3, 8, sq, 308, dh, dtype, cuda, seed=12)
+    _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
+                      args, {"causal": False}, dtype)
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [
+    (1, 960, 64, 64, 320), (1, 2560, 16, 16, 1280),    # SD-1.5 512², one lane
+    (3, 960, 64, 64, 320), (3, 1920, 32, 32, 640),     # three lanes
+    (2, 320, 128, 128, 320), (2, 960, 128, 128, 320),  # SD-1.5 1024² (hires_fix)
+    (2, 960, 64, 80, 320), (2, 1280, 10, 8, 1280),     # outpaint's 640x512 canvas
+    (1, 960, 128, 128, 320),                           # SDXL 1024², one lane
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k5_matches_plain_at_the_c3_lane_counts(cuda, b, cin, h, w, cout, dtype):
+    args = _k5_inputs(b, cin, h, w, cout, dtype, cuda, seed=13)
+    got = k5.scaled_silu_conv3x3(*args)
+    torch.cuda.synchronize()
+    ref = k5.scaled_silu_conv3x3_plain(*args)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert got.shape == (b, cout, h, w)
+    assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("case", ["unet9 inpaint", "blend inpaint", "InstructPix2Pix",
+                                  "LCM, no CFG"])
+def test_c3_paths_card_match_cpu(cuda, case):
+    """Each C3 path at the tiny config, FP32, on the card (kernel attention,
+    conv and VAE backends) against the CPU plain path, the same weights and
+    seed: images > 40 dB."""
+    import dataclasses
+
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
+
+    r = np.random.RandomState(14)
+    image = r.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+    mask = np.zeros((32, 32), np.float32)
+    mask[8:24, 4:20] = 1.0
+    unet, opts = {
+        "unet9 inpaint": (dict(in_channels=9), dict(input_image=image, mask_image=mask)),
+        "blend inpaint": ({}, dict(input_image=image, mask_image=mask, strength=0.7,
+                                   mask_blur=2)),
+        "InstructPix2Pix": (dict(in_channels=8), dict(edit_image=image)),
+        "LCM, no CFG": (dict(time_cond_dim=16), dict(do_cfg=False, sampler_name="lcm")),
+    }[case]
+    cfg = port.tiny_sd_config()
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, **unet))
+    cpu = port.build_models(cfg, device="cpu", generator=torch.Generator().manual_seed(9))
+    gcfg = dataclasses.replace(cfg, attention_backend="kernel", conv_backend="kernel",
+                               vae_attention_backend="kernel")
+    gpu = port.build_models(gcfg, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    kw = dict(seed=3, n_inference_steps=3, height=32, width=32, return_latents=True,
+              tokenizer=make_test_tokenizer(["a", "cat", "dog"], max_len=16), **opts)
+    img_c, lat_c = port.generate("a cat", models=cpu, config=cfg, device="cpu", **kw)
+    img_g, lat_g = port.generate("a cat", models=gpu, config=gcfg, device="cuda", **kw)
+    assert np.isfinite(lat_g).all()
+    assert _psnr(img_c, img_g) > 40.0

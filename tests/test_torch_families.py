@@ -220,9 +220,14 @@ def test_check_ported_accepts_the_c2_families(name):
 @pytest.mark.parametrize("name", ["sd15_inpaint_config", "sd15_ip2p_config",
                                   "sd2_inpaint_config", "sdxl_inpaint_config",
                                   "sd15_lcm_config", "sdxl_lcm_config"])
-def test_check_ported_refuses_the_c3_presets(name):
-    with pytest.raises(NotImplementedError, match="slice C3"):
-        config.check_ported(getattr(config, name)())
+def test_check_ported_accepts_the_c3_presets(name):
+    """Slice C3 lifted the refusals of in_channels 8/9 and time_cond_dim;
+    the presets build on the meta device, conv_in at their width."""
+    cfg = getattr(config, name)()
+    config.check_ported(cfg)
+    unet = construct(cfg)["diffusion"]
+    assert unet.conv_in.weight.shape[1] == cfg.unet.in_channels
+    assert hasattr(unet.time_embed, "cond_proj") == bool(cfg.unet.time_cond_dim)
 
 
 # ------------------------------------------------------------------- towers
@@ -515,6 +520,34 @@ def test_sdxl_long_prompt_pools_window_zero(families, exact_gelu):
     call, the contexts concatenate to 48 tokens, the pool is window 0's."""
     db, _, _, _ = compare_generate(families, "sdxl", "a photo BREAK of a dog BREAK a cat")
     assert db > 55.0, db
+
+
+#: the C2 combinations beyond the cases above: (family, prompt, keywords)
+C2_COMBINATIONS = {
+    "SDXL with emphasis": ("sdxl", "a (photo:1.3) of a [cat]", dict(emphasis=True)),
+    "SDXL dpm++ karras": ("sdxl", "a photo of a cat", dict(sampler_name="dpm++",
+                                                           timestep_spacing="karras")),
+    "SDXL euler_a": ("sdxl", "a photo of a cat", dict(sampler_name="euler_a")),
+    "SD-2.1 img2img": ("sd2", "a photo of a dog", dict(
+        input_image=np.random.RandomState(4).randint(0, 256, (HW, HW, 3)).astype(np.uint8),
+        strength=0.7, encoder=True)),
+    "SD-2.1 3-window BREAK prompt": ("sd2", "a photo BREAK of a dog BREAK a cat", {}),
+    "SD-2.1 emphasis, clip_skip=2": ("sd2", "a (photo:1.2) of a (cat:0.8)",
+                                     dict(emphasis=True, clip_skip=2)),
+    "refiner txt2img": ("refiner", "a photo of a cat", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(C2_COMBINATIONS))
+def test_c2_combinations_match_jax(families, exact_gelu, case):
+    """The combinations of slice C2's families with the earlier slices'
+    options (emphasis, samplers and grids, img2img, long prompts,
+    clip_skip) against JAX ``generate()``: latents > 55 dB, images > 40 dB."""
+    name, prompt, kw = C2_COMBINATIONS[case]
+    db, img, ref_img, _ = compare_generate(families, name, prompt, uncond_prompt="a dog",
+                                           **kw)
+    assert db > 55.0, db
+    assert psnr(img.astype(np.float32), ref_img.astype(np.float32)) > 40.0
 
 
 def test_size_ids_and_init_latents_refusals(families):

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 
 from pytorch_stable_diffusion_tpu import prompt_schedule as jax_schedule
+from pytorch_stable_diffusion_tpu.utils import annotators as jax_annotators
 from pytorch_stable_diffusion_tpu.weights import ckpt_reader as jax_ckpt_reader
 from pytorch_stable_diffusion_tpu.weights import tokenizer as jax_tokenizer
 from pytorch_stable_diffusion_tpu_torch import prompt_schedule as torch_schedule
+from pytorch_stable_diffusion_tpu_torch.utils import annotators as torch_annotators
 from pytorch_stable_diffusion_tpu_torch.weights import ckpt_reader as torch_ckpt_reader
 from pytorch_stable_diffusion_tpu_torch.weights import tokenizer as torch_tokenizer
 
@@ -42,7 +44,8 @@ def test_port_imports_without_jax():
     assert "BAD []" in out.stdout, out.stdout
     names = re.search(r"IMPORTED (.*)", out.stdout).group(1).split()
     assert len(names) >= 24  # every module of the slices was imported
-    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline", "api") + tuple(
+    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline", "api",
+                                 "utils.annotators", "utils.image") + tuple(
             f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
                                      "textual_inversion", "hypernetwork", "merge", "stream",
                                      "save")):
@@ -226,3 +229,30 @@ def test_prompt_schedule_copies_agree(text):
     ref, ref_idx = jax_schedule.schedule_prompts([text, "x"], ["", text], 6)
     assert ours == ref
     np.testing.assert_array_equal(idx, ref_idx)
+
+
+def test_blur_copy_is_verbatim():
+    """The port's ``utils/annotators.py`` holds ``blur`` and the two helpers
+    it calls, each the original's source text."""
+    import inspect
+
+    for name in ("to_hint", "_gauss_kernel", "blur"):
+        assert inspect.getsource(getattr(torch_annotators, name)) == \
+            inspect.getsource(getattr(jax_annotators, name)), name
+    assert sorted(n for n, v in vars(torch_annotators).items()
+                  if callable(v) and getattr(v, "__module__", "") == torch_annotators.__name__) \
+        == ["_gauss_kernel", "blur", "to_hint"]
+
+
+BLURRED = {"unit mask": lambda r: (r.rand(24, 20) > 0.5).astype(np.float32),
+           "uint8 RGB": lambda r: r.randint(0, 256, (24, 20, 3)).astype(np.uint8),
+           "0..255 float": lambda r: (r.rand(17, 9) * 255).astype(np.float32)}
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 4.0])
+@pytest.mark.parametrize("kind", list(BLURRED))
+def test_blur_copies_agree(kind, sigma):
+    x = BLURRED[kind](np.random.RandomState(11))
+    got = torch_annotators.blur(x, sigma=sigma)
+    np.testing.assert_array_equal(got, jax_annotators.blur(x, sigma=sigma))
+    assert got.shape == x.shape[:2] and got.dtype == np.float32

@@ -316,8 +316,6 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"mask_image": np.zeros((HW, HW))}, "slice C"),
-    ({"edit_image": np.zeros((HW, HW, 3))}, "slice C3"),
     ({"freeu": (1.1, 1.2, 0.9, 0.2)}, "slice F"),
     ({"control_image": np.zeros((HW, HW, 3))}, "slice E"),
     ({"panorama": True}, "slice G"),
