@@ -60,7 +60,13 @@ Phases (any failure exits non-zero):
                 640x512 canvas, and at SDXL 1024² with one lane; K2 at
                 three lanes under a 4-window prompt; K3 at the canvas's
                 VAE mid block (5120 tokens); each timed (K5 at each
-                request's largest conv);
+                request's largest conv); slice E's reference reads, from
+                the plan (``E_PLANS``, ``e_shapes``), q and k/v from
+                separate projections: K2 over KV = 2·S at SD-1.5 512²
+                (2, 8, 4096|1024|256, 8192|2048|512, 40|80|160), 768²
+                and SDXL 1024² (2, 10|20, 4096|1024, 8192|2048, 64), and
+                K4 with Sq != Sk at 768² (2, 8, 9216, 18432, 40), each
+                timed in bf16 beside SDPA and the bound;
                 K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
@@ -117,6 +123,14 @@ Phases (any failure exits non-zero):
                 inpainting (mask_blur 4), InstructPix2Pix and LCM without
                 CFG, each UNet SD-1.5's with its conv_in or cond_proj
                 drawn from a seed.
+                Slice E (``phase_small_e``, lines ``small E``), on the
+                same CPU models: SD-1.5 at full width, FP32, 256², 2
+                euler_a steps, CFG 5, card against the CPU plain path (>
+                55 dB latents, > 40 dB image, the plan's launches): a
+                ControlNet, two, the T2I-Adapter, IP-Adapter standard and
+                plus (the ViT-H/14 tower at 224²), reference attn and
+                adain; every side net drawn from a seed on the CPU (the
+                ControlNets' zero convs too) and copied to the card.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -229,6 +243,26 @@ Phases (any failure exits non-zero):
                 its wall time and peak memory printed; one InstructPix2Pix
                 (batch 3) and one LCM (batch 1) evaluation at 512², and one
                 SDXL LCM evaluation at 1024², profiled as in phase 7.
+                Slice E (``phase_slice_e`` after slice C3, lines ``E
+                ...``): BF16, full width, kernel attention, conv and VAE,
+                SD-1.5 512², dpm++ Karras 20 steps, CFG 7.5, the phase-5
+                models with side nets drawn from a seed (``side_nets``):
+                (a0) no side net; (a) a ControlNet on a Canny hint
+                (``utils/annotators.canny`` of a seeded image), (a') again,
+                bit-identical, (a'') at controlnet_scale 0, bit-identical
+                to (a0); (b) two ControlNets at [1.0, 0.5]; (c) the
+                T2I-Adapter; (d) IP-Adapter with ViT-H/14 (4 tokens) and
+                (d') plus (the Resampler, 16 tokens); (e) reference-only in
+                each mode at fidelity 0.5 and (e') attn at 768², 4 steps
+                (K4 in the read); (f) a ControlNet with an IP-Adapter.
+                After slice C3's SDXL requests (``phase_slice_e_xl``): (g)
+                an SDXL ControlNet, (h) full_adapter_xl, (i) reference attn
+                at 1024², 20 steps.  Each request's launches are held to
+                the plan (``expected_launches(controlnets=, reference=)``:
+                each ControlNet's encoder and mid an evaluation, the
+                capture pass, the read's K2/K4 calls and the reference
+                encode); one ControlNet and one reference evaluation at
+                512² and at SDXL 1024² profiled as in phase 7.
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -615,13 +649,20 @@ def phase_long(fa, card, results):
         ("K3", 1, 5120, 5120, 1, 512, bf, False, 5120, "c3"),
         ("K3", 1, 5120, 5120, 1, 512, f32, False, 2048, ""),
     ]
+    # slice E: K4 with Sq != Sk, the 768² reference read (E_PLANS), q and k/v
+    # from separate projections
+    e = e_shapes("K4")
+    for b, h, sq, sk, dh in e:
+        cases += [("K4", b, sq, sk, h, dh, bf, False, 2048, "e"),
+                  ("K4", b, sq, sk, h, dh, f32, False, 512, "")]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
         wrapper = getattr(fa, name)
         plain = getattr(fa, f"{name}_plain")
         kw = {} if kname == "K4" else {"causal": causal}
         rec = results[name]
-        args = fused_views(b, sq, sk, h, dh, dtype, g)
+        views = separate_views if kname == "K4" and (b, h, sq, sk, dh) in e else fused_views
+        args = views(b, sq, sk, h, dh, dtype, g)
         t0 = time.perf_counter()
         err, tol, ref = _check_rows(kname, wrapper, plain, args, kw, rows, dtype, rec)
         line = (f"{kname} {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
@@ -653,6 +694,11 @@ def phase_long(fa, card, results):
             if role in ("c2", "c3"):
                 rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                   library_ms=lib, bound_ms=bms, bound_by=by))
+            if role == "e":
+                n, label = e[(b, h, sq, sk, dh)]
+                rec["e_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
+                                            bound_ms=bms, bound_by=by, per_eval=n,
+                                            request=label))
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
         torch.cuda.empty_cache()
@@ -733,6 +779,10 @@ def phase_k2(fa, card, results):
     # slice C3: InstructPix2Pix's three lanes under a 4-window prompt (C3_PLANS)
     c3 = c3_shapes("K2")
     cases += [(b, h, sq, sk, dh, False, min(sq, 2048), "c3") for b, h, sq, sk, dh in c3]
+    # slice E: the reference reads' [own, banked] attention (E_PLANS), q and
+    # k/v from separate projections
+    e = e_shapes("K2")
+    cases += [(b, h, sq, sk, dh, False, min(sq, 2048), "e") for b, h, sq, sk, dh in e]
     cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
               (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
               (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
@@ -745,7 +795,7 @@ def phase_k2(fa, card, results):
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, sq, sk, dh, causal, rows, role in cases:
-            views = separate_views if role == "separate" else cross_views
+            views = separate_views if role in ("separate", "e") else cross_views
             args = views(b, sq, sk, h, dh, dtype, g)
             kw = {"causal": causal}
             err, tol, ref = _check_rows("K2", wrapper, plain, args, kw, rows, dtype, rec)
@@ -758,7 +808,7 @@ def phase_k2(fa, card, results):
                 line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
             if role == "main":
                 line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
-            if role in ("main", "level", "time", "c2", "c3") and dtype == torch.bfloat16:
+            if role in ("main", "level", "time", "c2", "c3", "e") and dtype == torch.bfloat16:
                 # a call is shorter than its host launch cost, so CUDA events
                 # around back-to-back calls time the host: the recorded times
                 # are device times under the profiler
@@ -768,7 +818,7 @@ def phase_k2(fa, card, results):
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
-                if role in ("main", "level", "c2", "c3"):
+                if role in ("main", "level", "c2", "c3", "e"):
                     lib, why = sdpa_ms(*args, timer=one_call_device_ms)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
@@ -778,11 +828,11 @@ def phase_k2(fa, card, results):
                 if role == "c2":
                     rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                  library_ms=lib, bound_ms=bms, bound_by=by))
-                if role == "c3":
-                    n, label = c3[(b, h, sq, sk, dh)]
-                    rec["c3_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
-                                                 library_ms=lib, bound_ms=bms, bound_by=by,
-                                                 per_eval=n, request=label))
+                if role in ("c3", "e"):
+                    n, label = (c3 if role == "c3" else e)[(b, h, sq, sk, dh)]
+                    rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
+                                                      library_ms=lib, bound_ms=bms,
+                                                      bound_by=by, per_eval=n, request=label))
                 if role == "main":
                     pms = one_call_device_ms(lambda: plain(*args, causal))
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -1218,9 +1268,10 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     than read from ``attention.route``, so that the launch counts check the
     routing too: K4 (at its head dims) or K3 from ``flash_only`` KV tokens
     on; on the kernel backend from 256 KV tokens, K1 for self-attention at
-    its head dims (K3 at other multiples of 8 up to 512) and K2 for
-    cross-attention over a padded KV up to 9216 at its head dims;
-    otherwise materialized scores (None)."""
+    its head dims (K3 at other multiples of 8 up to 512), K2 for
+    cross-attention over a padded KV up to 9216 at its head dims, and past
+    that K4 at its head dims (K3 at the others: the reference read of
+    768², slice E); otherwise materialized scores (None)."""
     k3 = dh % 8 == 0 and dh <= 512
     if kv >= flash_only:
         check(dh in K4_DH or k3, f"no kernel takes Dh {dh} at {kv} KV tokens")
@@ -1228,15 +1279,18 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     if backend != "kernel" or kv < 256:
         return None
     if cross:
-        check(-(-kv // 128) * 128 <= 9216 and dh in K2_DH,
-              f"no request here has cross-attention over {kv} tokens at Dh {dh}")
+        if -(-kv // 128) * 128 > 9216:
+            return "K4" if dh in K4_DH else "K3" if k3 else None
+        check(dh in K2_DH, f"no request here has cross-attention over {kv} tokens at Dh {dh}")
         return "K2"
     return "K1" if dh in K1_DH else "K3" if k3 else None
 
 
-def attention_blocks(cfg, height, width):
+def attention_blocks(cfg, height, width, decoder=True):
     """(tokens, channels, layers) of every transformer block of one UNet
-    evaluation at ``height`` x ``width``, in order, from the UNet's plan."""
+    evaluation at ``height`` x ``width``, in order, from the UNet's plan;
+    without the decoder's, those of a ControlNet (the encoder and the
+    bottleneck)."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
     u = cfg.unet
@@ -1251,7 +1305,7 @@ def attention_blocks(cfg, height, width):
             blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
     blocks.append(((h >> level) * (w >> level), u.level_channels[-1],  # bottleneck
                    u.depth_for(len(u.ch_mults) - 1)))
-    for st in unet.decoder_plan(u):
+    for st in unet.decoder_plan(u) if decoder else ():
         if st["attn"]:
             blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
         if st["upsample"]:
@@ -1260,7 +1314,7 @@ def attention_blocks(cfg, height, width):
 
 
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
-                      context=77, encodes=None):
+                      context=77, encodes=None, controlnets=0, reference=None, cfg_lanes=True):
     """Kernel launches of one request, derived from the UNet's plan (which
     stages carry attention, at which level, of how many stacked layers,
     at which head width; its res blocks), the length of the
@@ -1268,7 +1322,14 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     :func:`expected_kernel`.  ``encodes``: the VAE encodes besides the one
     decode (by default one with ``img2img``, else none; slice C3's: two
     for 9-channel inpainting with an init image, the image and the masked
-    image, one for InstructPix2Pix's edit image).  One launch serves every
+    image, one for InstructPix2Pix's edit image).  Slice E: each of
+    ``controlnets`` runs the encoder's and the bottleneck's attention and
+    res blocks an evaluation; ``reference`` ("attn", "adain",
+    "adain+attn") adds a capture pass an evaluation (a whole UNet's
+    launches), the read's attention over twice the tokens where the mode
+    reads attention (:func:`expected_kernel` of 2 x tokens on the cross
+    path; without CFG, ``cfg_lanes`` False, it replaces the plain
+    self-attention), and the reference image's encode.  One launch serves every
     lane of an evaluation, so the lane count (1 without CFG, 2 with it, 3
     for InstructPix2Pix) does not enter the counts; it enters the shapes
     phase 3 holds (:func:`plan_shapes`).  The CPU tests import it too."""
@@ -1283,20 +1344,33 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     u = cfg.unet
     h = height // cfg.vae.downsample_factor
     w = width // cfg.vae.downsample_factor
-    for tokens, c, layers in attention_blocks(cfg, height, width):
+    # UNet passes an evaluation: the main one, and a reference capture pass
+    passes = 1 + (reference is not None)
+    n_net_blocks = len(attention_blocks(cfg, height, width, decoder=False))
+    for i, (tokens, c, layers) in enumerate(attention_blocks(cfg, height, width)):
         dh = c // u.heads_for(c)
-        add(expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
-                            flash_only=flash_only), steps * layers)
+        runs = steps * layers * (passes + (controlnets if i < n_net_blocks else 0))
+        k_self = expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
+                                 flash_only=flash_only)
+        add(k_self, runs)
         add(expected_kernel(context, dh, cross=True,
-                            backend=cfg.attention_backend, flash_only=flash_only),
-            steps * layers)
+                            backend=cfg.attention_backend, flash_only=flash_only), runs)
+        if reference is not None and "attn" in reference:
+            # the read attends over [own, banked] tokens (the cross path,
+            # k/v from 2x the tokens); under CFG the plain self-attention of
+            # the uncond lanes runs beside it, else not at all
+            add(expected_kernel(2 * tokens, dh, cross=True, backend=cfg.attention_backend,
+                                flash_only=flash_only), steps * layers)
+            if not cfg_lanes:
+                add(k_self, -steps * layers)
     if cfg.conv_backend in ("kernel", "kernel_fold"):  # both halves of every res block
-        counts["K5"] += 2 * steps * (sum(st["kind"] == "block" for st in unet.encoder_plan(u))
-                                     + 2 + len(unet.decoder_plan(u)))
+        enc_blocks = sum(st["kind"] == "block" for st in unet.encoder_plan(u))
+        counts["K5"] += 2 * steps * (passes * (enc_blocks + 2 + len(unet.decoder_plan(u)))
+                                     + controlnets * (enc_blocks + 2))
     mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
                         flash_only=flash_only),
-        1 + (int(img2img) if encodes is None else encodes))
+        1 + (int(img2img) if encodes is None else encodes) + (reference is not None))
     return counts
 
 
@@ -1342,6 +1416,34 @@ def c3_shapes(kernel):
     for preset, height, width, lanes, context, label in C3_PLANS:
         for key, n in plan_shapes(getattr(port, preset)(), height, width, lanes,
                                   context)[kernel].items():
+            out.setdefault(key, (n, label))
+    return out
+
+
+#: slice E's reference reads, whose attention over [own, banked] tokens takes
+#: the cross path over twice the tokens (K2, or K4 past 9216 padded KV
+#: tokens): (preset, height, width, lanes, request)
+E_PLANS = (("sd15_config", 512, 512, 2, "e: reference attn 512²"),
+           ("sd15_config", 768, 768, 2, "e': reference attn 768²"),
+           ("sdxl_config", 1024, 1024, 2, "i: SDXL reference attn 1024²"))
+
+
+def e_shapes(kernel):
+    """{(B, H, Sq, KV, Dh): (launches an evaluation, request)} of ``kernel``
+    (K2 or K4) in the reference reads of :data:`E_PLANS`, from the UNet's
+    plan and :func:`expected_kernel`."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    out = {}
+    for preset, height, width, lanes, label in E_PLANS:
+        cfg = getattr(port, preset)()
+        plan = {}
+        for tokens, c, layers in attention_blocks(cfg, height, width):
+            heads = cfg.unet.heads_for(c)
+            if expected_kernel(2 * tokens, c // heads, cross=True, backend="kernel") == kernel:
+                key = (lanes, heads, tokens, 2 * tokens, c // heads)
+                plan[key] = plan.get(key, 0) + layers
+        for key, n in plan.items():
             out.setdefault(key, (n, label))
     return out
 
@@ -1455,7 +1557,6 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"
     device busy share under torch.profiler, and the device time of K1, K4,
     K2 and K5 in it."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
-    from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
     dtype = cfg.policy.compute_dtype
@@ -1475,6 +1576,16 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"
                                        attention_backend=cfg.attention_backend,
                                        conv_backend=cfg.conv_backend, add_cond=add,
                                        t_cond=t_cond)
+
+    profile_eval(step, card, f"step {label} ({size}², batch {batch}, {context}-token context, "
+                             f"{cfg.conv_backend}): one UNet evaluation")
+
+
+def profile_eval(step, card, what):
+    """``step`` (one evaluation) timed by the wall clock, then profiled: its
+    device busy share under torch.profiler, and the device time of K1, K4,
+    K2 and K5 in it; printed after ``what``."""
+    from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
@@ -1514,9 +1625,7 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"
     launches = sum(e.count for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
     share = f"{busy / prof_wall:.3f}" if busy > 0 else "not measured"
-    print(f"step {label} ({size}², batch {batch}, {context}-token context, "
-          f"{cfg.conv_backend}): one "
-          f"UNet evaluation {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
+    print(f"{what} {wall:.4f} s wall; profiled {prof_wall:.4f} s wall, {busy:.4f} s "
           f"device busy, busy share {share}, {launches} kernels; {'; '.join(parts)}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
@@ -2192,18 +2301,35 @@ def _c3_mask(height, width, box):
     return m
 
 
-def phase_small_c3(port):
+def small_sd15_cpu(port):
+    """SD-1.5 at full width in FP32 on the CPU, from a seed: the CPU side of
+    the ``small C3`` and ``small E`` checks."""
+    t0 = time.perf_counter()
+    base = port.sd15_config(policy=port.FP32)
+    with HostPeak() as peak:
+        cpu = port.build_models(base, device="cpu", generator=torch.Generator().manual_seed(31))
+    print(f"small C3/E: SD-1.5 FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
+          f"{peak.text()}", flush=True)
+    return cpu, base
+
+
+def free_host():
+    import ctypes
+    import gc
+
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def phase_small_c3(port, cpu, base):
     """Full width, FP32, 256², 2 steps, CFG 5, the card against the port's
     CPU plain path on the same seeded weights and noise (> 55 dB latents,
     > 40 dB image, the launches of the plan): SD-1.5 9-channel inpainting
     (unet9), latent-blend inpainting on the 4-channel model, InstructPix2Pix
     (three lanes) and LCM without CFG (one lane, the guidance embedding).
-    The variants share SD-1.5's CPU tensors (:func:`c3_variant`); each is
-    copied to the card in turn."""
+    The variants share SD-1.5's CPU tensors (``cpu``, :func:`c3_variant`);
+    each is copied to the card in turn."""
     import numpy as np
-
-    import ctypes
-    import gc
 
     from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 
@@ -2214,12 +2340,6 @@ def phase_small_c3(port):
     kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
               tokenizer=tok, return_latents=True, n_inference_steps=2)
     kernels = dict(attention_backend="kernel", vae_attention_backend="kernel")
-    t0 = time.perf_counter()
-    base = port.sd15_config(policy=port.FP32)
-    with HostPeak() as peak:
-        cpu = port.build_models(base, device="cpu", generator=torch.Generator().manual_seed(31))
-    print(f"small C3: SD-1.5 FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
-          f"{peak.text()}", flush=True)
     requests = (  # label, preset, options, VAE encodes
         ("unet9 inpaint", "sd15_inpaint_config",
          dict(input_image=image, mask_image=mask, strength=1.0, sampler_name="ddpm"), 2),
@@ -2257,18 +2377,18 @@ def phase_small_c3(port):
         check(img_db > 40.0, f"small C3 ({label}) image PSNR {img_db:.1f} dB <= 40")
         del cpu_m, gpu_m
         torch.cuda.empty_cache()
-    del cpu
-    gc.collect()
-    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
-def c3_run(label, fn, parts, shape, card, zero_counts, read_path):
-    """One slice-C3 request: the launch counters zeroed before it and read
-    after; its launches held to the plan of its ``parts`` (each a
-    generate() call: (config, height, width, UNet evaluations, VAE encodes,
-    context tokens)); its output's shape; its wall time and peak memory."""
+def c3_run(label, fn, parts, shape, card, zero_counts, read_path, slice_name="C3"):
+    """One slice-C3 (or ``slice_name``) request: the launch counters zeroed
+    before it and read after; its launches held to the plan of its
+    ``parts`` (each a generate() call: (config, height, width, UNet
+    evaluations, VAE encodes, context tokens[, slice E's
+    :func:`expected_launches` options: controlnets, reference])); its
+    output's shape; its wall time and peak memory."""
     import numpy as np
 
+    label = f"{slice_name} {label}"
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -2279,27 +2399,29 @@ def c3_run(label, fn, parts, shape, card, zero_counts, read_path):
     read_path()
     want = {k: 0 for k in launched}
     evals = 0
-    for cfg, height, width, n, encodes, context in parts:
+    for cfg, height, width, n, encodes, context, *side in parts:
         evals += n
-        per = expected_launches(cfg, height, width, steps=n, img2img=False, encodes=encodes,
-                                context=context)
+        plain = expected_launches(cfg, height, width, steps=n, img2img=False, encodes=encodes,
+                                  context=context)
         family = "sdxl" if cfg.clip2 is not None else None
         stated = C2_PER_EVAL[family] if family else {"K5": K5_PER_EVAL, "K2": K2_PER_EVAL}
-        check(per["K5"] == stated["K5"] * n, f"C3 {label}: derived {per['K5']} K5 launches, "
-                                             f"PERF.md states {stated['K5'] * n}")
-        check(per["K2"] == (stated["K2"] * n if context >= 256 else 0),
-              f"C3 {label}: derived {per['K2']} K2 launches")
+        check(plain["K5"] == stated["K5"] * n, f"{label}: derived {plain['K5']} K5 launches, "
+                                               f"PERF.md states {stated['K5'] * n}")
+        check(plain["K2"] == (stated["K2"] * n if context >= 256 else 0),
+              f"{label}: derived {plain['K2']} K2 launches")
+        per = expected_launches(cfg, height, width, steps=n, img2img=False, encodes=encodes,
+                                context=context, **(side[0] if side else {}))
         for k, v in per.items():
             want[k] += v
     images = out[0] if isinstance(out, tuple) else out
     check(images.dtype == np.uint8 and images.shape == shape,
-          f"C3 {label}: output {images.dtype} {images.shape}, want {shape}")
-    check(images.max() > images.min(), f"C3 {label}: constant image")
+          f"{label}: output {images.dtype} {images.shape}, want {shape}")
+    check(images.max() > images.min(), f"{label}: constant image")
     if isinstance(out, tuple):
-        check(np.isfinite(out[1]).all(), f"C3 {label}: latents not finite")
-    check(launched == want, f"C3 {label}: launched {launched}, want {want}")
+        check(np.isfinite(out[1]).all(), f"{label}: latents not finite")
+    check(launched == want, f"{label}: launched {launched}, want {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"request C3 {label}: {dt:.2f} s wall, {evals} UNet evaluations, output "
+    print(f"request {label}: {dt:.2f} s wall, {evals} UNet evaluations, output "
           f"{shape[1]}x{shape[0]}, launches {launched}, peak {peak:.2f} GiB  [{card}]",
           flush=True)
     return out
@@ -2469,6 +2591,340 @@ def phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ slice E
+def ip_adapter_state(ucfg, vis, *, plus, seed):
+    """An IP-Adapter state dict of the published layout for ``ucfg``'s UNet
+    and the tower ``vis``, its weights drawn from ``seed`` at a layer's
+    usual scale (1/sqrt(fan in); norms near 1): the standard adapter (4
+    tokens from the projected embedding) or "plus" (the perceiver
+    Resampler over the penultimate hidden states: 16 queries of width 768,
+    4 layers of 12 heads of 64, as the published ViT-H plus adapters)."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.weights import ip_adapter
+
+    r = np.random.RandomState(seed)
+
+    def lin(o, i):
+        return (r.randn(o, i) / np.sqrt(i)).astype(np.float32)
+
+    def ln(n):
+        return (1 + 0.1 * r.randn(n)).astype(np.float32), (0.1 * r.randn(n)).astype(np.float32)
+
+    state = ip_adapter.synthetic_ip_state(ucfg, n_tok=4, embed_dim=vis.proj_dim, seed=seed)
+    for group in state.values():
+        for k, v in group.items():
+            group[k] = v / np.sqrt(v.shape[1]) if v.ndim == 2 else v
+    d_ctx = ucfg.d_context
+    if plus:
+        dim, inner = 768, 768
+        proj = {"latents": r.randn(1, 16, dim).astype(np.float32) / np.sqrt(dim),
+                "proj_in.weight": lin(dim, vis.width), "proj_in.bias": ln(dim)[1],
+                "proj_out.weight": lin(d_ctx, dim), "proj_out.bias": ln(d_ctx)[1]}
+        proj["norm_out.weight"], proj["norm_out.bias"] = ln(d_ctx)
+        for i in range(4):
+            for name in ("0.norm1", "0.norm2", "1.0"):
+                proj[f"layers.{i}.{name}.weight"], proj[f"layers.{i}.{name}.bias"] = ln(dim)
+            proj.update({f"layers.{i}.0.to_q.weight": lin(inner, dim),
+                         f"layers.{i}.0.to_kv.weight": lin(2 * inner, dim),
+                         f"layers.{i}.0.to_out.weight": lin(dim, inner),
+                         f"layers.{i}.1.1.weight": lin(4 * dim, dim),
+                         f"layers.{i}.1.3.weight": lin(dim, 4 * dim)})
+        state["image_proj"] = proj
+    return state
+
+
+def side_nets(port, cfg, device, seed, *, nets=2, vision=True):
+    """Slice E's side nets for ``cfg`` on ``device``, every weight drawn from
+    ``seed`` (the ControlNets' zero convs and mid_out too, so that their
+    residuals are not zero): ``nets`` ControlNets, a T2I-Adapter and, with
+    ``vision``, the ViT-H/14 tower and a standard and a "plus" IP-Adapter."""
+    from pytorch_stable_diffusion_tpu_torch.models import clip_vision as cv
+    from pytorch_stable_diffusion_tpu_torch.models import controlnet, t2i_adapter
+    from pytorch_stable_diffusion_tpu_torch.weights import ip_adapter
+
+    def g(k):
+        return torch.Generator(device=device).manual_seed(seed + k)
+
+    out = {"controlnet": [controlnet.build(cfg, device=device, generator=g(k))
+                          for k in range(nets)],
+           "t2i_adapter": t2i_adapter.build(cfg, device=device, generator=g(2))}
+    if vision:
+        vis, dtype = cv.vit_h14(), cfg.policy.param_dtype
+        out["clip_vision"] = cv.build_clip_vision(vis, dtype=dtype, device=device,
+                                                  generator=g(3))
+        for name, plus in (("ip_adapter", False), ("ip_plus", True)):
+            sd = ip_adapter.convert_ip_adapter(
+                ip_adapter_state(cfg.unet, vis, plus=plus, seed=seed + 4 + plus), cfg.unet)
+            out[name] = cv.build_ip_adapter(sd, dtype=dtype, device=device)
+    return out
+
+
+def on_card(cfg, side):
+    """``side`` (:func:`side_nets` on the CPU) copied to the card in ``cfg``'s
+    dtype."""
+    from pytorch_stable_diffusion_tpu_torch.models import clip_vision as cv
+    from pytorch_stable_diffusion_tpu_torch.models import controlnet, t2i_adapter
+
+    dtype = cfg.policy.param_dtype
+    out = {"controlnet": [controlnet.build(cfg, device="cuda", state_dict=n.state_dict())
+                          for n in side["controlnet"]],
+           "t2i_adapter": t2i_adapter.build(cfg, device="cuda",
+                                            state_dict=side["t2i_adapter"].state_dict())}
+    if "clip_vision" in side:
+        out["clip_vision"] = cv.build_clip_vision(side["clip_vision"].cfg, dtype=dtype,
+                                                  device="cuda",
+                                                  state_dict=side["clip_vision"].state_dict())
+        for name in ("ip_adapter", "ip_plus"):
+            out[name] = cv.build_ip_adapter(side[name].state_dict(), dtype=dtype, device="cuda")
+    return out
+
+
+def with_side(models, side, *, nets=0, adapter=False, ip=None):
+    """The models dict of a request: ``nets`` ControlNets (one is passed as
+    a module, two as a list), the T2I-Adapter, the tower and the standard
+    or the "plus" IP-Adapter (``ip``)."""
+    out = dict(models)
+    if nets:
+        out["controlnet"] = side["controlnet"][0] if nets == 1 else side["controlnet"][:nets]
+    if adapter:
+        out["t2i_adapter"] = side["t2i_adapter"]
+    if ip:
+        out["clip_vision"] = side["clip_vision"]
+        out["ip_adapter"] = side["ip_plus" if ip == "plus" else "ip_adapter"]
+    return out
+
+
+def hint_image(size, seed):
+    """A ControlNet / T2I-Adapter hint as users make one: the Canny edges
+    (``utils/annotators.canny``) of a seeded image of 64 x 64 px blocks."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.utils import annotators
+
+    blocks = np.random.RandomState(seed).randint(0, 256, (size // 64, size // 64, 3))
+    image = np.kron(blocks, np.ones((64, 64, 1))).astype(np.uint8)
+    return annotators.hint_rgb(annotators.canny(image))
+
+
+def phase_small_e(port, cpu, base):
+    """Slice E at full width, FP32, 256², 2 steps, CFG 5: the card against
+    the port's CPU plain path on the same seeded weights and noise (> 55 dB
+    latents, > 40 dB image, the plan's launches): a ControlNet, two, the
+    T2I-Adapter, IP-Adapter standard and plus (the ViT-H/14 tower at 224²),
+    reference ``attn`` and ``adain``.  The side nets are drawn on the CPU
+    and copied to the card."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import clip_vision as cv
+
+    tok = _tokenizer()
+    r = np.random.RandomState(36)
+    kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
+              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="euler_a")
+    t0 = time.perf_counter()
+    with HostPeak() as peak:
+        side = side_nets(port, base, "cpu", 80)
+    print(f"small E: side nets FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
+          f"{peak.text()}", flush=True)
+    ip_image = r.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+    hint = hint_image(256, 37)
+    requests = (  # label, side nets, options, launch-plan options
+        ("ControlNet", dict(nets=1), dict(control_image=hint), dict(controlnets=1)),
+        ("two ControlNets", dict(nets=2),
+         dict(control_image=[hint, hint_image(256, 38)], controlnet_scale=[1.0, 0.5]),
+         dict(controlnets=2)),
+        ("T2I-Adapter", dict(adapter=True), dict(adapter_image=hint), {}),
+        ("IP-Adapter", dict(ip="standard"), dict(ip_adapter_image=ip_image), {}),
+        ("IP-Adapter plus", dict(ip="plus"), dict(ip_adapter_image=ip_image), {}),
+        ("reference attn", {}, dict(reference_image=r.randint(0, 256, (256, 256, 3))
+                                    .astype(np.uint8), reference_fidelity=0.5),
+         dict(reference="attn")),
+        ("reference adain", {}, dict(reference_image=r.randint(0, 256, (256, 256, 3))
+                                     .astype(np.uint8), reference_mode="adain"),
+         dict(reference="adain")))
+    cfg_g = dataclasses.replace(base, attention_backend="kernel", vae_attention_backend="kernel")
+    gpu = port.build_models(cfg_g, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    side_g = on_card(cfg_g, side)
+    for label, pick, opts, plan in requests:
+        t1 = time.perf_counter()
+        img_c, lat_c = port.generate(PROMPTS[0], models=with_side(cpu, side, **pick),
+                                     config=base, device="cpu", clip_vision_config=cv.vit_h14(),
+                                     **kw, **opts)
+        t_cpu = time.perf_counter() - t1
+        want = expected_launches(cfg_g, 256, 256, steps=2, img2img=False, **plan)
+        before = launch_counts()
+        img_g, lat_g = port.generate(PROMPTS[0], models=with_side(gpu, side_g, **pick),
+                                     config=cfg_g, device="cuda", **kw, **opts)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small E ({label}): full-width FP32 256², 2 euler_a steps, CFG 5, card vs CPU "
+              f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
+              f"{got}; CPU side {t_cpu:.1f} s", flush=True)
+        check(got == want, f"small E ({label}) launched {got}, want {want}")
+        check(np.isfinite(lat_g).all(), f"small E ({label}): latents not finite")
+        check(lat_db > 55.0, f"small E ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small E ({label}) image PSNR {img_db:.1f} dB <= 40")
+    del side, side_g, gpu
+    torch.cuda.empty_cache()
+    free_host()
+
+
+def phase_slice_e(port, card, models, cfg, zero_counts, read_path):
+    """Slice E at SD-1.5 512², full width, BF16, attention, conv and VAE on
+    the kernels, dpm++ Karras 20 steps, CFG 7.5, seed 1337, on the phase-5
+    models with side nets drawn from a seed (:func:`side_nets`): (a) a
+    ControlNet on a Canny hint, (a') again, bit-identical, (a'') at scale 0,
+    bit-identical to the request without it; (b) two ControlNets at [1.0,
+    0.5]; (c) the T2I-Adapter (full_adapter); (d) IP-Adapter with ViT-H/14,
+    4 tokens, and (d') plus, 16 tokens; (e) reference-only in each mode at
+    fidelity 0.5, and (e') attn at 768², 4 steps (K4); (f) a ControlNet with
+    an IP-Adapter.  One ControlNet evaluation and one reference evaluation
+    are profiled."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import clip_vision as cv
+
+    base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
+    t0 = time.perf_counter()
+    side = side_nets(port, base_cfg, "cuda", 90)
+    torch.cuda.synchronize()
+    sizes = {k: sum(p.numel() for p in (v[0] if isinstance(v, list) else v).parameters())
+             for k, v in side.items()}
+    print(f"E: side nets BF16 built on the card in {time.perf_counter() - t0:.1f} s, "
+          f"parameters {sizes}", flush=True)
+    tok = _tokenizer()
+    r = np.random.RandomState(39)
+    hint = hint_image(512, 40)
+    ip_image = r.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+    ref_image = r.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20,
+              return_latents=True, clip_vision_config=cv.vit_h14())
+    sq = (512, 512, 3)
+
+    def run(label, pick, parts, shape=sq, **more):
+        return c3_run(label, lambda: port.generate(
+            PROMPTS[0], models=with_side(models, side, **pick), config=base_cfg,
+            **{**kw, **more}), parts, shape, card, zero_counts, read_path, slice_name="E")
+
+    def plan(**side_plan):
+        return [(base_cfg, 512, 512, 20, 0, 77, side_plan)]
+
+    plain = run("a0 the request without a side net", {}, plan())
+    a = run("a ControlNet, Canny hint of a seeded image", dict(nets=1), plan(controlnets=1),
+            control_image=hint)
+    a2 = run("a' the same again", dict(nets=1), plan(controlnets=1), control_image=hint)
+    check(np.array_equal(a[0], a2[0]) and np.array_equal(a[1], a2[1]),
+          "E a': the same seed gave a different result")
+    a0 = run("a'' controlnet_scale=0", dict(nets=1), plan(controlnets=1), control_image=hint,
+             controlnet_scale=0.0)
+    check(np.array_equal(a0[0], plain[0]) and np.array_equal(a0[1], plain[1]),
+          "E a'': scale 0 differs from the request without a ControlNet")
+    print(f"E a: a' == a and a'' == a0 bit-identical; a vs a0 PSNR "
+          f"{psnr(a[0].astype(np.float32), plain[0].astype(np.float32)):.1f} dB (not gated)",
+          flush=True)
+    run("b two ControlNets, scales [1.0, 0.5]", dict(nets=2), plan(controlnets=2),
+        control_image=[hint, hint_image(512, 41)], controlnet_scale=[1.0, 0.5])
+    run("c T2I-Adapter (full_adapter)", dict(adapter=True), plan(), adapter_image=hint)
+    run("d IP-Adapter, ViT-H/14, 4 tokens", dict(ip="standard"), plan(),
+        ip_adapter_image=ip_image)
+    run("d' IP-Adapter plus, Resampler, 16 tokens", dict(ip="plus"), plan(),
+        ip_adapter_image=ip_image)
+    for mode in ("attn", "adain", "adain+attn"):
+        run(f"e reference {mode}, fidelity 0.5", {}, plan(reference=mode),
+            reference_image=ref_image, reference_mode=mode)
+    run("e' reference attn 768², 4 steps (K4 in the read)", {},
+        [(base_cfg, 768, 768, 4, 0, 77, dict(reference="attn"))], shape=(768, 768, 3),
+        reference_image=np.kron(ref_image[::2, ::2], np.ones((3, 3, 1), np.uint8)),
+        height=768, width=768, n_inference_steps=4)
+    run("f ControlNet with IP-Adapter", dict(nets=1, ip="standard"), plan(controlnets=1),
+        control_image=hint, ip_adapter_image=ip_image)
+    profile_side_evals(models, base_cfg, side, card, 512, "SD-1.5")
+    del side
+    torch.cuda.empty_cache()
+
+
+def profile_side_evals(models, cfg, side, card, size, label):
+    """One ControlNet evaluation (the net, then the UNet with its residuals)
+    and one reference evaluation (the capture pass, then the read) at CFG
+    batch 2, profiled as in phase 7."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dtype = cfg.policy.compute_dtype
+    lat = size // cfg.vae.downsample_factor
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    x = rand(2, 4, lat, lat).contiguous(memory_format=torch.channels_last)
+    ctx = rand(2, 77, cfg.unet.d_context)
+    add = None if cfg.unet.add_embed_dim is None else \
+        torch.randn(2, cfg.unet.add_embed_dim, device="cuda", generator=g)
+    t, one = torch.tensor(500.0, device="cuda"), torch.tensor(1.0, device="cuda")
+    net = side["controlnet"][0]
+    kw = dict(attention_backend=cfg.attention_backend, conv_backend=cfg.conv_backend,
+              add_cond=add)
+    with torch.inference_mode():
+        hint = net.encode_hint(torch.rand(2, 3, size, size, device="cuda", generator=g)
+                               .contiguous(memory_format=torch.channels_last), cfg.policy)
+
+    def controlnet_eval():
+        with torch.inference_mode():
+            control = net(x, ctx, t, hint, cfg.policy, conditioning_scale=one, **kw)
+            return models["diffusion"](x, ctx, t, cfg.policy, control=control, **kw)
+
+    mask = torch.tensor([0.0, 1.0], device="cuda")
+
+    def reference_eval():
+        with torch.inference_mode():
+            bank = {}
+            models["diffusion"](x, ctx, t, cfg.policy, ref=("capture", bank), head=False, **kw)
+            return models["diffusion"](x, ctx, t, cfg.policy,
+                                       ref=("read", bank, one * 0.5, mask), **kw)
+
+    profile_eval(controlnet_eval, card, f"step E {label} ({size}², batch 2): one ControlNet "
+                                        "evaluation (the net, then the UNet)")
+    profile_eval(reference_eval, card, f"step E {label} ({size}², batch 2): one reference "
+                                       "attn evaluation (capture, then read)")
+
+
+def phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path):
+    """Slice E on SDXL 1024² (after slice C3's SDXL requests), dpm++ Karras
+    20 steps, CFG 5: (g) an SDXL ControlNet, (h) a full_adapter_xl
+    T2I-Adapter, (i) reference attn; one ControlNet and one reference
+    evaluation profiled."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    side = side_nets(port, xl_cfg, "cuda", 95, nets=1, vision=False)
+    torch.cuda.synchronize()
+    print(f"E: SDXL ControlNet and full_adapter_xl built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hint = hint_image(1024, 42)
+    kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
+              device="cuda", height=1024, width=1024, return_latents=True,
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+
+    def run(label, pick, side_plan, **more):
+        return c3_run(label, lambda: port.generate(
+            PROMPTS[0], models=with_side(xl, side, **pick), config=xl_cfg, **{**kw, **more}),
+            [(xl_cfg, 1024, 1024, 20, 0, 77, side_plan)], (1024, 1024, 3), card, zero_counts,
+            read_path, slice_name="E")
+
+    run("g SDXL ControlNet 1024²", dict(nets=1), dict(controlnets=1), control_image=hint)
+    run("h SDXL T2I-Adapter (full_adapter_xl) 1024²", dict(adapter=True), {},
+        adapter_image=hint)
+    run("i SDXL reference attn 1024², fidelity 0.5", {}, dict(reference="attn"),
+        reference_image=np.random.RandomState(43).randint(0, 256, (1024, 1024, 3))
+        .astype(np.uint8))
+    profile_side_evals(xl, xl_cfg, side, card, 1024, "SDXL")
+    del side
+    torch.cuda.empty_cache()
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -2533,7 +2989,8 @@ def main():
 
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": []}
+                      "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": [],
+                      "e_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -2735,6 +3192,8 @@ def main():
     phase_slice_d(port, card, request, zero_counts, read_path)
     # slice C3: inpainting, InstructPix2Pix, LCM and hires_fix at 512²
     phase_slice_c3(port, card, models, cfg, zero_counts, read_path)
+    # slice E: ControlNet, T2I-Adapter, IP-Adapter and reference-only at 512²
+    phase_slice_e(port, card, models, cfg, zero_counts, read_path)
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -2748,12 +3207,18 @@ def main():
     del models, base, batch_kw, long_kw
     torch.cuda.empty_cache()
     phase_small_c2(port, attention)
-    phase_small_c3(port)
+    cpu, cpu_cfg = small_sd15_cpu(port)
+    phase_small_c3(port, cpu, cpu_cfg)
+    phase_small_e(port, cpu, cpu_cfg)
+    del cpu
+    free_host()
     xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)
     phase_step(xl, xl_cfg, card, size=1024, label="SDXL")
     phase_step(xl, xl_cfg, card, size=1024, context=308, label="SDXL")
     # slice C3 on SDXL: 9-channel inpainting and LCM at 1024²
     phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path)
+    # slice E on SDXL: a ControlNet, full_adapter_xl and reference attn at 1024²
+    phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path)
     del xl
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]

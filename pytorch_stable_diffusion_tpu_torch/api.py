@@ -4,9 +4,10 @@ tokenizer and config, for repeated generation.
 ``StableDiffusion`` runs on the card unless ``device=`` names another
 device (the CPU tests pass ``"cpu"``); without a card and without
 ``device=`` it raises.  The ``with_*`` methods (``with_lora``, ``with_vae``,
-``merged_with``, ``with_hypernetwork``, ``with_textual_inversion``) return
-new bundles and leave the original as it was; their models share every
-parameter the transform leaves unchanged.  ``mesh=`` (slice H2) and the
+``merged_with``, ``with_hypernetwork``, ``with_textual_inversion``, and
+slice E's ``with_controlnet``, ``with_t2i_adapter`` and
+``with_ip_adapter``) return new bundles and leave the original as it was;
+their models share every parameter the transform leaves unchanged.  ``mesh=`` (slice H2) and the
 methods of later slices raise ``NotImplementedError`` naming their slice
 (ROADMAP.md §1).
 """
@@ -101,7 +102,8 @@ class StableDiffusion:
         self.device = _device(device)
         self.config = config or sd15_config()
         for m in models.values():
-            m.to(self.device)
+            for net in m if isinstance(m, (list, tuple)) else [m]:
+                net.to(self.device)
         self.models = models
         self.tokenizer = tokenizer
         self._hyper = None
@@ -461,15 +463,85 @@ class StableDiffusion:
             mask_image=mask, mask_blur=mask_blur, strength=strength,
             height=h, width=w, **self._kw(kwargs))
 
+    # -------------------------------------------------------- slice E
+    def with_controlnet(self, controlnet, *, config: Optional[SDConfig] = None):
+        """A bundle with a ControlNet attached (``models/controlnet.py``).
+
+        ``controlnet`` is a checkpoint path (the CompVis ``control_model.*``
+        layout, standalone or merged), a diffusers ControlNetModel
+        directory, a ControlNet module, or a LIST of those
+        (multi-ControlNet: the residuals sum; pass matching lists as
+        ``control_image`` / ``controlnet_scale``).  ``config`` names the
+        family the files are read for (by default the bundle's).
+        Generation then takes ``control_image`` (+ ``controlnet_scale``)."""
+        import os
+
+        from .models import controlnet as controlnet_mod
+        from .weights import convert, diffusers
+
+        cfg = config or self.config
+
+        def load(cn):
+            if not isinstance(cn, str):
+                return cn
+            sd = diffusers.load_diffusers_controlnet(cn, cfg) if os.path.isdir(cn) \
+                else convert.load_controlnet(cn, cfg)
+            return controlnet_mod.build(cfg, device=self.device, state_dict=sd)
+
+        controlnet = [load(c) for c in controlnet] \
+            if isinstance(controlnet, (list, tuple)) else load(controlnet)
+        return self._clone(models=dict(self.models, controlnet=controlnet))
+
+    def with_ip_adapter(self, adapter, image_encoder, *, vision_config=None):
+        """A bundle with an IP-Adapter attached (image prompting, Ye et al.
+        2023; ``weights/ip_adapter.py``).
+
+        ``adapter`` is an IP-Adapter weight file (.bin / .safetensors,
+        h94-style) or an :class:`~.models.clip_vision.IPAdapter`;
+        ``image_encoder`` the CLIP vision weight file (the HF
+        ``CLIPVisionModelWithProjection`` layout) or a
+        :class:`~.models.clip_vision.CLIPVision`; ``vision_config`` its
+        ``CLIPVisionConfig`` (default ViT-H/14, the SD-1.x adapters'
+        encoder; ``clip_vision.vit_bigg14()`` for the SDXL ones).
+        Generation then takes ``ip_adapter_image`` (+ ``ip_adapter_scale``)."""
+        from .models import clip_vision as cv
+        from .weights import ip_adapter as ipw
+
+        vis_cfg = vision_config or cv.vit_h14()
+        dtype = self.config.policy.param_dtype
+        if isinstance(adapter, str):
+            adapter = cv.build_ip_adapter(ipw.load_ip_adapter(adapter, self.config.unet),
+                                          dtype=dtype, device=self.device)
+        if isinstance(image_encoder, str):
+            image_encoder = cv.build_clip_vision(
+                vis_cfg, dtype=dtype, device=self.device,
+                state_dict=ipw.load_clip_vision(image_encoder, vis_cfg))
+        return self._clone(models=dict(self.models, ip_adapter=adapter,
+                                       clip_vision=image_encoder))
+
+    def with_t2i_adapter(self, adapter):
+        """A bundle with a T2I-Adapter attached (``models/t2i_adapter.py``:
+        spatial conditioning whose features are computed once a request).
+
+        ``adapter`` is a diffusers ``T2IAdapter`` directory or weight file,
+        a T2IAdapter module, or a LIST of those (multi-adapter: the
+        features sum; pass matching lists as ``adapter_image`` /
+        ``adapter_scale``).  Generation then takes ``adapter_image`` (+
+        ``adapter_scale``)."""
+        from .models import t2i_adapter as t2i_mod
+        from .weights import diffusers
+
+        def load(ad):
+            if not isinstance(ad, str):
+                return ad
+            return t2i_mod.build(self.config, device=self.device,
+                                 state_dict=diffusers.load_t2i_adapter(ad, self.config))
+
+        adapter = [load(a) for a in adapter] if isinstance(adapter, (list, tuple)) \
+            else load(adapter)
+        return self._clone(models=dict(self.models, t2i_adapter=adapter))
+
     # ------------------------------------------------ later slices' methods
-    def with_controlnet(self, *args, **kwargs):
-        _unported("StableDiffusion.with_controlnet", "slice E")
-
-    def with_ip_adapter(self, *args, **kwargs):
-        _unported("StableDiffusion.with_ip_adapter", "slice E")
-
-    def with_t2i_adapter(self, *args, **kwargs):
-        _unported("StableDiffusion.with_t2i_adapter", "slice E")
 
     def with_motion(self, *args, **kwargs):
         _unported("StableDiffusion.with_motion (AnimateDiff)", "slice G")

@@ -48,10 +48,14 @@ def reset_parameters(model: nn.Module,
 
 def build_models(cfg: SDConfig, *, device=None,
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Dict[str, nn.Module]:
+                 generator: Optional[torch.Generator] = None,
+                 vision_config=None) -> Dict[str, nn.Module]:
     """-> {"clip", ["clip2",] "encoder", "decoder", "diffusion"} ready for
-    inference.
+    inference, and the side nets (slice E) ``state_dicts`` holds:
+    "controlnet" and "t2i_adapter" (a state dict, or a list of them for
+    several nets), "ip_adapter" and "clip_vision" (of ``vision_config``,
+    by default ``clip_vision.vit_h14()``), as :func:`build_side_nets` builds
+    them.
 
     The models are built on the card (``"cuda"``) unless ``device`` names
     another one; with no device given and no card present this raises
@@ -59,12 +63,7 @@ def build_models(cfg: SDConfig, *, device=None,
     (``weights.convert`` output) the weights load with strict key coverage;
     without, they are drawn from ``generator`` (a generator on ``device``;
     None uses torch's default one)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_models: no CUDA device; pass device='cpu' "
-                               "to build the models on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = target_device(device)
     models = construct(cfg)
     for name, m in models.items():
         m.to_empty(device=device)
@@ -73,7 +72,46 @@ def build_models(cfg: SDConfig, *, device=None,
         else:
             m.load_state_dict(state_dicts[name], strict=True)
         _finish(m, device)
+    if state_dicts is not None:
+        models.update(build_side_nets(cfg, state_dicts, device=device,
+                                      vision_config=vision_config))
     return models
+
+
+def build_side_nets(cfg: SDConfig, state_dicts, *, device=None,
+                    vision_config=None) -> Dict[str, object]:
+    """The side nets of ``state_dicts`` (``weights.convert.SIDE_NETS``) as
+    modules on ``device`` in the policy's dtype: a ControlNet or
+    T2I-Adapter list for a list of state dicts."""
+    from . import clip_vision, controlnet, t2i_adapter
+
+    device = target_device(device)
+    dtype = cfg.policy.param_dtype
+    build = {
+        "controlnet": lambda sd: controlnet.build(cfg, device=device, state_dict=sd),
+        "t2i_adapter": lambda sd: t2i_adapter.build(cfg, device=device, state_dict=sd),
+        "ip_adapter": lambda sd: clip_vision.build_ip_adapter(sd, dtype=dtype, device=device),
+        "clip_vision": lambda sd: clip_vision.build_clip_vision(
+            vision_config or clip_vision.vit_h14(), dtype=dtype, device=device,
+            state_dict=sd),
+    }
+    out = {}
+    for name, make in build.items():
+        if name in state_dicts:
+            sd = state_dicts[name]
+            out[name] = [make(x) for x in sd] if isinstance(sd, (list, tuple)) else make(sd)
+    return out
+
+
+def target_device(device) -> torch.device:
+    """``device``, or the card when None; with no card and no device named
+    this raises instead of carrying on on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_models: no CUDA device; pass device='cpu' "
+                               "to build the models on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def _finish(m: nn.Module, device: torch.device) -> None:

@@ -32,13 +32,16 @@ from .config import CLIPConfig
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPConfig, **kw):
+    """One pre-norm transformer layer (the text towers' and the vision
+    tower's, ``models/clip_vision.py``)."""
+
+    def __init__(self, d_model: int, d_ff: int, **kw):
         super().__init__()
-        self.ln1 = norm.Norm(cfg.d_model, **kw)
-        self.attn = attention.Attention(cfg.d_model, **kw)
-        self.ln2 = norm.Norm(cfg.d_model, **kw)
-        self.fc1 = linear.Linear(cfg.d_model, cfg.d_ff, **kw)
-        self.fc2 = linear.Linear(cfg.d_ff, cfg.d_model, **kw)
+        self.ln1 = norm.Norm(d_model, **kw)
+        self.attn = attention.Attention(d_model, **kw)
+        self.ln2 = norm.Norm(d_model, **kw)
+        self.fc1 = linear.Linear(d_model, d_ff, **kw)
+        self.fc2 = linear.Linear(d_ff, d_model, **kw)
 
 
 class CLIP(nn.Module):
@@ -50,7 +53,7 @@ class CLIP(nn.Module):
             torch.empty(cfg.vocab_size, cfg.d_model, **kw))
         self.position_embedding = nn.Parameter(
             torch.empty(cfg.max_len, cfg.d_model, **kw))
-        self.layers = nn.ModuleList(CLIPLayer(cfg, **kw)
+        self.layers = nn.ModuleList(CLIPLayer(cfg.d_model, cfg.d_ff, **kw)
                                     for _ in range(cfg.n_layers))
         self.final_norm = norm.Norm(cfg.d_model, **kw)
         if cfg.text_projection:

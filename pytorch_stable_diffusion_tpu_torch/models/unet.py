@@ -24,6 +24,11 @@
   add folded into the second half's affine; "fold" applies every GN/LN
   normalize of the res and transformer blocks as a compute-dtype affine;
   "kernel_fold" does both.  ``norm_out`` stays exact in every tier.
+* Slice E's side inputs, as the JAX ``unet.apply`` takes them: ControlNet
+  residuals on the skips and the bottleneck, T2I-Adapter features at
+  :func:`adapter_sites`, IP-Adapter k/v layers by position key, and the
+  reference-only banks (attention tokens, AdaIN statistics), captured by
+  one pass and read by the next.
 
 Tensors are NCHW (channels_last in memory on CUDA); parameter names follow
 the JAX pytree paths (``encoder.1.attn.self_attn.q.weight``).
@@ -92,6 +97,33 @@ def encoder_plan(cfg: UNetConfig) -> List[dict]:
         if i < len(cfg.ch_mults) - 1:
             stages.append({"kind": "down", "c": c})
     return stages
+
+
+def adapter_sites(cfg: UNetConfig, n_feats: int):
+    """T2I-Adapter insertion plan over the encoder stage list (the
+    diffusers ``down_intrablock_additional_residuals`` contract), as in the
+    JAX package: ``(pre, post, mid)``.  ``pre`` maps an encoder-stage index
+    to a feature index at levels WITH attention (added after the level's
+    last res/attn block, before its skip is recorded); ``post`` at levels
+    WITHOUT attention (added to the backbone only, after the level's final
+    stage: its downsample, or its last block at the bottom level); ``mid``
+    is the feature added after the bottleneck (SDXL ``full_adapter_xl``'s
+    n_levels+1-th), or None."""
+    n_levels = len(cfg.ch_mults)
+    if n_feats not in (n_levels, n_levels + 1):
+        raise ValueError(f"{n_feats} adapter features for a {n_levels}-level"
+                         f" UNet (expected {n_levels} or {n_levels + 1})")
+    pre, post = {}, {}
+    idx = 0
+    for lvl in range(n_levels):
+        last_block = idx + cfg.num_res_blocks - 1
+        has_down = lvl < n_levels - 1
+        if cfg.attn_levels[lvl]:
+            pre[last_block] = lvl
+        else:
+            post[last_block + 1 if has_down else last_block] = lvl
+        idx = last_block + (2 if has_down else 1)
+    return pre, post, (n_levels if n_feats == n_levels + 1 else None)
 
 
 def decoder_plan(cfg: UNetConfig) -> List[dict]:
@@ -203,10 +235,17 @@ class AttnBlock(nn.Module):
 
     def forward(self, x, context, n_heads: int, groups: int, policy: Policy, *,
                 backend: str = "plain", reference_quirks: bool = False,
-                fuse_qkv: bool = True, fold_norms: bool = False):
+                fuse_qkv: bool = True, fold_norms: bool = False, ip=None,
+                ref=None, ref_key: Optional[str] = None):
         """``fold_norms``: the GroupNorm and the LayerNorms apply their
         normalize as compute-dtype affines (``conv_backend`` "fold" and
-        "kernel_fold")."""
+        "kernel_fold").  ``ip``: ``(layers, tokens, scale)``, one IP-Adapter
+        k/v layer for each transformer layer (``ops/attention.apply``).
+        ``ref``: reference-only attention, ``("capture", bank)`` banks each
+        layer's pre-attention tokens under ``f"{ref_key}_{layer}"``;
+        ``("read", bank, fidelity, plain_mask)`` attends over [own, banked]
+        tokens, the lanes of ``plain_mask`` lerped back toward plain
+        self-attention by ``fidelity``."""
         n, c, h, w = x.shape
 
         def tokens(t):  # (B, C, H, W) -> (B, HW, C); free for channels_last
@@ -221,13 +260,31 @@ class AttnBlock(nn.Module):
             ln = norm.layer_norm
         y0 = tokens(x)
         y = _proj1x1(self.conv_in, tokens(gn), policy)
-        for lp in self.layers():
+        for li, lp in enumerate(self.layers()):
             t = ln(lp.ln1, y, policy=policy)
-            y = y + attention.apply(lp.self_attn, t, n_heads=n_heads,
-                                    backend=backend, policy=policy, fuse=fuse_qkv)
+
+            def self_attention():
+                return attention.apply(lp.self_attn, t, n_heads=n_heads, backend=backend,
+                                       policy=policy, fuse=fuse_qkv)
+
+            if ref is None:
+                y = y + self_attention()
+            elif ref[0] == "capture":
+                ref[1][f"{ref_key}_{li}"] = t
+                y = y + self_attention()
+            else:
+                _, bank, fidelity, plain_mask = ref
+                t_kv = torch.cat([t, bank[f"{ref_key}_{li}"].to(t.dtype)], dim=1)
+                a_ref = attention.apply(lp.self_attn, t, t_kv, n_heads=n_heads,
+                                        backend=backend, policy=policy, fuse=False)
+                if plain_mask is not None:
+                    mix = (fidelity * plain_mask)[:, None, None].to(a_ref.dtype)
+                    a_ref = self_attention() * mix + a_ref * (1.0 - mix)
+                y = y + a_ref
             t = ln(lp.ln2, y, policy=policy)
             y = y + attention.apply(lp.cross_attn, t, context, n_heads=n_heads,
-                                    backend=backend, policy=policy, fuse=fuse_qkv)
+                                    backend=backend, policy=policy, fuse=fuse_qkv,
+                                    ip=None if ip is None else (ip[0][li], ip[1], ip[2]))
             t = ln(lp.ln3, y, policy=policy)
             t = geglu(linear.apply(lp.geglu_proj, t, policy), reference_quirks)
             y = y + linear.apply(lp.geglu_out, t, policy)
@@ -266,6 +323,54 @@ class TimeEmbed(nn.Module):
             self.cond_proj = linear.Linear(cond_dim, c, bias=False, **kw)
 
 
+def encoder_stages(cfg: UNetConfig, **kw) -> nn.ModuleList:
+    """The encoder's stages after conv_in, from :func:`encoder_plan`: the
+    UNet's, and the ControlNet's copy of it (``models/controlnet.py``)."""
+    t_dim = cfg.time_embed_dim
+    enc = []
+    for st in encoder_plan(cfg)[1:]:
+        if st["kind"] == "down":
+            enc.append(Stage(down=conv.Conv(st["c"], st["c"], 3, **kw)))
+        else:
+            enc.append(Stage(
+                res=ResBlock(st["c_in"], st["c_out"], t_dim, **kw),
+                attn=AttnBlock(st["c_out"], cfg.d_context, st["depth"], **kw)
+                if st["attn"] else None))
+    return nn.ModuleList(enc)
+
+
+def time_embedding(m: nn.Module, cfg: UNetConfig, t, policy: Policy, device,
+                   add_cond: Optional[torch.Tensor] = None,
+                   t_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The time MLP of ``m`` (a UNet or a ControlNet) on the sinusoidal
+    embedding of ``t`` (+ LCM's projected guidance embedding ``t_cond``),
+    plus SDXL's added-conditioning MLP of ``add_cond``."""
+    t_emb = timestep_embedding(t, cfg.model_channels, device=device)
+    if t_cond is not None:
+        t_emb = t_emb + linear.apply(m.time_embed.cond_proj, t_cond, policy)
+    t_emb = linear.apply(m.time_embed.fc1, t_emb, policy)
+    t_emb = linear.apply(m.time_embed.fc2, silu(t_emb), policy)
+    if add_cond is not None:
+        a = linear.apply(m.add_embed.fc1, add_cond.to(policy.compute_dtype), policy)
+        t_emb = t_emb + linear.apply(m.add_embed.fc2, silu(a), policy)
+    return t_emb
+
+
+def adain_transform(xf, mean, var, m_ref, v_ref, fidelity, plain_mask):
+    """Reference AdaIN's read transform (the diffusers community
+    stable_diffusion_reference formula, as in the JAX package):
+    ``(x - mean) / sqrt(max(var, 1e-6)) * sqrt(max(var_ref, 1e-6)) +
+    mean_ref``, then the lanes of ``plain_mask`` lerp back toward ``x`` by
+    ``fidelity``.  All fp32; (mean, var) are the per-sample, per-channel
+    spatial statistics of ``xf`` (N, C, H, W)."""
+    x_ad = (xf - mean) / torch.sqrt(torch.clamp(var, min=1e-6)) \
+        * torch.sqrt(torch.clamp(v_ref, min=1e-6)) + m_ref
+    if plain_mask is not None:
+        mix = (fidelity * plain_mask)[:, None, None, None].float()
+        x_ad = xf * mix + x_ad * (1.0 - mix)
+    return x_ad
+
+
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -276,16 +381,7 @@ class UNet(nn.Module):
         if cfg.add_embed_dim:
             self.add_embed = TimeEmbed(cfg.add_embed_dim, t_dim, **kw)
         self.conv_in = conv.Conv(cfg.in_channels, cfg.model_channels, 3, **kw)
-        enc = []
-        for st in encoder_plan(cfg)[1:]:
-            if st["kind"] == "down":
-                enc.append(Stage(down=conv.Conv(st["c"], st["c"], 3, **kw)))
-            else:
-                enc.append(Stage(
-                    res=ResBlock(st["c_in"], st["c_out"], t_dim, **kw),
-                    attn=AttnBlock(st["c_out"], cfg.d_context, st["depth"], **kw)
-                    if st["attn"] else None))
-        self.encoder = nn.ModuleList(enc)
+        self.encoder = encoder_stages(cfg, **kw)
         self.bottleneck = Bottleneck(cfg.level_channels[-1], t_dim, cfg.d_context,
                                      cfg.depth_for(len(cfg.ch_mults) - 1), **kw)
         self.decoder = nn.ModuleList(
@@ -302,7 +398,8 @@ class UNet(nn.Module):
                 attention_backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, conv_backend: str = "plain",
                 add_cond: Optional[torch.Tensor] = None,
-                t_cond: Optional[torch.Tensor] = None):
+                t_cond: Optional[torch.Tensor] = None, control=None, adapter=None,
+                ip=None, ref=None, ref_adain=None, head: bool = True):
         """latents: (B, in_ch, h, w) (in_ch 9 for inpainting, 8 for
         InstructPix2Pix: plain convs, never K5); context: (B, S, d_context),
         or a hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t:
@@ -311,44 +408,87 @@ class UNet(nn.Module):
         :func:`guidance_scale_embedding`, projected by ``cond_proj`` in the
         compute dtype and added to the sinusoidal embedding.
 
+        Slice E's side inputs, as the JAX ``unet.apply`` takes them:
+        ``control``, ControlNet residuals ``{"down": [one a skip], "mid":
+        r}`` added to the skips and to the bottleneck output; ``adapter``,
+        T2I-Adapter features added at :func:`adapter_sites`; ``ip``,
+        ``(layers, tokens, scale)`` with ``layers`` mapping the position
+        keys ``enc_{i}_{l}`` / ``dec_{i}_{l}`` / ``mid_{l}`` to IP-Adapter
+        k/v layers; ``ref`` and ``ref_adain``, reference-only attention
+        (:class:`AttnBlock`) and AdaIN: ``("capture", bank)`` or ``("read",
+        bank, fidelity, plain_mask)``, AdaIN banking the fp32 per-channel
+        spatial (mean, var) after every encoder and decoder res(+attn)
+        stage and after the bottleneck.  ``head=False`` skips norm_out and
+        conv_out and returns None (a reference capture pass).
+
         Returns the model output (B, out_ch, h, w): the predicted noise, or
         v for a v-prediction checkpoint."""
         cfg = self.cfg
-        t_emb = timestep_embedding(t, cfg.model_channels, device=latents.device)
-        if t_cond is not None:
-            t_emb = t_emb + linear.apply(self.time_embed.cond_proj, t_cond, policy)
-        t_emb = linear.apply(self.time_embed.fc1, t_emb, policy)
-        t_emb = linear.apply(self.time_embed.fc2, silu(t_emb), policy)
-        if add_cond is not None:
-            a = linear.apply(self.add_embed.fc1, add_cond.to(policy.compute_dtype), policy)
-            t_emb = t_emb + linear.apply(self.add_embed.fc2, silu(a), policy)
+        t_emb = time_embedding(self, cfg, t, policy, latents.device, add_cond, t_cond)
         fold_norms = conv_backend in ("fold", "kernel_fold")
 
-        def block(res, attn, x):
+        def block(res, attn, x, key):
             x = res(x, t_emb, cfg.groups, policy, conv_backend)
             if attn is not None:
-                x = attn(x, context, cfg.heads_for(x.shape[1]), cfg.groups,
-                         policy, backend=attention_backend,
-                         reference_quirks=reference_quirks, fuse_qkv=fuse_qkv,
-                         fold_norms=fold_norms)
+                x = attn(x, context, cfg.heads_for(x.shape[1]), cfg.groups, policy,
+                         backend=attention_backend, reference_quirks=reference_quirks,
+                         fuse_qkv=fuse_qkv, fold_norms=fold_norms, ip=ip_for(key, attn),
+                         ref=ref, ref_key=key)
             return x
 
+        def ip_for(key, attn):
+            if ip is None:
+                return None
+            return ([ip[0][f"{key}_{li}"] for li in range(len(attn.layers()))],
+                    ip[1], ip[2])
+
+        def adain_site(x, key):
+            if ref_adain is None:
+                return x
+            xf = x.float()
+            mean = xf.mean(dim=(2, 3), keepdim=True)
+            var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+            if ref_adain[0] == "capture":
+                ref_adain[1][key] = (mean, var)
+                return x
+            _, bank, fidelity, plain_mask = ref_adain
+            m_ref, v_ref = bank[key]
+            return adain_transform(xf, mean, var, m_ref, v_ref, fidelity,
+                                   plain_mask).to(x.dtype)
+
+        if adapter is not None:
+            ad_pre, ad_post, ad_mid = adapter_sites(cfg, len(adapter))
         x = conv.apply(self.conv_in, latents, padding=1, policy=policy)
         skips = [x]
-        for stage in self.encoder:
+        for i, stage in enumerate(self.encoder):
             if stage.down is not None:
                 # stride-2 symmetric pad 1 (differs from the VAE's pad)
                 x = conv.apply(stage.down, x, stride=2, padding=1, policy=policy)
             else:
-                x = block(stage.res, stage.attn, x)
+                x = adain_site(block(stage.res, stage.attn, x, f"enc_{i}"), f"enc_{i}")
+                if adapter is not None and i in ad_pre:
+                    x = x + adapter[ad_pre[i]].to(x.dtype)
             skips.append(x)
+            if adapter is not None and i in ad_post:
+                # backbone only: the recorded skip excludes the feature
+                x = x + adapter[ad_post[i]].to(x.dtype)
+        if control is not None:
+            skips = [s + d.to(s.dtype) for s, d in zip(skips, control["down"])]
         mid = self.bottleneck
-        x = block(mid.res1, mid.attn, x)
-        x = mid.res2(x, t_emb, cfg.groups, policy, conv_backend)
-        for stage in self.decoder:
-            x = block(stage.res, stage.attn, torch.cat([x, skips.pop()], dim=1))
+        x = block(mid.res1, mid.attn, x, "mid")
+        x = adain_site(mid.res2(x, t_emb, cfg.groups, policy, conv_backend), "mid")
+        if adapter is not None and ad_mid is not None:
+            # full_adapter_xl's extra feature, before the ControlNet's
+            x = x + adapter[ad_mid].to(x.dtype)
+        if control is not None:
+            x = x + control["mid"].to(x.dtype)
+        for si, stage in enumerate(self.decoder):
+            x = block(stage.res, stage.attn, torch.cat([x, skips.pop()], dim=1), f"dec_{si}")
+            x = adain_site(x, f"dec_{si}")
             if stage.upsample is not None:
                 x = conv.apply(stage.upsample, upsample_nearest_2x(x), padding=1,
                                policy=policy)
+        if not head:
+            return None
         x = norm.group_norm_silu(self.norm_out, x, cfg.groups, policy=policy)
         return conv.apply(self.conv_out, x, padding=1, policy=policy)

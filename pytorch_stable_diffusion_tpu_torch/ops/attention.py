@@ -33,6 +33,14 @@ to its kernel's largest):
 * KV < 256 (CLIP, every 77-token cross-attention, the UNet's 64-token mid
   block at 512²) and the ``"plain"`` backend below 40960: materialized
   scores.
+
+Slice E's reference read (``models/unet.py``) passes ``[own, banked]``
+tokens as the context of a self-attention's projections, so it takes the
+cross path over 2·S KV tokens: K2 at 512² and SDXL 1024² (KV 8192, 2048,
+512), K4 past 9216 padded KV tokens (768²: 9216 q rows over 18432), and
+materialized scores at the 64-token mid block (KV 128).  The IP-Adapter's
+decoupled attention (``ip``) is always materialized: its KV is 4 or 16
+image tokens.
 """
 
 from __future__ import annotations
@@ -152,10 +160,16 @@ def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
 
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
           *, n_heads: int, causal: bool = False, backend: str = "plain",
-          policy: Policy = FP32, fuse: bool = True) -> torch.Tensor:
+          policy: Policy = FP32, fuse: bool = True, ip=None) -> torch.Tensor:
     """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention, or a
     ``(ctx_k, ctx_v)`` pair of such tensors (a hypernetwork's, as the JAX
-    package takes it), k projected from ``ctx_k`` and v from ``ctx_v``."""
+    package takes it), k projected from ``ctx_k`` and v from ``ctx_v``.
+
+    ``ip``: IP-Adapter decoupled attention, ``(layer, tokens, scale)``: the
+    4 or 16 image tokens (B, n, D_cross) projected by ``layer``'s bias-free
+    ``k`` and ``v``, attended by this layer's q heads with materialized
+    scores (never a kernel: the KV is a handful of tokens) and added times
+    the tensor ``scale`` before the out projection."""
     if context is None:
         if fuse:
             q, k, v = _fused_proj((p.q, p.k, p.v), x, policy)
@@ -189,4 +203,10 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
         else:
             out = materialized_attention(*heads, causal, policy)
         out = _merge_heads(out)
+    if ip is not None:
+        layer, tokens, scale = ip
+        k_ip, v_ip = (_split_heads(linear.apply(m, tokens, policy), n_heads)
+                      for m in (layer.k, layer.v))
+        out_ip = materialized_attention(_split_heads(q, n_heads), k_ip, v_ip, False, policy)
+        out = out + scale.to(out.dtype) * _merge_heads(out_ip)
     return linear.apply(p.out, out, policy)

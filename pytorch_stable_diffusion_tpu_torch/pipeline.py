@@ -92,6 +92,27 @@ Same public keyword surface as the JAX package's ``generate()`` and
   usually with ``do_cfg=False``.  ``color_correction`` histogram-matches
   each output to its init image on the host.  The own-grid samplers
   refuse inpainting, with ``ValueError``.
+* Slice E, the side nets, as in the JAX package, every one composing with
+  every loop family of :func:`_sample`.  ``control_image`` (one a
+  ControlNet of ``models["controlnet"]``, a module or a list) with
+  ``controlnet_scale``: each net's hint features once a request, its
+  residuals at every evaluation from the 4-channel latents, summed over
+  the nets.  ``adapter_image`` / ``adapter_scale`` (``models["t2i_adapter"]``):
+  the features once a request, scaled and summed over the adapters.
+  ``ip_adapter_image`` / ``ip_adapter_scale`` (``models["ip_adapter"]`` and
+  the tower ``models["clip_vision"]`` of ``clip_vision_config``): the image
+  tokens once a request, the negative lane's from a zero embedding (a zero
+  image for the "plus" adapters).  ``reference_image`` with
+  ``reference_fidelity`` and ``reference_mode`` ("attn", "adain",
+  "adain+attn"): the reference encoded once (stream 'ref_encoder', per
+  sample), re-noised at every evaluation (stream 'ref_noise', per sample
+  and step) and run through a capture pass of the UNet (2 lanes under CFG,
+  no side nets) whose banked tokens or statistics the main pass reads;
+  ``plain_mask`` [0]*B + [1]*B lerps the uncond lanes back by the
+  fidelity.  Scales and the fidelity are tensors.  Reference-only refuses
+  ``fixed_noise`` and 9-channel inpainting; InstructPix2Pix refuses
+  ControlNet, T2I-Adapter, IP-Adapter and reference-only, with the JAX
+  package's ``ValueError``s.
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
@@ -130,12 +151,6 @@ MAX_VALIDATED_ATTN_TOKENS = 65536
 
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "control_image": (None, "slice E"), "controlnet_scale": (1.0, "slice E"),
-    "adapter_image": (None, "slice E"), "adapter_scale": (1.0, "slice E"),
-    "ip_adapter_image": (None, "slice E"), "ip_adapter_scale": (1.0, "slice E"),
-    "clip_vision_config": (None, "slice E"),
-    "reference_image": (None, "slice E"), "reference_fidelity": (0.5, "slice E"),
-    "reference_mode": ("attn", "slice E"),
     "region_masks": (None, "slice F"), "freeu": (None, "slice F"),
     "deepcache": (None, "slice F"), "guidance_rescale": (0.0, "slice F"),
     "variation_seed": (None, "slice F"), "variation_strength": (0.0, "slice F"),
@@ -454,7 +469,7 @@ def _inpaint_mode(cfg: SDConfig, mask_image, input_image, init_latents) -> Optio
 
 
 def _check_ip2p(cfg: SDConfig, *, img2img: bool, do_cfg: bool, mask_image,
-                edited: bool) -> None:
+                edited: bool, control_image=None, adapter_image=None) -> None:
     """InstructPix2Pix's ValueErrors, as in the JAX package (``edited``:
     the prompt has edits/alternations)."""
     if cfg.unet.in_channels != 2 * cfg.vae.latent_channels:
@@ -471,12 +486,61 @@ def _check_ip2p(cfg: SDConfig, *, img2img: bool, do_cfg: bool, mask_image,
     if not do_cfg:
         raise ValueError("InstructPix2Pix needs do_cfg=True (dual "
                          "text/image guidance)")
-    if mask_image is not None:
-        raise ValueError("InstructPix2Pix does not compose with mask_image")
+    bad = [n for n, v in [("mask_image", mask_image), ("control_image", control_image),
+                          ("adapter_image", adapter_image)] if v is not None]
+    if bad:
+        raise ValueError(f"InstructPix2Pix does not compose with {'/'.join(bad)}")
     if edited:
         raise ValueError("InstructPix2Pix does not compose with "
                          "PAG/SAG/AND/prompt-editing (its three "
                          "guidance lanes replace the CFG stack)")
+
+
+def _hints(images, width: int, height: int, batch: int) -> np.ndarray:
+    """ControlNet / T2I-Adapter images (one a net) -> (N, B, 3, H, W)
+    float32 in [0, 1], the hint convention."""
+    return np.stack([np.broadcast_to(rescale(_prepare_image(im, width, height), (-1.0, 1.0),
+                                             (0.0, 1.0)), (batch, 3, height, width))
+                     for im in images])
+
+
+def _per_net(models, name: str, images, scales, what: str):
+    """The nets of ``models[name]`` (a module or a list), with one image
+    and one scale each, as the JAX package checks them (``what``: how its
+    messages name the images, the scales and the nets)."""
+    nets = models[name]
+    nets = list(nets) if isinstance(nets, (list, tuple)) else [nets]
+    imgs = list(images) if isinstance(images, (list, tuple)) else [images]
+    image_word, scale_word, nets_word = what
+    if len(imgs) != len(nets):
+        raise ValueError(f"{len(imgs)} {image_word} images for {len(nets)} {nets_word}")
+    scales = list(scales) if isinstance(scales, (list, tuple)) else [scales] * len(nets)
+    if len(scales) != len(nets):
+        raise ValueError(f"{len(scales)} {scale_word} scales for {len(nets)} {nets_word}")
+    return nets, imgs, scales
+
+
+def _check_reference(cfg: SDConfig, *, edited: bool, ip2p: bool, inpaint, fixed_noise,
+                     fidelity: float, mode: str) -> str:
+    """Reference-only's ValueErrors, as in the JAX package (ToMe, hypertile
+    and deepcache, which it also names, are refused earlier by the port);
+    -> the mode, "attn+adain" written "adain+attn"."""
+    if edited or ip2p:
+        raise ValueError("reference_image does not compose with "
+                         "PAG/SAG/AND/prompt-editing/InstructPix2Pix")
+    if inpaint == "unet9":
+        raise ValueError("reference_image is not supported with "
+                         "9-channel inpaint checkpoints")
+    if fixed_noise is not None:
+        raise ValueError("reference_image is not supported in "
+                         "fixed_noise parity mode")
+    if not 0.0 <= float(fidelity) <= 1.0:
+        raise ValueError("reference_fidelity must be in [0, 1], got "
+                         f"{fidelity}")
+    if mode not in ("attn", "adain", "adain+attn", "attn+adain"):
+        raise ValueError("reference_mode must be 'attn', 'adain' or "
+                         f"'adain+attn', got {mode!r}")
+    return "adain+attn" if "+" in mode else mode
 
 
 def encode_image(models, image: torch.Tensor, noise: torch.Tensor, cfg: SDConfig, *,
@@ -511,8 +575,12 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   init_latents=None, original_size=None, crop_coords=(0, 0),
                   target_size=None, mask_image=None, mask_blur: float = 0,
                   edit_image=None, image_guidance_scale: float = 1.5,
-                  color_correction: bool = False, _device_output: bool = False,
-                  **unported):
+                  color_correction: bool = False, control_image=None,
+                  controlnet_scale=1.0, adapter_image=None, adapter_scale=1.0,
+                  ip_adapter_image=None, ip_adapter_scale: float = 1.0,
+                  clip_vision_config=None, reference_image=None,
+                  reference_fidelity: float = 0.5, reference_mode: str = "attn",
+                  _device_output: bool = False, **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
@@ -570,10 +638,53 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     ip2p = edit_image is not None
     if ip2p:
         _check_ip2p(cfg, img2img=input_image is not None or init_latents is not None,
-                    do_cfg=do_cfg, mask_image=mask_image, edited=sched_idx is not None)
+                    do_cfg=do_cfg, mask_image=mask_image, edited=sched_idx is not None,
+                    control_image=control_image, adapter_image=adapter_image)
     elif cfg.unet.in_channels == 2 * cfg.vae.latent_channels:
         raise ValueError(f"an {cfg.unet.in_channels}-channel (InstructPix2Pix) UNet "
                          "needs edit_image")
+    # slice E's side nets, checked in the JAX package's order; their host
+    # inputs (hints, the CLIP-preprocessed image, the reference pixels)
+    nets = adapters = None
+    if control_image is not None:
+        if "controlnet" not in models:
+            raise ValueError("control_image given but models has no "
+                             "'controlnet' entry (weights/convert.py "
+                             "load_controlnet)")
+        nets, control_image, controlnet_scale = _per_net(
+            models, "controlnet", control_image, controlnet_scale,
+            ("control", "controlnet", "controlnets"))
+    if adapter_image is not None:
+        if "t2i_adapter" not in models:
+            raise ValueError("adapter_image given but models has no "
+                             "'t2i_adapter' entry (weights/diffusers.py "
+                             "load_t2i_adapter)")
+        adapters, adapter_image, adapter_scale = _per_net(
+            models, "t2i_adapter", adapter_image, adapter_scale,
+            ("adapter", "adapter", "t2i adapters"))
+    ip_img = None
+    if ip_adapter_image is not None:
+        from .models import clip_vision as cv_mod
+
+        if "ip_adapter" not in models:
+            raise ValueError("ip_adapter_image given but models has no "
+                             "'ip_adapter' entry "
+                             "(weights/ip_adapter.load_ip_adapter)")
+        if "clip_vision" not in models:
+            raise ValueError("ip_adapter_image given but models has no "
+                             "'clip_vision' entry "
+                             "(weights/ip_adapter.load_clip_vision)")
+        if ip2p:
+            raise ValueError("IP-Adapter does not compose with "
+                             "InstructPix2Pix")
+        # the tower's own config unless another is named (the JAX package
+        # defaults to ViT-H/14)
+        ip_img = cv_mod.preprocess(ip_adapter_image,
+                                   clip_vision_config or models["clip_vision"].cfg)
+    if reference_image is not None:
+        reference_mode = _check_reference(
+            cfg, edited=sched_idx is not None, ip2p=ip2p, inpaint=inpaint,
+            fixed_noise=fixed_noise, fidelity=reference_fidelity, mode=reference_mode)
     if sampler_name in _OWN_GRID:
         # their op/segment grids replace the per-step arrays that the
         # sampler noise, the inpainting blend and the per-step contexts key off
@@ -689,7 +800,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         device = next(models["diffusion"].parameters()).device
     device = torch.device(device)
     for m in models.values():
-        m.to(device)
+        for net in m if isinstance(m, (list, tuple)) else [m]:
+            net.to(device)
 
     # ---- noise: drawn up front on the host, copied to the device once
     if fixed_noise is not None:
@@ -718,6 +830,10 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         elif inpaint == "blend":
             noise["inpaint"] = rng_mod.step_normals(s, "inpaint", n_inference_steps, batch,
                                                     lat_shape)
+        if reference_image is not None:
+            noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape)
+            noise["ref_noise"] = rng_mod.step_normals(s, "ref_noise", n_inference_steps,
+                                                      batch, lat_shape)
     noise = {k: _to_device(v, device) for k, v in noise.items()}
 
     # every training timestep, on the device once: the loops index it with
@@ -816,6 +932,45 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             noised0 = ddpm.add_noise(schedule, lat0, int(timesteps[i]), blend_noise[i])
             return m_lat * lat + (1.0 - m_lat) * noised0
 
+        # ---- slice E, once a request: hint features, adapter features, IP
+        # tokens, the reference latents; every lane-matched for CFG
+        def lanes(x):
+            return torch.cat([x, x]) if do_cfg else x
+
+        def dev(x):
+            return _to_device(torch.from_numpy(np.array(x, np.float32)), device)
+
+        hint_feats = adapter_feats = ip_arg = ref_lat0 = None
+        if nets is not None:
+            hints = dev(_hints(control_image, width, height, batch))
+            hint_feats = [lanes(net.encode_hint(hints[ci].contiguous(
+                memory_format=memory_format), policy)) for ci, net in enumerate(nets)]
+            ctrl_scale = dev(controlnet_scale)
+        if adapters is not None:
+            a_hints, a_scale = dev(_hints(adapter_image, width, height, batch)), \
+                dev(adapter_scale)
+            for ai, ad in enumerate(adapters):
+                fs = [f * a_scale[ai].to(f.dtype) for f in ad(a_hints[ai].contiguous(
+                    memory_format=memory_format), policy)]
+                adapter_feats = fs if adapter_feats is None else \
+                    [a + b for a, b in zip(adapter_feats, fs)]
+            adapter_feats = [lanes(f) for f in adapter_feats]
+        if ip_img is not None:
+            ipa, tower = models["ip_adapter"], models["clip_vision"]
+            px = dev(np.broadcast_to(ip_img, (batch,) + ip_img.shape[1:]).transpose(0, 3, 1, 2))
+            px = px.to(cd).contiguous(memory_format=memory_format)
+            tokens = ipa.image_tokens(tower, px, policy)
+            if do_cfg:
+                tokens = torch.cat([tokens, ipa.negative_tokens(tower, px, policy)])
+            ip_arg = (ipa.layers, tokens, dev(ip_adapter_scale))
+        if reference_image is not None:
+            ref_px = dev(np.broadcast_to(_prepare_image(reference_image, width, height),
+                                         (batch, 3, height, width)))
+            ref_lat0 = models["encoder"](ref_px.contiguous(memory_format=memory_format),
+                                         noise["ref_encoder"], policy, **vae_kw).float()
+            ref_fid = dev(reference_fidelity)
+            ref_mask = dev(np.repeat([0.0, 1.0], batch)) if do_cfg else None
+
         t_cond = None
         if cfg.unet.time_cond_dim:
             # LCM's embedded guidance: the distilled UNet takes w = cfg_scale - 1
@@ -843,11 +998,39 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             if sched_idx is not None:
                 ctx = context[int(sched_idx[i])]
                 add = None if add_cond is None else add_cond[int(sched_idx[i])]
+            kw = dict(attention_backend=cfg.attention_backend,
+                      reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
+                      conv_backend=cfg.conv_backend, add_cond=add, t_cond=t_cond)
+            control = None
+            if nets is not None:
+                # the ControlNets take the 4-channel latents, whatever the UNet's
+                ctrl_in = lanes(lat.to(cd)).contiguous(memory_format=memory_format)
+                for ci, net in enumerate(nets):
+                    c_i = net(ctrl_in, ctx, t_all[int(t)], hint_feats[ci], policy,
+                              conditioning_scale=ctrl_scale[ci],
+                              attention_backend=cfg.attention_backend,
+                              fuse_qkv=cfg.fuse_qkv, add_cond=add,
+                              conv_backend=cfg.conv_backend)
+                    control = c_i if control is None else {  # residuals sum
+                        "mid": control["mid"] + c_i["mid"],
+                        "down": [a + b for a, b in zip(control["down"], c_i["down"])]}
+            side = dict(control=control, adapter=adapter_feats, ip=ip_arg)
+            if ref_lat0 is not None:
+                # the capture pass: the reference re-noised to t, without the
+                # side nets; the main pass reads what it banks
+                rn = ddpm.add_noise(schedule, ref_lat0, int(t),
+                                    noise["ref_noise"][min(i, len(timesteps) - 1)])
+                bank = {} if "attn" in reference_mode else None
+                abank = {} if "adain" in reference_mode else None
+                unet(lanes(rn.to(cd)).contiguous(memory_format=memory_format), ctx,
+                     t_all[int(t)], policy, head=False, **kw,
+                     ref=None if bank is None else ("capture", bank),
+                     ref_adain=None if abank is None else ("capture", abank))
+                side.update(ref=None if bank is None else ("read", bank, ref_fid, ref_mask),
+                            ref_adain=None if abank is None
+                            else ("read", abank, ref_fid, ref_mask))
             eps = unet(model_in.contiguous(memory_format=memory_format), ctx,
-                       t_all[int(t)], policy, attention_backend=cfg.attention_backend,
-                       reference_quirks=cfg.reference_quirks,
-                       fuse_qkv=cfg.fuse_qkv, conv_backend=cfg.conv_backend,
-                       add_cond=add, t_cond=t_cond).float()
+                       t_all[int(t)], policy, **kw, **side).float()
             if ip2p:
                 # dual guidance (Brooks et al. 2023, eq. 3)
                 e_t, e_i, e_u = eps.chunk(3)
@@ -971,23 +1154,25 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
                     latents = dpm.step_2s_ancestral_second(
                         schedule, t, latents, pred_mid, eps2, t_mid, noise[i], prev_t=prev)
     elif sampler in _OWN_GRID:
-        # no prompt editing here: every evaluation takes conditioning 0
-        def eval_eps(x, t):
-            return eps_at(0, x, t)
-
+        # no prompt editing here: every evaluation takes conditioning 0; an
+        # op's or segment's evaluations take the reference noise of step
+        # min(i, n - 1), dpm_adaptive's that of step 0, as the JAX package's
+        # loops index them
         if sampler == "restart":
             for i in range(int(plan["op_start"][start_step]), plan["n_ops"]):
-                latents = restart.run_op(schedule, plan, i, latents, noise[i], eval_eps)
+                latents = restart.run_op(schedule, plan, i, latents, noise[i],
+                                         lambda x, t, i=i: eps_at(min(i, n - 1), x, t))
         elif sampler == "dpm_fast":
             for i in range(int(plan["seg_start"][start_step]), plan["m"]):
                 latents = dpm_fast.run_segment(schedule, plan, i, latents, noise[i],
-                                               eval_eps)
+                                               lambda x, t, i=i: eps_at(min(i, n - 1), x, t))
         else:
             # txt2img enters at the full sigma_max; img2img at the grid
             # timestep its latents were noised to, at any strength
             t_entry = int(timesteps[min(start_step, n - 1)]) if img2img \
                 else schedule.num_train_timesteps - 1
-            latents, _ = dpm_adaptive.sample(schedule, latents, t_entry, eval_eps, noise,
+            latents, _ = dpm_adaptive.sample(schedule, latents, t_entry,
+                                             lambda x, t: eps_at(0, x, t), noise,
                                              max_iters=n)
     else:
         for i, t, prev in steps:

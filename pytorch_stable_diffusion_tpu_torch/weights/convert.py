@@ -196,6 +196,79 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
     return rules
 
 
+# -------------------------------------------------------------- ControlNet
+def controlnet_rules(cfg: SDConfig) -> List[Rule]:
+    """The CompVis ControlNet layout (``control_model.*``: standalone
+    control_v11*/control_sd15* files and the control_model half of merged
+    ones) -> ``models/controlnet.py``'s names: the copied encoder and
+    bottleneck under the UNet's key names, ``input_hint_block`` (Sequential
+    indices 0, 2, ..), ``zero_convs.{i}.0`` and ``middle_block_out.0``;
+    generated from the same plans as :func:`unet_rules`."""
+    from ..models import controlnet as controlnet_mod
+
+    u = cfg.unet
+    src = "control_model"
+    proj = proj_kind(cfg)
+    rules: List[Rule] = []
+    _linear(rules, f"{src}.time_embed.0", "time_embed.fc1")
+    _linear(rules, f"{src}.time_embed.2", "time_embed.fc2")
+    _conv(rules, f"{src}.input_blocks.0.0", "conv_in")
+    for i, st in enumerate(unet_mod.encoder_plan(u)[1:]):
+        blk = f"{src}.input_blocks.{i + 1}"
+        dst = f"encoder.{i}"
+        if st["kind"] == "down":
+            _conv(rules, f"{blk}.0.op", f"{dst}.down")
+        else:
+            _unet_res_rules(rules, f"{blk}.0", f"{dst}.res", st["c_in"], st["c_out"])
+            if st["attn"]:
+                attn_block_rules(rules, f"{blk}.1", f"{dst}.attn", st["depth"], proj)
+    mid_c = u.level_channels[-1]
+    _unet_res_rules(rules, f"{src}.middle_block.0", "bottleneck.res1", mid_c, mid_c)
+    attn_block_rules(rules, f"{src}.middle_block.1", "bottleneck.attn",
+                     u.depth_for(len(u.ch_mults) - 1), proj)
+    _unet_res_rules(rules, f"{src}.middle_block.2", "bottleneck.res2", mid_c, mid_c)
+    for i in range(len(unet_mod.encoder_plan(u))):
+        _conv(rules, f"{src}.zero_convs.{i}.0", f"zero_convs.{i}")
+    _conv(rules, f"{src}.middle_block_out.0", "mid_out")
+    for j in range(len(controlnet_mod.hint_plan(u, cfg.vae.downsample_factor))):
+        _conv(rules, f"{src}.input_hint_block.{2 * j}", f"hint_block.{j}")
+    if u.add_embed_dim:
+        _linear(rules, f"{src}.label_emb.0.0", "add_embed.fc1")
+        _linear(rules, f"{src}.label_emb.0.2", "add_embed.fc2")
+    return rules
+
+
+def convert_controlnet(state_dict: Mapping, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    """``control_model.*`` keys -> a ControlNet state dict.  Every rule's
+    source must exist and every ``control_model.*`` key be consumed (other
+    keys may be a merged base model's, left for :func:`convert`)."""
+    consumed: set = set()
+    sd = _convert_rules(state_dict, controlnet_rules(cfg), "controlnet", _keep, consumed)
+    leftover = [k for k in state_dict if k.startswith("control_model.") and k not in consumed]
+    if leftover:
+        raise KeyError(f"{len(leftover)} unconsumed control_model keys "
+                       f"(first 10): {sorted(leftover)[:10]}")
+    return sd
+
+
+def deconvert_controlnet(net, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`convert_controlnet` (a ControlNet or its state
+    dict -> ``control_model.*``), in the layout of the family's files."""
+    flat = net.state_dict() if isinstance(net, torch.nn.Module) else net
+    try:
+        return invert_rules(controlnet_rules(cfg), flat, {})
+    except KeyError as e:
+        raise KeyError(f"[controlnet] {e.args[0]}") from None
+
+
+def load_controlnet(path: str, cfg: SDConfig, *,
+                    allow_unsafe_fallback: bool = False) -> Dict[str, torch.Tensor]:
+    """A ControlNet checkpoint file (.pth/.ckpt/.safetensors, standalone or
+    merged) -> a ControlNet state dict (``models/controlnet.build``)."""
+    sd = load_state_dict(path, allow_unsafe_fallback=allow_unsafe_fallback)
+    return convert_controlnet(sd, cfg)
+
+
 # -------------------------------------------------------------------- VAE
 def _vae_res_rules(rules, src, dst, c_in, c_out):
     _norm(rules, f"{src}.norm1", f"{dst}.norm1")
@@ -594,13 +667,35 @@ def state_dict_from_jax_tree(tree) -> Dict[str, torch.Tensor]:
                 (_from_jax_leaf(p, np.asarray(x)) for p, x in _flatten(tree)))
 
 
+#: the side nets' entries of a JAX models dict (slice E)
+SIDE_NETS = ("controlnet", "t2i_adapter", "ip_adapter", "clip_vision")
+
+
+def _side_net_from_jax(name: str, tree) -> Dict[str, torch.Tensor]:
+    sd = state_dict_from_jax_tree(tree)
+    if name == "controlnet":
+        # an LCM config's time MLP carries cond_proj, which no ControlNet reads
+        sd = {k: v for k, v in sd.items() if not k.startswith("time_embed.cond_proj")}
+    return sd
+
+
 def from_jax_params(params, cfg: SDConfig) -> StateDicts:
     """JAX parameter pytrees {"clip", ["clip2",] "encoder", "decoder",
     "diffusion"} -> port state dicts.  A CLIP whose token table textual
     inversion grew converts as any other: build it with the grown
-    ``cfg.clip.vocab_size``."""
+    ``cfg.clip.vocab_size``.  The side nets of a JAX models dict
+    (:data:`SIDE_NETS`: ``controlnet``, one tree or a list, ``t2i_adapter``,
+    one or a list, ``ip_adapter`` and ``clip_vision``) come across too,
+    each a state dict (a list of them for a list), for
+    ``models.build_models``."""
     check_ported(cfg)
-    return {name: state_dict_from_jax_tree(params[name]) for name in model_names(cfg)}
+    out = {name: state_dict_from_jax_tree(params[name]) for name in model_names(cfg)}
+    for name in SIDE_NETS:
+        if name in params:
+            tree = params[name]
+            out[name] = [_side_net_from_jax(name, t) for t in tree] \
+                if isinstance(tree, (list, tuple)) else _side_net_from_jax(name, tree)
+    return out
 
 
 def hypernetwork_from_jax(tree):

@@ -26,8 +26,11 @@ Key-name correspondence (modern diffusers, Linear-based VAE attention):
          to_out.0 — Linear (C, C)), quant_conv, post_quant_conv.
   text_encoder[_2]: text_model.* — the transformers layout, for every
          tower (OpenCLIP's included), + text_projection.weight (bigG).
-
-ControlNet and T2I-Adapter rules come with slice E (ROADMAP.md §1).
+  controlnet: the UNet's encoder/mid names + controlnet_cond_embedding
+         (conv_in, blocks.{i}, conv_out: the hint plan),
+         controlnet_down_blocks.{i} (zero convs), controlnet_mid_block.
+  t2i_adapter: [adapter.]conv_in, body.{i}.in_conv (on a change of width),
+         body.{i}.resnets.{j}.block1/block2 (FullAdapter / FullAdapterXL).
 """
 
 from __future__ import annotations
@@ -64,29 +67,8 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
         # LCM's guidance projection (time_cond_proj_dim checkpoints)
         _linear(rules, "time_embedding.cond_proj", "time_embed.cond_proj", bias=False)
     _conv(rules, "conv_in", "conv_in")
-
     # our flat encoder-stage list <-> diffusers down_blocks.{l}.{resnets,...}
-    res_i = {lv: 0 for lv in range(len(u.ch_mults))}
-    level = 0
-    for i, st in enumerate(unet_mod.encoder_plan(u)[1:]):
-        dst = f"encoder.{i}"
-        if st["kind"] == "down":
-            _conv(rules, f"down_blocks.{level}.downsamplers.0.conv", f"{dst}.down")
-            level += 1
-        else:
-            r = res_i[level]
-            _res_rules(rules, f"down_blocks.{level}.resnets.{r}", f"{dst}.res",
-                       st["c_in"], st["c_out"])
-            if st["attn"]:
-                attn_block_rules(rules, f"down_blocks.{level}.attentions.{r}",
-                                 f"{dst}.attn", st["depth"], proj)
-            res_i[level] += 1
-
-    c_mid = u.level_channels[-1]
-    _res_rules(rules, "mid_block.resnets.0", "bottleneck.res1", c_mid, c_mid)
-    attn_block_rules(rules, "mid_block.attentions.0", "bottleneck.attn",
-                     u.depth_for(len(u.ch_mults) - 1), proj)
-    _res_rules(rules, "mid_block.resnets.1", "bottleneck.res2", c_mid, c_mid)
+    _encoder_rules(rules, u, proj)
 
     per_level = u.num_res_blocks + 1
     for j, st in enumerate(unet_mod.decoder_plan(u)):
@@ -107,6 +89,31 @@ def unet_rules(cfg: SDConfig) -> List[Rule]:
     _norm(rules, "conv_norm_out", "norm_out")
     _conv(rules, "conv_out", "conv_out")
     return rules
+
+
+def _encoder_rules(rules, u, proj) -> None:
+    """The encoder stages (down_blocks.{l}.{resnets,attentions,
+    downsamplers}) and the mid block: the UNet's and the ControlNet's."""
+    res_i = {lv: 0 for lv in range(len(u.ch_mults))}
+    level = 0
+    for i, st in enumerate(unet_mod.encoder_plan(u)[1:]):
+        dst = f"encoder.{i}"
+        if st["kind"] == "down":
+            _conv(rules, f"down_blocks.{level}.downsamplers.0.conv", f"{dst}.down")
+            level += 1
+        else:
+            r = res_i[level]
+            _res_rules(rules, f"down_blocks.{level}.resnets.{r}", f"{dst}.res",
+                       st["c_in"], st["c_out"])
+            if st["attn"]:
+                attn_block_rules(rules, f"down_blocks.{level}.attentions.{r}",
+                                 f"{dst}.attn", st["depth"], proj)
+            res_i[level] += 1
+    c_mid = u.level_channels[-1]
+    _res_rules(rules, "mid_block.resnets.0", "bottleneck.res1", c_mid, c_mid)
+    attn_block_rules(rules, "mid_block.attentions.0", "bottleneck.attn",
+                     u.depth_for(len(u.ch_mults) - 1), proj)
+    _res_rules(rules, "mid_block.resnets.1", "bottleneck.res2", c_mid, c_mid)
 
 
 # -------------------------------------------------------------------- VAE
@@ -296,3 +303,119 @@ def load_diffusers_pipeline(root: str, cfg: SDConfig) -> StateDicts:
         os.path.join(root, "text_encoder")) else "text_encoder"
     return convert_diffusers(find("unet", model), find("vae", model), find(te_dir, te), cfg,
                              find("text_encoder_2", te) if cfg.clip2 is not None else None)
+
+
+# -------------------------------------------------------------- ControlNet
+def controlnet_rules(cfg: SDConfig) -> List[Rule]:
+    """The diffusers ``ControlNetModel`` layout: the UNet's encoder and mid
+    names, ``controlnet_cond_embedding`` (conv_in / blocks.{i} / conv_out:
+    the hint plan), ``controlnet_down_blocks.{i}`` (the zero convs) and
+    ``controlnet_mid_block``."""
+    from ..models import controlnet as controlnet_mod
+
+    u = cfg.unet
+    rules: List[Rule] = []
+    _linear(rules, "time_embedding.linear_1", "time_embed.fc1")
+    _linear(rules, "time_embedding.linear_2", "time_embed.fc2")
+    _conv(rules, "conv_in", "conv_in")
+    _encoder_rules(rules, u, proj_kind(cfg))
+    n_hint = len(controlnet_mod.hint_plan(u, cfg.vae.downsample_factor))
+    _conv(rules, "controlnet_cond_embedding.conv_in", "hint_block.0")
+    for j in range(1, n_hint - 1):
+        _conv(rules, f"controlnet_cond_embedding.blocks.{j - 1}", f"hint_block.{j}")
+    _conv(rules, "controlnet_cond_embedding.conv_out", f"hint_block.{n_hint - 1}")
+    for i in range(len(unet_mod.encoder_plan(u))):
+        _conv(rules, f"controlnet_down_blocks.{i}", f"zero_convs.{i}")
+    _conv(rules, "controlnet_mid_block", "mid_out")
+    if u.add_embed_dim:
+        _linear(rules, "add_embedding.linear_1", "add_embed.fc1")
+        _linear(rules, "add_embedding.linear_2", "add_embed.fc2")
+    return rules
+
+
+def convert_controlnet_diffusers(sd: Mapping, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    """A diffusers ControlNetModel state dict -> a ControlNet state dict,
+    exact coverage both ways."""
+    used: set = set()
+    out = _convert_one(sd, controlnet_rules(cfg), "controlnet", used)
+    _check_leftover(sd, used, "controlnet")
+    return out
+
+
+def deconvert_controlnet_diffusers(net, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    flat = net.state_dict() if isinstance(net, torch.nn.Module) else net
+    return invert_rules(controlnet_rules(cfg), flat, {})
+
+
+def _weight_file(path: str, what: str) -> str:
+    """``path``, or the diffusers weight file in the directory ``path``."""
+    if not os.path.isdir(path):
+        return path
+    for n in ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"):
+        p = os.path.join(path, n)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no {what} weight file under {path}")
+
+
+def load_diffusers_controlnet(root: str, cfg: SDConfig) -> Dict[str, torch.Tensor]:
+    """A standalone diffusers controlnet directory
+    (root/diffusion_pytorch_model.safetensors or .bin) -> a ControlNet
+    state dict."""
+    from .convert import load_state_dict
+
+    return convert_controlnet_diffusers(
+        load_state_dict(_weight_file(root, "controlnet")), cfg)
+
+
+# ------------------------------------------------------------- T2I-Adapter
+def t2i_adapter_rules(cfg: SDConfig, num_res_blocks: int = 2,
+                      xl: Optional[bool] = None) -> List[Rule]:
+    """The diffusers ``T2IAdapter`` layout (FullAdapter / FullAdapterXL,
+    picked by family: ``models/t2i_adapter.adapter_layout``), without the
+    ``adapter.`` prefix (the converter takes it off)."""
+    from ..models.t2i_adapter import adapter_layout
+
+    channels, _, _ = adapter_layout(cfg.unet, cfg.vae.downsample_factor, xl)
+    rules: List[Rule] = []
+    _conv(rules, "conv_in", "conv_in")
+    c_prev = channels[0]
+    for i, c in enumerate(channels):
+        if c_prev != c:
+            _conv(rules, f"body.{i}.in_conv", f"body.{i}.in_conv")
+        for j in range(num_res_blocks):
+            for part in ("block1", "block2"):
+                _conv(rules, f"body.{i}.resnets.{j}.{part}", f"body.{i}.resnets.{j}.{part}")
+        c_prev = c
+    return rules
+
+
+def convert_t2i_adapter_diffusers(sd: Mapping, cfg: SDConfig,
+                                  num_res_blocks: int = 2) -> Dict[str, torch.Tensor]:
+    """A diffusers T2IAdapter state dict (keys with or without the
+    ``adapter.`` prefix that ``save_pretrained`` files carry) -> an adapter
+    state dict, exact coverage."""
+    if any(k.startswith("adapter.") for k in sd):
+        sd = {k[len("adapter."):] if k.startswith("adapter.") else k: v
+              for k, v in sd.items()}
+    used: set = set()
+    out = _convert_one(sd, t2i_adapter_rules(cfg, num_res_blocks), "t2i_adapter", used)
+    _check_leftover(sd, used, "t2i_adapter")
+    return out
+
+
+def deconvert_t2i_adapter_diffusers(adapter, cfg: SDConfig,
+                                    num_res_blocks: int = 2) -> Dict[str, torch.Tensor]:
+    flat = adapter.state_dict() if isinstance(adapter, torch.nn.Module) else adapter
+    sd = invert_rules(t2i_adapter_rules(cfg, num_res_blocks), flat, {})
+    return {f"adapter.{k}": v for k, v in sd.items()}
+
+
+def load_t2i_adapter(path: str, cfg: SDConfig,
+                     num_res_blocks: int = 2) -> Dict[str, torch.Tensor]:
+    """A diffusers T2IAdapter (a ``save_pretrained`` directory or one
+    weight file) -> an adapter state dict."""
+    from .convert import load_state_dict
+
+    return convert_t2i_adapter_diffusers(
+        load_state_dict(_weight_file(path, "t2i-adapter")), cfg, num_res_blocks)

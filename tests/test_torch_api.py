@@ -208,8 +208,7 @@ def test_with_methods_leave_the_original_untouched(sd):
 
 
 @pytest.mark.parametrize("method,where", [
-    ("with_controlnet", "slice E"), ("with_ip_adapter", "slice E"),
-    ("with_t2i_adapter", "slice E"), ("with_motion", "slice G"), ("animate", "slice G"),
+    ("with_motion", "slice G"), ("animate", "slice G"),
     ("with_upscaler", "slice G"), ("upscale", "slice G"), ("sd_upscale", "slice G")])
 def test_later_slices_raise(sd, method, where):
     with pytest.raises(NotImplementedError, match=where):

@@ -668,3 +668,108 @@ def test_c3_paths_card_match_cpu(cuda, case):
     img_g, lat_g = port.generate("a cat", models=gpu, config=gcfg, device="cuda", **kw)
     assert np.isfinite(lat_g).all()
     assert _psnr(img_c, img_g) > 40.0
+
+
+def _separate_views(b, h, sq, sk, dh, dtype, cuda, seed):
+    """q, k and v each from its own (B, S, C) projection, viewed as (B, H, S,
+    Dh): the reference read's q from the tokens and k, v from [own, banked]
+    tokens through separate projections."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, s, h * dh, device=cuda, generator=g).to(dtype)
+            .reshape(b, s, h, dh).transpose(1, 2) for s in (sq, sk, sk)]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,dh", [
+    (2, 8, 4096, 8192, 40), (2, 8, 1024, 2048, 80), (2, 8, 256, 512, 160),  # SD-1.5 512²
+    (2, 10, 4096, 8192, 64), (2, 20, 1024, 2048, 64),                         # SDXL 1024²
+    (2, 8, 2304, 4608, 80), (2, 8, 144, 288, 160)])                           # SD-1.5 768²
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k2_matches_plain_at_the_reference_shapes(cuda, b, h, sq, sk, dh, dtype):
+    """K2 over the reference reads' [own, banked] KV of 2·S tokens
+    (chip_smoke.E_PLANS), its streamed schedule at level 1."""
+    args = _separate_views(b, h, sq, sk, dh, dtype, cuda, seed=15)
+    _check_head_split(fa.flash_attention_onepass, fa.flash_attention_onepass_plain,
+                      args, {"causal": False}, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k4_matches_plain_with_sq_unequal_sk(cuda, dtype):
+    """K4 at SD-1.5 768²'s reference read, (2, 8, 9216, 40) x KV 18432, held
+    on its first 1024 q rows (the plain version's scores of every row would
+    not fit)."""
+    q, k, v = _separate_views(2, 8, 9216, 18432, 40, dtype, cuda, seed=16)
+    got = fa.flash_attention_streamed(q, k, v)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_streamed_plain(q[:, :, :1024], k, v)
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    err = (got[:, :, :1024].float() - ref.float()).abs().max().item()
+    assert err <= tolerance(dtype, ref), err
+
+
+@pytest.mark.parametrize("case", ["ControlNet", "two ControlNets", "T2I-Adapter",
+                                  "IP-Adapter", "IP-Adapter plus", "reference attn",
+                                  "reference adain"])
+def test_e_paths_card_match_cpu(cuda, case):
+    """Each slice E path at the tiny config, FP32, on the card (kernel
+    attention, conv and VAE backends) against the CPU plain path, the same
+    weights (the ControlNets' zero convs drawn too) and seed: images
+    > 40 dB."""
+    import dataclasses
+
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.models import clip_vision as cv
+    from pytorch_stable_diffusion_tpu_torch.models import (controlnet, reset_parameters,
+                                                           t2i_adapter)
+    from pytorch_stable_diffusion_tpu_torch.weights import ip_adapter
+    from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
+
+    r = np.random.RandomState(17)
+    image = r.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+    vis = cv.tiny_vision_config()
+    cfg = port.tiny_sd_config()
+    gcfg = dataclasses.replace(cfg, attention_backend="kernel", conv_backend="kernel",
+                               vae_attention_backend="kernel")
+    cpu = port.build_models(cfg, device="cpu", generator=torch.Generator().manual_seed(9))
+    gpu = port.build_models(gcfg, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    if "ControlNet" in case:
+        n = 1 + (case == "two ControlNets")
+        nets = [controlnet.build(cfg, device="cpu", generator=torch.Generator().manual_seed(s))
+                for s in range(n)]
+        cpu["controlnet"] = nets
+        gpu["controlnet"] = [controlnet.build(gcfg, device="cuda", state_dict=x.state_dict())
+                             for x in nets]
+        opts = dict(control_image=[image] * n, controlnet_scale=[0.8] * n)
+    elif case == "T2I-Adapter":
+        cpu["t2i_adapter"] = t2i_adapter.build(cfg, device="cpu",
+                                               generator=torch.Generator().manual_seed(3))
+        gpu["t2i_adapter"] = t2i_adapter.build(gcfg, device="cuda",
+                                               state_dict=cpu["t2i_adapter"].state_dict())
+        opts = dict(adapter_image=image)
+    elif case.startswith("IP"):
+        state = ip_adapter.synthetic_ip_state(cfg.unet, embed_dim=vis.proj_dim, seed=5)
+        for group in state.values():
+            for k, x in group.items():
+                group[k] = x / np.sqrt(x.shape[1]) if x.ndim == 2 else x
+        ada = cv.build_ip_adapter(ip_adapter.convert_ip_adapter(state, cfg.unet), device="cpu")
+        if case.endswith("plus"):  # a Resampler of 16 queries, 2 layers of one 64-wide head
+            proj = cv.Resampler(16, 64, vis.width, cfg.unet.d_context, 2, 64, 256)
+            reset_parameters(proj, torch.Generator().manual_seed(6))
+            ada = cv.IPAdapter(proj, dict(ada.layers.items()))
+        cpu["ip_adapter"] = ada
+        gpu["ip_adapter"] = cv.build_ip_adapter(ada.state_dict(), device="cuda")
+        cpu["clip_vision"] = cv.build_clip_vision(vis, device="cpu",
+                                                  generator=torch.Generator().manual_seed(4))
+        gpu["clip_vision"] = cv.build_clip_vision(vis, device="cuda",
+                                                  state_dict=cpu["clip_vision"].state_dict())
+        opts = dict(ip_adapter_image=r.randint(0, 256, (16, 16, 3)).astype(np.uint8),
+                    clip_vision_config=vis)
+    else:
+        opts = dict(reference_image=image, reference_mode=case.split()[1])
+    kw = dict(seed=3, n_inference_steps=3, height=32, width=32, return_latents=True,
+              sampler_name="euler",
+              tokenizer=make_test_tokenizer(["a", "cat", "dog"], max_len=16), **opts)
+    img_c, lat_c = port.generate("a cat", models=cpu, config=cfg, device="cpu", **kw)
+    img_g, lat_g = port.generate("a cat", models=gpu, config=gcfg, device="cuda", **kw)
+    assert np.isfinite(lat_g).all()
+    assert _psnr(img_c, img_g) > 40.0

@@ -45,10 +45,11 @@ def test_port_imports_without_jax():
     names = re.search(r"IMPORTED (.*)", out.stdout).group(1).split()
     assert len(names) >= 24  # every module of the slices was imported
     for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline", "api",
-                                 "utils.annotators", "utils.image") + tuple(
+                                 "utils.annotators", "utils.image", "models.controlnet",
+                                 "models.t2i_adapter", "models.clip_vision") + tuple(
             f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
                                      "textual_inversion", "hypernetwork", "merge", "stream",
-                                     "save")):
+                                     "save", "ip_adapter")):
         assert f"pytorch_stable_diffusion_tpu_torch.{mod}" in names, mod
 
 
@@ -232,16 +233,42 @@ def test_prompt_schedule_copies_agree(text):
 
 
 def test_blur_copy_is_verbatim():
-    """The port's ``utils/annotators.py`` holds ``blur`` and the two helpers
-    it calls, each the original's source text."""
+    """The port's ``utils/annotators.py`` is the original below its
+    docstring: every annotator (``blur`` and the two helpers it calls, and
+    slice E's canny, lineart, scribble, invert and hint_rgb), each the
+    original's source text."""
     import inspect
 
-    for name in ("to_hint", "_gauss_kernel", "blur"):
+    assert _body(torch_annotators) == _body(jax_annotators)
+    names = sorted(n for n, v in vars(jax_annotators).items()
+                   if callable(v) and getattr(v, "__module__", "") == jax_annotators.__name__)
+    assert names == ["_gauss_kernel", "_sobel", "blur", "canny", "hint_rgb", "invert",
+                     "lineart", "scribble", "to_hint"]
+    for name in names:
         assert inspect.getsource(getattr(torch_annotators, name)) == \
             inspect.getsource(getattr(jax_annotators, name)), name
-    assert sorted(n for n, v in vars(torch_annotators).items()
-                  if callable(v) and getattr(v, "__module__", "") == torch_annotators.__name__) \
-        == ["_gauss_kernel", "blur", "to_hint"]
+
+
+ANNOTATED = {"uint8 RGB": lambda r: r.randint(0, 256, (24, 20, 3)).astype(np.uint8),
+             "unit gray": lambda r: r.rand(19, 23).astype(np.float32),
+             "blocks": lambda r: np.kron(r.rand(4, 4), np.ones((6, 6))).astype(np.float32)}
+ANNOTATORS = {"canny": {}, "canny 0.05/0.3": dict(low=0.05, high=0.3, sigma=1.0),
+              "lineart": {}, "scribble": dict(threshold=0.3, thickness=2), "invert": {},
+              "to_hint": {}}
+
+
+@pytest.mark.parametrize("annotator", list(ANNOTATORS))
+@pytest.mark.parametrize("kind", list(ANNOTATED))
+def test_annotator_copies_agree(kind, annotator):
+    """Each annotator of the copy gives the original's array exactly, and
+    hint_rgb of it the original's uint8 hint image."""
+    x = ANNOTATED[kind](np.random.RandomState(12))
+    name = annotator.split()[0]
+    got = getattr(torch_annotators, name)(x, **ANNOTATORS[annotator])
+    want = getattr(jax_annotators, name)(x, **ANNOTATORS[annotator])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(torch_annotators.hint_rgb(got), jax_annotators.hint_rgb(want))
+    assert got.shape == x.shape[:2]
 
 
 BLURRED = {"unit mask": lambda r: (r.rand(24, 20) > 0.5).astype(np.float32),

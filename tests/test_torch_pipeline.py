@@ -317,7 +317,6 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 @pytest.mark.parametrize("kwargs,where", [
     ({"freeu": (1.1, 1.2, 0.9, 0.2)}, "slice F"),
-    ({"control_image": np.zeros((HW, HW, 3))}, "slice E"),
     ({"panorama": True}, "slice G"),
     ({"prompt": "a cat AND a dog"}, "slice F"),
     ({"config": tiny_sd_config(quant="wide")}, "slice H"),
