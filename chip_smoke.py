@@ -66,7 +66,14 @@ Phases (any failure exits non-zero):
                 (2, 8, 4096|1024|256, 8192|2048|512, 40|80|160), 768²
                 and SDXL 1024² (2, 10|20, 4096|1024, 8192|2048, 64), and
                 K4 with Sq != Sk at 768² (2, 8, 9216, 18432, 40), each
-                timed in bf16 beside SDPA and the bound;
+                timed in bf16 beside SDPA and the bound; slice F's K1
+                shapes from the plan (``F_PLANS``, ``f_shapes``):
+                Hypertile 32's tile batches (8, 1024, 320) at 512²,
+                (128|32|8, 1024, 320|640|1280) at 2048², (200|50, 1024,
+                320|640) and the ragged (32, 400, 1280) at 2560², SDXL's
+                (8, 1024, 640) at 10 heads, and ToMe 0.5's merged lengths
+                (2, 2048, 320|640), checked on a subset of q rows where the
+                batch is large and timed beside SDPA and the bound;
                 K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
@@ -131,6 +138,13 @@ Phases (any failure exits non-zero):
                 plus (the ViT-H/14 tower at 224²), reference attn and
                 adain; every side net drawn from a seed on the CPU (the
                 ControlNets' zero convs too) and copied to the card.
+                Slice F (``phase_small_f``, lines ``small F``), on the same
+                CPU models, 2 dpm++ steps, the card on the kernel
+                attention, conv and VAE: guidance rescale 0.7 with dynamic
+                thresholding 0.995, PAG 3, SAG 0.75, AND with two region
+                masks, a variation seed with the noise multiplier,
+                DeepCache 2, Hypertile 16 and ToMe 0.5 at min_tokens 1024
+                (their K1 shapes held to the plan), FreeU and tiling.
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -263,6 +277,20 @@ Phases (any failure exits non-zero):
                 capture pass, the read's K2/K4 calls and the reference
                 encode); one ControlNet and one reference evaluation at
                 512² and at SDXL 1024² profiled as in phase 7.
+                Slice F (``phase_slice_f`` after slice E, lines ``F
+                ...``): the phase-5 models, BF16, kernel attention, conv
+                and VAE, 512², dpm++ Karras 20 steps, CFG 7.5: each mode of
+                ``phase_slice_f``'s docstring, with the bit-identities of
+                variation strength 1 (seed 2's noise), the multiplier 1.0,
+                DeepCache 1, Hypertile 64, FreeU (1, 1, 1, 1) and ToMe
+                twice, and tiling's wrapping seams; one PAG, one DeepCache
+                shallow and one Hypertile evaluation profiled; after phase
+                7 (``phase_slice_f_big``) the fast preset at 2048², 4 steps
+                (K4 0 launches) and Hypertile 32 at 2560², 2 steps (the
+                guard refuses it without Hypertile); after slice E's SDXL
+                requests (``phase_slice_f_xl``) SDXL 1024² with PAG, FreeU
+                and Hypertile 32.  Each request's launches are held to the
+                plan (``expected_launches(pag=, sag=, shallow=, tiling=)``).
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -276,6 +304,7 @@ Imports only torch, numpy and the port (no jax).  Kernels are built into
 build/kernels/ of the checkout.
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -476,11 +505,17 @@ def phase_k1(fa, card, results):
     c3 = c3_shapes("K1")
     cases += [(b, s, s, c, h, min(s, 2048)) for b, s, c, h in c3
               if (b, s, s, c, h, min(s, 2048)) not in cases]
+    # slice F's Hypertile tiles and ToMe's merged tokens, from the plan
+    # (F_PLANS); correctness on fewer q rows where the batch is large
+    f = f_shapes("K1")
+    cases += [(b, s, s, c, h, min(s, 2048 if b <= 8 else 256)) for b, s, c, h in f
+              if (b, s, s, c, h, min(s, 2048)) not in cases]
     timed = {(b, s, s, c, 8) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))}
     timed |= {(2, 16384, 16384, 640, 8), (2, 4096, 4096, 1280, 8), (2, 4096, 4096, 320, 5)}
     timed |= {(2, s, s, c, h) for s, c, h in K1_C2}
     timed |= {(b, s, s, c, h) for b, s, c, h in c3}
+    timed |= {(b, s, s, c, h) for b, s, c, h in f}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, sk, c, heads, rows in cases:
@@ -534,6 +569,11 @@ def phase_k1(fa, card, results):
                                                      library_ms=lib, bound_ms=bms,
                                                      bound_by=by, per_eval=n,
                                                      request=label))
+                    if (b, sq, c, heads) in f:
+                        n, label = f[(b, sq, c, heads)]
+                        rec["f_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
+                                                    library_ms=lib, bound_ms=bms,
+                                                    bound_by=by, per_eval=n, request=label))
                     if main:
                         pms = one_call_device_ms(
                             lambda: fa.flash_attention_bsc_plain(q, k, v, heads))
@@ -1286,35 +1326,83 @@ def expected_kernel(kv, dh, *, cross, backend, flash_only=FLASH_ONLY_KV):
     return "K1" if dh in K1_DH else "K3" if k3 else None
 
 
-def attention_blocks(cfg, height, width, decoder=True):
-    """(tokens, channels, layers) of every transformer block of one UNet
-    evaluation at ``height`` x ``width``, in order, from the UNet's plan;
-    without the decoder's, those of a ControlNet (the encoder and the
-    bottleneck)."""
+def transformer_blocks(cfg, height, width, decoder=True):
+    """Every transformer block of one UNet evaluation at ``height`` x
+    ``width``, in order, from the UNet's plan: dicts of its grid (h, w), its
+    tokens, channels and stacked layers, whether it is the bottleneck's
+    (``mid``) and whether DeepCache's shallow pass runs it (``shallow``: the
+    level-0 encoder blocks and the last decoder level); without the
+    decoder's, those of a ControlNet (the encoder and the bottleneck)."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
     u = cfg.unet
     h = height // cfg.vae.downsample_factor
     w = width // cfg.vae.downsample_factor
     blocks = []
+
+    def add(level, c, layers, **where):
+        hl, wl = h >> level, w >> level
+        blocks.append(dict(dict(h=hl, w=wl, tokens=hl * wl, c=c, layers=layers, mid=False,
+                                shallow=False), **where))
+
     level = 0
     for st in unet.encoder_plan(u)[1:]:
         if st["kind"] == "down":
             level += 1
         elif st["attn"]:
-            blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
-    blocks.append(((h >> level) * (w >> level), u.level_channels[-1],  # bottleneck
-                   u.depth_for(len(u.ch_mults) - 1)))
-    for st in unet.decoder_plan(u) if decoder else ():
+            add(level, st["c_out"], st["depth"], shallow=level == 0)
+    add(level, u.level_channels[-1], u.depth_for(len(u.ch_mults) - 1), mid=True)
+    dec = unet.decoder_plan(u) if decoder else []
+    for i, st in enumerate(dec):
         if st["attn"]:
-            blocks.append(((h >> level) * (w >> level), st["c_out"], st["depth"]))
+            add(level, st["c_out"], st["depth"], shallow=i >= len(dec) - u.num_res_blocks - 1)
         if st["upsample"]:
             level -= 1
     return blocks
 
 
+def attention_blocks(cfg, height, width, decoder=True):
+    """(tokens, channels, layers) of every transformer block of one UNet
+    evaluation at ``height`` x ``width``, in order (:func:`transformer_blocks`)."""
+    return [(b["tokens"], b["c"], b["layers"])
+            for b in transformer_blocks(cfg, height, width, decoder)]
+
+
+def self_attention_plan(cfg, block):
+    """(sequences a lane, tokens a sequence) of a UNet self-attention of
+    ``block`` under the config's ToMe and Hypertile (``unet.block_plans``,
+    the static plan): ToMe attends over the tokens left after merging,
+    Hypertile over each tile, one sequence a tile."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
+
+    tome_plan, ht = unet.block_plans(cfg.unet.tome, cfg.unet.hypertile, block["h"], block["w"])
+    if tome_plan is not None:
+        return 1, block["tokens"] - tome_plan[2]
+    if ht is not None:
+        return block["tokens"] // (ht[0] * ht[1]), ht[0] * ht[1]
+    return 1, block["tokens"]
+
+
+def deepcache_evals(sampler, steps, start, interval):
+    """(full, shallow) UNet evaluations of a DeepCache request: an
+    evaluation of step i is full when (i - start) % interval == 0; heun's
+    corrector and the dpm2 family's midpoint are always shallow (and skipped
+    on the final step, :func:`sampler_evals`); plms evaluates its grid
+    points by ``pndm.eval_index``."""
+    from pytorch_stable_diffusion_tpu_torch.sampling import pndm
+
+    if sampler == "plms":
+        idx = [min(pndm.eval_index(i, start), steps - 1) for i in range(start, steps + 1)]
+    else:
+        check(sampler in ONE_EVAL + TWO_EVAL, f"{sampler} does not compose with deepcache")
+        idx = list(range(start, steps))
+    full = sum((i - start) % interval == 0 for i in idx)
+    return full, sampler_evals(sampler, steps, start) - full
+
+
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
-                      context=77, encodes=None, controlnets=0, reference=None, cfg_lanes=True):
+                      context=77, encodes=None, controlnets=0, reference=None, cfg_lanes=True,
+                      pag=False, sag=False, shallow=0, tiling=False):
     """Kernel launches of one request, derived from the UNet's plan (which
     stages carry attention, at which level, of how many stacked layers,
     at which head width; its res blocks), the length of the
@@ -1329,10 +1417,19 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     launches), the read's attention over twice the tokens where the mode
     reads attention (:func:`expected_kernel` of 2 x tokens on the cross
     path; without CFG, ``cfg_lanes`` False, it replaces the plain
-    self-attention), and the reference image's encode.  One launch serves every
-    lane of an evaluation, so the lane count (1 without CFG, 2 with it, 3
-    for InstructPix2Pix) does not enter the counts; it enters the shapes
-    phase 3 holds (:func:`plan_shapes`).  The CPU tests import it too."""
+    self-attention), and the reference image's encode.  Slice F: ``pag``
+    adds one more pass an evaluation without the bottleneck's
+    self-attention (the identity map); ``sag`` one more whole pass, with
+    the main pass's bottleneck layer 0 materialized (its map is returned);
+    ``shallow`` of the ``steps`` evaluations are DeepCache's shallow ones
+    (only the blocks of :func:`transformer_blocks`'s ``shallow`` and those
+    res blocks); the config's ToMe and Hypertile route each UNet
+    self-attention by its sequence (:func:`self_attention_plan`), the
+    ControlNet's by the whole grid; ``tiling`` runs no K5.  One launch
+    serves every lane and every tile of an evaluation, so the lane count (1
+    without CFG, 2 with it, 3 for InstructPix2Pix, n_and + 1 with AND) does
+    not enter the counts; it enters the shapes phase 3 holds
+    (:func:`plan_shapes`).  The CPU tests import it too."""
     from pytorch_stable_diffusion_tpu_torch.models import unet
 
     counts = {"K1": 0, "K2": 0, "K4": 0, "K3": 0, "K5": 0}
@@ -1344,17 +1441,28 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     u = cfg.unet
     h = height // cfg.vae.downsample_factor
     w = width // cfg.vae.downsample_factor
-    # UNet passes an evaluation: the main one, and a reference capture pass
-    passes = 1 + (reference is not None)
+    # whole UNet passes an evaluation besides the main one: a reference
+    # capture pass, SAG's degraded-latents pass; PAG's pass has no
+    # bottleneck self-attention
+    full = steps - shallow
+    extra = (reference is not None) + sag
     n_net_blocks = len(attention_blocks(cfg, height, width, decoder=False))
-    for i, (tokens, c, layers) in enumerate(attention_blocks(cfg, height, width)):
+    for i, blk in enumerate(transformer_blocks(cfg, height, width)):
+        tokens, c, layers = blk["tokens"], blk["c"], blk["layers"]
         dh = c // u.heads_for(c)
-        runs = steps * layers * (passes + (controlnets if i < n_net_blocks else 0))
-        k_self = expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
-                                 flash_only=flash_only)
-        add(k_self, runs)
-        add(expected_kernel(context, dh, cross=True,
-                            backend=cfg.attention_backend, flash_only=flash_only), runs)
+        main = full + (shallow if blk["shallow"] else 0)
+        net = steps * controlnets if i < n_net_blocks else 0
+        k_self = expected_kernel(self_attention_plan(cfg, blk)[1], dh, cross=False,
+                                 backend=cfg.attention_backend, flash_only=flash_only)
+        k_net = expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
+                                flash_only=flash_only)
+        add(k_self, layers * (main + steps * extra + (steps * pag if not blk["mid"] else 0)))
+        add(k_net, layers * net)
+        if sag and blk["mid"]:  # the main pass's layer 0 returns its map
+            add(k_self, -steps)
+        add(expected_kernel(context, dh, cross=True, backend=cfg.attention_backend,
+                            flash_only=flash_only),
+            layers * (main + steps * (extra + pag) + net))
         if reference is not None and "attn" in reference:
             # the read attends over [own, banked] tokens (the cross path,
             # k/v from 2x the tokens); under CFG the plain self-attention of
@@ -1363,10 +1471,14 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                                 flash_only=flash_only), steps * layers)
             if not cfg_lanes:
                 add(k_self, -steps * layers)
-    if cfg.conv_backend in ("kernel", "kernel_fold"):  # both halves of every res block
+    if cfg.conv_backend in ("kernel", "kernel_fold") and not tiling:
+        # both halves of every res block; a shallow pass's: level 0's and
+        # the last decoder level's
         enc_blocks = sum(st["kind"] == "block" for st in unet.encoder_plan(u))
-        counts["K5"] += 2 * steps * (passes * (enc_blocks + 2 + len(unet.decoder_plan(u)))
-                                     + controlnets * (enc_blocks + 2))
+        per_pass = enc_blocks + 2 + len(unet.decoder_plan(u))
+        counts["K5"] += 2 * (full * per_pass + shallow * (2 * u.num_res_blocks + 1)
+                             + steps * ((extra + pag) * per_pass
+                                        + controlnets * (enc_blocks + 2)))
     mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
                         flash_only=flash_only),
@@ -1379,17 +1491,20 @@ def plan_shapes(cfg, height, width, lanes, context=77):
     ``width`` gives K1, K2 and K5 on the kernel backends, from the UNet's
     plan and :func:`expected_kernel`, each with its launches an evaluation:
     {"K1": {(B, S, C, heads): n}, "K2": {(B, heads, S, KV, Dh): n},
-    "K5": {(B, H, W, Cin, Cout): n}}."""
+    "K5": {(B, H, W, Cin, Cout): n}}; K1's under the config's ToMe (S the
+    tokens left) and Hypertile (B the lanes times the tiles, S a tile's)."""
     out = {"K1": {}, "K2": {}, "K5": {}}
 
     def add(kernel, key, n):
         out[kernel][key] = out[kernel].get(key, 0) + n
 
     u = cfg.unet
-    for tokens, c, layers in attention_blocks(cfg, height, width):
+    for blk in transformer_blocks(cfg, height, width):
+        tokens, c, layers = blk["tokens"], blk["c"], blk["layers"]
         heads = u.heads_for(c)
-        if expected_kernel(tokens, c // heads, cross=False, backend="kernel") == "K1":
-            add("K1", (lanes, tokens, c, heads), layers)
+        seqs, seq = self_attention_plan(cfg, blk)
+        if expected_kernel(seq, c // heads, cross=False, backend="kernel") == "K1":
+            add("K1", (lanes * seqs, seq, c, heads), layers)
         if expected_kernel(context, c // heads, cross=True, backend="kernel") == "K2":
             add("K2", (lanes, heads, tokens, context, c // heads), layers)
     for h, w, cin, cout in res_convs(cfg, height, width):
@@ -1444,6 +1559,37 @@ def e_shapes(kernel):
                 key = (lanes, heads, tokens, 2 * tokens, c // heads)
                 plan[key] = plan.get(key, 0) + layers
         for key, n in plan.items():
+            out.setdefault(key, (n, label))
+    return out
+
+
+#: slice F's requests whose Hypertile or ToMe plans give K1 new shapes:
+#: (preset, height, width, lanes, modes, request); a mode is ("hypertile",
+#: tile) or ("tome", ratio), at the default 4096 min_tokens
+F_PLANS = (("sd15_config", 512, 512, 2, ("hypertile", 32), "i: Hypertile 32, 512²"),
+           ("sd15_config", 2048, 2048, 2, ("hypertile", 32), "m: fast preset, 2048²"),
+           ("sd15_config", 2560, 2560, 2, ("hypertile", 32), "n: Hypertile 32, 2560²"),
+           ("sdxl_config", 1024, 1024, 2, ("hypertile", 32), "o: SDXL Hypertile 32, 1024²"),
+           ("sd15_config", 512, 512, 2, ("tome", 0.5), "j: ToMe 0.5, 512²"),
+           ("sdxl_config", 1024, 1024, 2, ("tome", 0.5), "SDXL ToMe 0.5, 1024² (no request)"))
+
+
+def with_mode(port, cfg, mode):
+    """``cfg`` with a Hypertile or ToMe mode of :data:`F_PLANS`."""
+    kind, value = mode
+    return port.with_hypertile(cfg, value) if kind == "hypertile" else \
+        port.with_tome(cfg, value)
+
+
+def f_shapes(kernel):
+    """{shape: (launches an evaluation, request)} of ``kernel`` over
+    :data:`F_PLANS`."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    out = {}
+    for preset, height, width, lanes, mode, label in F_PLANS:
+        cfg = with_mode(port, getattr(port, preset)(), mode)
+        for key, n in plan_shapes(cfg, height, width, lanes)[kernel].items():
             out.setdefault(key, (n, label))
     return out
 
@@ -2925,6 +3071,293 @@ def phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ slice F
+#: composable prompt of slice F's AND requests: two parts, the second at 0.8
+AND_PROMPT = f"{PROMPTS[0]} AND {PROMPTS[2]}:0.8"
+
+
+def halves(size):
+    """Left and right half-canvas region masks (H, W) in [0, 1]."""
+    import numpy as np
+
+    left = np.zeros((size, size), np.float32)
+    left[:, :size // 2] = 1.0
+    return [left, 1.0 - left]
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """The q shapes (B, S, C) of the K1 calls made inside the block (a
+    wrapper around the attention module's binding of the K1 wrapper, which
+    still counts its launches)."""
+    from pytorch_stable_diffusion_tpu_torch.ops import attention
+
+    real, shapes = attention.flash_attention_bsc, set()
+
+    def recording(q, k, v, **kw):
+        shapes.add(tuple(q.shape))
+        return real(q, k, v, **kw)
+
+    attention.flash_attention_bsc = recording
+    try:
+        yield shapes
+    finally:
+        attention.flash_attention_bsc = real
+
+
+def phase_small_f(port, cpu, base):
+    """Slice F at full width, FP32, 256², 2 dpm++ steps, CFG 5: the card
+    (kernel attention, conv and VAE) against the port's CPU plain path on
+    the same seeded weights and noise (> 55 dB latents, > 40 dB image, the
+    plan's launches): guidance rescale 0.7 with dynamic thresholding 0.995,
+    PAG, SAG, AND with two region masks, a variation seed with the noise
+    multiplier, DeepCache 2, Hypertile and ToMe at ``min_tokens=1024`` (tile
+    16; level 1's 1024 tokens are under the 4096 default: the K1 shapes show
+    that they engaged), FreeU, and tiling (no K5)."""
+    import numpy as np
+
+    tok = _tokenizer()
+    kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
+              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="dpm++")
+    cfg_g = dataclasses.replace(base, attention_backend="kernel", vae_attention_backend="kernel",
+                                conv_backend="kernel")
+    gpu = port.build_models(cfg_g, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    ht = port.with_hypertile(cfg_g, 16, min_tokens=1024)
+    tome = port.with_tome(cfg_g, 0.5, min_tokens=1024)
+    requests = (  # label, card config, options, launch-plan options
+        ("guidance rescale 0.7, dynamic threshold 0.995", cfg_g,
+         dict(guidance_rescale=0.7, dynamic_threshold=0.995), {}),
+        ("PAG 3.0", cfg_g, dict(pag_scale=3.0), dict(pag=True)),
+        ("SAG 0.75", cfg_g, dict(sag_scale=0.75), dict(sag=True)),
+        ("AND, two region masks", cfg_g, dict(prompt=AND_PROMPT, region_masks=halves(256)),
+         {}),
+        ("variation seed 0.3, noise multiplier 1.05", cfg_g,
+         dict(variation_seed=18, variation_strength=0.3, noise_multiplier=1.05), {}),
+        ("DeepCache 2", cfg_g, dict(deepcache=2),
+         dict(shallow=deepcache_evals("dpm++", 2, 0, 2)[1])),
+        ("Hypertile 16, 1024 tokens", ht, {}, {}),
+        ("ToMe 0.5, 1024 tokens", tome, {}, {}),
+        ("FreeU", cfg_g, dict(freeu=True), {}),
+        ("tiling", cfg_g, dict(tiling=True), dict(tiling=True)))
+    for label, cfg_r, opts, plan in requests:
+        opts = dict(opts)
+        prompt = opts.pop("prompt", PROMPTS[0])
+        t1 = time.perf_counter()
+        img_c, lat_c = port.generate(
+            prompt, models=cpu, device="cpu", **kw, **opts,
+            config=dataclasses.replace(cfg_r, attention_backend="plain",
+                                       vae_attention_backend="plain", conv_backend="plain"))
+        t_cpu = time.perf_counter() - t1
+        want = expected_launches(cfg_r, 256, 256, steps=2, img2img=False, **plan)
+        before = launch_counts()
+        with k1_calls() as shapes:
+            img_g, lat_g = port.generate(prompt, models=gpu, config=cfg_r, device="cuda",
+                                         **kw, **opts)
+            torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small F ({label}): full-width FP32 256², 2 dpm++ steps, CFG 5, card vs CPU "
+              f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
+              f"{got}, K1 shapes {sorted(shapes)}; CPU side {t_cpu:.1f} s", flush=True)
+        check(got == want, f"small F ({label}) launched {got}, want {want}")
+        if cfg_r is not cfg_g:  # the tiles or the merged tokens reached K1
+            planned = {key[:3] for key in plan_shapes(cfg_r, 256, 256, 2)["K1"]}
+            check(shapes == planned and shapes != {key[:3] for key in plan_shapes(
+                cfg_g, 256, 256, 2)["K1"]}, f"small F ({label}): K1 shapes {shapes}, "
+                                           f"planned {planned}")
+        check(np.isfinite(lat_g).all(), f"small F ({label}): latents not finite")
+        check(lat_db > 55.0, f"small F ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small F ({label}) image PSNR {img_db:.1f} dB <= 40")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def seam_ratio(image):
+    """Mean |difference| across the wrap seams (last column to first, last
+    row to first) over the mean |difference| of interior neighbours: about
+    1 for an image that tiles."""
+    import numpy as np
+
+    x = image.astype(np.float32)
+    seam = np.concatenate([np.abs(x[:, -1] - x[:, 0]).ravel(),
+                           np.abs(x[-1] - x[0]).ravel()]).mean()
+    inner = np.concatenate([np.abs(np.diff(x, axis=1)).ravel(),
+                            np.abs(np.diff(x, axis=0)).ravel()]).mean()
+    return seam / inner
+
+
+def phase_slice_f(port, card, models, cfg, zero_counts, read_path):
+    """Slice F at SD-1.5 512², full width, BF16, kernel attention, conv and
+    VAE, dpm++ Karras 20 steps, CFG 7.5, seed 1337, on the phase-5 models:
+    (a) guidance rescale 0.7, (b) dynamic thresholding 0.995, (c) PAG 3.0,
+    (d) SAG 0.75, (e) "... AND ...:0.8" and (e') with two half-canvas
+    region masks, (f) a variation seed at 0.3 and (f') seed 1 at strength 1
+    towards variation seed 2 (bit-identical to seed 2), (g) the noise
+    multiplier 1.05 and (g') 1.0 (bit-identical to the request without it),
+    (h) DeepCache 3 and (h') 1 (bit-identical), (i) Hypertile 32 and (i')
+    64 (one tile: bit-identical), (j) ToMe 0.5 twice (bit-identical), (k)
+    FreeU (the SD defaults) and (k') (1, 1, 1, 1) (bit-identical), (l)
+    tiling (no K5; the seams' ratio printed and held under 1.5).  One PAG
+    evaluation, one DeepCache shallow evaluation and one Hypertile
+    evaluation profiled."""
+    import numpy as np
+
+    base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
+    tok = _tokenizer()
+    kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20,
+              return_latents=True)
+    sq = (512, 512, 3)
+
+    def run(label, config=base_cfg, prompt=PROMPTS[0], plan=None, **more):
+        return c3_run(label, lambda: port.generate(prompt, models=models, config=config,
+                                                   **{**kw, **more}),
+                      [(config, 512, 512, 20, 0, 77, plan or {})], sq, card, zero_counts,
+                      read_path, slice_name="F")
+
+    def same(x, y, what):
+        check(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]),
+              f"F {what}: not bit-identical")
+
+    def moved(x, y):
+        return f"{psnr(x[0].astype(np.float32), y[0].astype(np.float32)):.1f} dB"
+
+    plain = run("base: the request without a slice F option")
+    out = {"a": run("a guidance_rescale 0.7", guidance_rescale=0.7),
+           "b": run("b dynamic_threshold 0.995", dynamic_threshold=0.995),
+           "c": run("c PAG 3.0", pag_scale=3.0, plan=dict(pag=True)),
+           "d": run("d SAG 0.75", sag_scale=0.75, plan=dict(sag=True)),
+           "e": run("e AND, weight 0.8", prompt=AND_PROMPT)}
+    out["e'"] = run("e' AND with two half-canvas region masks", prompt=AND_PROMPT,
+                    region_masks=halves(512))
+    out["f"] = run("f variation seed 7 at 0.3", variation_seed=7, variation_strength=0.3)
+    f1 = run("f' seed 1, variation seed 2 at 1.0", seed=1, variation_seed=2,
+             variation_strength=1.0)
+    same(f1, run("f' seed 2 without variation", seed=2), "f' (seed 2's noise)")
+    out["g"] = run("g noise_multiplier 1.05", noise_multiplier=1.05)
+    same(run("g' noise_multiplier 1.0", noise_multiplier=1.0), plain, "g'")
+    full, shallow = deepcache_evals("dpm++", 20, 0, 3)
+    out["h"] = run(f"h deepcache 3 ({full} full, {shallow} shallow)", deepcache=3,
+                   plan=dict(shallow=shallow))
+    same(run("h' deepcache 1", deepcache=1), plain, "h'")
+    ht = port.with_hypertile(base_cfg, 32)
+    out["i"] = run("i Hypertile 32", config=ht)
+    same(run("i' Hypertile 64 (one tile)", config=port.with_hypertile(base_cfg, 64)),
+         plain, "i'")
+    out["j"] = run("j tome_ratio 0.5", tome_ratio=0.5, config=port.with_tome(base_cfg, 0.5))
+    same(run("j again", tome_ratio=0.5, config=port.with_tome(base_cfg, 0.5)), out["j"],
+         "j (ToMe twice)")
+    out["k"] = run("k freeu=True", freeu=True)
+    same(run("k' freeu=(1, 1, 1, 1)", freeu=(1.0, 1.0, 1.0, 1.0)), plain, "k'")
+    out["l"] = run("l tiling", tiling=True, plan=dict(tiling=True))
+    ratio, plain_ratio = seam_ratio(out["l"][0]), seam_ratio(plain[0])
+    check(ratio < 1.5, f"F l: the tiled image's seams differ {ratio:.3f}x its interior")
+    print(f"F: f' == seed 2, g' h' i' k' == base and j == j again, bit-identical; l: seam / "
+          f"interior neighbour difference {ratio:.3f} tiled, {plain_ratio:.3f} without; "
+          f"PSNR against the base (not gated): "
+          + ", ".join(f"{k} {moved(v, plain)}" for k, v in out.items()), flush=True)
+    profile_f_evals(models, base_cfg, ht, card)
+
+
+def profile_f_evals(models, cfg, ht_cfg, card, size=512, label="SD-1.5"):
+    """One PAG evaluation (CFG batch 2, then the cond lane with the mid
+    block's identity map), one DeepCache shallow evaluation (batch 2, from
+    a cached feature) and one Hypertile evaluation (batch 2), profiled as
+    in phase 7."""
+    from pytorch_stable_diffusion_tpu_torch.models import unet
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dtype = cfg.policy.compute_dtype
+    lat = size // cfg.vae.downsample_factor
+    x = torch.randn(2, 4, lat, lat, device="cuda", generator=g).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(2, 77, cfg.unet.d_context, device="cuda", generator=g).to(dtype)
+    add = None if cfg.unet.add_embed_dim is None else \
+        torch.randn(2, cfg.unet.add_embed_dim, device="cuda", generator=g)
+    t = torch.tensor(500.0, device="cuda")
+    kw = dict(attention_backend=cfg.attention_backend, conv_backend=cfg.conv_backend)
+    u = models["diffusion"]
+
+    def pag_eval():
+        with torch.inference_mode():
+            u(x, ctx, t, cfg.policy, add_cond=add, **kw)
+            return u(x[:1], ctx[:1], t, cfg.policy, pag=True,
+                     add_cond=None if add is None else add[:1], **kw)
+
+    with torch.inference_mode():
+        cache = u(x, ctx, t, cfg.policy, add_cond=add, return_cache=True, **kw)[1]
+    check(tuple(cache.shape) == unet.deepcache_shape(cfg.unet, 2, lat, lat),
+          "DeepCache feature shape")
+
+    def shallow_eval():
+        with torch.inference_mode():
+            return u(x, ctx, t, cfg.policy, add_cond=add, cache=cache, **kw)
+
+    def hypertile_eval():
+        with torch.inference_mode():
+            return u(x, ctx, t, cfg.policy, add_cond=add, modes=ht_cfg.unet, **kw)
+
+    where = f"step F {label} ({size}², batch 2, {cfg.conv_backend})"
+    profile_eval(pag_eval, card, f"{where}: one PAG evaluation (CFG, then the cond lane)")
+    profile_eval(shallow_eval, card, f"{where}: one DeepCache shallow evaluation")
+    profile_eval(hypertile_eval, card, f"{where}: one Hypertile 32 evaluation")
+
+
+def phase_slice_f_big(port, card, models, cfg, zero_counts, read_path):
+    """Slice F beyond 512² on the phase-5 models: (m) the fast preset at
+    2048², 4 steps (DeepCache 3: 2 full evaluations, 2 shallow; Hypertile
+    tiles levels 1-3, so K4 launches 0 times and K1 runs over the tiles);
+    (n) Hypertile 32 at 2560², 2 steps, which the guard refuses without it
+    (102400 level-1 tokens; a ragged 400-token tile at level 3)."""
+    base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
+    kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=_tokenizer(),
+              device="cuda", sampler_name="dpm++", timestep_spacing="karras",
+              return_latents=True)
+    fast_cfg, fast_kw = port.fast_preset(base_cfg)
+    full, shallow = deepcache_evals("dpm++", 4, 0, fast_kw["deepcache"])
+    c3_run(f"m fast preset 2048², 4 steps ({full} full, {shallow} shallow)",
+           lambda: port.generate(PROMPTS[1], models=models, config=fast_cfg, height=2048,
+                                 width=2048, n_inference_steps=4, **fast_kw, **kw),
+           [(fast_cfg, 2048, 2048, 4, 0, 77, dict(shallow=shallow))], (2048, 2048, 3), card,
+           zero_counts, read_path, slice_name="F")
+    want = expected_launches(fast_cfg, 2048, 2048, steps=4, img2img=False, shallow=shallow)
+    check(want["K4"] == 0 and want["K1"] > 0, f"F m: the plan {want} runs K4")
+    try:
+        port.generate(PROMPTS[1], models=models, config=base_cfg, height=2560, width=2560,
+                      n_inference_steps=2, **kw)
+    except ValueError as err:
+        print(f"F n: 2560² without Hypertile: ValueError, as in the JAX package: {err}",
+              flush=True)
+    else:
+        check(False, "F n: 2560² without Hypertile did not raise ValueError")
+    ht = port.with_hypertile(base_cfg, 32)
+    c3_run("n Hypertile 32 at 2560², 2 steps", lambda: port.generate(
+        PROMPTS[1], models=models, config=ht, height=2560, width=2560, n_inference_steps=2,
+        **kw), [(ht, 2560, 2560, 2, 0, 77)], (2560, 2560, 3), card, zero_counts, read_path,
+        slice_name="F")
+
+
+def phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path):
+    """Slice F on SDXL 1024², 20 dpm++ Karras steps, CFG 5 (after slice E's
+    SDXL requests): (o) PAG 3.0, FreeU with the SDXL defaults, and Hypertile
+    32 (level 1's 4096 tokens in four tiles)."""
+    kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
+              device="cuda", height=1024, width=1024, return_latents=True,
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+
+    def run(label, config=xl_cfg, plan=None, **more):
+        return c3_run(label, lambda: port.generate(PROMPTS[0], models=xl, config=config,
+                                                   **{**kw, **more}),
+                      [(config, 1024, 1024, 20, 0, 77, plan or {})], (1024, 1024, 3), card,
+                      zero_counts, read_path, slice_name="F")
+
+    run("o SDXL PAG 3.0", pag_scale=3.0, plan=dict(pag=True))
+    run("o SDXL freeu=True (1.3, 1.4, 0.9, 0.2)", freeu=True)
+    run("o SDXL Hypertile 32", config=port.with_hypertile(xl_cfg, 32))
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -2990,7 +3423,7 @@ def main():
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": [],
-                      "e_shapes": []}
+                      "e_shapes": [], "f_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -3194,6 +3627,8 @@ def main():
     phase_slice_c3(port, card, models, cfg, zero_counts, read_path)
     # slice E: ControlNet, T2I-Adapter, IP-Adapter and reference-only at 512²
     phase_slice_e(port, card, models, cfg, zero_counts, read_path)
+    # slice F: the guidance and approximate modes at 512²
+    phase_slice_f(port, card, models, cfg, zero_counts, read_path)
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -3202,6 +3637,8 @@ def main():
     phase_step(models, cfg, card, size=512, context=77)
     phase_step(models, cfg, card, size=512, context=308)
     phase_step(models, cfg, card, size=512, context=77, batch=8)
+    # slice F at 2048² (the fast preset) and 2560² (Hypertile)
+    phase_slice_f_big(port, card, models, cfg, zero_counts, read_path)
 
     # slice C2: SD-2.1, SDXL and the refiner, with the SD-1.5 models freed
     del models, base, batch_kw, long_kw
@@ -3210,6 +3647,7 @@ def main():
     cpu, cpu_cfg = small_sd15_cpu(port)
     phase_small_c3(port, cpu, cpu_cfg)
     phase_small_e(port, cpu, cpu_cfg)
+    phase_small_f(port, cpu, cpu_cfg)
     del cpu
     free_host()
     xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)
@@ -3219,6 +3657,8 @@ def main():
     phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path)
     # slice E on SDXL: a ControlNet, full_adapter_xl and reference attn at 1024²
     phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path)
+    # slice F on SDXL: PAG, FreeU and Hypertile at 1024²
+    phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path)
     del xl
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]

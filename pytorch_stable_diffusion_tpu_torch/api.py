@@ -9,7 +9,10 @@ slice E's ``with_controlnet``, ``with_t2i_adapter`` and
 ``with_ip_adapter``) return new bundles and leave the original as it was;
 their models share every parameter the transform leaves unchanged.  ``mesh=`` (slice H2) and the
 methods of later slices raise ``NotImplementedError`` naming their slice
-(ROADMAP.md §1).
+(ROADMAP.md §1).  The generation methods pass every keyword through to
+``generate()``, slice F's modes too; :func:`fast_preset` gives the
+approximate-mode bundle: ``cfg, kw = fast_preset(sd.config)``, then
+``StableDiffusion(sd.models, sd.tokenizer, cfg).txt2img(prompt, **kw)``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from . import pipeline as pipeline_mod
 from .models import assemble
-from .models.config import SDConfig, sd15_config
+from .models.config import SDConfig, fast_preset, sd15_config  # noqa: F401 (exported)
 from .weights.convert import load_sd_checkpoint
 from .weights.tokenizer import CLIPTokenizer
 

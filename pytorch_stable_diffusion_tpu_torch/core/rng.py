@@ -11,7 +11,11 @@ sample and step), and the streams of the samplers that run their own
 grids: 'restart' (per sample and op), 'dpm_fast' (per sample and
 segment) and 'dpm_adaptive' (per sample and iteration), as in the JAX
 package; and 'chunk', whose draw k is the seed of ``generate_many``'s
-chunk k > 0 (:func:`chunk_seed`).  All noise of a request is drawn here
+chunk k > 0 (:func:`chunk_seed`).  A variation seed (slice F) draws its
+noise from the 'latent_init' stream of that seed (:func:`variation_normal`),
+as the JAX package draws it from ``PRNGKey(variation_seed)``, so that seed
+1 at variation strength 1 with ``variation_seed=2`` starts from seed 2's
+noise.  All noise of a request is drawn here
 on the CPU and copied to the device once: CPU and CUDA generators give
 different numbers for one seed, so this makes a seed give the same image
 on either device, and the denoise loop never waits on the host.
@@ -69,3 +73,10 @@ def step_normals(seed: int, name: str, n: int, batch: int,
     step, op, segment or iteration 0..n-1."""
     return torch.stack([batch_normal(seed, name, batch, shape, step=i)
                         for i in range(n)])
+
+
+def variation_normal(variation_seed: int, batch: int, shape: Sequence[int]) -> torch.Tensor:
+    """(batch, *shape): the initial noise of ``variation_seed``, its
+    'latent_init' stream, which ``pipeline.slerp_noise`` blends into the
+    request's own."""
+    return batch_normal(variation_seed, "latent_init", batch, shape)

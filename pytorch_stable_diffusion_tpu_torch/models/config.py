@@ -7,10 +7,11 @@ for field.  The port runs SD-1.5 (:func:`sd15_config`), SD-2.1
 v-prediction), SDXL base (:func:`sdxl_config`: CLIP-L and OpenCLIP bigG,
 stacked transformer depth, pooled and size conditioning) and the SDXL
 refiner (:func:`sdxl_refiner_config`), txt2img/img2img up to 2048², with
-CLIP skip (:func:`with_clip_skip`); :func:`check_ported` refuses every
-field value that names a feature a later slice brings (ROADMAP.md §1),
-instead of ignoring it: the inpaint, InstructPix2Pix and LCM presets are
-here, and refused, until slice C3.
+CLIP skip (:func:`with_clip_skip`), and slice F's approximate modes
+(:func:`with_tome`, :func:`with_hypertile`, :func:`with_freeu`,
+:func:`fast_preset`); :func:`check_ported` refuses every field value that
+names a feature a later slice brings (ROADMAP.md §1), instead of ignoring
+it.
 
 Attention backends are named for what runs: ``"plain"`` is the
 materialized-scores path (the JAX package's ``"xla"``) and ``"kernel"``
@@ -357,6 +358,68 @@ def with_clip_skip(cfg: SDConfig, clip_skip: int) -> SDConfig:
         clip2=None if cfg.clip2 is None else shift(cfg.clip2))
 
 
+
+#: published FreeU defaults (the paper's recommended settings per family)
+FREEU_DEFAULTS_SD = (1.5, 1.6, 0.9, 0.2)
+FREEU_DEFAULTS_SDXL = (1.3, 1.4, 0.9, 0.2)
+
+
+def with_tome(cfg: SDConfig, ratio: float = 0.5, *, sx: int = 2, sy: int = 2,
+              min_tokens: int = 4096) -> SDConfig:
+    """ToMe token merging (the A1111 "Token merging ratio"; tomesd's
+    defaults: a 2x2 stride, only the blocks of ``min_tokens`` tokens or
+    more, at SD's native sizes the 4096-token level).  ``ratio`` is the
+    fraction of all tokens merged (``ops/tome.py``); 0 turns it off.  Port
+    of the JAX package's ``with_tome``."""
+    if not 0.0 <= ratio < 1.0:
+        raise ValueError(f"tome ratio must be in [0, 1), got {ratio}")
+    if ratio == 0.0:
+        return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, tome=None))
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, tome=(float(ratio), int(sx), int(sy), int(min_tokens))))
+
+
+def with_hypertile(cfg: SDConfig, tile: int = 32, *, min_tokens: int = 4096) -> SDConfig:
+    """Hypertile tile-local self-attention (the A1111 "Hypertile" setting):
+    ``tile`` is the largest tile side in latent tokens (256 px / 8); each
+    self-attention of ``min_tokens`` tokens or more attends within tiles
+    whose sides are the largest divisors of its grid's sides up to
+    ``tile`` (``models/unet.hypertile_sides``).  A grid that fits one tile
+    runs exactly as without it; ``tile`` 0 or None turns it off.  Port of
+    the JAX package's ``with_hypertile``."""
+    if not tile:
+        return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, hypertile=None))
+    if tile < 1:
+        raise ValueError(f"hypertile tile must be >= 1, got {tile}")
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, hypertile=(int(tile), int(min_tokens))))
+
+
+def with_freeu(cfg: SDConfig, freeu=True) -> SDConfig:
+    """FreeU (training-free re-weighting of the two deepest decoder
+    levels): ``True`` takes the family's published defaults (SDXL's for a
+    UNet with added conditioning), else an explicit ``(b1, b2, s1, s2)``;
+    ``False`` or None returns ``cfg`` unchanged.  Port of the JAX
+    package's ``with_freeu``."""
+    if freeu is None or freeu is False:
+        return cfg
+    if freeu is True:
+        freeu = FREEU_DEFAULTS_SDXL if cfg.unet.add_embed_dim else FREEU_DEFAULTS_SD
+    vals = tuple(float(v) for v in freeu)
+    if len(vals) != 4:
+        raise ValueError(f"freeu wants (b1, b2, s1, s2), got {freeu!r}")
+    return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, freeu=vals))
+
+
+def fast_preset(cfg: SDConfig):
+    """The approximate-mode bundle: -> ``(config, generate_kwargs)``,
+    Hypertile at tile 32 and DeepCache at interval 3; pass the config and
+    merge the keywords into ``generate()`` / ``txt2img()``.  Both trade
+    exactness for speed; drop either for an exact request.  Port of the JAX
+    package's ``fast_preset`` (its TPU measurements are not the port's:
+    PERF.md has the H100's)."""
+    return with_hypertile(cfg, 32), {"deepcache": 3}
+
 def _refuse(what: str, where: str):
     raise NotImplementedError(
         f"{what} is not ported yet: it comes with {where} (ROADMAP.md §1)")
@@ -374,7 +437,6 @@ def check_ported(cfg: SDConfig) -> None:
     """Raise ``NotImplementedError`` for any field value this slice does not
     run, naming the slice of ROADMAP.md §1 that brings it, and ``ValueError``
     for a value the JAX package does not know either."""
-    u = cfg.unet
     if cfg.attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"attention_backend must be one of "
                          f"{ATTENTION_BACKENDS}, got {cfg.attention_backend!r}")
@@ -395,12 +457,6 @@ def check_ported(cfg: SDConfig) -> None:
         _check_tower(cfg.clip2, "clip2")
     if cfg.quant != "none":
         _refuse(f"quant={cfg.quant!r}", "slice H")
-    if u.freeu is not None:
-        _refuse("FreeU", "slice F")
-    if u.tome is not None:
-        _refuse("ToMe token merging", "slice F")
-    if u.hypertile is not None:
-        _refuse("Hypertile", "slice F")
 
 
 def model_names(cfg: SDConfig) -> Tuple[str, ...]:

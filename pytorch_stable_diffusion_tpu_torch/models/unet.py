@@ -29,6 +29,13 @@
   :func:`adapter_sites`, IP-Adapter k/v layers by position key, and the
   reference-only banks (attention tokens, AdaIN statistics), captured by
   one pass and read by the next.
+* Slice F's modes, as the JAX ``unet.apply`` runs them: PAG's perturbed
+  pass (identity self-attention in the mid block), SAG's capture of the mid
+  block's layer-0 attention map, ToMe (``ops/tome.py``) and Hypertile
+  (tile-local self-attention; plans static from the block's grid and the
+  config), FreeU at the two deepest decoder levels, DeepCache's full and
+  shallow passes (:func:`deepcache_shape`), and seamless tiling (every conv
+  wraps; K5, which pads with zeros, is off the path).
 
 Tensors are NCHW (channels_last in memory on CUDA); parameter names follow
 the JAX pytree paths (``encoder.1.attn.self_attn.q.weight``).
@@ -43,6 +50,7 @@ from torch import nn
 
 from ..core.dtypes import FP32, Policy
 from ..ops import attention, conv, linear, norm
+from ..ops import tome as tome_mod
 from ..ops.act import geglu, silu
 from ..ops.conv import upsample_nearest_2x
 from ..ops.cuda.conv import gn_silu_conv3x3
@@ -163,7 +171,14 @@ class ResBlock(nn.Module):
 
     def forward(self, x, t_emb, groups: int, policy: Policy,
                 conv_backend: str = "plain"):
-        """x: (B, C, H, W); t_emb: (B, t_dim) or (1, t_dim)."""
+        """x: (B, C, H, W); t_emb: (B, t_dim) or (1, t_dim).  Under seamless
+        tiling (``conv.circular_padding_active``) "kernel" runs as "plain"
+        and "kernel_fold" as "fold": K5 pads with zeros, as the JAX
+        package's Pallas conv does, which the JAX package takes off the
+        path there too."""
+        if conv.circular_padding_active():
+            conv_backend = {"kernel": "plain", "kernel_fold": "fold"}.get(conv_backend,
+                                                                          conv_backend)
         t = linear.apply(self.time_proj, silu(t_emb), policy)
         if conv_backend in ("kernel", "kernel_fold"):
             h = gn_silu_conv3x3(self.norm1, self.conv1, x, groups)
@@ -194,6 +209,60 @@ def _proj1x1(p: conv.Conv, x: torch.Tensor, policy: Policy) -> torch.Tensor:
     w = p.weight[:, :, 0, 0].to(policy.compute_dtype)
     b = None if p.bias is None else p.bias.to(policy.compute_dtype)
     return torch.nn.functional.linear(x.to(policy.compute_dtype), w, b)
+
+
+def hypertile_sides(h: int, w: int, tile: int):
+    """Largest divisors of (h, w) that are <= tile — the static tile sides
+    (tfernd/HyperTile picks among divisors per step; one static choice
+    keeps the graph shape fixed).  Returns None when the grid already fits
+    a single tile (hypertile is then exact/off for this block).  An axis
+    with no divisor in [2, tile] (e.g. a prime side) is left untiled;
+    if neither axis tiles, returns None.  Port of the JAX package's."""
+    def side(n):
+        for d in range(min(tile, n), 1, -1):
+            if n % d == 0:
+                return d
+        return n  # no usable divisor: keep the full side (axis untiled)
+    th, tw = side(h), side(w)
+    return None if (th, tw) == (h, w) else (th, tw)
+
+
+def hypertile_fold(t: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.Tensor:
+    """(B, h*w, C) row-major tokens -> (B*nh*nw, th*tw, C) tile-local
+    sequences (tiles raster-ordered, rows within a tile raster-ordered)."""
+    n, _, c = t.shape
+    nh, nw = h // th, w // tw
+    t = t.reshape(n, nh, th, nw, tw, c).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(n * nh * nw, th * tw, c)
+
+
+def hypertile_unfold(t: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.Tensor:
+    """Inverse of :func:`hypertile_fold`."""
+    nh, nw = h // th, w // tw
+    n = t.shape[0] // (nh * nw)
+    t = t.reshape(n, nh, nw, th, tw, -1).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(n, h * w, t.shape[-1])
+
+
+def block_plans(tome, hypertile, h: int, w: int):
+    """-> (ToMe plan, Hypertile sides) of a self-attention over an (h, w)
+    grid, each None where it does not engage, from the config's ``tome``
+    ((ratio, sx, sy, min_tokens)) and ``hypertile`` ((tile, min_tokens)):
+    ToMe from ``min_tokens`` tokens on a grid its stride divides, with at
+    least one token to merge (:func:`ops.tome.plan`: (dst_idx, src_idx,
+    r)); Hypertile from its ``min_tokens`` where ToMe does not engage
+    (:func:`hypertile_sides`), as the JAX package's ``apply_attn_block``
+    plans them."""
+    tome_plan = ht_plan = None
+    if tome is not None:
+        ratio, sx, sy, min_tokens = tome
+        if h * w >= min_tokens and h % sy == 0 and w % sx == 0:
+            dst_i, src_i, t_r = tome_mod.plan(h, w, sx, sy, ratio)
+            if t_r > 0:
+                tome_plan = (dst_i, src_i, t_r)
+    if hypertile is not None and tome_plan is None and h * w >= hypertile[1]:
+        ht_plan = hypertile_sides(h, w, hypertile[0])
+    return tome_plan, ht_plan
 
 
 def _add_layer(m: nn.Module, channels: int, d_context: int, **kw) -> None:
@@ -236,7 +305,8 @@ class AttnBlock(nn.Module):
     def forward(self, x, context, n_heads: int, groups: int, policy: Policy, *,
                 backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, fold_norms: bool = False, ip=None,
-                ref=None, ref_key: Optional[str] = None):
+                ref=None, ref_key: Optional[str] = None, pag_self_attn: bool = False,
+                return_self_probs: bool = False, tome=None, hypertile=None):
         """``fold_norms``: the GroupNorm and the LayerNorms apply their
         normalize as compute-dtype affines (``conv_backend`` "fold" and
         "kernel_fold").  ``ip``: ``(layers, tokens, scale)``, one IP-Adapter
@@ -245,8 +315,19 @@ class AttnBlock(nn.Module):
         layer's pre-attention tokens under ``f"{ref_key}_{layer}"``;
         ``("read", bank, fidelity, plain_mask)`` attends over [own, banked]
         tokens, the lanes of ``plain_mask`` lerped back toward plain
-        self-attention by ``fidelity``."""
+        self-attention by ``fidelity``.
+
+        Slice F, in the JAX package's order of precedence for each layer's
+        self-attention: ``pag_self_attn`` (the identity map, PAG's perturbed
+        pass), ``return_self_probs`` (layer 0 returns its probabilities as
+        well, SAG; -> (x, probs)), ``tome`` ((ratio, sx, sy, min_tokens):
+        merge, attend, unmerge), the reference banks, ``hypertile`` ((tile,
+        min_tokens): the tiles folded into the batch), then plain.  ToMe and
+        Hypertile engage only on grids of ``min_tokens`` tokens or more, and
+        ToMe wins where both would."""
         n, c, h, w = x.shape
+        tome_plan, ht_plan = block_plans(tome, hypertile, h, w)
+        self_probs = None
 
         def tokens(t):  # (B, C, H, W) -> (B, HW, C); free for channels_last
             return t.permute(0, 2, 3, 1).reshape(n, h * w, c)
@@ -267,7 +348,24 @@ class AttnBlock(nn.Module):
                 return attention.apply(lp.self_attn, t, n_heads=n_heads, backend=backend,
                                        policy=policy, fuse=fuse_qkv)
 
-            if ref is None:
+            if pag_self_attn:
+                y = y + attention.apply_identity(lp.self_attn, t, policy=policy)
+            elif return_self_probs and li == 0:
+                a, self_probs = attention.apply(lp.self_attn, t, n_heads=n_heads,
+                                                backend=backend, policy=policy,
+                                                fuse=fuse_qkv, return_probs=True)
+                y = y + a
+            elif tome_plan is not None:
+                tm, t_info = tome_mod.merge(t, *tome_plan)
+                a = attention.apply(lp.self_attn, tm, n_heads=n_heads, backend=backend,
+                                    policy=policy, fuse=fuse_qkv)
+                y = y + tome_mod.unmerge(a, t_info)
+            elif ref is None and ht_plan is not None:
+                a = attention.apply(lp.self_attn, hypertile_fold(t, h, w, *ht_plan),
+                                    n_heads=n_heads, backend=backend, policy=policy,
+                                    fuse=fuse_qkv)
+                y = y + hypertile_unfold(a, h, w, *ht_plan)
+            elif ref is None:
                 y = y + self_attention()
             elif ref[0] == "capture":
                 ref[1][f"{ref_key}_{li}"] = t
@@ -289,7 +387,8 @@ class AttnBlock(nn.Module):
             t = geglu(linear.apply(lp.geglu_proj, t, policy), reference_quirks)
             y = y + linear.apply(lp.geglu_out, t, policy)
         y = _proj1x1(self.conv_out, y, policy) + y0
-        return y.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        out = y.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        return (out, self_probs) if return_self_probs else out
 
 
 # ----------------------------------------------------------------- full UNet
@@ -356,6 +455,33 @@ def time_embedding(m: nn.Module, cfg: UNetConfig, t, policy: Policy, device,
     return t_emb
 
 
+def _fourier_lowpass_scale(x: torch.Tensor, scale: float, threshold: int = 1) -> torch.Tensor:
+    """FreeU's spectral modulation: the lowest-frequency band of the (NCHW)
+    feature map scaled by ``scale``, a 2*threshold-wide box around DC in the
+    centred 2-D spectrum over H and W; the FFT in fp32, cast back to x's
+    dtype and memory format.  Port of the JAX package's
+    ``_fourier_lowpass_scale``."""
+    h, w = x.shape[2], x.shape[3]
+    f = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=(2, 3)), dim=(2, 3))
+    mask = torch.ones((h, w), dtype=torch.float32, device=x.device)
+    crow, ccol = h // 2, w // 2
+    mask[max(crow - threshold, 0):crow + threshold,
+         max(ccol - threshold, 0):ccol + threshold] = scale
+    f = torch.fft.ifftshift(f * mask, dim=(2, 3))
+    # in x's memory format (channels_last on the card, as K5 reads it)
+    return torch.empty_like(x).copy_(torch.fft.ifftn(f, dim=(2, 3)).real)
+
+
+def deepcache_shape(cfg: UNetConfig, batch: int, h_lat: int, w_lat: int):
+    """Shape of DeepCache's backbone feature, (B, C, h, w): the shallowest
+    decoder level runs at the full latent resolution with the second
+    level's channel width (its input arrives through that level's upsample
+    conv); ``ValueError`` for a one-level UNet, as in the JAX package."""
+    if len(cfg.ch_mults) < 2:
+        raise ValueError("deepcache needs a UNet with >= 2 levels")
+    return (batch, cfg.level_channels[1], h_lat, w_lat)
+
+
 def adain_transform(xf, mean, var, m_ref, v_ref, fidelity, plain_mask):
     """Reference AdaIN's read transform (the diffusers community
     stable_diffusion_reference formula, as in the JAX package):
@@ -399,7 +525,9 @@ class UNet(nn.Module):
                 fuse_qkv: bool = True, conv_backend: str = "plain",
                 add_cond: Optional[torch.Tensor] = None,
                 t_cond: Optional[torch.Tensor] = None, control=None, adapter=None,
-                ip=None, ref=None, ref_adain=None, head: bool = True):
+                ip=None, ref=None, ref_adain=None, head: bool = True, pag: bool = False,
+                return_mid_attn: bool = False, return_cache: bool = False, cache=None,
+                modes: Optional[UNetConfig] = None):
         """latents: (B, in_ch, h, w) (in_ch 9 for inpainting, 8 for
         InstructPix2Pix: plain convs, never K5); context: (B, S, d_context),
         or a hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t:
@@ -421,19 +549,38 @@ class UNet(nn.Module):
         stage and after the bottleneck.  ``head=False`` skips norm_out and
         conv_out and returns None (a reference capture pass).
 
+        Slice F: ``pag`` runs PAG's perturbed pass (the mid block's
+        self-attention layers take the identity map); ``return_mid_attn``
+        -> (output, the mid block's layer-0 attention probabilities) for
+        SAG; the ``tome`` and ``hypertile`` of ``modes`` (the request's
+        UNet config, by default the one the UNet was built with) reach
+        every attention block, and its ``freeu`` ((b1, b2, s1, s2)) scales
+        the backbone's first half of channels by b and low-passes the skip
+        by s at the two deepest decoder levels, neutral values skipped;
+        DeepCache:
+        ``return_cache`` -> (output, the feature entering the shallowest
+        decoder level), and passing that feature back as ``cache`` runs only
+        conv_in, the level-0 encoder blocks, the last decoder level and the
+        head — with the inputs of the full pass, exactly its output.
+
         Returns the model output (B, out_ch, h, w): the predicted noise, or
         v for a v-prediction checkpoint."""
+        if return_mid_attn and (cache is not None or return_cache):
+            raise ValueError("return_mid_attn (SAG) is incompatible with "
+                             "DeepCache (the shallow step skips the mid block)")
         cfg = self.cfg
+        modes = modes or cfg
         t_emb = time_embedding(self, cfg, t, policy, latents.device, add_cond, t_cond)
         fold_norms = conv_backend in ("fold", "kernel_fold")
 
-        def block(res, attn, x, key):
+        def block(res, attn, x, key, **mid):
             x = res(x, t_emb, cfg.groups, policy, conv_backend)
             if attn is not None:
                 x = attn(x, context, cfg.heads_for(x.shape[1]), cfg.groups, policy,
                          backend=attention_backend, reference_quirks=reference_quirks,
                          fuse_qkv=fuse_qkv, fold_norms=fold_norms, ip=ip_for(key, attn),
-                         ref=ref, ref_key=key)
+                         ref=ref, ref_key=key, tome=modes.tome, hypertile=modes.hypertile,
+                         **mid)
             return x
 
         def ip_for(key, attn):
@@ -458,32 +605,69 @@ class UNet(nn.Module):
 
         if adapter is not None:
             ad_pre, ad_post, ad_mid = adapter_sites(cfg, len(adapter))
+        dec_per_level = cfg.num_res_blocks + 1
+        n_dec = len(self.decoder)
         x = conv.apply(self.conv_in, latents, padding=1, policy=policy)
         skips = [x]
-        for i, stage in enumerate(self.encoder):
-            if stage.down is not None:
-                # stride-2 symmetric pad 1 (differs from the VAE's pad)
-                x = conv.apply(stage.down, x, stride=2, padding=1, policy=policy)
-            else:
-                x = adain_site(block(stage.res, stage.attn, x, f"enc_{i}"), f"enc_{i}")
+        mid_probs = None
+        if cache is None:
+            for i, stage in enumerate(self.encoder):
+                if stage.down is not None:
+                    # stride-2 symmetric pad 1 (differs from the VAE's pad)
+                    x = conv.apply(stage.down, x, stride=2, padding=1, policy=policy)
+                else:
+                    x = adain_site(block(stage.res, stage.attn, x, f"enc_{i}"), f"enc_{i}")
+                    if adapter is not None and i in ad_pre:
+                        x = x + adapter[ad_pre[i]].to(x.dtype)
+                skips.append(x)
+                if adapter is not None and i in ad_post:
+                    # backbone only: the recorded skip excludes the feature
+                    x = x + adapter[ad_post[i]].to(x.dtype)
+            if control is not None:
+                skips = [s + d.to(s.dtype) for s, d in zip(skips, control["down"])]
+            mid = self.bottleneck
+            x = block(mid.res1, mid.attn, x, "mid", pag_self_attn=pag,
+                      return_self_probs=return_mid_attn)
+            if return_mid_attn:
+                x, mid_probs = x
+            x = adain_site(mid.res2(x, t_emb, cfg.groups, policy, conv_backend), "mid")
+            if adapter is not None and ad_mid is not None:
+                # full_adapter_xl's extra feature, before the ControlNet's
+                x = x + adapter[ad_mid].to(x.dtype)
+            if control is not None:
+                x = x + control["mid"].to(x.dtype)
+            dec_stages = list(enumerate(self.decoder))
+        else:
+            # DeepCache's shallow pass: the level-0 encoder blocks (the skips
+            # the shallowest decoder level takes), the deep UNet replaced by
+            # the cached feature; only a level-0 "pre" adapter site falls here
+            for i, stage in enumerate(self.encoder[:cfg.num_res_blocks]):
+                x = block(stage.res, stage.attn, x, f"enc_{i}")
                 if adapter is not None and i in ad_pre:
                     x = x + adapter[ad_pre[i]].to(x.dtype)
-            skips.append(x)
-            if adapter is not None and i in ad_post:
-                # backbone only: the recorded skip excludes the feature
-                x = x + adapter[ad_post[i]].to(x.dtype)
-        if control is not None:
-            skips = [s + d.to(s.dtype) for s, d in zip(skips, control["down"])]
-        mid = self.bottleneck
-        x = block(mid.res1, mid.attn, x, "mid")
-        x = adain_site(mid.res2(x, t_emb, cfg.groups, policy, conv_backend), "mid")
-        if adapter is not None and ad_mid is not None:
-            # full_adapter_xl's extra feature, before the ControlNet's
-            x = x + adapter[ad_mid].to(x.dtype)
-        if control is not None:
-            x = x + control["mid"].to(x.dtype)
-        for si, stage in enumerate(self.decoder):
-            x = block(stage.res, stage.attn, torch.cat([x, skips.pop()], dim=1), f"dec_{si}")
+                skips.append(x)
+            if control is not None:  # zip stops at the shallow skips
+                skips = [s + d.to(s.dtype) for s, d in zip(skips, control["down"])]
+            x = cache.to(policy.compute_dtype)
+            dec_stages = list(enumerate(self.decoder))[-dec_per_level:]
+        out_cache = None
+        for si, stage in dec_stages:
+            if return_cache and si == n_dec - dec_per_level:
+                out_cache = x
+            skip = skips.pop()
+            if modes.freeu is not None and si // dec_per_level < 2:
+                # FreeU: boost the backbone's first half of channels, low-pass
+                # the skip; neutral values skipped, so (1, 1, 1, 1) is off
+                lvl = si // dec_per_level
+                b, s = modes.freeu[lvl], modes.freeu[2 + lvl]
+                if b != 1.0:
+                    # b rounded to x's dtype, as the JAX package multiplies
+                    b_x = torch.tensor(b, dtype=x.dtype).item()
+                    x = x.clone()
+                    x[:, :x.shape[1] // 2] *= b_x
+                if s != 1.0:
+                    skip = _fourier_lowpass_scale(skip, s)
+            x = block(stage.res, stage.attn, torch.cat([x, skip], dim=1), f"dec_{si}")
             x = adain_site(x, f"dec_{si}")
             if stage.upsample is not None:
                 x = conv.apply(stage.upsample, upsample_nearest_2x(x), padding=1,
@@ -491,4 +675,9 @@ class UNet(nn.Module):
         if not head:
             return None
         x = norm.group_norm_silu(self.norm_out, x, cfg.groups, policy=policy)
-        return conv.apply(self.conv_out, x, padding=1, policy=policy)
+        out = conv.apply(self.conv_out, x, padding=1, policy=policy)
+        if return_cache:
+            return out, out_cache
+        if return_mid_attn:
+            return out, mid_probs
+        return out

@@ -92,9 +92,11 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def materialized_attention(q, k, v, causal: bool, policy: Policy):
+def materialized_attention(q, k, v, causal: bool, policy: Policy,
+                           return_probs: bool = False):
     """q, k, v: (B, H, S, Dh).  Port of ``_xla_attention``: scores and
-    softmax in ``policy.softmax_dtype``, probs cast to q's dtype for @ v."""
+    softmax in ``policy.softmax_dtype``, probs cast to q's dtype for @ v;
+    with ``return_probs`` -> (out, probs in ``policy.softmax_dtype``)."""
     sd = policy.softmax_dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q.to(sd), k.to(sd).transpose(-1, -2)) * scale
@@ -103,8 +105,8 @@ def materialized_attention(q, k, v, causal: bool, policy: Policy):
         mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(q.dtype), v.to(q.dtype))
-    return out.to(q.dtype)
+    out = torch.matmul(probs.to(q.dtype), v.to(q.dtype)).to(q.dtype)
+    return (out, probs) if return_probs else out
 
 
 def _fused_proj(parts, x: torch.Tensor, policy: Policy):
@@ -158,9 +160,18 @@ def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
     return "multipass" if takes("multipass") else "plain"
 
 
+def apply_identity(p: Attention, x: torch.Tensor, *, policy: Policy = FP32) -> torch.Tensor:
+    """Self-attention with the identity as its attention map: every token
+    attends only to itself, so the output is ``out(v(x))``, without q, k,
+    scores or softmax.  The perturbed branch of Perturbed-Attention
+    Guidance (Ahn et al. 2024; diffusers' ``PAGIdentitySelfAttnProcessor``);
+    port of the JAX package's ``apply_identity``."""
+    return linear.apply(p.out, linear.apply(p.v, x, policy), policy)
+
+
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
           *, n_heads: int, causal: bool = False, backend: str = "plain",
-          policy: Policy = FP32, fuse: bool = True, ip=None) -> torch.Tensor:
+          policy: Policy = FP32, fuse: bool = True, ip=None, return_probs: bool = False):
     """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention, or a
     ``(ctx_k, ctx_v)`` pair of such tensors (a hypernetwork's, as the JAX
     package takes it), k projected from ``ctx_k`` and v from ``ctx_v``.
@@ -169,7 +180,12 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
     4 or 16 image tokens (B, n, D_cross) projected by ``layer``'s bias-free
     ``k`` and ``v``, attended by this layer's q heads with materialized
     scores (never a kernel: the KV is a handful of tokens) and added times
-    the tensor ``scale`` before the out projection."""
+    the tensor ``scale`` before the out projection.
+
+    ``return_probs`` (SAG's capture of the mid block's map): materialized
+    scores whatever the backend, as the JAX package's ``_xla_attention``,
+    -> (output, probabilities (B, H, S, S_kv) in ``policy.softmax_dtype``);
+    :func:`route` never sees such a call."""
     if context is None:
         if fuse:
             q, k, v = _fused_proj((p.q, p.k, p.v), x, policy)
@@ -188,6 +204,10 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 v = _fused_proj((p.k, p.v), ctx_v, policy)[1]
         else:
             k, v = linear.apply(p.k, ctx_k, policy), linear.apply(p.v, ctx_v, policy)
+    if return_probs:
+        out, probs = materialized_attention(*(_split_heads(t, n_heads) for t in (q, k, v)),
+                                            causal, policy, return_probs=True)
+        return linear.apply(p.out, _merge_heads(out), policy), probs
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
                  cross=context is not None, backend=backend, cuda=q.is_cuda)
     if path == "bsc":

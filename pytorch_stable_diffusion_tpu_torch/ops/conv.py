@@ -9,10 +9,21 @@ Padding semantics the reference relies on:
     right/bottom-only pad (:data:`ASYM_DOWN`).
   * UNet downsampling: stride 2 with symmetric pad 1.
 ``padding`` is an int (symmetric) or ((top, bottom), (left, right)).
+
+Seamless tiling (A1111's ``--tiling``): under :func:`circular_padding`
+every conv with non-zero padding wrap-pads its input (``F.pad(mode=
+"circular")``, the asymmetric downsample pad included) and convolves
+VALID, so that the image tiles without a seam.  The mode is per request:
+``generate(tiling=True)`` holds it around the whole request.  K5 pads with
+zeros, so ``models/unet.ResBlock`` takes a plain-conv tier under it
+(:func:`circular_padding_active`), as the JAX package takes its Pallas conv
+off the path.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple, Union
 
@@ -26,6 +37,26 @@ PadT = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 #: right/bottom-only padding used by VAE-encoder stride-2 convs
 ASYM_DOWN: PadT = ((0, 1), (0, 1))
+
+#: every conv pads circularly instead of with zeros (seamless tiling)
+_CIRCULAR = contextvars.ContextVar("conv_circular", default=False)
+
+
+@contextlib.contextmanager
+def circular_padding(on: bool = True):
+    """Every conv inside the ``with`` block pads circularly (``on``), and the
+    mode before it is restored on the way out, also on an exception."""
+    token = _CIRCULAR.set(on)
+    try:
+        yield
+    finally:
+        _CIRCULAR.reset(token)
+
+
+def circular_padding_active() -> bool:
+    """Whether convs pad circularly here: the res blocks' fused conv K5,
+    which pads with zeros, is then off the path."""
+    return _CIRCULAR.get()
 
 
 class Conv(nn.Module):
@@ -52,7 +83,17 @@ def apply(p: Conv, x: torch.Tensor, stride: int = 1, padding: PadT = 0,
           policy: Policy = FP32) -> torch.Tensor:
     """x: (N, C_in, H, W) -> (N, C_out, H', W')."""
     x = x.to(policy.compute_dtype)
-    if not isinstance(padding, int):
+    if _CIRCULAR.get() and padding not in (0, ((0, 0), (0, 0))):
+        # seamless tiling: wrap-pad (periodic boundary), then VALID
+        (top, bottom), (left, right) = ((padding,) * 2,) * 2 if isinstance(padding, int) \
+            else padding
+        channels_last = not x.is_contiguous() and \
+            x.is_contiguous(memory_format=torch.channels_last)
+        x = F.pad(x, (left, right, top, bottom), mode="circular")
+        if channels_last:  # keep the card's layout for the conv and after it
+            x = x.contiguous(memory_format=torch.channels_last)
+        padding = 0
+    elif not isinstance(padding, int):
         (top, bottom), (left, right) = padding
         x = F.pad(x, (left, right, top, bottom))
         padding = 0

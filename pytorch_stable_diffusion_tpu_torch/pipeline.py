@@ -57,7 +57,7 @@ Same public keyword surface as the JAX package's ``generate()`` and
   high-resolution requests; the mid block's attention still runs whole.
 * Exact-mode requests are served up to :data:`MAX_VALIDATED_ATTN_TOKENS`
   level-1 tokens (2048² at SD-1.5); larger ones raise ``ValueError``, as
-  in the JAX package.
+  in the JAX package, unless Hypertile tiles level 1.
 * Output: decoded (-1, 1) rescaled to (0, 255), clamped, truncated to
   uint8 (H, W, 3) — the reference's contract.
 * Prompt features (slice D1), as in the JAX package: ``long_prompts``
@@ -114,6 +114,27 @@ Same public keyword surface as the JAX package's ``generate()`` and
   ControlNet, T2I-Adapter, IP-Adapter and reference-only, with the JAX
   package's ``ValueError``s.
 
+* Slice F, the guidance and approximate modes, as in the JAX package.
+  Guidance: ``guidance_rescale`` (the combined prediction's per-sample std
+  pulled back toward the conditional one's), ``dynamic_threshold`` (a
+  per-sample |x0| quantile clip), ``pag_scale`` (one more evaluation of the
+  conditional lanes with the mid block's self-attention the identity map),
+  ``sag_scale`` (the mid block's attention map marks the salient tokens;
+  the base lanes' x0 blurred there, re-noised and evaluated once more),
+  composable ``AND`` prompts (n_and cond lanes, part-major, and the uncond
+  lanes; a (B, n_and) weight tensor) with ``region_masks`` (each part's
+  area-mean latent mask).  Noise: ``variation_seed`` / ``variation_strength``
+  (the variation seed's 'latent_init' draw slerped in, :func:`slerp_noise`)
+  and ``noise_multiplier``, both on the host before the copy to the
+  device.  Approximate modes: ``deepcache`` (every N-th evaluation the full
+  UNet, the rest its shallow slice against the cached deep feature; heun's
+  corrector and the dpm2 family's midpoint always shallow), ``tome_ratio``
+  and the config's Hypertile (``models/config.with_hypertile``,
+  :func:`models.config.fast_preset`), which lifts the 65536-token guard
+  where it tiles level 1, and ``freeu``.  ``tiling`` runs the request under
+  ``ops/conv.circular_padding``.  Each refuses the compositions and
+  ``fixed_noise`` cases the JAX package refuses, with its ``ValueError``.
+
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
 slice of ROADMAP.md §1 that ports it, and a value the JAX package does
@@ -132,7 +153,9 @@ from . import prompt_schedule
 from .core import rng as rng_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
-from .models.config import SDConfig, check_ported, sd15_config, with_clip_skip
+from .models.config import (SDConfig, check_ported, sd15_config, with_clip_skip, with_freeu,
+                            with_tome)
+from .ops import conv as conv_ops
 from .sampling import (ddim, ddpm, dpm, dpm2, dpm_adaptive, dpm_fast, euler, lcm, lms,
                        pndm, restart, unipc)
 
@@ -145,18 +168,13 @@ _OWN_GRID = ("restart", "dpm_fast", "dpm_adaptive")
 
 #: Largest global self-attention sequence (level-1 tokens) served: the JAX
 #: package's limit and ``ValueError`` contract (its ``pipeline.py``), which
-#: the port keeps; 2048² at SD-1.5 is 65536 tokens.  The JAX package lifts
-#: it with hypertile, which the port does not run (slice F).
+#: the port keeps; 2048² at SD-1.5 is 65536 tokens.  Hypertile lifts it
+#: where its plan tiles level 1 (the JAX package lifts it whenever hypertile
+#: is on, even where ``min_tokens`` or a prime side leaves level 1 whole).
 MAX_VALIDATED_ATTN_TOKENS = 65536
 
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "region_masks": (None, "slice F"), "freeu": (None, "slice F"),
-    "deepcache": (None, "slice F"), "guidance_rescale": (0.0, "slice F"),
-    "variation_seed": (None, "slice F"), "variation_strength": (0.0, "slice F"),
-    "pag_scale": (0.0, "slice F"), "sag_scale": (0.0, "slice F"),
-    "tiling": (False, "slice F"), "dynamic_threshold": (None, "slice F"),
-    "noise_multiplier": (None, "slice F"), "tome_ratio": (None, "slice F"),
     "panorama": (False, "slice G"), "panorama_window": (512, "slice G"),
     "panorama_stride": (None, "slice G"), "n_frames": (None, "slice G"),
     "motion_window": (None, "slice G"), "motion_stride": (None, "slice G"),
@@ -174,15 +192,6 @@ def _check_unported(kwargs) -> None:
             raise NotImplementedError(
                 f"generate({name}=...) is not ported yet: it comes with {where} "
                 f"(ROADMAP.md §1)")
-
-
-def _check_composable(prompts) -> None:
-    """Composable prompts (``AND``) are parsed by the JAX package; refuse
-    them rather than encode them as literal text."""
-    if any(prompt_schedule.has_composable(p) for p in prompts):
-        raise NotImplementedError(
-            "composable prompts (AND) are not ported yet: they come with "
-            "slice F (ROADMAP.md §1)")
 
 
 # --------------------------------------------------------------- tokenizing
@@ -438,6 +447,50 @@ def match_histograms(src: np.ndarray, ref: np.ndarray) -> np.ndarray:
     return out.astype(src.dtype)
 
 
+def _lane(ctx, sl):
+    """The lanes ``sl`` of a context that may be a hypernetwork's (ctx_k,
+    ctx_v) pair."""
+    return tuple(t[sl] for t in ctx) if isinstance(ctx, tuple) else ctx[sl]
+
+
+def gaussian_blur(x: torch.Tensor, ksize: int = 9, sigma: float = 1.0) -> torch.Tensor:
+    """Separable depthwise gaussian blur of (B, C, H, W) with reflect
+    padding: diffusers' ``gaussian_blur_2d``, SAG's degradation (port of the
+    JAX package's ``gaussian_blur``; the taps in float64 on the host, then
+    x's dtype)."""
+    ax = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    k1 = np.exp(-0.5 * (ax / sigma) ** 2)
+    k1 = torch.from_numpy(k1 / k1.sum()).to(x.dtype)
+    c, pad = x.shape[1], ksize // 2
+    kv = k1.reshape(1, 1, ksize, 1).expand(c, 1, ksize, 1).to(x.device)
+    kh = k1.reshape(1, 1, 1, ksize).expand(c, 1, 1, ksize).to(x.device)
+    y = torch.nn.functional.pad(x, (pad, pad, pad, pad), mode="reflect")
+    y = torch.nn.functional.conv2d(y, kv, groups=c)
+    return torch.nn.functional.conv2d(y, kh, groups=c)
+
+
+def slerp_noise(t, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+    """Per-sample spherical interpolation between two noise tensors (the
+    A1111 variation-seed combiner; port of the JAX package's).  It keeps the
+    result's norm on the gaussian shell, which a lerp would shrink.  Exact
+    at the ends: t = 0 returns ``low`` and t = 1 ``high`` bit for bit
+    (sin(w)/sin(w) == 1 and sin(0) == 0 in IEEE); near-parallel inputs
+    (sin(omega) ~ 0) take the lerp."""
+    b = low.shape[0]
+    lo, hi = low.reshape(b, -1).float(), high.reshape(b, -1).float()
+    lon = lo / torch.linalg.vector_norm(lo, dim=1, keepdim=True)
+    hin = hi / torch.linalg.vector_norm(hi, dim=1, keepdim=True)
+    dot = torch.clamp((lon * hin).sum(dim=1, keepdim=True), -1.0, 1.0)
+    omega = torch.arccos(dot)
+    so = torch.sin(omega)
+    safe = so.abs() > 1e-6
+    so_ = torch.where(safe, so, torch.ones_like(so))
+    t = torch.as_tensor(t, dtype=torch.float32, device=lo.device)
+    out = torch.where(safe, (torch.sin((1.0 - t) * omega) / so_) * lo
+                      + (torch.sin(t * omega) / so_) * hi, (1.0 - t) * lo + t * hi)
+    return out.reshape(low.shape)
+
+
 def _nchw(x: np.ndarray) -> torch.Tensor:
     """(B, H, W, C) host array -> (B, C, H, W) float32 tensor."""
     return torch.from_numpy(np.array(np.asarray(x).transpose(0, 3, 1, 2), np.float32))
@@ -469,9 +522,10 @@ def _inpaint_mode(cfg: SDConfig, mask_image, input_image, init_latents) -> Optio
 
 
 def _check_ip2p(cfg: SDConfig, *, img2img: bool, do_cfg: bool, mask_image,
-                edited: bool, control_image=None, adapter_image=None) -> None:
+                edited: bool, control_image=None, adapter_image=None,
+                guidance_rescale: float = 0.0) -> None:
     """InstructPix2Pix's ValueErrors, as in the JAX package (``edited``:
-    the prompt has edits/alternations)."""
+    PAG, SAG, AND or prompt edits/alternations)."""
     if cfg.unet.in_channels != 2 * cfg.vae.latent_channels:
         raise ValueError(
             "edit_image needs an InstructPix2Pix checkpoint "
@@ -488,7 +542,8 @@ def _check_ip2p(cfg: SDConfig, *, img2img: bool, do_cfg: bool, mask_image,
                          "text/image guidance)")
     bad = [n for n, v in [("mask_image", mask_image), ("control_image", control_image),
                           ("adapter_image", adapter_image)] if v is not None]
-    if bad:
+    if bad or guidance_rescale:
+        bad += ["guidance_rescale"] if guidance_rescale else []
         raise ValueError(f"InstructPix2Pix does not compose with {'/'.join(bad)}")
     if edited:
         raise ValueError("InstructPix2Pix does not compose with "
@@ -521,16 +576,28 @@ def _per_net(models, name: str, images, scales, what: str):
 
 
 def _check_reference(cfg: SDConfig, *, edited: bool, ip2p: bool, inpaint, fixed_noise,
-                     fidelity: float, mode: str) -> str:
-    """Reference-only's ValueErrors, as in the JAX package (ToMe, hypertile
-    and deepcache, which it also names, are refused earlier by the port);
-    -> the mode, "attn+adain" written "adain+attn"."""
+                     fidelity: float, mode: str, deepcache=None) -> str:
+    """Reference-only's ValueErrors, as in the JAX package (``edited``: PAG,
+    SAG, AND or prompt edits); -> the mode, "attn+adain" written
+    "adain+attn"."""
     if edited or ip2p:
         raise ValueError("reference_image does not compose with "
                          "PAG/SAG/AND/prompt-editing/InstructPix2Pix")
+    if deepcache is not None:
+        raise ValueError("reference_image does not compose with "
+                         "deepcache (the attention bank needs the "
+                         "full UNet every step)")
     if inpaint == "unet9":
         raise ValueError("reference_image is not supported with "
                          "9-channel inpaint checkpoints")
+    if cfg.unet.tome is not None:
+        raise ValueError("reference_image does not compose with ToMe "
+                         "(merged tokens cannot bank reference "
+                         "states)")
+    if cfg.unet.hypertile is not None:
+        raise ValueError("reference_image does not compose with "
+                         "hypertile (tile-local attention cannot "
+                         "bank full-grid reference states)")
     if fixed_noise is not None:
         raise ValueError("reference_image is not supported in "
                          "fixed_noise parity mode")
@@ -580,6 +647,13 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   ip_adapter_image=None, ip_adapter_scale: float = 1.0,
                   clip_vision_config=None, reference_image=None,
                   reference_fidelity: float = 0.5, reference_mode: str = "attn",
+                  region_masks=None, freeu=None, deepcache: Optional[int] = None,
+                  guidance_rescale: float = 0.0, variation_seed: Optional[int] = None,
+                  variation_strength: float = 0.0, pag_scale: float = 0.0,
+                  sag_scale: float = 0.0, tiling: bool = False,
+                  dynamic_threshold: Optional[float] = None,
+                  noise_multiplier: Optional[float] = None,
+                  tome_ratio: Optional[float] = None,
                   _device_output: bool = False, **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device."""
@@ -601,14 +675,28 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         raise ValueError("models dict and tokenizer are required")
     if clip_skip is not None:
         cfg = with_clip_skip(cfg, int(clip_skip))
+    if tome_ratio is not None:
+        # ToMe token merging (ops/tome.py), a static plan of the config
+        cfg = with_tome(cfg, float(tome_ratio))
+    if freeu is not None and freeu is not False:
+        # FreeU: True = the family's published defaults, or (b1, b2, s1, s2)
+        cfg = with_freeu(cfg, True if freeu is True else tuple(freeu))
     check_ported(cfg)
-    n_lvl1 = (height // cfg.vae.downsample_factor) * (width // cfg.vae.downsample_factor)
-    if n_lvl1 > MAX_VALIDATED_ATTN_TOKENS:
+    h_lvl1, w_lvl1 = height // cfg.vae.downsample_factor, width // cfg.vae.downsample_factor
+    n_lvl1 = h_lvl1 * w_lvl1
+    # Hypertile lifts the guard only where its plan tiles level 1 (the JAX
+    # package waives it for any hypertile config)
+    if n_lvl1 > MAX_VALIDATED_ATTN_TOKENS and unet_mod.block_plans(
+            cfg.unet.tome, cfg.unet.hypertile, h_lvl1, w_lvl1)[1] is None:
+        untiled = "" if cfg.unet.hypertile is None else (
+            f" (hypertile (tile, min_tokens) = {cfg.unet.hypertile} leaves level 1 "
+            f"untiled: min_tokens above its {n_lvl1} tokens, no side with a divisor "
+            f"from 2 up to the tile, or ToMe merging it instead)")
         raise ValueError(
             f"{height}x{width} needs {n_lvl1}-token global self-attention, "
             f"beyond the validated streamed-kernel scale "
-            f"({MAX_VALIDATED_ATTN_TOKENS}); reduce the size (hypertile, which "
-            f"lifts this limit in the JAX package, comes with slice F)")
+            f"({MAX_VALIDATED_ATTN_TOKENS}); enable hypertile (models/"
+            f"config.with_hypertile or the fast preset) or reduce the size{untiled}")
     policy = cfg.policy
 
     prompts = [prompt] if isinstance(prompt, str) else list(prompt)
@@ -635,11 +723,44 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         else:  # the syntax resolved to a single conditioning
             prompts, uncond = list(realized[0][0]), list(realized[0][1])
             sched_idx = None
+    # composable diffusion ("a cat AND a dog:0.8"): every prompt splits into
+    # the same number of parts; the UNet runs n_and cond lanes (part-major)
+    # and the uncond lanes, combined eps_u + cfg Σ w_i (eps_i - eps_u)
+    n_and, and_w = 1, None
+    if any(prompt_schedule.has_composable(p) for p in prompts):
+        if sched_idx is not None:
+            raise ValueError("AND does not compose with prompt "
+                             "editing/alternation")
+        if not do_cfg:
+            raise ValueError("AND (composable diffusion) requires do_cfg")
+        split = [prompt_schedule.split_composable(p) for p in prompts]
+        ks = {len(parts) for parts, _ in split}
+        if len(ks) != 1:
+            raise ValueError("all prompts in a batch must have the same "
+                             f"number of AND segments (got {sorted(ks)})")
+        n_and = ks.pop()
+        if n_and > 1:
+            if control_image is not None:
+                raise ValueError("AND does not compose with ControlNet")
+            if pag_scale or sag_scale:
+                raise ValueError("AND does not compose with PAG/SAG")
+            if guidance_rescale:
+                raise ValueError("AND does not compose with "
+                                 "guidance_rescale")
+            if fixed_noise is not None:
+                raise ValueError("AND is not supported in fixed_noise "
+                                 "parity mode")
+            and_w = np.asarray([ws for _, ws in split], np.float32)  # (B, n_and)
+            prompts = [split[b][0][i] for i in range(n_and) for b in range(batch)]
+    # the CFG stack's lanes: n_and cond lanes and the uncond lane
+    n_lanes = n_and + 1 if do_cfg else 1
+    guided = sched_idx is not None or n_and > 1 or bool(pag_scale) or bool(sag_scale)
     ip2p = edit_image is not None
     if ip2p:
         _check_ip2p(cfg, img2img=input_image is not None or init_latents is not None,
-                    do_cfg=do_cfg, mask_image=mask_image, edited=sched_idx is not None,
-                    control_image=control_image, adapter_image=adapter_image)
+                    do_cfg=do_cfg, mask_image=mask_image, edited=guided,
+                    control_image=control_image, adapter_image=adapter_image,
+                    guidance_rescale=guidance_rescale)
     elif cfg.unet.in_channels == 2 * cfg.vae.latent_channels:
         raise ValueError(f"an {cfg.unet.in_channels}-channel (InstructPix2Pix) UNet "
                          "needs edit_image")
@@ -681,23 +802,62 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         # defaults to ViT-H/14)
         ip_img = cv_mod.preprocess(ip_adapter_image,
                                    clip_vision_config or models["clip_vision"].cfg)
+    regions = None
+    if region_masks is not None:
+        # regional prompting (Latent Couple): each AND part steers only
+        # inside its mask, area-downsampled to the latent grid
+        if n_and < 2:
+            raise ValueError("region_masks needs an AND prompt (one mask "
+                             "per AND segment, e.g. 'a cat AND a dog')")
+        if len(region_masks) != n_and:
+            raise ValueError(f"{len(region_masks)} region masks for "
+                             f"{n_and} AND segments")
+        regions = torch.stack([_nchw(mask_to_latent_area(
+            _prepare_mask(m, width, height), cfg.vae.downsample_factor))
+            for m in region_masks])  # (n_and, 1, 1, h, w)
     if reference_image is not None:
         reference_mode = _check_reference(
-            cfg, edited=sched_idx is not None, ip2p=ip2p, inpaint=inpaint,
-            fixed_noise=fixed_noise, fidelity=reference_fidelity, mode=reference_mode)
+            cfg, edited=guided, ip2p=ip2p, inpaint=inpaint, fixed_noise=fixed_noise,
+            fidelity=reference_fidelity, mode=reference_mode, deepcache=deepcache)
     if sampler_name in _OWN_GRID:
         # their op/segment grids replace the per-step arrays that the
-        # sampler noise, the inpainting blend and the per-step contexts key off
+        # sampler noise, the inpainting blend, the per-step contexts and
+        # DeepCache's refresh count key off
         if inpaint is not None:
             raise ValueError(f"sampler {sampler_name!r} does not support "
                              "inpainting")
+        if deepcache is not None:
+            raise ValueError(f"sampler {sampler_name!r} does not compose "
+                             "with deepcache")
         if sched_idx is not None:
             raise ValueError(f"sampler {sampler_name!r} does not compose "
                              "with prompt editing/alternation")
         if fixed_noise is not None:
             raise ValueError(f"sampler {sampler_name!r} is not supported "
                              "in fixed_noise parity mode")
-    _check_composable(prompts)
+    # A1111 variation seeds: the variation seed's initial noise slerped in
+    use_variation = variation_seed is not None and variation_strength != 0.0
+    if use_variation:
+        if not 0.0 <= variation_strength <= 1.0:
+            raise ValueError("variation_strength must be in [0, 1], got "
+                             f"{variation_strength}")
+        if fixed_noise is not None:
+            raise ValueError("variation seeds are not supported in "
+                             "fixed_noise parity mode")
+    # PAG: one more evaluation of the cond lanes an evaluation
+    pag = pag_scale != 0.0
+    if pag and fixed_noise is not None:
+        raise ValueError("PAG is not supported in fixed_noise parity "
+                         "mode")
+    # SAG: the mid block's map, one more evaluation of the base lanes
+    sag = sag_scale != 0.0
+    if sag:
+        if fixed_noise is not None:
+            raise ValueError("SAG is not supported in fixed_noise parity "
+                             "mode")
+        if deepcache is not None:
+            raise ValueError("SAG needs the mid block every step; it does "
+                             "not compose with deepcache")
     # A1111 hypernetwork: ``hypernetwork`` is the loader's metadata
     # (activation, activate_output); the nets ride in models["hypernetwork"]
     hyper = None
@@ -715,6 +875,18 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 f"(has {models['hypernetwork'].widths()})")
         act, act_out = hypernetwork
         hyper = (str(act), bool(act_out))
+    if noise_multiplier is not None and fixed_noise is not None:
+        raise ValueError("noise_multiplier is not supported in "
+                         "fixed_noise parity mode")
+    if dynamic_threshold is not None and not 0.0 < float(dynamic_threshold) <= 1.0:
+        raise ValueError("dynamic_threshold is a quantile ratio in "
+                         f"(0, 1], got {dynamic_threshold}")
+    if deepcache is not None:
+        deepcache = int(deepcache)
+        if deepcache < 1:
+            raise ValueError(f"deepcache interval must be >= 1, got "
+                             f"{deepcache}")
+        unet_mod.deepcache_shape(cfg.unet, 1, 1, 1)  # validates
     cond_tokens, uncond_tokens, cond_w, uncond_w = _tokenize(
         tokenizer, prompts, uncond, cfg.clip.max_len, long_prompts=long_prompts,
         emphasis=emphasis)
@@ -834,6 +1006,14 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape)
             noise["ref_noise"] = rng_mod.step_normals(s, "ref_noise", n_inference_steps,
                                                       batch, lat_shape)
+        if use_variation:
+            noise["latent_init"] = slerp_noise(
+                torch.tensor(variation_strength, dtype=torch.float32), noise["latent_init"],
+                rng_mod.variation_normal(int(variation_seed), batch, lat_shape))
+        if noise_multiplier is not None:
+            # A1111's initial-noise multiplier, after the variation slerp
+            noise["latent_init"] = noise["latent_init"] \
+                * torch.tensor(noise_multiplier, dtype=torch.float32)
     noise = {k: _to_device(v, device) for k, v in noise.items()}
 
     # every training timestep, on the device once: the loops index it with
@@ -844,9 +1024,11 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     vae_kw = dict(attention_backend=cfg.vae_attention_backend,
                   reference_quirks=cfg.reference_quirks)
 
-    with torch.inference_mode():
-        # one CLIP call for cond and uncond, every window and every
-        # realization of an edited prompt
+    # seamless tiling: every conv of the request wraps (cleared on the way
+    # out, also when the request raises)
+    with torch.inference_mode(), conv_ops.circular_padding(bool(tiling)):
+        # one CLIP call for cond and uncond, every window, every
+        # realization of an edited prompt and every AND part
         tokens = np.concatenate([cond_tokens, uncond_tokens]) if do_cfg else cond_tokens
         weights = None
         if emphasis:
@@ -933,14 +1115,14 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             return m_lat * lat + (1.0 - m_lat) * noised0
 
         # ---- slice E, once a request: hint features, adapter features, IP
-        # tokens, the reference latents; every lane-matched for CFG
+        # tokens, the reference latents; every lane-matched for CFG (and AND)
         def lanes(x):
-            return torch.cat([x, x]) if do_cfg else x
+            return torch.cat([x] * n_lanes) if n_lanes > 1 else x
 
         def dev(x):
             return _to_device(torch.from_numpy(np.array(x, np.float32)), device)
 
-        hint_feats = adapter_feats = ip_arg = ref_lat0 = None
+        hint_feats = adapter_feats = adapter_single = ip_arg = ref_lat0 = None
         if nets is not None:
             hints = dev(_hints(control_image, width, height, batch))
             hint_feats = [lanes(net.encode_hint(hints[ci].contiguous(
@@ -954,6 +1136,9 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                     memory_format=memory_format), policy)]
                 adapter_feats = fs if adapter_feats is None else \
                     [a + b for a, b in zip(adapter_feats, fs)]
+            # PAG's and SAG's single-lane evaluations take the features as
+            # they are, the main one lane-matched
+            adapter_single = adapter_feats
             adapter_feats = [lanes(f) for f in adapter_feats]
         if ip_img is not None:
             ipa, tower = models["ip_adapter"], models["clip_vision"]
@@ -961,7 +1146,7 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             px = px.to(cd).contiguous(memory_format=memory_format)
             tokens = ipa.image_tokens(tower, px, policy)
             if do_cfg:
-                tokens = torch.cat([tokens, ipa.negative_tokens(tower, px, policy)])
+                tokens = torch.cat([tokens] * n_and + [ipa.negative_tokens(tower, px, policy)])
             ip_arg = (ipa.layers, tokens, dev(ip_adapter_scale))
         if reference_image is not None:
             ref_px = dev(np.broadcast_to(_prepare_image(reference_image, width, height),
@@ -980,11 +1165,41 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 cfg.unet.time_cond_dim), device)
 
         unet = models["diffusion"]
+        # slice F's per-request tensors: the guidance scales, the AND
+        # weights and region masks, the dynamic-threshold quantile
+        pag_s = dev(pag_scale) if pag else None
+        sag_s = dev(sag_scale) if sag else None
+        rescale_w = (dev(guidance_rescale), dev(1.0 - guidance_rescale)) \
+            if do_cfg and guidance_rescale > 0.0 else None
+        and_wt = dev(and_w) if n_and > 1 else None
+        regions_d = None if regions is None else _to_device(regions, device)
+        dyn_q = None if dynamic_threshold is None else dev(dynamic_threshold)
+        # DeepCache: the deep feature of the last full evaluation, carried
+        # across the loop's evaluations
+        dc = {"cache": None}
 
-        def eps_at(i: int, lat: torch.Tensor, t: int) -> torch.Tensor:
-            """CFG epsilon of the latents at training timestep ``t`` (a
+        def lane_side(side, sl):
+            """The side inputs of the lanes ``sl`` of the CFG stack (PAG's
+            cond lanes, SAG's base lanes): the per-lane IP tokens and
+            ControlNet residuals sliced, the adapter features single-lane."""
+            out = dict(side, adapter=adapter_single)
+            if do_cfg and ip_arg is not None:
+                out["ip"] = (ip_arg[0], ip_arg[1][sl], ip_arg[2])
+            if do_cfg and side["control"] is not None:
+                out["control"] = {"mid": side["control"]["mid"][sl],
+                                  "down": [d[sl] for d in side["control"]["down"]]}
+            return out
+
+        def eps_at(i: int, lat: torch.Tensor, t: int,
+                   refresh: Optional[bool] = None) -> torch.Tensor:
+            """The guided epsilon of the latents at training timestep ``t`` (a
             v-prediction model's output turned into epsilon); step index
-            ``i`` picks an edited prompt's conditioning."""
+            ``i`` picks an edited prompt's conditioning and, with DeepCache,
+            whether the evaluation is full (``(i - start_step) % N == 0``,
+            unless ``refresh`` says; a shallow one reads the carried
+            feature).  The combine, in the JAX package's order: AND (and its
+            regions) or CFG with guidance rescale, PAG, the conversion to
+            epsilon, SAG, dynamic thresholding."""
             lat_in = lat.to(cd)
             if inpaint_extra is not None:
                 # [latents, mask, masked-image latents] (diffusers' order)
@@ -993,14 +1208,14 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 # three lanes, each with its edit-image channels appended
                 model_in = torch.cat([torch.cat([lat_in] * 3), ip2p_extra], dim=1)
             else:
-                model_in = torch.cat([lat_in, lat_in]) if do_cfg else lat_in
+                model_in = lanes(lat_in)
             ctx, add = context, add_cond
             if sched_idx is not None:
                 ctx = context[int(sched_idx[i])]
                 add = None if add_cond is None else add_cond[int(sched_idx[i])]
             kw = dict(attention_backend=cfg.attention_backend,
                       reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
-                      conv_backend=cfg.conv_backend, add_cond=add, t_cond=t_cond)
+                      conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet)
             control = None
             if nets is not None:
                 # the ControlNets take the 4-channel latents, whatever the UNet's
@@ -1023,22 +1238,105 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 bank = {} if "attn" in reference_mode else None
                 abank = {} if "adain" in reference_mode else None
                 unet(lanes(rn.to(cd)).contiguous(memory_format=memory_format), ctx,
-                     t_all[int(t)], policy, head=False, **kw,
+                     t_all[int(t)], policy, head=False, add_cond=add, **kw,
                      ref=None if bank is None else ("capture", bank),
                      ref_adain=None if abank is None else ("capture", abank))
                 side.update(ref=None if bank is None else ("read", bank, ref_fid, ref_mask),
                             ref_adain=None if abank is None
                             else ("read", abank, ref_fid, ref_mask))
-            eps = unet(model_in.contiguous(memory_format=memory_format), ctx,
-                       t_all[int(t)], policy, **kw, **side).float()
+            main = dict(kw, add_cond=add, **side)
+            model_in = model_in.contiguous(memory_format=memory_format)
+            mid_probs = None
+            if deepcache is None:
+                out = unet(model_in, ctx, t_all[int(t)], policy, return_mid_attn=sag, **main)
+                eps, mid_probs = out if sag else (out, None)
+            elif ((i - start_step) % deepcache == 0 if refresh is None else refresh):
+                eps, dc["cache"] = unet(model_in, ctx, t_all[int(t)], policy,
+                                        return_cache=True, **main)
+            else:
+                eps = unet(model_in, ctx, t_all[int(t)], policy, cache=dc["cache"], **main)
+            eps = eps.float()
+            raw = eps
+            if pag:
+                # the perturbed evaluation: the cond lanes, identity
+                # self-attention in the mid block
+                cond = slice(None, batch)
+                eps_ptb = unet(lat_in.contiguous(memory_format=memory_format),
+                               _lane(ctx, cond) if do_cfg else ctx, t_all[int(t)], policy,
+                               pag=True, **kw, **lane_side(side, cond),
+                               add_cond=add[cond] if do_cfg and add is not None else add
+                               ).float()
+            if sag:
+                # blur x0 of the base lanes (uncond under CFG) where the mid
+                # block's attention mass concentrates, re-noise with their
+                # epsilon and evaluate them there
+                base = slice(batch, None) if do_cfg else slice(None)
+                lat32 = lat.float()
+                base_eps = ddpm.to_epsilon(schedule, t, lat32, raw[base], cfg.prediction_type)
+                a_t = schedule.alphas_cumprod[int(t)]
+                sa, sb = float(np.sqrt(a_t)), float(np.sqrt(np.float32(1.0) - a_t))
+                x0 = (lat32 - sb * base_eps) / sa
+                # a key's attention mass over the queries, the heads' mean
+                mass = mid_probs[base].float().mean(dim=1).sum(dim=1)   # (B, S_mid)
+                down = 2 ** (len(cfg.unet.ch_mults) - 1)
+                mh, mw = lat.shape[2] // down, lat.shape[3] // down
+                from .utils.image import resize
+
+                mask = resize((mass > 1.0).float().reshape(batch, 1, mh, mw),
+                              (batch, 1, lat.shape[2], lat.shape[3]), "nearest")
+                x0_deg = gaussian_blur(x0) * mask + x0 * (1.0 - mask)
+                lat_deg = sa * x0_deg + sb * base_eps
+                deg_in = lat_deg.to(cd)
+                if inpaint_extra is not None:
+                    deg_in = torch.cat([deg_in, inpaint_extra], dim=1)
+                eps_deg = unet(deg_in.contiguous(memory_format=memory_format),
+                               _lane(ctx, base), t_all[int(t)], policy, **kw,
+                               **lane_side(side, base),
+                               add_cond=None if add is None else add[base]).float()
+                eps_deg = ddpm.to_epsilon(schedule, t, lat_deg, eps_deg, cfg.prediction_type)
             if ip2p:
                 # dual guidance (Brooks et al. 2023, eq. 3)
                 e_t, e_i, e_u = eps.chunk(3)
                 eps = e_u + cfg_scale * (e_t - e_i) + image_guidance_scale * (e_i - e_u)
+            elif n_and > 1:
+                # composable diffusion: eps_u + cfg Σ w_i (eps_i - eps_u), each
+                # weight times its region mask
+                parts = eps.chunk(n_and + 1)
+                eps_u = eps = parts[-1]
+                for k in range(n_and):
+                    w_k = and_wt[:, k, None, None, None]
+                    if regions_d is not None:
+                        w_k = w_k * regions_d[k]
+                    eps = eps + cfg_scale * w_k * (parts[k] - eps_u)
             elif do_cfg:
                 eps_cond, eps_uncond = eps.chunk(2)
                 eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
-            return ddpm.to_epsilon(schedule, t, lat, eps, cfg.prediction_type)
+                if rescale_w is not None:
+                    # "Common Diffusion Noise Schedules and Sample Steps are
+                    # Flawed", eq. 15-16: the std pulled back toward the
+                    # conditional one's, in model-output space (ddof 0)
+                    dims = tuple(range(1, eps.dim()))
+                    std_c = eps_cond.std(dim=dims, correction=0, keepdim=True)
+                    std_g = eps.std(dim=dims, correction=0, keepdim=True)
+                    rescaled = eps * (std_c / torch.clamp(std_g, min=1e-12))
+                    eps = rescale_w[0] * rescaled + rescale_w[1] * eps
+            if pag:
+                eps = eps + pag_s * ((eps_cond if do_cfg else raw) - eps_ptb)
+            eps = ddpm.to_epsilon(schedule, t, lat, eps, cfg.prediction_type)
+            if sag:
+                eps = eps + sag_s * (base_eps - eps_deg)
+            if dyn_q is not None:
+                # dynamic thresholding (Imagen; diffusers' _threshold_sample):
+                # clip x0 at its per-sample |x0| quantile s >= 1, rescale by s
+                a_t = schedule.alphas_cumprod[int(t)]
+                sa, sb = float(np.sqrt(a_t)), float(np.sqrt(np.float32(1.0) - a_t))
+                l32 = lat.float()
+                x0 = (l32 - sb * eps) / sa
+                q = torch.quantile(x0.reshape(x0.shape[0], -1).abs(), dyn_q, dim=1)
+                q = torch.clamp(q, min=1.0)[:, None, None, None]
+                x0 = torch.maximum(torch.minimum(x0, q), -q) / q
+                eps = (l32 - sa * x0) / sb
+            return eps
 
         latents = _sample(sampler_name, schedule, timesteps, latents.float(),
                           noise["sampler"], eps_at, start_step=start_step, plan=plan,
@@ -1083,9 +1381,11 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
             img2img: bool, blend=None) -> torch.Tensor:
     """The denoise loop of ``sampler`` from ``start_step`` (JAX ``pipeline.py``'s
     loops): float32 latents in and out, ``noise`` the sampler stream's
-    draws, ``eps_at(i, latents, t)`` one CFG UNet evaluation.  Heun and
-    the dpm2 family make no second evaluation on their final (Euler) step,
-    which the JAX package evaluates and discards.  ``blend(i, latents)``
+    draws, ``eps_at(i, latents, t)`` one guided UNet evaluation (with
+    ``refresh=False`` a DeepCache shallow one: heun's corrector and the dpm2
+    family's midpoint, as in the JAX package).  Heun and the dpm2 family
+    make no second evaluation on their final (Euler) step, which the JAX
+    package evaluates and discards.  ``blend(i, latents)``
     (latent-blend inpainting) runs at the top of every step of the
     pipeline's grid, before its first evaluation; the own-grid samplers
     take none."""
@@ -1138,13 +1438,14 @@ def _sample(sampler: str, schedule, timesteps: np.ndarray, latents: torch.Tensor
                 latents = euler.step(schedule, t, latents, eps, prev_t=prev)
             elif sampler == "heun":
                 pred = euler.step(schedule, t, latents, eps, prev_t=prev)
-                eps2 = eps_at(i + 1, pred, prev)
+                # the corrector reuses the deep feature just refreshed
+                eps2 = eps_at(i + 1, pred, prev, refresh=False)
                 latents = euler.step_heun_correct(schedule, t, latents, eps, eps2,
                                                   prev_t=prev)
             else:
                 t_mid = int(mids[i])
                 pred_mid = euler.step(schedule, t, latents, eps, prev_t=t_mid)
-                eps2 = eps_at(i, pred_mid, t_mid)
+                eps2 = eps_at(i, pred_mid, t_mid, refresh=False)
                 if sampler == "dpm2":
                     latents = euler.step(schedule, t, latents, eps2, prev_t=prev)
                 elif sampler == "dpm2_a":

@@ -773,3 +773,80 @@ def test_e_paths_card_match_cpu(cuda, case):
     img_g, lat_g = port.generate("a cat", models=gpu, config=gcfg, device="cuda", **kw)
     assert np.isfinite(lat_g).all()
     assert _psnr(img_c, img_g) > 40.0
+
+
+# ------------------------------------------------------------------- slice F
+@pytest.mark.parametrize("b,sq,c,heads,rows", [
+    (8, 1024, 320, 8, 1024),     # Hypertile 32 at 512²: level 1's four tiles, CFG
+    (128, 1024, 320, 8, 256),    # the fast preset at 2048²: level 1's 64 tiles
+    (32, 1024, 640, 8, 256),     # 2048² level 2
+    (8, 1024, 1280, 8, 1024),    # 2048² level 3
+    (200, 1024, 320, 8, 256),    # 2560²: level 1's 100 tiles
+    (50, 1024, 640, 8, 256),     # 2560² level 2
+    (32, 400, 1280, 8, 400),     # 2560² level 3: 20 x 20 tiles (ragged q and KV)
+    (2, 1600, 1280, 8, 1600),    # 2560² mid block, untiled
+    (8, 1024, 640, 10, 1024),    # SDXL 1024² level 1 under Hypertile 32
+    (2, 2048, 320, 8, 2048),     # ToMe 0.5 at 512²: level 1's merged tokens
+    (2, 2048, 640, 10, 2048),    # ToMe 0.5 at SDXL 1024²
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_k1_matches_plain_at_the_f_shapes(cuda, b, sq, c, heads, rows, dtype):
+    """K1 at slice F's Hypertile tile batches and ToMe's merged lengths
+    (chip_smoke.F_PLANS), checked on the first ``rows`` q rows."""
+    q, k, v = _k1_views(b, sq, sq, c, dtype, cuda, seed=21)
+    got = fa.flash_attention_bsc(q, k, v, n_heads=heads)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bsc_plain(q[:, :rows], k, v, heads)
+    err = (got[:, :rows].float() - ref.float()).abs().max().item()
+    assert got.shape == (b, sq, c) and err <= tolerance(dtype, ref), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_tome_merge_is_deterministic_on_the_card(cuda, dtype):
+    """ToMe's mean-merge (a one-hot product, not atomics) gives the same
+    bits on every run, and matches the CPU's selections."""
+    from pytorch_stable_diffusion_tpu_torch.ops import tome
+
+    dst_i, src_i, r = tome.plan(64, 64, 2, 2, 0.5)
+    x = torch.randn(2, 4096, 320, generator=torch.Generator().manual_seed(3)).to(dtype)
+    runs = [tome.merge(x.to(cuda), dst_i, src_i, r) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, info in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(info["m_dst"], runs[0][1]["m_dst"])
+    y = torch.randn(2, 4096 - r, 320, device=cuda).to(dtype)
+    assert torch.equal(tome.unmerge(y, runs[0][1]), tome.unmerge(y, runs[1][1]))
+    if dtype == torch.float32:  # near-ties may order apart across devices
+        cpu_sel = tome.merge(x, dst_i, src_i, r)[1]["merged_sel"]
+        agree = (cpu_sel == runs[0][1]["merged_sel"].cpu()).float().mean().item()
+        assert agree > 0.99, agree
+
+
+def test_tiling_unet_forward_runs_no_k5(cuda):
+    """Under seamless tiling the "kernel" conv tier runs the res blocks on
+    the plain convs (K5 pads with zeros): 0 K5 launches, the output within
+    fp32 rounding of the "plain" tier's, and roll-equivariant."""
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.ops import conv
+
+    cfg = port.tiny_sd_config()
+    unet = port.build_models(cfg, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(2))["diffusion"]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1, 4, 32, 32, device="cuda", generator=g) \
+        .contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(1, 16, cfg.unet.d_context, device="cuda", generator=g)
+    t = torch.tensor(300.0, device="cuda")
+    before = k5.scaled_silu_conv3x3.launches
+    with torch.inference_mode(), conv.circular_padding():
+        got = unet(x, ctx, t, conv_backend="kernel", attention_backend="kernel")
+        rolled = unet(torch.roll(x, (4, 6), (2, 3)), ctx, t, conv_backend="kernel",
+                      attention_backend="kernel")
+        plain = unet(x, ctx, t, conv_backend="plain", attention_backend="kernel")
+    torch.cuda.synchronize()
+    assert k5.scaled_silu_conv3x3.launches == before
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(rolled, torch.roll(got, (4, 6), (2, 3)), rtol=1e-4, atol=1e-4)
+    with torch.inference_mode():
+        unet(x, ctx, t, conv_backend="kernel", attention_backend="kernel")
+    torch.cuda.synchronize()
+    assert k5.scaled_silu_conv3x3.launches > before  # outside the mode K5 runs

@@ -44,7 +44,7 @@ def test_port_imports_without_jax():
     assert "BAD []" in out.stdout, out.stdout
     names = re.search(r"IMPORTED (.*)", out.stdout).group(1).split()
     assert len(names) >= 24  # every module of the slices was imported
-    for mod in KERNEL_MODULES + ("ops.norm", "models.unet", "pipeline", "api",
+    for mod in KERNEL_MODULES + ("ops.norm", "ops.tome", "models.unet", "pipeline", "api",
                                  "utils.annotators", "utils.image", "models.controlnet",
                                  "models.t2i_adapter", "models.clip_vision") + tuple(
             f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
@@ -230,6 +230,23 @@ def test_prompt_schedule_copies_agree(text):
     ref, ref_idx = jax_schedule.schedule_prompts([text, "x"], ["", text], 6)
     assert ours == ref
     np.testing.assert_array_equal(idx, ref_idx)
+
+
+def test_tome_plan_copy_is_verbatim():
+    """``ops/tome.py`` keeps a copy of the JAX package's pure-numpy ``plan``
+    (the import test above shows the module imports without jax): the same
+    source text, and the same plans."""
+    import inspect
+
+    from pytorch_stable_diffusion_tpu.ops import tome as jax_tome
+    from pytorch_stable_diffusion_tpu_torch.ops import tome as torch_tome
+
+    assert inspect.getsource(torch_tome.plan) == inspect.getsource(jax_tome.plan)
+    for h, w, sx, sy, ratio in ((64, 64, 2, 2, 0.5), (32, 48, 2, 2, 0.3), (6, 4, 1, 2, 0.9),
+                                (4, 4, 2, 2, 0.99)):
+        for ours, ref in zip(torch_tome.plan(h, w, sx, sy, ratio),
+                             jax_tome.plan(h, w, sx, sy, ratio)):
+            np.testing.assert_array_equal(ours, ref)
 
 
 def test_blur_copy_is_verbatim():

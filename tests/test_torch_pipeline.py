@@ -316,12 +316,9 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"freeu": (1.1, 1.2, 0.9, 0.2)}, "slice F"),
     ({"panorama": True}, "slice G"),
-    ({"prompt": "a cat AND a dog"}, "slice F"),
+    ({"n_frames": 8}, "slice G"),
     ({"config": tiny_sd_config(quant="wide")}, "slice H"),
-    ({"config": dataclasses.replace(tiny_sd_config(), unet=dataclasses.replace(
-        tiny_sd_config().unet, tome=(0.5, 2, 2, 16)))}, "slice F"),
 ])
 def test_unported_features_raise(slice_setup, kwargs, where):
     cfg, models, _, _ = slice_setup
