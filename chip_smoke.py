@@ -73,7 +73,17 @@ Phases (any failure exits non-zero):
                 320|640) and the ragged (32, 400, 1280) at 2560², SDXL's
                 (8, 1024, 640) at 10 heads, and ToMe 0.5's merged lengths
                 (2, 2048, 320|640), checked on a subset of q rows where the
-                batch is large and timed beside SDPA and the bound;
+                batch is large and timed beside SDPA and the bound; slice
+                G's, from the plan (``G_PLANS``, ``g_shapes``; ``G_K3``):
+                K1 at AnimateDiff's 32 lanes (16 frames x CFG) (32,
+                4096|1024|256, 320|640|1280) on 256 q rows, in bf16 and
+                fp32, timed beside SDPA, with the planted fault at level 1;
+                K5 at every res-block conv of 32 lanes, the planted fault
+                and a time beside cuDNN at (32, 64², 960 -> 320); K3 at the
+                VAE mid blocks of slice G's decodes: (1, 1, 131072, 512),
+                the 2048x4096 panorama's, with the planted fault, and
+                (16|24|4, 1, 4096, 512), in bf16 and fp32, timed beside
+                SDPA;
                 K5 at
                 every (batch, shape) at which phases 4, 6 and 7 run it, from
                 the UNet's plan: the 14 distinct res-block conv shapes of
@@ -145,6 +155,11 @@ Phases (any failure exits non-zero):
                 masks, a variation seed with the noise multiplier,
                 DeepCache 2, Hypertile 16 and ToMe 0.5 at min_tokens 1024
                 (their K1 shapes held to the plan), FreeU and tiling.
+                Slice G (``phase_small_g``, lines ``small G``), on the same
+                CPU models with SD-1.5's 21 motion modules drawn from a
+                seed, 2 dpm++ steps, CFG 5, the card on the kernel
+                attention, conv and VAE: animate 3 frames, 4 frames through
+                windows of 3, and a 256x384 panorama (2 windows).
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
                 random weights from a seeded generator; parameter counts.
   6. requests — slice A, generate() at 512²: txt2img 50-step DDPM CFG 7.5
@@ -291,6 +306,26 @@ Phases (any failure exits non-zero):
                 requests (``phase_slice_f_xl``) SDXL 1024² with PAG, FreeU
                 and Hypertile 32.  Each request's launches are held to the
                 plan (``expected_launches(pag=, sag=, shallow=, tiling=)``).
+                Slice G (``phase_slice_g`` after slice F, lines ``G
+                ...``): the phase-5 models, BF16, kernel attention, conv
+                and VAE, dpm++ Karras 20 steps, CFG 7.5, seed 1337: (a)
+                ``with_motion`` on an fp16 .safetensors in the
+                ``mm_sd_v15_v2`` key schema (21 modules, 453 M parameters,
+                a 32-frame window; every loaded tensor the file's),
+                ``animate`` 16 frames at 512² and (a') again,
+                bit-identical; (b) 24 frames with ``motion_window=16``; (c)
+                a 512x2048 panorama (7 windows) and a one-window 512²
+                panorama bit-identical to ``generate``; (d) a 2048x4096
+                panorama, 2 steps, 105 windows, its decode's mid block on
+                K3 over 131072 tokens (``decode_tile=64``); (e)
+                ``with_upscaler`` on a RealESRGAN_x4plus-width file in the
+                new-arch key schema, ``upscale`` 512² -> 2048² whole and
+                tiled; (f) ``hires_fix`` 512² -> 1024² through the ESRGAN;
+                (g) ``sd_upscale`` x2 (9 tiles).  Each request's launches
+                are held to the plan (``expected_launches(canvas=)``: each
+                frame or panorama window a UNet call, the VAE at the
+                canvas); one 32-lane AnimateDiff evaluation profiled with
+                and without the motion modules, and one panorama window.
   7. step     — one 2048² VAE decode timed, with K3's device time in it;
                 one 2048² CFG UNet evaluation timed, and profiled for the
                 device busy share, on conv_backend "plain" and "kernel"; one
@@ -485,9 +520,10 @@ def phase_k1(fa, card, results):
     17 GB), ragged cases (Sq not a multiple of the q tile, Sk not one of
     the KV tile; Dh 40 with 8 packed heads, so a pad column read from the
     next head would show), Dh 64 (level 1 at 5 heads, timed beside SDPA,
-    and ragged), in bf16 (the tensor-core template) and fp32; the
-    planted fault (KV short by one 128-token tile); device times under the
-    profiler beside SDPA's, the bound and the exp floor."""
+    and ragged), in bf16 (the tensor-core template) and fp32; the later
+    slices' shapes from the plan (C3's, F's and G's: AnimateDiff's 32
+    lanes); the planted fault (KV short by one 128-token tile); device
+    times under the profiler beside SDPA's, the bound and the exp floor."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [(b, s, s, c, 8, s) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))]
@@ -510,12 +546,17 @@ def phase_k1(fa, card, results):
     f = f_shapes("K1")
     cases += [(b, s, s, c, h, min(s, 2048 if b <= 8 else 256)) for b, s, c, h in f
               if (b, s, s, c, h, min(s, 2048)) not in cases]
+    # slice G: AnimateDiff's 32 lanes (G_PLANS), on 256 q rows
+    g_k1 = g_shapes("K1")
+    cases += [(b, s, s, c, h, min(s, 256)) for b, s, c, h in g_k1
+              if (b, s, s, c, h, min(s, 256)) not in cases]
     timed = {(b, s, s, c, 8) for b in (2, 8)
              for s, c in ((4096, 320), (1024, 640), (256, 1280))}
     timed |= {(2, 16384, 16384, 640, 8), (2, 4096, 4096, 1280, 8), (2, 4096, 4096, 320, 5)}
     timed |= {(2, s, s, c, h) for s, c, h in K1_C2}
     timed |= {(b, s, s, c, h) for b, s, c, h in c3}
     timed |= {(b, s, s, c, h) for b, s, c, h in f}
+    timed |= {(b, s, s, c, h) for b, s, c, h in g_k1}
     rec = results["flash_attention_bsc"]
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, sk, c, heads, rows in cases:
@@ -534,9 +575,10 @@ def phase_k1(fa, card, results):
             line = (f"K1 {str(dtype)[6:]} B={b} Sq={sq} Sk={sk} C={c} H={heads} "
                     f"Dh={c // heads}: max abs err {err:.3e} on {rows} q rows (tol {tol:.3e})")
             main = dtype == torch.bfloat16 and (b, sq, c, heads) == (2, 4096, 320, 8)
-            if main or (dtype == torch.bfloat16 and (b, sq, c, heads) == (2, 4096, 640, 10)):
+            if main or dtype == torch.bfloat16 and (b, sq, c, heads) in ((2, 4096, 640, 10),
+                                                                        (32, 4096, 320, 8)):
                 # KV short by one 128-token tile must fail the check (SD-1.5's
-                # level 1, and SDXL's at Dh 64)
+                # level 1, SDXL's at Dh 64, AnimateDiff's 32 lanes)
                 bad = fa.flash_attention_bsc(q[:, :rows], k[:, :-128], v[:, :-128],
                                              n_heads=heads)
                 bad_err = max_err(bad, ref)
@@ -572,6 +614,11 @@ def phase_k1(fa, card, results):
                     if (b, sq, c, heads) in f:
                         n, label = f[(b, sq, c, heads)]
                         rec["f_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
+                                                    library_ms=lib, bound_ms=bms,
+                                                    bound_by=by, per_eval=n, request=label))
+                    if (b, sq, c, heads) in g_k1:
+                        n, label = g_k1[(b, sq, c, heads)]
+                        rec["g_shapes"].append(dict(shape=[b, sq, c], heads=heads, ms=ms,
                                                     library_ms=lib, bound_ms=bms,
                                                     bound_by=by, per_eval=n, request=label))
                     if main:
@@ -649,8 +696,9 @@ def _planted_fault(name, wrapper, args, kw, rows, ref, tol, drop=4096):
 def phase_long(fa, card, results):
     """K4 and K3 vs their plain versions at the 2048² shapes and edges.  K4
     runs every case in bf16 (the tensor-core template) and fp32; K3 its
-    VAE shapes in both, causal cases (Dh 64, 128, 512) and head dims K4
-    lacks (80, 320), which it pads.  Times are device times under the
+    VAE shapes in both (slice G's too: ``G_K3``, 131072 tokens with the
+    planted fault), causal cases (Dh 64, 128, 512) and head dims K4 lacks
+    (80, 320), which it pads.  Times are device times under the
     profiler, with SDPA's, the bound and the exp floor beside them in bf16."""
     k3_launches(fa)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -689,6 +737,12 @@ def phase_long(fa, card, results):
         ("K3", 1, 5120, 5120, 1, 512, bf, False, 5120, "c3"),
         ("K3", 1, 5120, 5120, 1, 512, f32, False, 2048, ""),
     ]
+    # slice G: the VAE mid blocks of its decodes (G_K3), the 2048x4096
+    # panorama's 131072 tokens with the planted fault
+    g_k3 = {(b, h, sq, sq, dh): (n, label) for b, h, sq, dh, n, label in G_K3}
+    for b, h, sq, _, dh in g_k3:
+        cases += [("K3", b, sq, sq, h, dh, bf, False, 2048 if sq > 65536 else 1024, "g"),
+                  ("K3", b, sq, sq, h, dh, f32, False, 512, "")]
     # slice E: K4 with Sq != Sk, the 768² reference read (E_PLANS), q and k/v
     # from separate projections
     e = e_shapes("K4")
@@ -708,7 +762,7 @@ def phase_long(fa, card, results):
         line = (f"{kname} {str(dtype)[6:]} B={b} H={h} Sq={sq} Sk={sk} Dh={dh}"
                 f"{' causal' if causal else ''}: max abs err {err:.3e} on "
                 f"{min(rows, sq)} q rows (tol {tol:.3e})")
-        if role == "main":
+        if role == "main" or role == "g" and sq > 65536:
             line += _planted_fault(kname, wrapper, args, kw, min(rows, sq), ref, tol)
         if role:
             flops = 4.0 * b * h * sq * sk * dh * (0.5 if causal else 1.0)
@@ -738,6 +792,11 @@ def phase_long(fa, card, results):
                 n, label = e[(b, h, sq, sk, dh)]
                 rec["e_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
                                             bound_ms=bms, bound_by=by, per_eval=n,
+                                            request=label))
+            if role == "g":
+                n, label = g_k3[(b, h, sq, sk, dh)]
+                rec["g_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
+                                            bound_ms=bms, bound_by=by, per_request=n,
                                             request=label))
         print(f"{line} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
         del args, ref
@@ -948,9 +1007,11 @@ def phase_k5(k5, card, results):
     script's paths run it, read from the UNet's plan: the res-block convs of
     SD-1.5 512² at CFG batch 2 (with and without the time-embedding fold)
     and 8 (four prompts), of 2048² at batch 2 (phase 7) and of 128² at batch
-    2 (phase 4), and a ragged case, in bf16 and fp32; the planted fault;
-    times at the largest 512² shape and at 2048² level 1, and summed over
-    the 44 convs of a 512² CFG step."""
+    2 (phase 4), the later slices' (C2's widths, C3's and G's lane counts:
+    AnimateDiff's 32 lanes) and a ragged case, in bf16 and fp32; the
+    planted fault (at 32 lanes too); times at the largest 512² shape, at
+    2048² level 1 and at 32 lanes, and summed over the 44 convs of a 512²
+    CFG step."""
     import pytorch_stable_diffusion_tpu_torch as port
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -984,6 +1045,11 @@ def phase_k5(k5, card, results):
     c3_timed = {max((key for key in c3 if c3[key][1] == label),
                     key=lambda k: (conv_flops(*k), k[1]))  # ties: the larger level
                 for label in {v[1] for v in c3.values()}}
+    # slice G: AnimateDiff's 32 lanes at every res-block conv (G_PLANS), the
+    # planted fault and a time at the largest, 126 M input elements
+    g_k5 = g_shapes("K5")
+    cases += [(*key, True) for key in g_k5]
+    g_main = (32, 64, 64, 960, 320)
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         worst = (0.0, None)
@@ -1002,7 +1068,8 @@ def phase_k5(k5, card, results):
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             worst = max(worst, (err / tol, (b, h, w, cin, cout, with_temb, err, tol)),
                         key=lambda e: e[0])
-            if (b, h, w, cin, cout) == main and not with_temb:
+            if (b, h, w, cin, cout) == main and not with_temb or \
+                    (b, h, w, cin, cout) == g_main and dtype == torch.bfloat16:
                 a = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))
                 a = torch.nn.functional.silu(a * scale[:, :, None, None]
                                              + shift[:, :, None, None]).to(dtype)
@@ -1010,13 +1077,14 @@ def phase_k5(k5, card, results):
                 bad_err = max_err(bad, ref)
                 check(bad_err > tol, f"K5: padding before the activation passed the "
                                      f"check ({bad_err:.3e} <= {tol:.3e})")
-                print(f"K5 {str(dtype)[6:]} {main}: max abs err {err:.3e} (tol {tol:.3e}); "
+                print(f"K5 {str(dtype)[6:]} {(b, h, w, cin, cout)}: max abs err {err:.3e} "
+                      f"(tol {tol:.3e}); "
                       f"planted fault (padding before the activation) caught: max abs "
                       f"err {bad_err:.3e}", flush=True)
             key = (b, h, w, cin, cout)
             if dtype == torch.bfloat16 and (not with_temb and key in (
                     main, (2, 256, 256, 320, 320)) or key in c2_timed
-                    or with_temb and key in c3_timed):
+                    or with_temb and key in c3_timed or key == g_main):
                 flops = conv_flops(b, h, w, cin, cout)
                 n0 = FALLBACKS[0]
                 ms = one_call_device_ms(
@@ -1045,6 +1113,11 @@ def phase_k5(k5, card, results):
                     rec["c3_shapes"].append(dict(shape=[b, h, w, cin, cout], ms=ms,
                                                  library_ms=lib, bound_ms=bms, bound_by=by,
                                                  per_eval=n, request=label))
+                if key == g_main:
+                    n, label = g_k5[key]
+                    rec["g_shapes"].append(dict(shape=[b, h, w, cin, cout], ms=ms,
+                                                library_ms=lib, bound_ms=bms, bound_by=by,
+                                                per_eval=n, request=label))
                 print(f"K5 bf16 {(b, h, w, cin, cout)}: kernel {ms:.4f} ms device "
                       f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.3f} ms "
                       f"(events), cuDNN conv alone on the activated input {lib:.4f} ms "
@@ -1402,7 +1475,7 @@ def deepcache_evals(sampler, steps, start, interval):
 
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
                       context=77, encodes=None, controlnets=0, reference=None, cfg_lanes=True,
-                      pag=False, sag=False, shallow=0, tiling=False):
+                      pag=False, sag=False, shallow=0, tiling=False, canvas=None):
     """Kernel launches of one request, derived from the UNet's plan (which
     stages carry attention, at which level, of how many stacked layers,
     at which head width; its res blocks), the length of the
@@ -1425,7 +1498,10 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     (only the blocks of :func:`transformer_blocks`'s ``shallow`` and those
     res blocks); the config's ToMe and Hypertile route each UNet
     self-attention by its sequence (:func:`self_attention_plan`), the
-    ControlNet's by the whole grid; ``tiling`` runs no K5.  One launch
+    ControlNet's by the whole grid; ``tiling`` runs no K5.  Slice G:
+    ``steps`` counts every UNet call, a frame window's or a panorama
+    window's each; ``canvas``, the (height, width) of a panorama's VAE
+    where ``height`` x ``width`` is its window.  One launch
     serves every lane and every tile of an evaluation, so the lane count (1
     without CFG, 2 with it, 3 for InstructPix2Pix, n_and + 1 with AND) does
     not enter the counts; it enters the shapes phase 3 holds
@@ -1480,6 +1556,8 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                              + steps * ((extra + pag) * per_pass
                                         + controlnets * (enc_blocks + 2)))
     mid = cfg.vae.level_channels[-1]  # the VAE mid block: one head of Dh = channels
+    if canvas is not None:
+        h, w = (n // cfg.vae.downsample_factor for n in canvas)
     add(expected_kernel(h * w, mid, cross=False, backend=cfg.vae_attention_backend,
                         flash_only=flash_only),
         1 + (int(img2img) if encodes is None else encodes) + (reference is not None))
@@ -1590,6 +1668,30 @@ def f_shapes(kernel):
     for preset, height, width, lanes, mode, label in F_PLANS:
         cfg = with_mode(port, getattr(port, preset)(), mode)
         for key, n in plan_shapes(cfg, height, width, lanes)[kernel].items():
+            out.setdefault(key, (n, label))
+    return out
+
+
+#: slice G's requests that give K1 and K5 a lane count the earlier slices'
+#: do not: AnimateDiff's 16 frames in each CFG group (a 16-frame window of
+#: (b) too): (preset, height, width, lanes, request)
+G_PLANS = (("sd15_config", 512, 512, 32, "a: animate 16 frames x CFG, 512²"),)
+#: the VAE mid blocks of slice G's decodes that K3 has not run at: (B, H,
+#: Sq = Sk, Dh, launches a request, request)
+G_K3 = ((1, 1, 131072, 512, 1, "d: the 2048x4096 panorama's decode"),
+        (16, 1, 4096, 512, 1, "a: 16 frames' decode"),
+        (24, 1, 4096, 512, 1, "b: 24 frames' decode"),
+        (4, 1, 4096, 512, 6, "g: sd_upscale's chunks of 4 tiles, encode and decode"))
+
+
+def g_shapes(kernel):
+    """{shape: (launches an evaluation, request)} of ``kernel`` (K1, K5) over
+    :data:`G_PLANS`."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    out = {}
+    for preset, height, width, lanes, label in G_PLANS:
+        for key, n in plan_shapes(getattr(port, preset)(), height, width, lanes)[kernel].items():
             out.setdefault(key, (n, label))
     return out
 
@@ -1730,7 +1832,7 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"
 def profile_eval(step, card, what):
     """``step`` (one evaluation) timed by the wall clock, then profiled: its
     device busy share under torch.profiler, and the device time of K1, K4,
-    K2 and K5 in it; printed after ``what``."""
+    K2 and K5 in it; printed after ``what``; -> (wall s, device busy s)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1775,6 +1877,7 @@ def profile_eval(step, card, what):
           f"device busy, busy share {share}, {launches} kernels; {'; '.join(parts)}; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
           + f"  [{card}]", flush=True)
+    return wall, busy
 
 
 def phase_vae(models, cfg, card, size=2048):
@@ -3358,6 +3461,242 @@ def phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     run("o SDXL Hypertile 32", config=port.with_hypertile(xl_cfg, 32))
 
 
+# ------------------------------------------------------------------ slice G
+def motion_file(port, cfg, path, seed):
+    """AnimateDiff motion modules for ``cfg``'s UNet drawn from ``seed`` on
+    the card (every site of the v2 topology, one block each), written in the
+    published ``mm_sd_v15_v2`` key schema as fp16 .safetensors with the
+    ``pos_encoder.pe`` buffers of a 32-frame window; -> (parameters, the
+    file's tensors cast to the compute dtype, by the port's key)."""
+    from pytorch_stable_diffusion_tpu_torch.models import motion
+    from pytorch_stable_diffusion_tpu_torch.weights import animatediff, save
+
+    mods = motion.build(cfg.unet, generator=torch.Generator(device="cuda").manual_seed(seed),
+                        dtype=torch.float32, device="cuda")
+    n_params = sum(p.numel() for p in mods.parameters())
+    sd = {k: v if k.endswith("pe") else v.half()
+          for k, v in animatediff.deconvert_motion_module(mods, cfg.unet, 32).items()}
+    save.write_safetensors(sd, path)
+    want = {k: v.half().to(cfg.policy.param_dtype) for k, v in mods.state_dict().items()}
+    return n_params, want
+
+
+def esrgan_file(path, seed):
+    """A RealESRGAN_x4plus-width RRDBNet (64 features, 23 RRDBs, growth 32)
+    drawn from ``seed`` on the card, written flat in the new-arch key schema
+    as fp32 .safetensors; -> its parameter count."""
+    from pytorch_stable_diffusion_tpu_torch.models import esrgan
+    from pytorch_stable_diffusion_tpu_torch.weights import save
+
+    net = esrgan.build(esrgan.ESRGANConfig(), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
+    save.write_safetensors(net.state_dict(), path)
+    return sum(p.numel() for p in net.parameters())
+
+
+def phase_slice_g(port, card, models, cfg, zero_counts, read_path):
+    """Slice G at SD-1.5 full width, BF16, kernel attention, conv and VAE,
+    seed 1337, on the phase-5 models: (a) ``with_motion`` on a file in the
+    ``mm_sd_v15_v2`` key schema (21 modules, a 32-frame window), ``animate``
+    16 frames at 512², dpm++ Karras 20 steps, CFG 7.5 (32 lanes an
+    evaluation), and (a') again, bit-identical; (b) 24 frames through
+    ``motion_window=16`` (windows at frames 0 and 8); (c) ``panorama``
+    512x2048, window 512, stride 256 (7 windows), 20 steps, and a
+    single-window 512² panorama bit-identical to plain ``generate``; (d)
+    ``panorama`` 2048x4096, 2 steps (105 windows; the JAX package's guard
+    refuses the canvas, the port counts a window), the decode's mid block
+    on K3 over 131072 tokens and its tail tiled (``decode_tile=64``: whole,
+    its 256-channel upsample would hold 2^31 elements, past the 32-bit
+    indexing of torch's conv); (e) ``with_upscaler`` on a file in the
+    new-arch key schema at RealESRGAN_x4plus's widths, ``upscale`` 512² ->
+    2048² whole and tiled (tile 192, pad 8, 8 lanes; their PSNR printed,
+    not gated); (f) ``hires_fix`` 512² -> 1024² with
+    ``upscale_method="esrgan"``, strength 0.6; (g) ``sd_upscale`` of a 512²
+    image x2 (9 tiles in chunks of 4, strength 0.3).  Each request's
+    launches are held to the plan (windows x an evaluation's launches; the
+    VAE passes at the canvas); its wall time and peak memory printed.  One
+    AnimateDiff evaluation (32 lanes) profiled with and without the motion
+    modules, and one panorama window."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models.esrgan import ESRGANConfig
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
+
+    base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
+    tok = _tokenizer()
+    sd = port.StableDiffusion(models, tok, base_cfg, device="cuda")
+    kw = dict(cfg_scale=7.5, seed=1337, sampler_name="dpm++", timestep_spacing="karras",
+              n_inference_steps=20)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_g_")
+
+    def run(label, fn, parts, shape):
+        return c3_run(label, fn, parts, shape, card, zero_counts, read_path, slice_name="G")
+
+    def same(x, y, what):
+        x, y = (v if isinstance(v, tuple) else (v,) for v in (x, y))
+        check(all(np.array_equal(a, b) for a, b in zip(x, y)), f"G {what}: not bit-identical")
+
+    # (a) AnimateDiff from a file in the published schema
+    t0 = time.perf_counter()
+    path = os.path.join(tmp.name, "mm_sd_v15_v2.safetensors")
+    n_params, want = motion_file(port, base_cfg, path, seed=14)
+    t1 = time.perf_counter()
+    sd_m = sd.with_motion(path)
+    torch.cuda.synchronize()
+    got = sd_m.models["motion"].state_dict()
+    check(sd_m._motion_max == 32 and len(sd_m.models["motion"]) == 21,
+          f"G a: {len(sd_m.models['motion'])} modules, a {sd_m._motion_max}-frame window")
+    check(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+          "G a: the loaded motion modules are not the file's")
+    print(f"G motion file: {n_params} parameters in 21 modules, fp16 .safetensors "
+          f"({os.path.getsize(path) / 2**30:.2f} GiB) written in {t1 - t0:.1f} s, loaded by "
+          f"with_motion in {time.perf_counter() - t1:.1f} s, every tensor the file's",
+          flush=True)
+    anim = dict(kw, height=512, width=512)
+    a = run("a animate 16 frames 512²", lambda: sd_m.animate(PROMPTS[0], n_frames=16, **anim),
+            [(base_cfg, 512, 512, 20, 0, 77)], (16, 512, 512, 3))
+    same(a, run("a' animate again", lambda: sd_m.animate(PROMPTS[0], n_frames=16, **anim),
+                [(base_cfg, 512, 512, 20, 0, 77)], (16, 512, 512, 3)), "a'")
+    check(not np.array_equal(a[0], a[1]), "G a: frames 0 and 1 are equal")
+    b = run("b animate 24 frames, motion_window 16 (windows at 0 and 8)",
+            lambda: sd_m.animate(PROMPTS[0], n_frames=24, motion_window=16, **anim),
+            [(base_cfg, 512, 512, 20 * 2, 0, 77)], (24, 512, 512, 3))
+    # (c), (d) panoramas: the UNet over windows, the VAE over the canvas
+    pano = dict(kw, panorama=True, panorama_window=512, return_latents=True)
+    c = run("c panorama 512x2048, window 512, stride 256 (7 windows)",
+            lambda: sd.txt2img(PROMPTS[1], height=512, width=2048, panorama_stride=256, **pano),
+            [(base_cfg, 512, 512, 20 * 7, 0, 77, dict(canvas=(512, 2048)))], (512, 2048, 3))
+    one = dict(kw, height=512, width=512, return_latents=True)
+    plain = run("c' generate 512²", lambda: sd.txt2img(PROMPTS[1], **one),
+                [(base_cfg, 512, 512, 20, 0, 77)], (512, 512, 3))
+    same(run("c' panorama 512², one window", lambda: sd.txt2img(PROMPTS[1], panorama=True,
+                                                                  panorama_window=512, **one),
+             [(base_cfg, 512, 512, 20, 0, 77)], (512, 512, 3)), plain, "c' (one window)")
+    run("d panorama 2048x4096, 2 steps (105 windows), decode_tile 64",
+        lambda: sd.txt2img(PROMPTS[1], height=2048, width=4096, decode_tile=64,
+                           **dict(pano, n_inference_steps=2)),
+        [(base_cfg, 512, 512, 2 * 105, 0, 77, dict(canvas=(2048, 4096)))], (2048, 4096, 3))
+    # (e), (f), (g) the upscalers
+    path = os.path.join(tmp.name, "RealESRGAN_x4plus.safetensors")
+    n_esr = esrgan_file(path, seed=15)
+    sd_u = sd.with_upscaler(path)
+    check(sd_u._upscaler.cfg == ESRGANConfig(),
+          f"G e: config read from the file {sd_u._upscaler.cfg}")
+    image = a[0]
+    whole = run("e upscale 512² -> 2048², whole", lambda: sd_u.upscale(image), [],
+                (2048, 2048, 3))
+    tiled = run("e upscale 512² -> 2048², tiles 192, pad 8, 8 lanes",
+                lambda: sd_u.upscale(image, tile=192), [], (2048, 2048, 3))
+    print(f"G e: RRDBNet {n_esr} parameters; tiled vs whole PSNR "
+          f"{psnr(tiled.astype(np.float32), whole.astype(np.float32)):.1f} dB (not gated: "
+          f"the 8-pixel pad is under the receptive field)", flush=True)
+    s06 = ddpm.start_step_for_strength(20, 0.6)
+    run("f hires_fix 512² -> 1024², esrgan, strength 0.6",
+        lambda: sd_u.hires_fix(PROMPTS[2], height=1024, width=1024, strength=0.6,
+                               upscale_method="esrgan", **kw),
+        [(base_cfg, 512, 512, 20, 0, 77), (base_cfg, 1024, 1024, 20 - s06, 1, 77)],
+        (1024, 1024, 3))
+    s03 = ddpm.start_step_for_strength(20, 0.3)
+    run("g sd_upscale 512² x2 (9 tiles, chunks of 4), strength 0.3",
+        lambda: sd.sd_upscale(PROMPTS[2], image, scale=2.0, strength=0.3, overlap=64,
+                              height=512, width=512, **kw),
+        [(base_cfg, 512, 512, 20 - s03, 1, 77)] * 3, (1024, 1024, 3))
+    print(f"G: a' == a and the one-window panorama == generate, bit-identical; b's frames "
+          f"0-7 vs a's (not gated) PSNR {psnr(b[:8].astype(np.float32), a[:8].astype(np.float32)):.1f} "
+          f"dB", flush=True)
+    del sd_u
+    profile_g_evals(sd_m.models, base_cfg, card)
+    del sd_m
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def profile_g_evals(models, cfg, card, size=512):
+    """One AnimateDiff evaluation (16 frames x CFG: 32 lanes) profiled as in
+    phase 7, with and without the motion modules: their device time is the
+    difference of the two busy times; and one panorama window (batch 2)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dtype = cfg.policy.compute_dtype
+    lat = size // cfg.vae.downsample_factor
+    x = torch.randn(32, 4, lat, lat, device="cuda", generator=g).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(32, 77, cfg.unet.d_context, device="cuda", generator=g).to(dtype)
+    t = torch.tensor(500.0, device="cuda")
+    kw = dict(attention_backend=cfg.attention_backend, conv_backend=cfg.conv_backend)
+    u = models["diffusion"]
+
+    def evaluation(motion=None, lanes=32):
+        def step():
+            with torch.inference_mode():
+                return u(x[:lanes], ctx[:lanes], t, cfg.policy, motion=motion, frames=16, **kw)
+        return step
+
+    where = f"step G SD-1.5 ({size}², {cfg.conv_backend})"
+    _, busy = profile_eval(evaluation(models["motion"]), card,
+                           f"{where}: one AnimateDiff evaluation, 32 lanes (16 frames x CFG)")
+    _, busy0 = profile_eval(evaluation(), card, f"{where}: the same 32 lanes without the "
+                                                f"motion modules")
+    print(f"{where}: the 21 motion modules' device time {(busy - busy0) * 1e3:.2f} ms of "
+          f"{busy * 1e3:.2f} ms, a share of {(busy - busy0) / busy:.3f}  [{card}]", flush=True)
+    profile_eval(evaluation(lanes=2), card, f"{where}: one panorama window (batch 2)")
+
+
+def phase_small_g(port, cpu, base):
+    """Slice G at full width, FP32, 256², 2 dpm++ steps, CFG 5: the card
+    (kernel attention, conv and VAE) against the port's CPU plain path on
+    the same seeded weights and noise (> 55 dB latents, > 40 dB image, the
+    plan's launches): animate 3 frames and 4 frames through windows of 3
+    (frames 0-2 and 1-3), with SD-1.5's 21 motion modules drawn from a seed
+    on the CPU, and a 256x384 panorama (window 256, stride 128: 2
+    windows)."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import motion
+
+    tok = _tokenizer()
+    mods = motion.build(base.unet, generator=torch.Generator().manual_seed(34), device="cpu")
+    cpu = dict(cpu, motion=mods)
+    kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
+              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="dpm++")
+    cfg_g = dataclasses.replace(base, attention_backend="kernel", vae_attention_backend="kernel",
+                                conv_backend="kernel")
+    gpu = port.build_models(cfg_g, device="cuda",
+                            state_dicts={k: m.state_dict() for k, m in cpu.items()})
+    check("motion" in gpu and len(gpu["motion"]) == 21, "small G: the motion modules")
+    requests = (  # label, options, UNet calls, the VAE's canvas
+        ("animate 3 frames", dict(n_frames=3), 2, None),
+        ("4 frames, motion_window 3", dict(n_frames=4, motion_window=3), 4, None),
+        ("panorama 256x384, window 256, stride 128", dict(
+            width=384, panorama=True, panorama_window=256, panorama_stride=128), 4, (256, 384)))
+    for label, opts, calls, canvas in requests:
+        t1 = time.perf_counter()
+        img_c, lat_c = port.generate(
+            PROMPTS[0], models=cpu, device="cpu", **{**kw, **opts},
+            config=dataclasses.replace(cfg_g, attention_backend="plain",
+                                       vae_attention_backend="plain", conv_backend="plain"))
+        t_cpu = time.perf_counter() - t1
+        want = expected_launches(cfg_g, 256, 256, steps=calls, img2img=False, canvas=canvas)
+        before = launch_counts()
+        img_g, lat_g = port.generate(PROMPTS[0], models=gpu, config=cfg_g, device="cuda",
+                                     **{**kw, **opts})
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        lat_db = psnr(lat_c, lat_g)
+        img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
+        print(f"small G ({label}): full-width FP32 256², 2 dpm++ steps, CFG 5, card vs CPU "
+              f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
+              f"{got}; CPU side {t_cpu:.1f} s", flush=True)
+        check(got == want, f"small G ({label}) launched {got}, want {want}")
+        check(np.isfinite(lat_g).all(), f"small G ({label}): latents not finite")
+        check(lat_db > 55.0, f"small G ({label}) latents PSNR {lat_db:.1f} dB <= 55")
+        check(img_db > 40.0, f"small G ({label}) image PSNR {img_db:.1f} dB <= 40")
+    del gpu, cpu, mods
+    torch.cuda.empty_cache()
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -3423,7 +3762,7 @@ def main():
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": [],
-                      "e_shapes": [], "f_shapes": []}
+                      "e_shapes": [], "f_shapes": [], "g_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -3629,6 +3968,8 @@ def main():
     phase_slice_e(port, card, models, cfg, zero_counts, read_path)
     # slice F: the guidance and approximate modes at 512²
     phase_slice_f(port, card, models, cfg, zero_counts, read_path)
+    # slice G: AnimateDiff, panoramas and the upscalers
+    phase_slice_g(port, card, models, cfg, zero_counts, read_path)
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -3648,6 +3989,7 @@ def main():
     phase_small_c3(port, cpu, cpu_cfg)
     phase_small_e(port, cpu, cpu_cfg)
     phase_small_f(port, cpu, cpu_cfg)
+    phase_small_g(port, cpu, cpu_cfg)
     del cpu
     free_host()
     xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)

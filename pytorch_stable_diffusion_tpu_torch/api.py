@@ -6,11 +6,16 @@ device (the CPU tests pass ``"cpu"``); without a card and without
 ``device=`` it raises.  The ``with_*`` methods (``with_lora``, ``with_vae``,
 ``merged_with``, ``with_hypernetwork``, ``with_textual_inversion``, and
 slice E's ``with_controlnet``, ``with_t2i_adapter`` and
-``with_ip_adapter``) return new bundles and leave the original as it was;
-their models share every parameter the transform leaves unchanged.  ``mesh=`` (slice H2) and the
-methods of later slices raise ``NotImplementedError`` naming their slice
-(ROADMAP.md §1).  The generation methods pass every keyword through to
-``generate()``, slice F's modes too; :func:`fast_preset` gives the
+``with_ip_adapter``, AnimateDiff's ``with_motion`` and the ESRGAN's
+``with_upscaler``) return new bundles and leave the original as it was;
+their models share every parameter the transform leaves unchanged.
+``mesh=`` (slice H2) raises ``NotImplementedError`` naming its slice
+(ROADMAP.md §1).  The workloads: ``animate`` (AnimateDiff clips, frame
+windows past the modules' trained length), ``upscale`` (ESRGAN, whole or
+tiled), ``hires_fix(upscale_method="esrgan")`` and ``sd_upscale`` (A1111's
+tiled img2img upscale); panoramas are ``txt2img(panorama=True, ...)``.
+The generation methods pass every keyword through to ``generate()``,
+slice F's modes too; :func:`fast_preset` gives the
 approximate-mode bundle: ``cfg, kw = fast_preset(sd.config)``, then
 ``StableDiffusion(sd.models, sd.tokenizer, cfg).txt2img(prompt, **kw)``.
 """
@@ -110,6 +115,8 @@ class StableDiffusion:
         self.models = models
         self.tokenizer = tokenizer
         self._hyper = None
+        self._motion_max = None  # the motion modules' trained frame window
+        self._upscaler = None  # the ESRGAN net of with_upscaler
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, vocab_path: str, merges_path: str,
@@ -144,6 +151,8 @@ class StableDiffusion:
         out.tokenizer = self.tokenizer if tokenizer is None else tokenizer
         out.config = self.config if config is None else config
         out._hyper = self._hyper
+        out._motion_max = self._motion_max
+        out._upscaler = self._upscaler
         return out
 
     def with_lora(self, lora, scale: float = 1.0, *, strict: bool = True):
@@ -323,15 +332,28 @@ class StableDiffusion:
         them: ``utils/image.py``) and denoised again at the target size
         through latent-space img2img (``init_latents``: no decode/encode
         round trip).  ``strength`` is the second pass's denoise strength.
-        ``"esrgan"`` (a pixel-space upscaler) comes with slice G."""
+        ``"esrgan"`` upscales in pixel space with the attached upscaler
+        (A1111's "upscaler" hires-fix modes): the base pass decoded,
+        upscaled, lanczos3-resized to the exact target where the net's
+        scale overshoots, then img2img at the target size."""
         from .utils.image import METHODS, resize
 
-        if upscale_method == "esrgan":
-            _unported("hires_fix(upscale_method='esrgan')", "slice G")
-        if upscale_method not in METHODS:
+        if upscale_method != "esrgan" and upscale_method not in METHODS:
             raise ValueError(f"unknown upscale_method {upscale_method!r}")
         bh, bw = base_height or height // 2, base_width or width // 2
         kw = self._kw(dict(kwargs))
+        if upscale_method == "esrgan":
+            if self._upscaler is None:
+                raise ValueError("upscale_method='esrgan' needs an "
+                                 "attached upscaler (with_upscaler)")
+            up_img = self.upscale(pipeline_mod.generate(prompt, uncond_prompt, height=bh,
+                                                        width=bw, **kw))
+            if up_img.shape[-3:-1] != (height, width):
+                up_img = np.clip(np.round(resize(up_img.astype(np.float32),
+                                                 up_img.shape[:-3] + (height, width, 3),
+                                                 "lanczos3")), 0, 255).astype(np.uint8)
+            return pipeline_mod.generate(prompt, uncond_prompt, height=height, width=width,
+                                         input_image=up_img, strength=strength, **kw)
         _, lat = pipeline_mod.generate(prompt, uncond_prompt, height=bh, width=bw,
                                        return_latents=True, **kw)
         f = self.config.vae.downsample_factor
@@ -544,19 +566,154 @@ class StableDiffusion:
             else load(adapter)
         return self._clone(models=dict(self.models, t2i_adapter=adapter))
 
-    # ------------------------------------------------ later slices' methods
+    # ------------------------------------- AnimateDiff and the upscalers
+    def with_motion(self, motion):
+        """A bundle with AnimateDiff motion modules attached
+        (``models/motion.py``), enabling :meth:`animate`.
 
-    def with_motion(self, *args, **kwargs):
-        _unported("StableDiffusion.with_motion (AnimateDiff)", "slice G")
+        ``motion`` is an ``mm_sd_v15[_v2]``-style weight file
+        (``weights/animatediff.py``) or a ``(modules, max_len)`` pair:
+        built modules (an ``nn.ModuleDict`` by site) or their port state
+        dict, and the trained frame window (32 for v2)."""
+        from .models import motion as motion_mod
 
-    def animate(self, *args, **kwargs):
-        _unported("StableDiffusion.animate (AnimateDiff)", "slice G")
+        if isinstance(motion, str):
+            from .weights.animatediff import load_motion_module
 
-    def with_upscaler(self, *args, **kwargs):
-        _unported("StableDiffusion.with_upscaler (ESRGAN)", "slice G")
+            motion = load_motion_module(motion, self.config.unet)
+        mods, max_len = motion
+        if not isinstance(mods, torch.nn.Module):
+            mods = motion_mod.build(self.config.unet, state_dict=mods, device=self.device,
+                                    dtype=self.config.policy.param_dtype)
+        out = self._clone(models=dict(self.models, motion=mods.to(self.device)))
+        out._motion_max = int(max_len)
+        return out
 
-    def upscale(self, *args, **kwargs):
-        _unported("StableDiffusion.upscale (ESRGAN)", "slice G")
+    def animate(self, prompt: str, n_frames: int = 16, uncond_prompt: str = "",
+                **kwargs) -> np.ndarray:
+        """Text-to-video through the attached motion modules: ``(n_frames, H,
+        W, 3)`` uint8 frames (``input_image`` for a coarse video2video).  A
+        clip longer than the modules' trained window (``with_motion`` reads
+        it from the file) sweeps overlapping frame windows of that length
+        (the pipeline's ``motion_window``) unless ``motion_window`` is
+        given."""
+        if "motion" not in self.models:
+            raise ValueError("no motion modules attached (with_motion)")
+        mx = self._motion_max
+        if mx and n_frames > mx and "motion_window" not in kwargs:
+            kwargs["motion_window"] = mx
+        return pipeline_mod.generate_images([prompt], uncond_prompt, n_frames=int(n_frames),
+                                            **self._kw(kwargs))
 
-    def sd_upscale(self, *args, **kwargs):
-        _unported("StableDiffusion.sd_upscale", "slice G")
+    def with_upscaler(self, upscaler):
+        """A bundle with an ESRGAN / RealESRGAN pixel upscaler attached
+        (``models/esrgan.py``), enabling :meth:`upscale` and
+        ``hires_fix(upscale_method="esrgan")``.
+
+        ``upscaler`` is a weight file (``.pth`` / ``.safetensors``, old- or
+        new-arch naming: ``weights/esrgan.py``) or a ``(params,
+        ESRGANConfig)`` pair, ``params`` a port state dict or a built
+        :class:`~.models.esrgan.RRDBNet`."""
+        from .models import esrgan as esrgan_mod
+
+        if isinstance(upscaler, str):
+            from .weights.esrgan import load_esrgan
+
+            upscaler = load_esrgan(upscaler)
+        try:
+            params, ecfg = upscaler
+        except (TypeError, ValueError) as e:
+            raise ValueError(
+                "with_upscaler expects a weight file path or a "
+                "(params, ESRGANConfig) pair, got "
+                f"{type(upscaler).__name__}") from e
+        # a 2-unpackable wrong value (a (path, strength) guess) fails here,
+        # not deep inside upscale()
+        if not isinstance(ecfg, esrgan_mod.ESRGANConfig) \
+                or not isinstance(params, (dict, esrgan_mod.RRDBNet)):
+            raise ValueError(
+                "with_upscaler pair must be (params dict, ESRGANConfig); "
+                f"got ({type(params).__name__}, {type(ecfg).__name__})")
+        if isinstance(params, dict):
+            params = esrgan_mod.build(ecfg, state_dict=params, device=self.device,
+                                      dtype=self.config.policy.param_dtype)
+        out = self._clone()
+        out._upscaler = params.to(self.device)
+        return out
+
+    def upscale(self, image, *, tile: Optional[int] = None,
+                tile_lanes: int = 8) -> np.ndarray:
+        """Upscale an image (or a (B, H, W, 3) batch) with the attached
+        ESRGAN (A1111's "Extras" upscale): uint8 of the same rank.
+        ``tile``: RealESRGAN's padded tiles of this size, the tiles of one
+        shape ``tile_lanes`` to a batch (``models/esrgan.upscale_image``)."""
+        if self._upscaler is None:
+            raise ValueError("no upscaler attached (with_upscaler)")
+        from .models import esrgan as esrgan_mod
+
+        return esrgan_mod.upscale_image(self._upscaler, image, self.config.policy,
+                                        tile=tile, tile_lanes=tile_lanes)
+
+    def sd_upscale(self, prompt: str, image, *, scale: float = 2.0,
+                   strength: float = 0.3, overlap: int = 64, uncond_prompt: str = "",
+                   height: int = 512, width: int = 512, batch_size: int = 4,
+                   **kwargs) -> np.ndarray:
+        """A1111's "SD upscale" script: lanczos3-upscale the image by
+        ``scale``, img2img every overlapping ``height`` x ``width`` tile at
+        ``strength`` (one processing shape, ``batch_size`` tiles a chunk
+        through :meth:`generate_many`, each tile its own init image and
+        noise), and stitch the tiles with two-sided linear feathering across
+        the ``overlap`` bands, in float64.  Returns the upscaled uint8
+        image."""
+        from .utils.image import resize
+
+        img = _to_rgb_float(image)
+        h0, w0 = img.shape[:2]
+        th, tw = int(round(h0 * scale)), int(round(w0 * scale))
+        if th <= height and tw <= width:
+            raise ValueError(f"upscaled size {th}x{tw} fits one processing "
+                             f"tile {height}x{width}; use img2img directly")
+        if th < height or tw < width:
+            raise ValueError(
+                f"upscaled size {th}x{tw} is smaller than the processing "
+                f"tile {height}x{width} in one dimension; pick a tile size "
+                "that fits both")
+        if overlap >= min(height, width):
+            raise ValueError("overlap must be smaller than the tile size")
+        up = np.clip(resize(img, (th, tw, 3), "lanczos3"), 0, 255)
+
+        def starts(total, tile):
+            if total <= tile:
+                return [0]
+            s = list(range(0, total - tile, tile - overlap)) + [total - tile]
+            return sorted(set(s))
+
+        ys, xs = starts(th, height), starts(tw, width)
+        tiles = np.stack([up[y:y + height, x:x + width]
+                          for y in ys for x in xs]).astype(np.uint8)
+        outs = self.generate_many([prompt] * len(tiles), [uncond_prompt] * len(tiles),
+                                  batch_size=batch_size, input_image=tiles, height=height,
+                                  width=width, strength=strength, **kwargs)
+
+        # both edges of an interior tile ramp (leading 0 -> 1, trailing
+        # 1 -> 0), strictly positive, so that neighbours crossfade fully
+        def ramp(idx, last, tile):
+            w = np.ones(tile, np.float32)
+            e = min(overlap, tile)
+            edge = np.linspace(0.0, 1.0, e + 2)[1:-1]
+            if idx > 0:
+                w[:e] = edge
+            if idx < last:
+                w[-e:] = np.minimum(w[-e:], edge[::-1])
+            return w
+
+        acc = np.zeros((th, tw, 3), np.float64)
+        wacc = np.zeros((th, tw, 1), np.float64)
+        tiles_out = iter(outs)
+        for yi, y in enumerate(ys):
+            for xi, x in enumerate(xs):
+                wt = (ramp(yi, len(ys) - 1, height)[:, None]
+                      * ramp(xi, len(xs) - 1, width)[None, :])[..., None]
+                acc[y:y + height, x:x + width] += next(tiles_out).astype(np.float64) * wt
+                wacc[y:y + height, x:x + width] += wt
+        return np.clip(np.round(acc / np.maximum(wacc, 1e-8)), 0, 255).astype(np.uint8)

@@ -54,8 +54,8 @@ def build_models(cfg: SDConfig, *, device=None,
     inference, and the side nets (slice E) ``state_dicts`` holds:
     "controlnet" and "t2i_adapter" (a state dict, or a list of them for
     several nets), "ip_adapter" and "clip_vision" (of ``vision_config``,
-    by default ``clip_vision.vit_h14()``), as :func:`build_side_nets` builds
-    them.
+    by default ``clip_vision.vit_h14()``), and AnimateDiff's "motion"
+    modules (slice G), as :func:`build_side_nets` builds them.
 
     The models are built on the card (``"cuda"``) unless ``device`` names
     another one; with no device given and no card present this raises
@@ -83,7 +83,7 @@ def build_side_nets(cfg: SDConfig, state_dicts, *, device=None,
     """The side nets of ``state_dicts`` (``weights.convert.SIDE_NETS``) as
     modules on ``device`` in the policy's dtype: a ControlNet or
     T2I-Adapter list for a list of state dicts."""
-    from . import clip_vision, controlnet, t2i_adapter
+    from . import clip_vision, controlnet, motion, t2i_adapter
 
     device = target_device(device)
     dtype = cfg.policy.param_dtype
@@ -94,6 +94,7 @@ def build_side_nets(cfg: SDConfig, state_dicts, *, device=None,
         "clip_vision": lambda sd: clip_vision.build_clip_vision(
             vision_config or clip_vision.vit_h14(), dtype=dtype, device=device,
             state_dict=sd),
+        "motion": lambda sd: motion.build(cfg.unet, state_dict=sd, dtype=dtype, device=device),
     }
     out = {}
     for name, make in build.items():

@@ -36,6 +36,10 @@
   config), FreeU at the two deepest decoder levels, DeepCache's full and
   shallow passes (:func:`deepcache_shape`), and seamless tiling (every conv
   wraps; K5, which pads with zeros, is off the path).
+* Slice G: AnimateDiff's motion modules (``models/motion.py``), passed per
+  call as ``motion=`` with the ``frames`` of a lane group: each runs after
+  its encoder or decoder stage's (res + attn) pair, before the skip is
+  recorded, and the bottleneck's between its attention and ``res2``.
 
 Tensors are NCHW (channels_last in memory on CUDA); parameter names follow
 the JAX pytree paths (``encoder.1.attn.self_attn.q.weight``).
@@ -527,7 +531,8 @@ class UNet(nn.Module):
                 t_cond: Optional[torch.Tensor] = None, control=None, adapter=None,
                 ip=None, ref=None, ref_adain=None, head: bool = True, pag: bool = False,
                 return_mid_attn: bool = False, return_cache: bool = False, cache=None,
-                modes: Optional[UNetConfig] = None):
+                modes: Optional[UNetConfig] = None, motion=None,
+                frames: Optional[int] = None):
         """latents: (B, in_ch, h, w) (in_ch 9 for inpainting, 8 for
         InstructPix2Pix: plain convs, never K5); context: (B, S, d_context),
         or a hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t:
@@ -547,7 +552,10 @@ class UNet(nn.Module):
         bank, fidelity, plain_mask)``, AdaIN banking the fp32 per-channel
         spatial (mean, var) after every encoder and decoder res(+attn)
         stage and after the bottleneck.  ``head=False`` skips norm_out and
-        conv_out and returns None (a reference capture pass).
+        conv_out and returns None (a reference capture pass).  ``motion``,
+        AnimateDiff's modules by site (``enc_{i}``, ``dec_{i}``, ``mid``;
+        an ``nn.ModuleDict`` of :class:`~.motion.MotionModule`), over lane
+        groups of ``frames`` lanes, the frame index fastest.
 
         Slice F: ``pag`` runs PAG's perturbed pass (the mid block's
         self-attention layers take the identity map); ``return_mid_attn``
@@ -581,7 +589,14 @@ class UNet(nn.Module):
                          fuse_qkv=fuse_qkv, fold_norms=fold_norms, ip=ip_for(key, attn),
                          ref=ref, ref_key=key, tome=modes.tome, hypertile=modes.hypertile,
                          **mid)
-            return x
+            # the bottleneck's motion module runs after SAG's unpack, below
+            return x if mid else temporal(x, key)
+
+        def temporal(x, key):
+            # AnimateDiff: the site's motion module, attending across frames
+            if motion is None or key not in motion:
+                return x
+            return motion[key](x, frames, policy)
 
         def ip_for(key, attn):
             if ip is None:
@@ -630,7 +645,8 @@ class UNet(nn.Module):
                       return_self_probs=return_mid_attn)
             if return_mid_attn:
                 x, mid_probs = x
-            x = adain_site(mid.res2(x, t_emb, cfg.groups, policy, conv_backend), "mid")
+            x = adain_site(mid.res2(temporal(x, "mid"), t_emb, cfg.groups, policy,
+                                    conv_backend), "mid")
             if adapter is not None and ad_mid is not None:
                 # full_adapter_xl's extra feature, before the ControlNet's
                 x = x + adapter[ad_mid].to(x.dtype)

@@ -134,6 +134,20 @@ Same public keyword surface as the JAX package's ``generate()`` and
   where it tiles level 1, and ``freeu``.  ``tiling`` runs the request under
   ``ops/conv.circular_padding``.  Each refuses the compositions and
   ``fixed_noise`` cases the JAX package refuses, with its ``ValueError``.
+* Slice G, as in the JAX package.  ``n_frames`` (AnimateDiff, the motion
+  modules of ``models["motion"]``): one prompt becomes ``n_frames`` lanes in
+  each CFG group (the cond lanes, then the uncond ones, the frame index
+  fastest), and every UNet evaluation takes the modules;
+  ``motion_window`` / ``motion_stride`` sweep overlapping frame windows,
+  one UNet call each, and average each frame's eps over its windows.
+  ``panorama`` / ``panorama_window`` / ``panorama_stride``
+  (MultiDiffusion): the UNet sweeps overlapping windows of the canvas, one
+  call each, and each latent pixel's eps is the average over its windows;
+  the sampler then steps the whole canvas.  Both sum and count in fp32.
+  Under ``panorama`` the 65536-token guard counts a window's tokens, not
+  the canvas's (the JAX package refuses the wide canvases there).  Both
+  refuse ``fixed_noise`` and the compositions the JAX package refuses, with
+  its ``ValueError``s.
 
 Every other keyword of the JAX ``generate()`` is accepted only at its
 default value; any other value raises ``NotImplementedError`` naming the
@@ -175,9 +189,6 @@ MAX_VALIDATED_ATTN_TOKENS = 65536
 
 #: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
 _UNPORTED = {
-    "panorama": (False, "slice G"), "panorama_window": (512, "slice G"),
-    "panorama_stride": (None, "slice G"), "n_frames": (None, "slice G"),
-    "motion_window": (None, "slice G"), "motion_stride": (None, "slice G"),
     "mesh": (None, "slice H"), "sequence_parallel": (False, "slice H"),
     "progress": (False, "slice H"),
 }
@@ -624,6 +635,51 @@ def encode_image(models, image: torch.Tensor, noise: torch.Tensor, cfg: SDConfig
     return models["encoder"](image, noise, cfg.policy, **vae_kw)
 
 
+def _panorama_plan(cfg: SDConfig, height: int, width: int, window: int,
+                   stride: Optional[int], *, composed: bool, deepcache, fixed_noise):
+    """MultiDiffusion's window sweep over a canvas larger than the model's
+    native size (Bar-Tal et al. 2023; diffusers' panorama pipeline): ->
+    (window, ys, xs) in latent pixels, the windows in row-major order, each
+    axis's last window flush with the canvas's edge; the JAX package's
+    ValueErrors (``composed``: a side net, inpainting, InstructPix2Pix,
+    PAG, SAG, AND or prompt editing)."""
+    if composed:
+        raise ValueError("panorama composes only with the plain "
+                         "txt2img/img2img path (no ControlNet/"
+                         "T2I-Adapter/reference/ip2p/inpaint/PAG/SAG/"
+                         "AND/prompt-editing)")
+    if deepcache is not None:
+        raise ValueError("panorama does not compose with deepcache")
+    if fixed_noise is not None:
+        raise ValueError("panorama is not supported in fixed_noise "
+                         "parity mode")
+    factor = cfg.vae.downsample_factor
+    if window % factor or window <= 0:
+        raise ValueError(f"panorama_window must be a positive "
+                         f"multiple of {factor}")
+    stride_px = stride or window // 2
+    if stride_px % factor or stride_px <= 0:
+        raise ValueError(f"panorama_stride must be a positive "
+                         f"multiple of {factor}")
+    win, step = window // factor, stride_px // factor
+    h_lat, w_lat = height // factor, width // factor
+    if h_lat < win or w_lat < win:
+        raise ValueError(f"canvas {height}x{width} smaller than the "
+                         f"panorama window {window}")
+    ys, xs = zip(*[(y, x) for y in _window_starts(h_lat, win, step)
+                   for x in _window_starts(w_lat, win, step)])
+    return win, ys, xs
+
+
+def _window_starts(total: int, win: int, step: int):
+    """The offsets of windows of ``win`` over ``total`` at ``step``, the last
+    one flush with the end (the panorama's and the frame windows' sweep)."""
+    starts = list(range(0, total - win + 1, step))
+    if starts[-1] != total - win:
+        starts.append(total - win)
+    return starts
+
+
 # -------------------------------------------------------------- public API
 def _run_generate(prompt, uncond_prompt="", input_image=None,
                   strength: float = 0.8, do_cfg: bool = True,
@@ -653,7 +709,10 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                   sag_scale: float = 0.0, tiling: bool = False,
                   dynamic_threshold: Optional[float] = None,
                   noise_multiplier: Optional[float] = None,
-                  tome_ratio: Optional[float] = None,
+                  tome_ratio: Optional[float] = None, panorama: bool = False,
+                  panorama_window: int = 512, panorama_stride: Optional[int] = None,
+                  n_frames: Optional[int] = None, motion_window: Optional[int] = None,
+                  motion_stride: Optional[int] = None,
                   _device_output: bool = False, **unported):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device."""
@@ -683,6 +742,10 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         cfg = with_freeu(cfg, True if freeu is True else tuple(freeu))
     check_ported(cfg)
     h_lvl1, w_lvl1 = height // cfg.vae.downsample_factor, width // cfg.vae.downsample_factor
+    if panorama:
+        # the UNet sees only the panorama's windows, never the whole canvas
+        # (the JAX package guards the canvas, and refuses wide panoramas)
+        h_lvl1 = w_lvl1 = panorama_window // cfg.vae.downsample_factor
     n_lvl1 = h_lvl1 * w_lvl1
     # Hypertile lifts the guard only where its plan tiles level 1 (the JAX
     # package waives it for any hypertile config)
@@ -706,6 +769,20 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
     if len(uncond) != len(prompts):
         raise ValueError("uncond_prompt count must match the prompts")
     batch = len(prompts)
+    if n_frames is not None:
+        # AnimateDiff: one prompt becomes n_frames lanes, whose motion
+        # modules attend across the frame axis
+        if "motion" not in models:
+            raise ValueError("n_frames given but models has no 'motion' "
+                             "entry (weights/animatediff."
+                             "load_motion_module)")
+        if batch != 1:
+            raise ValueError("n_frames animates ONE prompt (got "
+                             f"{batch})")
+        if int(n_frames) < 2:
+            raise ValueError("n_frames must be >= 2")
+        n_frames = int(n_frames)
+        prompts, uncond, batch = prompts * n_frames, uncond * n_frames, n_frames
 
     # prompt editing/alternation: the K distinct realizations of the prompts
     # ride flattened into the encoding batch (K*B), and each step indexes its
@@ -802,6 +879,33 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         # defaults to ViT-H/14)
         ip_img = cv_mod.preprocess(ip_adapter_image,
                                    clip_vision_config or models["clip_vision"].cfg)
+    mwin = None
+    if n_frames is not None:
+        if (pag_scale or sag_scale or ip2p or n_and > 1 or sched_idx is not None
+                or control_image is not None or adapter_image is not None
+                or reference_image is not None or panorama
+                or inpaint is not None or deepcache is not None
+                or region_masks is not None):
+            raise ValueError("n_frames (AnimateDiff) composes only with "
+                             "the plain txt2img/img2img path in this "
+                             "build")
+        if fixed_noise is not None:
+            raise ValueError("n_frames is not supported in fixed_noise "
+                             "parity mode")
+    if motion_window is not None:
+        # long clips: overlapping frame windows (the community AnimateDiff
+        # context scheduler), each frame's eps averaged over its windows
+        if n_frames is None:
+            raise ValueError("motion_window requires n_frames")
+        w_f = int(motion_window)
+        if not 2 <= w_f < n_frames:
+            raise ValueError(f"motion_window must be in [2, n_frames), "
+                             f"got {w_f} for {n_frames} frames")
+        if ip_adapter_image is not None or hypernetwork is not None:
+            raise ValueError("motion_window does not compose with "
+                             "IP-Adapter/hypernetworks (per-frame lane "
+                             "slicing)")
+        mwin = (w_f, _window_starts(n_frames, w_f, int(motion_stride or max(w_f // 2, 1))))
     regions = None
     if region_masks is not None:
         # regional prompting (Latent Couple): each AND part steers only
@@ -815,6 +919,14 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         regions = torch.stack([_nchw(mask_to_latent_area(
             _prepare_mask(m, width, height), cfg.vae.downsample_factor))
             for m in region_masks])  # (n_and, 1, 1, h, w)
+    pano = None
+    if panorama:
+        composed = (control_image is not None or adapter_image is not None
+                    or reference_image is not None or ip2p or inpaint is not None
+                    or pag_scale or sag_scale or n_and > 1 or sched_idx is not None)
+        pano = _panorama_plan(cfg, height, width, panorama_window, panorama_stride,
+                              composed=bool(composed), deepcache=deepcache,
+                              fixed_noise=fixed_noise)
     if reference_image is not None:
         reference_mode = _check_reference(
             cfg, edited=guided, ip2p=ip2p, inpaint=inpaint, fixed_noise=fixed_noise,
@@ -1190,6 +1302,43 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                                   "down": [d[sl] for d in side["control"]["down"]]}
             return out
 
+        def window_sweep(model_in, ctx, t, main):
+            """The UNet over overlapping windows, one call each, and each
+            output element averaged over the windows that hold it, summed
+            and counted in fp32, as in the JAX package: AnimateDiff's frame
+            windows (``motion_window``; every CFG group's lanes sliced
+            alike) or the panorama's spatial ones, in row-major order."""
+            spatial = model_in.shape[2:]
+            if mwin is not None:
+                win, f_starts = mwin
+                groups = model_in.shape[0] // n_frames
+
+                def frames(x, f0):  # the window's lanes of every CFG group
+                    return x.unflatten(0, (groups, n_frames))[:, f0:f0 + win].flatten(0, 1)
+
+                acc = torch.zeros((groups, n_frames, cfg.unet.out_channels) + spatial,
+                                  dtype=torch.float32, device=device)
+                cnt = torch.zeros((1, n_frames, 1, 1, 1), dtype=torch.float32, device=device)
+                add = main["add_cond"]
+                for f0 in f_starts:
+                    eps_w = unet(frames(model_in, f0).contiguous(memory_format=memory_format),
+                                 frames(ctx, f0), t, policy,
+                                 **dict(main, frames=win,
+                                        add_cond=None if add is None else frames(add, f0)))
+                    acc[:, f0:f0 + win] += eps_w.float().unflatten(0, (groups, win))
+                    cnt[:, f0:f0 + win] += 1.0
+                return (acc / torch.clamp(cnt, min=1.0)).flatten(0, 1)
+            win, ys, xs = pano
+            acc = torch.zeros((model_in.shape[0], cfg.unet.out_channels) + spatial,
+                              dtype=torch.float32, device=device)
+            cnt = torch.zeros((1, 1) + spatial, dtype=torch.float32, device=device)
+            for y0, x0 in zip(ys, xs):
+                w = (Ellipsis, slice(y0, y0 + win), slice(x0, x0 + win))
+                acc[w] += unet(model_in[w].contiguous(memory_format=memory_format), ctx, t,
+                               policy, **main).float()
+                cnt[w] += 1.0
+            return acc / torch.clamp(cnt, min=1.0)
+
         def eps_at(i: int, lat: torch.Tensor, t: int,
                    refresh: Optional[bool] = None) -> torch.Tensor:
             """The guided epsilon of the latents at training timestep ``t`` (a
@@ -1216,6 +1365,9 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             kw = dict(attention_backend=cfg.attention_backend,
                       reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
                       conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet)
+            if n_frames is not None:
+                # AnimateDiff: the lanes of each CFG group are the frames
+                kw.update(motion=models["motion"], frames=n_frames)
             control = None
             if nets is not None:
                 # the ControlNets take the 4-channel latents, whatever the UNet's
@@ -1247,7 +1399,9 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
             main = dict(kw, add_cond=add, **side)
             model_in = model_in.contiguous(memory_format=memory_format)
             mid_probs = None
-            if deepcache is None:
+            if mwin is not None or pano is not None:
+                eps = window_sweep(model_in, ctx, t_all[int(t)], main).to(cd)
+            elif deepcache is None:
                 out = unet(model_in, ctx, t_all[int(t)], policy, return_mid_attn=sag, **main)
                 eps, mid_probs = out if sag else (out, None)
             elif ((i - start_step) % deepcache == 0 if refresh is None else refresh):

@@ -667,8 +667,9 @@ def state_dict_from_jax_tree(tree) -> Dict[str, torch.Tensor]:
                 (_from_jax_leaf(p, np.asarray(x)) for p, x in _flatten(tree)))
 
 
-#: the side nets' entries of a JAX models dict (slice E)
-SIDE_NETS = ("controlnet", "t2i_adapter", "ip_adapter", "clip_vision")
+#: the side nets' entries of a JAX models dict (slice E), and AnimateDiff's
+#: motion modules (slice G)
+SIDE_NETS = ("controlnet", "t2i_adapter", "ip_adapter", "clip_vision", "motion")
 
 
 def _side_net_from_jax(name: str, tree) -> Dict[str, torch.Tensor]:
@@ -685,9 +686,9 @@ def from_jax_params(params, cfg: SDConfig) -> StateDicts:
     inversion grew converts as any other: build it with the grown
     ``cfg.clip.vocab_size``.  The side nets of a JAX models dict
     (:data:`SIDE_NETS`: ``controlnet``, one tree or a list, ``t2i_adapter``,
-    one or a list, ``ip_adapter`` and ``clip_vision``) come across too,
-    each a state dict (a list of them for a list), for
-    ``models.build_models``."""
+    one or a list, ``ip_adapter`` and ``clip_vision``, and the ``motion``
+    modules of slice G) come across too, each a state dict (a list of them
+    for a list), for ``models.build_models``."""
     check_ported(cfg)
     out = {name: state_dict_from_jax_tree(params[name]) for name in model_names(cfg)}
     for name in SIDE_NETS:

@@ -207,14 +207,6 @@ def test_with_methods_leave_the_original_untouched(sd):
     assert "<t>" not in sd.tokenizer.placeholders
 
 
-@pytest.mark.parametrize("method,where", [
-    ("with_motion", "slice G"), ("animate", "slice G"),
-    ("with_upscaler", "slice G"), ("upscale", "slice G"), ("sd_upscale", "slice G")])
-def test_later_slices_raise(sd, method, where):
-    with pytest.raises(NotImplementedError, match=where):
-        getattr(sd, method)("a cat")
-
-
 def test_mesh_and_missing_card_raise(models, tok, monkeypatch):
     with pytest.raises(NotImplementedError, match="slice H2"):
         StableDiffusion(models, tok, CFG, mesh=object(), device="cpu")

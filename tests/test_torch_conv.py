@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from conftest import to_nchw
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
 
 from pytorch_stable_diffusion_tpu.core.dtypes import FP32 as JFP32
 from pytorch_stable_diffusion_tpu.models import unet as junet

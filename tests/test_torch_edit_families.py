@@ -329,13 +329,6 @@ def test_launch_rule_counts_the_vae_encodes(fam, name, kw, encodes):
     assert want["K1"] == k1.call_count == 1 + encodes
 
 
-def test_hires_fix_esrgan_names_slice_g(fam):
-    cfg, _, _, models = fam["base"]
-    sd = api.StableDiffusion(models, make_test_tokenizer(WORDS, max_len=16), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice G"):
-        sd.hires_fix("a cat", upscale_method="esrgan")
-
-
 # ------------------------------------------------------------------ errors
 ERRORS = {
     "mask without an image": ("base", dict(mask_image=_mask())),

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
+
 from pytorch_stable_diffusion_tpu.ops.pallas import flash_attention as jfa
 from pytorch_stable_diffusion_tpu_torch.ops import attention
 from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa

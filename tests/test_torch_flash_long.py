@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
+
 from pytorch_stable_diffusion_tpu.ops.pallas import flash_attention as jfa
 from pytorch_stable_diffusion_tpu_torch.core.dtypes import FP32
 from pytorch_stable_diffusion_tpu_torch.ops import attention

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 
 from pytorch_stable_diffusion_tpu import prompt_schedule as jax_schedule
+from pytorch_stable_diffusion_tpu.models import motion as jax_motion
 from pytorch_stable_diffusion_tpu.utils import annotators as jax_annotators
 from pytorch_stable_diffusion_tpu.weights import ckpt_reader as jax_ckpt_reader
 from pytorch_stable_diffusion_tpu.weights import tokenizer as jax_tokenizer
 from pytorch_stable_diffusion_tpu_torch import prompt_schedule as torch_schedule
+from pytorch_stable_diffusion_tpu_torch.models import motion as torch_motion
 from pytorch_stable_diffusion_tpu_torch.utils import annotators as torch_annotators
 from pytorch_stable_diffusion_tpu_torch.weights import ckpt_reader as torch_ckpt_reader
 from pytorch_stable_diffusion_tpu_torch.weights import tokenizer as torch_tokenizer
@@ -46,10 +48,11 @@ def test_port_imports_without_jax():
     assert len(names) >= 24  # every module of the slices was imported
     for mod in KERNEL_MODULES + ("ops.norm", "ops.tome", "models.unet", "pipeline", "api",
                                  "utils.annotators", "utils.image", "models.controlnet",
-                                 "models.t2i_adapter", "models.clip_vision") + tuple(
+                                 "models.t2i_adapter", "models.clip_vision", "models.motion",
+                                 "models.esrgan") + tuple(
             f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
                                      "textual_inversion", "hypernetwork", "merge", "stream",
-                                     "save", "ip_adapter")):
+                                     "save", "ip_adapter", "animatediff", "esrgan")):
         assert f"pytorch_stable_diffusion_tpu_torch.{mod}" in names, mod
 
 
@@ -300,3 +303,13 @@ def test_blur_copies_agree(kind, sigma):
     got = torch_annotators.blur(x, sigma=sigma)
     np.testing.assert_array_equal(got, jax_annotators.blur(x, sigma=sigma))
     assert got.shape == x.shape[:2] and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("length,channels", [(16, 320), (32, 640), (24, 1280), (3, 2)])
+def test_positional_encoding_copies_agree(length, channels):
+    """The motion modules' sinusoidal table, built in float64 and cast to
+    float32 by both copies: equal bit for bit."""
+    got = torch_motion.positional_encoding(length, channels)
+    want = jax_motion.positional_encoding(length, channels)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

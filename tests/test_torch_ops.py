@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from conftest import to_nchw
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
 
 from pytorch_stable_diffusion_tpu.ops import act as jact
 from pytorch_stable_diffusion_tpu.ops import attention as jattn

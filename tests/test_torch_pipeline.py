@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from conftest import psnr, to_nchw
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
 
 from pytorch_stable_diffusion_tpu import pipeline as jpipeline
 from pytorch_stable_diffusion_tpu.models import clip as jclip
@@ -316,8 +317,8 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"panorama": True}, "slice G"),
-    ({"n_frames": 8}, "slice G"),
+    ({"sequence_parallel": True}, "slice H"),
+    ({"progress": True}, "slice H"),
     ({"config": tiny_sd_config(quant="wide")}, "slice H"),
 ])
 def test_unported_features_raise(slice_setup, kwargs, where):

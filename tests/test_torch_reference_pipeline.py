@@ -10,24 +10,34 @@
   corrected default mode diverging where the reference's bugs live — the
   bars of tests/test_reference_goldens.py.
 
-Both were recorded with the same weights, rebuilt here as the JAX tests do
-(fullsize_utils -> the JAX package's ``deconvert``) and loaded through the
-port's CompVis converter.
+Both were recorded with the same weights, rebuilt here by the JAX
+package's initializers from fullsize_utils' key (run eagerly: jitted, as
+fullsize_utils runs them, the UNet's init alone compiles for ~110 s on a
+cold cache; eager values differ from the jitted ones by float32 rounding,
+within the goldens' weight fingerprints, rtol 1e-6), exported by the JAX
+package's ``deconvert`` and loaded through the port's CompVis converter.
+The forwards run on one torch thread (``one_torch_thread``): the parallel
+test workers share the cores.
 """
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import fullsize_utils
 from conftest import psnr
+from test_torch_guidance_modes import one_torch_thread  # noqa: F401
 
+from pytorch_stable_diffusion_tpu.models import clip as jclip
 from pytorch_stable_diffusion_tpu.models import config as jconfig
+from pytorch_stable_diffusion_tpu.models import unet as junet
+from pytorch_stable_diffusion_tpu.models import vae as jvae
 from pytorch_stable_diffusion_tpu.weights import convert as jconvert
 from pytorch_stable_diffusion_tpu_torch import pipeline
-from pytorch_stable_diffusion_tpu_torch.models import build_models
+from pytorch_stable_diffusion_tpu_torch.models import assemble
 from pytorch_stable_diffusion_tpu_torch.models.config import sd15_config
 from pytorch_stable_diffusion_tpu_torch.models.unet import timestep_embedding
 from pytorch_stable_diffusion_tpu_torch.weights import convert
@@ -52,16 +62,18 @@ def bits():
     g = dict(np.load(os.path.join(GOLDENS, "reference_pipeline.npz")).items())
     mods = dict(np.load(os.path.join(GOLDENS, "reference_fullsize.npz")).items())
     jcfg = jconfig.sd15_config(reference_quirks=True)
-    params = fullsize_utils.init_fullsize_params(jcfg)
+    key = jax.random.PRNGKey(fullsize_utils.GOLDEN_SEED)
+    params = {name: init(jax.random.fold_in(key, i), sub) for i, (name, init, sub) in enumerate(
+        (("clip", jclip.init, jcfg.clip), ("encoder", jvae.init_encoder, jcfg.vae),
+         ("decoder", jvae.init_decoder, jcfg.vae), ("diffusion", junet.init, jcfg.unet)))}
     sd = jconvert.deconvert(params, jcfg)
     for golden in (g, mods):
         for k, v in fullsize_utils.fingerprint(sd).items():
             np.testing.assert_allclose(v, golden[f"fp_{k}"], rtol=1e-6,
                                        err_msg=f"weight fingerprint drift at {k}")
     state = convert.convert(sd, sd15_config(reference_quirks=True))
-    del params, sd  # free the JAX weights before the port's copy is built
-    models = build_models(sd15_config(reference_quirks=True), device="cpu",
-                          state_dicts=state)
+    del params, sd  # free the JAX weights
+    models = assemble(sd15_config(reference_quirks=True), state)  # the converter's tensors
     del state
     tok = _TableTokenizer({PROMPT: g["cond_tokens"][0], "": g["uncond_tokens"][0]})
     return g, models, tok, mods
