@@ -332,6 +332,29 @@ Phases (any failure exits non-zero):
                 512² CFG UNet evaluation with a 77- and a 308-token context,
                 and one of CFG batch 8 (four prompts); each with the device
                 time of K2, K5 and of the K1/K4 template by head dim.
+  9. slice H2 — after the SDXL phases, SD-1.5 512² full width again (BF16,
+                kernel attention, conv_backend "kernel", seed 0), lines
+                ``H2 ...``: (a) a 20-step dpm++ Karras CFG 7.5 request
+                under each int8 tier, "none", "wide", "conv" and "w8",
+                through generate(): launches held to the plan (K1 equal
+                across the tiers, K5 none under a tier), each tier's image
+                PSNR against "none", and one evaluation of each profiled
+                (device time, ``aten::_int_mm``'s share, busy share, peak
+                memory); (b) ``int8_linear`` at (2, 256, 1280)·(1280,
+                1280) and (1, 9, 1280)·(1280, 1280) (M padded) and
+                ``int8_conv`` 3x3 at (2, 16², 1280 -> 1280) on the card and
+                on the CPU from the same seeded inputs: equal int8 values,
+                scales and int32 sums, outputs within fp32 rounding, and
+                ``_int_mm`` timed beside the bf16 product / cuDNN conv;
+                (c) ``python -m pytorch_stable_diffusion_tpu_torch --bf16
+                --steps 4`` in a subprocess on a full-width bf16 file the
+                port writes (``weights/save.py``) and tokenizer files the
+                phase writes: its PNG equals StableDiffusion.txt2img's
+                image, with the A1111 infotext; (d) a one-rank NCCL process
+                group on a loopback TCP store: ``generate_images_dp`` and
+                ``generate_images_tp`` over its 1x1 mesh equal the single
+                card's images bit for bit; (e) ``device_trace`` around a
+                2-step request writes a Chrome trace naming K1's kernel.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -1498,7 +1521,8 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     (only the blocks of :func:`transformer_blocks`'s ``shallow`` and those
     res blocks); the config's ToMe and Hypertile route each UNet
     self-attention by its sequence (:func:`self_attention_plan`), the
-    ControlNet's by the whole grid; ``tiling`` runs no K5.  Slice G:
+    ControlNet's by the whole grid; ``tiling`` runs no K5, nor does an
+    int8 tier (``cfg.quant``, slice H2).  Slice G:
     ``steps`` counts every UNet call, a frame window's or a panorama
     window's each; ``canvas``, the (height, width) of a panorama's VAE
     where ``height`` x ``width`` is its window.  One launch
@@ -1547,7 +1571,7 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                                 flash_only=flash_only), steps * layers)
             if not cfg_lanes:
                 add(k_self, -steps * layers)
-    if cfg.conv_backend in ("kernel", "kernel_fold") and not tiling:
+    if cfg.conv_backend in ("kernel", "kernel_fold") and not tiling and cfg.quant == "none":
         # both halves of every res block; a shallow pass's: level 0's and
         # the last decoder level's
         enc_blocks = sum(st["kind"] == "block" for st in unet.encoder_plan(u))
@@ -3697,6 +3721,249 @@ def phase_small_g(port, cpu, base):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ slice H2
+H2_TIERS = ("none", "wide", "conv", "w8")
+
+
+def profile_quant_eval(models, cfg, card):
+    """One UNet evaluation of SD-1.5 at 512², CFG batch 2, under ``cfg``'s
+    int8 tier, its weights quantized by the evaluation before (as inside a
+    request): wall time, device busy time and share under torch.profiler,
+    the device time under ``aten::_int_mm`` (cuBLASLt's int8 product) and
+    its share, and the peak device memory of the evaluation; -> (busy s,
+    _int_mm s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_stable_diffusion_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 4, 64, 64, device="cuda", generator=g).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    ctx = torch.randn(2, 77, 768, device="cuda", generator=g).to(torch.bfloat16)
+    t = torch.tensor(500.0, device="cuda")
+
+    def step():
+        return models["diffusion"](x, ctx, t, cfg.policy, attention_backend="kernel",
+                                   conv_backend=cfg.conv_backend, quant=cfg.quant)
+
+    with torch.inference_mode(), quant.weight_cache():
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0) / 1e6
+    int_mm = sum(e.device_time_total for e in rows if e.key == "aten::_int_mm") / 1e6
+    n_mm = sum(e.count for e in rows if e.key == "aten::_int_mm")
+    share = (f"busy share {busy / prof_wall:.3f}, _int_mm {int_mm * 1e3:.3f} ms in {n_mm} "
+             f"calls ({int_mm / busy:.3f} of the device time)") if busy > 0 \
+        else "device time not measured"
+    tier = f"conv_backend={cfg.conv_backend}" + (" (K5 off)" if cfg.quant != "none" else "")
+    print(f"H2 a eval quant={cfg.quant}: one UNet evaluation (512², batch 2, {tier}) "
+          f"{wall * 1e3:.2f} ms wall; profiled {prof_wall * 1e3:.2f} ms wall, "
+          f"{busy * 1e3:.2f} ms device busy, {share}; peak {peak:.2f} GiB  [{card}]",
+          flush=True)
+    return busy, int_mm
+
+
+def phase_h2_int8(card):
+    """(b): ``int8_linear`` and ``int8_conv`` on the card and on the CPU
+    from the same seeded inputs at the widest SD-1.5 shapes (and a product
+    of M <= 16, which ``int_mm`` pads): equal int8 values, scales and int32
+    accumulators, outputs within fp32 rounding; the card's ``_int_mm``
+    beside the bf16 product and cuDNN's bf16 conv."""
+    import torch.nn.functional as F
+
+    from pytorch_stable_diffusion_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(11)
+    cases = {"linear (2, 256, 1280)·(1280, 1280)": (torch.randn(2, 256, 1280, generator=g),
+                                                     torch.randn(1280, 1280, generator=g)),
+             "linear (1, 9, 1280)·(1280, 1280), M padded": (
+                 torch.randn(1, 9, 1280, generator=g), torch.randn(1280, 1280, generator=g)),
+             "conv 3x3 (2, 16², 1280 -> 1280)": (torch.randn(2, 1280, 16, 16, generator=g),
+                                                 torch.randn(1280, 1280, 3, 3, generator=g))}
+    bias = torch.randn(1280, generator=g)
+    for label, (x, w) in cases.items():
+        conv = w.dim() == 4
+        dims = tuple(range(x.dim()))
+        out, accs = {}, {}
+        for dev in ("cpu", "cuda"):
+            xd, wd, bd = x.to(dev), (w * 0.02).to(dev), bias.to(dev)
+            xq, xs = quant.quantize(xd, dims)
+            wq, ws = quant.quantize(wd, tuple(range(1, w.dim())))
+            accs[dev] = (xq.cpu(), xs.cpu(), wq.cpu(), ws.cpu(),
+                         (quant.conv_int32(xq, wq, w.shape[2:], padding=1) if conv
+                          else quant.int_mm(xq.reshape(-1, 1280), wq)).cpu())
+            out[dev] = (quant.int8_conv(xd, wd, padding=1, bias=bd) if conv
+                        else quant.int8_linear(xd, wd, bd)).cpu()
+        for name, a, b in zip(("x int8", "x scale", "w int8", "w scales", "int32 sums"),
+                              accs["cpu"], accs["cuda"]):
+            check(torch.equal(a, b), f"H2 b {label}: {name} differ between card and CPU")
+        err = float((out["cuda"] - out["cpu"]).abs().max())
+        top = float(out["cpu"].abs().max())
+        check(err <= 1e-6 * top, f"H2 b {label}: outputs differ by {err} (max |y| {top})")
+        xd, wd = x.cuda().to(torch.bfloat16), (w * 0.02).cuda().to(torch.bfloat16)
+        xq, _ = quant.quantize(xd, dims)
+        wq, _ = quant.quantize(wd, tuple(range(1, w.dim())))
+        if conv:
+            ms = cuda_ms(lambda: quant.conv_int32(xq, wq, (3, 3), padding=1), iters=50)
+            ref = cuda_ms(lambda: F.conv2d(xd.contiguous(memory_format=torch.channels_last),
+                                           wd.contiguous(memory_format=torch.channels_last),
+                                           padding=1), iters=50)
+            what = "im2col + _int_mm"
+        else:
+            a2, w2 = xq.reshape(-1, 1280), wq.reshape(1280, -1)
+            ms = cuda_ms(lambda: quant.int_mm(a2, w2), iters=50)
+            ref = cuda_ms(lambda: F.linear(xd, wd), iters=50)
+            what = "_int_mm"
+        print(f"H2 b {label}: int8 values, scales and int32 sums equal on the card and the "
+              f"CPU, outputs within {err:.2e} (max |y| {top:.1f}); {what} {ms:.4f} ms, the "
+              f"bf16 {'conv (cuDNN)' if conv else 'product'} {ref:.4f} ms  [{card}]",
+              flush=True)
+
+
+def phase_slice_h2(port, card, request, zero_counts, read_path):
+    """Slice H2 at SD-1.5 512² full width, BF16, kernel attention (the
+    module docstring's phase 9)."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from pytorch_stable_diffusion_tpu_torch.core import mesh as mesh_mod
+    from pytorch_stable_diffusion_tpu_torch.models import state_dicts
+    from pytorch_stable_diffusion_tpu_torch.parallel import dp, tp
+    from pytorch_stable_diffusion_tpu_torch.utils import metrics, profiling
+    from pytorch_stable_diffusion_tpu_torch.weights import save
+    from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import CLIPTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = port.sd15_config(policy=port.BF16, attention_backend="kernel",
+                           conv_backend="kernel")
+    models = port.build_models(cfg, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    tok = _tokenizer()
+    kw = dict(uncond_prompt="", cfg_scale=7.5, sampler_name="dpm++", timestep_spacing="karras",
+              n_inference_steps=20, seed=1337, height=512, width=512, models=models,
+              tokenizer=tok, device="cuda")
+
+    # (a) the tiers through generate(): launches, PSNR against "none", one
+    # evaluation's device time, _int_mm's share and the peak memory
+    images, k1 = {}, {}
+    for tier in H2_TIERS:
+        tcfg = dataclasses.replace(cfg, quant=tier)
+        zero_counts()
+        images[tier] = request(f"H2 a quant={tier}",
+                               lambda: port.generate(PROMPTS[0], config=tcfg, **kw),
+                               size=512, steps=20, n_images=1, config=tcfg)
+        counts = launch_counts()
+        read_path()
+        k1[tier] = counts["K1"]
+        if tier != "none":
+            check(counts["K5"] == 0, f"H2 a quant={tier}: K5 launched {counts['K5']} times")
+        else:
+            check(counts["K5"] == 20 * K5_PER_EVAL, f"H2 a none: K5 launched {counts['K5']}")
+    check(len(set(k1.values())) == 1, f"H2 a: K1 launches differ across the tiers: {k1}")
+    print("H2 a image PSNR against quant=none (same seed, 20-step dpm++ Karras): "
+          + ", ".join(f"{tier} {metrics.image_psnr(images[tier], images['none']):.2f} dB"
+                      for tier in H2_TIERS[1:])
+          + f"; K1 {k1['none']} launches in each, K5 0 under every tier  [{card}]", flush=True)
+    # "none" on the plain convs too: the tiers run the res blocks on them
+    for tier, convs in (("none", "plain"),) + tuple((t, "kernel") for t in H2_TIERS):
+        profile_quant_eval(models, dataclasses.replace(cfg, quant=tier, conv_backend=convs),
+                           card)
+
+    # (b) int8 on the card against the CPU
+    phase_h2_int8(card)
+
+    # (c) the CLI in a subprocess, on a full-width file the port writes
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_h2_")
+    d = tmp.name
+    vocab, merges = _tokenizer_files(tok, d)
+    ckpt, png = os.path.join(d, "sd15.safetensors"), os.path.join(d, "cli.png")
+    t0 = time.perf_counter()
+    save.save_safetensors(state_dicts(models), cfg, ckpt, dtype=torch.bfloat16)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "pytorch_stable_diffusion_tpu_torch",
+                          "--ckpt", ckpt, "--vocab", vocab, "--merges", merges,
+                          "--prompt", PROMPTS[0], "--bf16", "--steps", "4", "--seed", "1337",
+                          "--out", png], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_cli = time.perf_counter() - t0
+    check(cli.returncode == 0, f"H2 c: the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    cli_cfg = port.sd15_config(policy=port.BF16, attention_backend="kernel")
+    sd = port.StableDiffusion(models, CLIPTokenizer.from_files(vocab, merges, max_len=77),
+                              cli_cfg)
+    want = sd.txt2img(PROMPTS[0], seed=1337, n_inference_steps=4)
+    got = np.asarray(Image.open(png).convert("RGB"))
+    check(np.array_equal(got, want), "H2 c: the CLI's PNG differs from StableDiffusion.txt2img")
+    info = Image.open(png).text.get("parameters", "")
+    check(info.startswith(PROMPTS[0]) and "Steps: 4, Sampler: ddpm" in info,
+          f"H2 c: infotext {info!r}")
+    print(f"H2 c CLI: python -m pytorch_stable_diffusion_tpu_torch --bf16 --steps 4 on a "
+          f"{os.path.getsize(ckpt) / 2**30:.2f} GiB bf16 file (written in {t_save:.1f} s): "
+          f"{t_cli:.1f} s in the subprocess, PNG equal to StableDiffusion.txt2img, infotext "
+          f"{info.splitlines()[-1]!r}  [{card}]", flush=True)
+    os.remove(ckpt)
+
+    # (d) DP and TP at world size 1 over NCCL, against the single card
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port_no}",
+                                         rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh(data=1, model=1)
+        bkw = dict(kw, config=cfg, n_inference_steps=8)
+        del bkw["uncond_prompt"]
+        one = port.generate_images(PROMPTS[:2], **bkw)
+        zero_counts()
+        got_dp = dp.generate_images_dp(PROMPTS[:2], mesh=mesh, **bkw)
+        got_tp = tp.generate_images_tp(PROMPTS[:2], mesh=mesh, **bkw)
+        counts = launch_counts()
+        read_path()
+        check(np.array_equal(got_dp, one), "H2 d: generate_images_dp differs from one card")
+        check(np.array_equal(got_tp, one), "H2 d: generate_images_tp differs from one card")
+        print(f"H2 d NCCL world size 1 ({mesh.device_type} mesh 1x1): generate_images_dp and "
+              f"generate_images_tp of 2 prompts, 8 steps, equal the single card's images bit "
+              f"for bit; launches {counts}  [{card}]", flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (e) device_trace names K1's kernel
+    zero_counts()
+    with profiling.device_trace(os.path.join(d, "trace")) as prof:
+        with profiling.phase("h2 request"):
+            port.generate(PROMPTS[0], config=cfg, **dict(kw, n_inference_steps=2))
+    counts = launch_counts()
+    read_path()
+    (trace,) = os.listdir(os.path.join(d, "trace"))
+    with open(os.path.join(d, "trace", trace)) as f:
+        text = f.read()
+    names = {e.key for e in prof.key_averages()}
+    check(counts["K1"] > 0 and "attention_tc_kernel" in text and "h2 request" in text,
+          f"H2 e: the trace does not name K1's kernel (K1 launches {counts['K1']})")
+    print(f"H2 e device_trace: {len(text) / 2**20:.1f} MiB Chrome trace, {len(names)} event "
+          f"names, K1's attention_tc_kernel and the 'h2 request' range in it; K1 launched "
+          f"{counts['K1']} times  [{card}]", flush=True)
+    tmp.cleanup()
+    print(f"H2: {time.perf_counter() - t_phase:.1f} s in all  [{card}]", flush=True)
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -3811,7 +4078,7 @@ def main():
         # (C2_PER_EVAL); else SD-1.5's (K5_PER_EVAL, K2_PER_EVAL)
         stated = per_eval or {"K5": K5_PER_EVAL, "K2": K2_PER_EVAL}
         k5_stated = stated["K5"] * steps \
-            if config.conv_backend in ("kernel", "kernel_fold") else 0
+            if config.conv_backend in ("kernel", "kernel_fold") and config.quant == "none" else 0
         check(want["K5"] == k5_stated, f"{name}: derived {want['K5']} K5 launches, "
                                        f"PERF.md states {k5_stated}")
         k2_stated = stated["K2"] * steps if context >= 256 else 0
@@ -4002,6 +4269,10 @@ def main():
     # slice F on SDXL: PAG, FreeU and Hypertile at 1024²
     phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path)
     del xl
+    free_host()
+    torch.cuda.empty_cache()
+    # slice H2: the int8 tiers, DP/TP over NCCL, the CLI and device_trace
+    phase_slice_h2(port, card, request, zero_counts, read_path)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")

@@ -16,7 +16,11 @@ two-pass hires fix; it takes ControlNets, T2I-Adapters, IP-Adapters and
 reference images, and the guidance and approximate modes (guidance
 rescale, dynamic thresholding, PAG, SAG, composable and regional prompts,
 variation seeds, DeepCache, Hypertile, ToMe, FreeU, seamless tiling,
-``fast_preset``), behind the ``StableDiffusion`` object of ``api.py``.  Module paths mirror the JAX
+``fast_preset``), behind the ``StableDiffusion`` object of ``api.py`` and
+the command line (``python -m pytorch_stable_diffusion_tpu_torch``); the
+UNet's int8 tiers (``UNetConfig.quant``: "wide", "conv", "w8";
+``ops/quant.py``) and data and tensor parallelism over ``torch.distributed``
+(``core/mesh.py``, ``parallel/``; one process a card under ``torchrun``).  Module paths mirror the JAX
 package (``core/``, ``ops/``, ``models/``, ``sampling/``, ``weights/``,
 ``pipeline.py``, ``api.py``); the TPU's Pallas kernels are hand-written
 CUDA kernels in ``csrc/``: K1 ``flash_attention_bsc.cu``, K2

@@ -9,8 +9,13 @@ slice E's ``with_controlnet``, ``with_t2i_adapter`` and
 ``with_ip_adapter``, AnimateDiff's ``with_motion`` and the ESRGAN's
 ``with_upscaler``) return new bundles and leave the original as it was;
 their models share every parameter the transform leaves unchanged.
-``mesh=`` (slice H2) raises ``NotImplementedError`` naming its slice
-(ROADMAP.md §1).  The workloads: ``animate`` (AnimateDiff clips, frame
+``mesh=`` (slice H2, ``core/mesh.py``; one process a rank, every rank
+making the same calls): where the mesh's model axis is > 1 each request
+runs on the models sharded over it (``parallel/tp.shard_models``), else
+on the models themselves, checked equal across the data ranks
+(``parallel/dp.replicate_params``); the batch is split over the data axis.
+The bundle keeps the whole models, which the ``with_*`` methods
+transform.  The workloads: ``animate`` (AnimateDiff clips, frame
 windows past the modules' trained length), ``upscale`` (ESRGAN, whole or
 tiled), ``hires_fix(upscale_method="esrgan")`` and ``sd_upscale`` (A1111's
 tiled img2img upscale); panoramas are ``txt2img(panorama=True, ...)``.
@@ -32,11 +37,6 @@ from .models import assemble
 from .models.config import SDConfig, fast_preset, sd15_config  # noqa: F401 (exported)
 from .weights.convert import load_sd_checkpoint
 from .weights.tokenizer import CLIPTokenizer
-
-
-def _unported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with {where} "
-                              f"(ROADMAP.md §1)")
 
 
 def _to_rgb_float(image) -> np.ndarray:
@@ -105,8 +105,6 @@ class StableDiffusion:
 
     def __init__(self, models, tokenizer, config: Optional[SDConfig] = None,
                  mesh=None, *, device=None):
-        if mesh is not None:
-            _unported("StableDiffusion(mesh=...)", "slice H2")
         self.device = _device(device)
         self.config = config or sd15_config()
         for m in models.values():
@@ -117,6 +115,25 @@ class StableDiffusion:
         self._hyper = None
         self._motion_max = None  # the motion modules' trained frame window
         self._upscaler = None  # the ESRGAN net of with_upscaler
+        self.mesh = mesh
+        self._place()
+
+    def _place(self):
+        """The models a request runs on: sharded over the mesh's model axis
+        (TP), or the bundle's own, checked equal across the data ranks."""
+        self._placed = self.models
+        if self.mesh is None:
+            return
+        from .core.mesh import MODEL_AXIS, axis_size
+
+        if axis_size(self.mesh, MODEL_AXIS) > 1:
+            from .parallel.tp import shard_models
+
+            self._placed = shard_models(self.models, self.mesh)
+        else:
+            from .parallel.dp import replicate_params
+
+            replicate_params(self.models, self.mesh)
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, vocab_path: str, merges_path: str,
@@ -125,8 +142,6 @@ class StableDiffusion:
         """A CompVis checkpoint file (``.safetensors`` or ``.ckpt``) and the
         CLIP tokenizer's files.  ``loras``: adapters merged into the weights
         once loaded — each entry a path, or a ``(path, scale)`` pair."""
-        if mesh is not None:
-            _unported("StableDiffusion.from_checkpoint(mesh=...)", "slice H2")
         config = config or sd15_config()
         dev = _device(device)
         models = _as_models(config, dev, load_sd_checkpoint(ckpt_path, config))
@@ -138,7 +153,7 @@ class StableDiffusion:
             models = lora_mod.apply_loras(models, config, pairs)
         tokenizer = CLIPTokenizer.from_files(vocab_path, merges_path,
                                              max_len=config.clip.max_len)
-        return cls(models, tokenizer, config, device=dev)
+        return cls(models, tokenizer, config, mesh, device=dev)
 
     # ------------------------------------------------------- with_* methods
     def _clone(self, *, models=None, tokenizer=None, config=None):
@@ -153,6 +168,8 @@ class StableDiffusion:
         out._hyper = self._hyper
         out._motion_max = self._motion_max
         out._upscaler = self._upscaler
+        out.mesh = self.mesh
+        out._place()
         return out
 
     def with_lora(self, lora, scale: float = 1.0, *, strict: bool = True):
@@ -231,8 +248,10 @@ class StableDiffusion:
 
     # ---------------------------------------------------------- generation
     def _kw(self, kwargs):
-        kwargs.setdefault("models", self.models)
+        kwargs.setdefault("models", self._placed)
         kwargs.setdefault("tokenizer", self.tokenizer)
+        if self.mesh is not None:
+            kwargs.setdefault("mesh", self.mesh)
         kwargs.setdefault("config", self.config)
         kwargs.setdefault("device", self.device)
         if self._hyper is not None:

@@ -58,25 +58,28 @@ def generator(seed: int, name: str, index: int = 0,
 
 
 def batch_normal(seed: int, name: str, batch: int, shape: Sequence[int],
-                 step: Optional[int] = None) -> torch.Tensor:
-    """(batch, *shape) float32 standard normal on the CPU; sample i draws
-    the same values whatever the batch size."""
+                 step: Optional[int] = None, first: int = 0) -> torch.Tensor:
+    """(batch, *shape) float32 standard normal on the CPU, samples
+    ``first``..``first + batch - 1``; sample i draws the same values
+    whatever the batch size, and whichever rank of a data axis draws it
+    (``first``: the rank's first sample)."""
     return torch.stack([
         torch.randn(tuple(shape), generator=generator(seed, name, i, step),
                     dtype=torch.float32)
-        for i in range(batch)])
+        for i in range(first, first + batch)])
 
 
 def step_normals(seed: int, name: str, n: int, batch: int,
-                 shape: Sequence[int]) -> torch.Tensor:
+                 shape: Sequence[int], first: int = 0) -> torch.Tensor:
     """(n, batch, *shape): one ``batch_normal`` draw of stream ``name`` per
     step, op, segment or iteration 0..n-1."""
-    return torch.stack([batch_normal(seed, name, batch, shape, step=i)
+    return torch.stack([batch_normal(seed, name, batch, shape, step=i, first=first)
                         for i in range(n)])
 
 
-def variation_normal(variation_seed: int, batch: int, shape: Sequence[int]) -> torch.Tensor:
+def variation_normal(variation_seed: int, batch: int, shape: Sequence[int],
+                     first: int = 0) -> torch.Tensor:
     """(batch, *shape): the initial noise of ``variation_seed``, its
     'latent_init' stream, which ``pipeline.slerp_noise`` blends into the
     request's own."""
-    return batch_normal(variation_seed, "latent_init", batch, shape)
+    return batch_normal(variation_seed, "latent_init", batch, shape, first=first)

@@ -9,9 +9,9 @@ stacked transformer depth, pooled and size conditioning) and the SDXL
 refiner (:func:`sdxl_refiner_config`), txt2img/img2img up to 2048², with
 CLIP skip (:func:`with_clip_skip`), and slice F's approximate modes
 (:func:`with_tome`, :func:`with_hypertile`, :func:`with_freeu`,
-:func:`fast_preset`); :func:`check_ported` refuses every field value that
-names a feature a later slice brings (ROADMAP.md §1), instead of ignoring
-it.
+:func:`fast_preset`), and the UNet's int8 tiers (``quant``, slice H2);
+:func:`check_ported` refuses, with ``ValueError``, every field value the
+JAX package does not know either, instead of ignoring it.
 
 Attention backends are named for what runs: ``"plain"`` is the
 materialized-scores path (the JAX package's ``"xla"``) and ``"kernel"``
@@ -33,7 +33,7 @@ from ..core.dtypes import FP32, Policy
 ATTENTION_BACKENDS = ("plain", "kernel")
 CONV_BACKENDS = ("plain", "kernel", "fold", "kernel_fold")
 #: the JAX package's quantization tiers (its ``generate()`` refuses any
-#: other with ValueError); only "none" is ported, the rest come with slice H
+#: other with ValueError), all ported (``ops/quant.py``)
 QUANT_TIERS = ("none", "wide", "conv", "w8")
 
 
@@ -420,11 +420,6 @@ def fast_preset(cfg: SDConfig):
     PERF.md has the H100's)."""
     return with_hypertile(cfg, 32), {"deepcache": 3}
 
-def _refuse(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it comes with {where} (ROADMAP.md §1)")
-
-
 def _check_tower(c: CLIPConfig, name: str) -> None:
     if c.hidden_act not in ("quick_gelu", "gelu"):
         raise ValueError(f"{name}.hidden_act must be 'quick_gelu' or 'gelu', got "
@@ -434,9 +429,8 @@ def _check_tower(c: CLIPConfig, name: str) -> None:
 
 
 def check_ported(cfg: SDConfig) -> None:
-    """Raise ``NotImplementedError`` for any field value this slice does not
-    run, naming the slice of ROADMAP.md §1 that brings it, and ``ValueError``
-    for a value the JAX package does not know either."""
+    """Raise ``ValueError`` for a field value the JAX package does not know
+    either (every field value it knows is ported)."""
     if cfg.attention_backend not in ATTENTION_BACKENDS:
         raise ValueError(f"attention_backend must be one of "
                          f"{ATTENTION_BACKENDS}, got {cfg.attention_backend!r}")
@@ -455,8 +449,6 @@ def check_ported(cfg: SDConfig) -> None:
     _check_tower(cfg.clip, "clip")
     if cfg.clip2 is not None:
         _check_tower(cfg.clip2, "clip2")
-    if cfg.quant != "none":
-        _refuse(f"quant={cfg.quant!r}", "slice H")
 
 
 def model_names(cfg: SDConfig) -> Tuple[str, ...]:

@@ -36,6 +36,15 @@
   config), FreeU at the two deepest decoder levels, DeepCache's full and
   shallow passes (:func:`deepcache_shape`), and seamless tiling (every conv
   wraps; K5, which pads with zeros, is off the path).
+* Slice H2: ``quant``, the int8 tiers (``ops/quant.py``), reaches the
+  res blocks' convs and shortcut, the downsample and upsample convs, and
+  every projection of the transformer blocks, as in the JAX ``unet.apply``:
+  not ``conv_in``, ``conv_out``, the time MLPs, ``time_proj`` or the
+  motion modules.  The transformer blocks' 1x1 ``proj_in``/``proj_out``
+  take w8a8 only (the JAX ``_proj1x1`` has no w8 branch).  Under any tier
+  the res blocks run "kernel" as "plain" and "kernel_fold" as "fold": K5
+  never launches, as the JAX package gates its Pallas conv on
+  ``quant == "none"``.
 * Slice G: AnimateDiff's motion modules (``models/motion.py``), passed per
   call as ``motion=`` with the ``frames`` of a lane group: each runs after
   its encoder or decoder stage's (res + attn) pair, before the skip is
@@ -174,13 +183,14 @@ class ResBlock(nn.Module):
         self.shortcut = conv.Conv(c_in, c_out, 1, **kw) if c_in != c_out else None
 
     def forward(self, x, t_emb, groups: int, policy: Policy,
-                conv_backend: str = "plain"):
+                conv_backend: str = "plain", quant: str = "none"):
         """x: (B, C, H, W); t_emb: (B, t_dim) or (1, t_dim).  Under seamless
         tiling (``conv.circular_padding_active``) "kernel" runs as "plain"
         and "kernel_fold" as "fold": K5 pads with zeros, as the JAX
         package's Pallas conv does, which the JAX package takes off the
-        path there too."""
-        if conv.circular_padding_active():
+        path there too; and so under an int8 tier (``quant``), whose convs
+        K5 does not run."""
+        if conv.circular_padding_active() or quant != "none":
             conv_backend = {"kernel": "plain", "kernel_fold": "fold"}.get(conv_backend,
                                                                           conv_backend)
         t = linear.apply(self.time_proj, silu(t_emb), policy)
@@ -190,26 +200,33 @@ class ResBlock(nn.Module):
             h = gn_silu_conv3x3(self.norm2, self.conv2, h, groups, temb=t)
         elif conv_backend == "fold":
             h = norm.group_norm_silu_folded(self.norm1, x, groups, policy=policy)
-            h = conv.apply(self.conv1, h, padding=1, policy=policy)
+            h = conv.apply(self.conv1, h, padding=1, policy=policy, quant=quant)
             t = t.expand(x.shape[0], -1)
             h = norm.group_norm_silu_folded(self.norm2, h, groups, policy=policy,
                                             temb=t)
-            h = conv.apply(self.conv2, h, padding=1, policy=policy)
+            h = conv.apply(self.conv2, h, padding=1, policy=policy, quant=quant)
         else:
             h = norm.group_norm_silu(self.norm1, x, groups, policy=policy)
-            h = conv.apply(self.conv1, h, padding=1, policy=policy)
+            h = conv.apply(self.conv1, h, padding=1, policy=policy, quant=quant)
             h = h + t[:, :, None, None].to(h.dtype)
             h = norm.group_norm_silu(self.norm2, h, groups, policy=policy)
-            h = conv.apply(self.conv2, h, padding=1, policy=policy)
+            h = conv.apply(self.conv2, h, padding=1, policy=policy, quant=quant)
         res = x if self.shortcut is None else conv.apply(self.shortcut, x,
-                                                         policy=policy)
+                                                         policy=policy, quant=quant)
         return h + res
 
 
 # ----------------------------------------------------------- transformer block
-def _proj1x1(p: conv.Conv, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+def _proj1x1(p: conv.Conv, x: torch.Tensor, policy: Policy,
+             quant: str = "none") -> torch.Tensor:
     """A 1x1-conv parameter applied as a matmul over the channels of
-    (B, S, C) tokens — the same math as the conv."""
+    (B, S, C) tokens — the same math as the conv.  w8a8 where the
+    contraction is wide; no w8 branch, as in the JAX package."""
+    if quant != "none":
+        from ..ops import quant as quant_mod
+
+        if quant_mod.matmul_wants_int8(quant, p.weight.shape[1]):
+            return quant_mod.int8_linear(x, p.weight, p.bias).to(policy.compute_dtype)
     w = p.weight[:, :, 0, 0].to(policy.compute_dtype)
     b = None if p.bias is None else p.bias.to(policy.compute_dtype)
     return torch.nn.functional.linear(x.to(policy.compute_dtype), w, b)
@@ -310,7 +327,8 @@ class AttnBlock(nn.Module):
                 backend: str = "plain", reference_quirks: bool = False,
                 fuse_qkv: bool = True, fold_norms: bool = False, ip=None,
                 ref=None, ref_key: Optional[str] = None, pag_self_attn: bool = False,
-                return_self_probs: bool = False, tome=None, hypertile=None):
+                return_self_probs: bool = False, tome=None, hypertile=None,
+                quant: str = "none"):
         """``fold_norms``: the GroupNorm and the LayerNorms apply their
         normalize as compute-dtype affines (``conv_backend`` "fold" and
         "kernel_fold").  ``ip``: ``(layers, tokens, scale)``, one IP-Adapter
@@ -344,30 +362,31 @@ class AttnBlock(nn.Module):
             gn = norm.group_norm(self.norm, x, groups, policy=policy)
             ln = norm.layer_norm
         y0 = tokens(x)
-        y = _proj1x1(self.conv_in, tokens(gn), policy)
+        y = _proj1x1(self.conv_in, tokens(gn), policy, quant)
         for li, lp in enumerate(self.layers()):
             t = ln(lp.ln1, y, policy=policy)
 
             def self_attention():
                 return attention.apply(lp.self_attn, t, n_heads=n_heads, backend=backend,
-                                       policy=policy, fuse=fuse_qkv)
+                                       policy=policy, fuse=fuse_qkv, quant=quant)
 
             if pag_self_attn:
-                y = y + attention.apply_identity(lp.self_attn, t, policy=policy)
+                y = y + attention.apply_identity(lp.self_attn, t, policy=policy, quant=quant)
             elif return_self_probs and li == 0:
                 a, self_probs = attention.apply(lp.self_attn, t, n_heads=n_heads,
                                                 backend=backend, policy=policy,
-                                                fuse=fuse_qkv, return_probs=True)
+                                                fuse=fuse_qkv, return_probs=True,
+                                                quant=quant)
                 y = y + a
             elif tome_plan is not None:
                 tm, t_info = tome_mod.merge(t, *tome_plan)
                 a = attention.apply(lp.self_attn, tm, n_heads=n_heads, backend=backend,
-                                    policy=policy, fuse=fuse_qkv)
+                                    policy=policy, fuse=fuse_qkv, quant=quant)
                 y = y + tome_mod.unmerge(a, t_info)
             elif ref is None and ht_plan is not None:
                 a = attention.apply(lp.self_attn, hypertile_fold(t, h, w, *ht_plan),
                                     n_heads=n_heads, backend=backend, policy=policy,
-                                    fuse=fuse_qkv)
+                                    fuse=fuse_qkv, quant=quant)
                 y = y + hypertile_unfold(a, h, w, *ht_plan)
             elif ref is None:
                 y = y + self_attention()
@@ -378,7 +397,8 @@ class AttnBlock(nn.Module):
                 _, bank, fidelity, plain_mask = ref
                 t_kv = torch.cat([t, bank[f"{ref_key}_{li}"].to(t.dtype)], dim=1)
                 a_ref = attention.apply(lp.self_attn, t, t_kv, n_heads=n_heads,
-                                        backend=backend, policy=policy, fuse=False)
+                                        backend=backend, policy=policy, fuse=False,
+                                        quant=quant)
                 if plain_mask is not None:
                     mix = (fidelity * plain_mask)[:, None, None].to(a_ref.dtype)
                     a_ref = self_attention() * mix + a_ref * (1.0 - mix)
@@ -386,11 +406,12 @@ class AttnBlock(nn.Module):
             t = ln(lp.ln2, y, policy=policy)
             y = y + attention.apply(lp.cross_attn, t, context, n_heads=n_heads,
                                     backend=backend, policy=policy, fuse=fuse_qkv,
-                                    ip=None if ip is None else (ip[0][li], ip[1], ip[2]))
+                                    ip=None if ip is None else (ip[0][li], ip[1], ip[2]),
+                                    quant=quant)
             t = ln(lp.ln3, y, policy=policy)
-            t = geglu(linear.apply(lp.geglu_proj, t, policy), reference_quirks)
-            y = y + linear.apply(lp.geglu_out, t, policy)
-        y = _proj1x1(self.conv_out, y, policy) + y0
+            t = geglu(linear.apply(lp.geglu_proj, t, policy, quant), reference_quirks)
+            y = y + linear.apply(lp.geglu_out, t, policy, quant)
+        y = _proj1x1(self.conv_out, y, policy, quant) + y0
         out = y.reshape(n, h, w, c).permute(0, 3, 1, 2)
         return (out, self_probs) if return_self_probs else out
 
@@ -532,7 +553,7 @@ class UNet(nn.Module):
                 ip=None, ref=None, ref_adain=None, head: bool = True, pag: bool = False,
                 return_mid_attn: bool = False, return_cache: bool = False, cache=None,
                 modes: Optional[UNetConfig] = None, motion=None,
-                frames: Optional[int] = None):
+                frames: Optional[int] = None, quant: str = "none"):
         """latents: (B, in_ch, h, w) (in_ch 9 for inpainting, 8 for
         InstructPix2Pix: plain convs, never K5); context: (B, S, d_context),
         or a hypernetwork's ``(ctx_k, ctx_v)`` pair of such tensors; t:
@@ -555,7 +576,8 @@ class UNet(nn.Module):
         conv_out and returns None (a reference capture pass).  ``motion``,
         AnimateDiff's modules by site (``enc_{i}``, ``dec_{i}``, ``mid``;
         an ``nn.ModuleDict`` of :class:`~.motion.MotionModule`), over lane
-        groups of ``frames`` lanes, the frame index fastest.
+        groups of ``frames`` lanes, the frame index fastest.  ``quant``: the
+        int8 tier (module docstring).
 
         Slice F: ``pag`` runs PAG's perturbed pass (the mid block's
         self-attention layers take the identity map); ``return_mid_attn``
@@ -582,13 +604,13 @@ class UNet(nn.Module):
         fold_norms = conv_backend in ("fold", "kernel_fold")
 
         def block(res, attn, x, key, **mid):
-            x = res(x, t_emb, cfg.groups, policy, conv_backend)
+            x = res(x, t_emb, cfg.groups, policy, conv_backend, quant)
             if attn is not None:
                 x = attn(x, context, cfg.heads_for(x.shape[1]), cfg.groups, policy,
                          backend=attention_backend, reference_quirks=reference_quirks,
                          fuse_qkv=fuse_qkv, fold_norms=fold_norms, ip=ip_for(key, attn),
                          ref=ref, ref_key=key, tome=modes.tome, hypertile=modes.hypertile,
-                         **mid)
+                         quant=quant, **mid)
             # the bottleneck's motion module runs after SAG's unpack, below
             return x if mid else temporal(x, key)
 
@@ -629,7 +651,8 @@ class UNet(nn.Module):
             for i, stage in enumerate(self.encoder):
                 if stage.down is not None:
                     # stride-2 symmetric pad 1 (differs from the VAE's pad)
-                    x = conv.apply(stage.down, x, stride=2, padding=1, policy=policy)
+                    x = conv.apply(stage.down, x, stride=2, padding=1, policy=policy,
+                                   quant=quant)
                 else:
                     x = adain_site(block(stage.res, stage.attn, x, f"enc_{i}"), f"enc_{i}")
                     if adapter is not None and i in ad_pre:
@@ -646,7 +669,7 @@ class UNet(nn.Module):
             if return_mid_attn:
                 x, mid_probs = x
             x = adain_site(mid.res2(temporal(x, "mid"), t_emb, cfg.groups, policy,
-                                    conv_backend), "mid")
+                                    conv_backend, quant), "mid")
             if adapter is not None and ad_mid is not None:
                 # full_adapter_xl's extra feature, before the ControlNet's
                 x = x + adapter[ad_mid].to(x.dtype)
@@ -687,7 +710,7 @@ class UNet(nn.Module):
             x = adain_site(x, f"dec_{si}")
             if stage.upsample is not None:
                 x = conv.apply(stage.upsample, upsample_nearest_2x(x), padding=1,
-                               policy=policy)
+                               policy=policy, quant=quant)
         if not head:
             return None
         x = norm.group_norm_silu(self.norm_out, x, cfg.groups, policy=policy)

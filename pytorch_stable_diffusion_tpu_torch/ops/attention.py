@@ -41,6 +41,19 @@ cross path over 2·S KV tokens: K2 at 512² and SDXL 1024² (KV 8192, 2048,
 materialized scores at the 64-token mid block (KV 128).  The IP-Adapter's
 decoupled attention (``ip``) is always materialized: its KV is 4 or 16
 image tokens.
+
+``quant`` (the UNet's int8 tiers, ``ops/quant.py``) reaches every
+projection through ``linear.apply``, except the fused ones
+(:func:`_fused_proj`), which take w8a8 only: the JAX package's
+``_fused_proj`` has no w8 branch, so under "w8" the fused q/k/v (and the
+fused k/v of cross-attention) stay exact, as there.
+
+Under tensor parallelism (``parallel/tp.py`` sets the module's
+``tp_group``) q, k and v hold the rank's heads (column-parallel) and
+``out`` its input slice (row-parallel, summed over the group): the
+attention runs at the local head count, the IP-Adapter's replicated k/v
+projections are sliced to the local heads' columns, and SAG's map is
+gathered over the heads.
 """
 
 from __future__ import annotations
@@ -109,10 +122,17 @@ def materialized_attention(q, k, v, causal: bool, policy: Policy,
     return (out, probs) if return_probs else out
 
 
-def _fused_proj(parts, x: torch.Tensor, policy: Policy):
+def _fused_proj(parts, x: torch.Tensor, policy: Policy, quant: str = "none"):
     """Several same-input linears as ONE matmul (weights concatenated on the
     out dim, in the given order), then split.  The split parts are views
-    whose rows are ``len(parts) * C`` apart."""
+    whose rows are ``len(parts) * C`` apart.  w8a8 where the contraction is
+    wide; no w8 branch, as in the JAX package."""
+    if quant != "none":
+        from . import quant as quant_mod
+
+        if quant_mod.matmul_wants_int8(quant, parts[0].weight.shape[1]):
+            y = quant_mod.int8_linear(x, *quant_mod.fused(parts)).to(policy.compute_dtype)
+            return y.split(parts[0].weight.shape[0], dim=-1)
     w = torch.cat([p.weight for p in parts], 0).to(policy.compute_dtype)
     b = None if parts[0].bias is None else \
         torch.cat([p.bias for p in parts]).to(policy.compute_dtype)
@@ -160,18 +180,20 @@ def route(kv_len: int, head_dim: int, *, causal: bool, cross: bool,
     return "multipass" if takes("multipass") else "plain"
 
 
-def apply_identity(p: Attention, x: torch.Tensor, *, policy: Policy = FP32) -> torch.Tensor:
+def apply_identity(p: Attention, x: torch.Tensor, *, policy: Policy = FP32,
+                   quant: str = "none") -> torch.Tensor:
     """Self-attention with the identity as its attention map: every token
     attends only to itself, so the output is ``out(v(x))``, without q, k,
     scores or softmax.  The perturbed branch of Perturbed-Attention
     Guidance (Ahn et al. 2024; diffusers' ``PAGIdentitySelfAttnProcessor``);
     port of the JAX package's ``apply_identity``."""
-    return linear.apply(p.out, linear.apply(p.v, x, policy), policy)
+    return linear.apply(p.out, linear.apply(p.v, x, policy, quant), policy, quant)
 
 
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
           *, n_heads: int, causal: bool = False, backend: str = "plain",
-          policy: Policy = FP32, fuse: bool = True, ip=None, return_probs: bool = False):
+          policy: Policy = FP32, fuse: bool = True, ip=None, return_probs: bool = False,
+          quant: str = "none"):
     """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention, or a
     ``(ctx_k, ctx_v)`` pair of such tensors (a hypernetwork's, as the JAX
     package takes it), k projected from ``ctx_k`` and v from ``ctx_v``.
@@ -186,28 +208,38 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
     scores whatever the backend, as the JAX package's ``_xla_attention``,
     -> (output, probabilities (B, H, S, S_kv) in ``policy.softmax_dtype``);
     :func:`route` never sees such a call."""
+    tp = getattr(p, "tp_group", None)
+    if tp is not None:  # the rank's heads
+        n_heads //= torch.distributed.get_world_size(tp)
     if context is None:
         if fuse:
-            q, k, v = _fused_proj((p.q, p.k, p.v), x, policy)
+            q, k, v = _fused_proj((p.q, p.k, p.v), x, policy, quant)
         else:
-            q, k, v = (linear.apply(m, x, policy) for m in (p.q, p.k, p.v))
+            q, k, v = (linear.apply(m, x, policy, quant) for m in (p.q, p.k, p.v))
     else:
         # a hypernetwork gives k and v contexts of their own (a pair)
         ctx_k, ctx_v = context if isinstance(context, tuple) else (context, context)
-        q = linear.apply(p.q, x, policy)
-        if fuse:
+        q = linear.apply(p.q, x, policy, quant)
+        if fuse and (ctx_v is ctx_k or quant != "w8"):
             # each context through the one fused k/v matmul of the
             # single-context path, k kept from ctx_k's, v from ctx_v's: a
             # pair of equal contexts gives that path's k and v bit for bit
-            k, v = _fused_proj((p.k, p.v), ctx_k, policy)
+            k, v = _fused_proj((p.k, p.v), ctx_k, policy, quant)
             if ctx_v is not ctx_k:
-                v = _fused_proj((p.k, p.v), ctx_v, policy)[1]
+                v = _fused_proj((p.k, p.v), ctx_v, policy, quant)[1]
         else:
-            k, v = linear.apply(p.k, ctx_k, policy), linear.apply(p.v, ctx_v, policy)
+            # the JAX package's unfused path (w8 reaches it with a pair)
+            k, v = linear.apply(p.k, ctx_k, policy, quant), linear.apply(p.v, ctx_v, policy,
+                                                                        quant)
     if return_probs:
         out, probs = materialized_attention(*(_split_heads(t, n_heads) for t in (q, k, v)),
                                             causal, policy, return_probs=True)
-        return linear.apply(p.out, _merge_heads(out), policy), probs
+        if tp is not None:  # every head's map, in rank order
+            parts = [torch.empty_like(probs)
+                     for _ in range(torch.distributed.get_world_size(tp))]
+            torch.distributed.all_gather(parts, probs.contiguous(), group=tp)
+            probs = torch.cat(parts, dim=1)
+        return linear.apply(p.out, _merge_heads(out), policy, quant), probs
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
                  cross=context is not None, backend=backend, cuda=q.is_cuda)
     if path == "bsc":
@@ -225,8 +257,11 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
         out = _merge_heads(out)
     if ip is not None:
         layer, tokens, scale = ip
-        k_ip, v_ip = (_split_heads(linear.apply(m, tokens, policy), n_heads)
-                      for m in (layer.k, layer.v))
+        k_ip, v_ip = (linear.apply(m, tokens, policy, quant) for m in (layer.k, layer.v))
+        if tp is not None:  # the local heads' columns of the replicated k/v
+            d, r = q.shape[-1], torch.distributed.get_rank(tp)
+            k_ip, v_ip = k_ip[..., r * d:(r + 1) * d], v_ip[..., r * d:(r + 1) * d]
+        k_ip, v_ip = _split_heads(k_ip, n_heads), _split_heads(v_ip, n_heads)
         out_ip = materialized_attention(_split_heads(q, n_heads), k_ip, v_ip, False, policy)
         out = out + scale.to(out.dtype) * _merge_heads(out_ip)
-    return linear.apply(p.out, out, policy)
+    return linear.apply(p.out, out, policy, quant)

@@ -18,6 +18,11 @@ VALID, so that the image tiles without a seam.  The mode is per request:
 zeros, so ``models/unet.ResBlock`` takes a plain-conv tier under it
 (:func:`circular_padding_active`), as the JAX package takes its Pallas conv
 off the path.
+
+``quant`` (the UNet's int8 tiers, ``ops/quant.py``), as the JAX package
+dispatches it: "w8" runs every conv weight-only int8, "wide" and "conv"
+run dynamic w8a8 where ``quant.conv_wants_int8`` says (every 3x3 conv
+under "conv").
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ class Conv(nn.Module):
 
 
 def apply(p: Conv, x: torch.Tensor, stride: int = 1, padding: PadT = 0,
-          policy: Policy = FP32) -> torch.Tensor:
+          policy: Policy = FP32, quant: str = "none") -> torch.Tensor:
     """x: (N, C_in, H, W) -> (N, C_out, H', W')."""
     x = x.to(policy.compute_dtype)
     if _CIRCULAR.get() and padding not in (0, ((0, 0), (0, 0))):
@@ -97,6 +102,16 @@ def apply(p: Conv, x: torch.Tensor, stride: int = 1, padding: PadT = 0,
         (top, bottom), (left, right) = padding
         x = F.pad(x, (left, right, top, bottom))
         padding = 0
+    if quant != "none":
+        from . import quant as quant_mod
+
+        cd = policy.compute_dtype
+        if quant == "w8":  # weight-only: every conv
+            return quant_mod.w8_conv(x, p.weight, stride=stride, padding=padding,
+                                     bias=p.bias, compute_dtype=cd).to(cd)
+        if quant_mod.conv_wants_int8(quant, p.weight.shape[1], p.weight.shape[2]):
+            return quant_mod.int8_conv(x, p.weight, stride=stride, padding=padding,
+                                       bias=p.bias).to(cd)
     w = p.weight.to(policy.compute_dtype)
     b = None if p.bias is None else p.bias.to(policy.compute_dtype)
     return F.conv2d(x, w, b, stride=stride, padding=padding)

@@ -2,6 +2,14 @@
 
 The JAX package stores kernels as (in, out); the port keeps PyTorch's
 (out, in) ``weight`` so CompVis checkpoints load untransposed.
+
+``quant`` (the UNet's int8 tiers, ``ops/quant.py``), as the JAX package
+dispatches it: "w8" runs every matmul weight-only int8, "wide" and "conv"
+run dynamic w8a8 where the contraction is at least ``quant.MIN_K`` wide.
+
+A row-parallel layer of tensor parallelism (``parallel/tp.py`` sets its
+``tp_group``) holds an input-channel slice of the weight: its partial
+products are summed over the group, and its bias is added after the sum.
 """
 
 from __future__ import annotations
@@ -35,7 +43,22 @@ class Linear(nn.Module):
             self.bias.data.uniform_(-bound, bound, generator=generator)
 
 
-def apply(p: Linear, x: torch.Tensor, policy: Policy = FP32) -> torch.Tensor:
-    w = p.weight.to(policy.compute_dtype)
-    b = None if p.bias is None else p.bias.to(policy.compute_dtype)
-    return F.linear(x.to(policy.compute_dtype), w, b)
+def apply(p: Linear, x: torch.Tensor, policy: Policy = FP32,
+          quant: str = "none") -> torch.Tensor:
+    cd = policy.compute_dtype
+    row = getattr(p, "tp_group", None)
+    if quant != "none":
+        from . import quant as quant_mod
+
+        if quant == "w8":  # weight-only: every matmul
+            return quant_mod.w8_linear(x, p.weight, p.bias, cd, k_group=row).to(cd)
+        if quant_mod.matmul_wants_int8(quant, p.weight.shape[1] * (
+                1 if row is None else torch.distributed.get_world_size(row))):
+            return quant_mod.int8_linear(x, p.weight, p.bias, k_group=row).to(cd)
+    w = p.weight.to(cd)
+    b = None if p.bias is None else p.bias.to(cd)
+    if row is None:
+        return F.linear(x.to(cd), w, b)
+    y = F.linear(x.to(cd), w).float()
+    torch.distributed.all_reduce(y, group=row)
+    return (y if b is None else y + b.float()).to(cd)

@@ -149,14 +149,29 @@ Same public keyword surface as the JAX package's ``generate()`` and
   refuse ``fixed_noise`` and the compositions the JAX package refuses, with
   its ``ValueError``s.
 
-Every other keyword of the JAX ``generate()`` is accepted only at its
-default value; any other value raises ``NotImplementedError`` naming the
-slice of ROADMAP.md §1 that ports it, and a value the JAX package does
-not know either raises ``ValueError``, as it does there.
+* Slice H2.  ``progress`` prints the JAX package's ``denoise step i/n``
+  line (rewritten in place) from the host loop at each UNet evaluation:
+  the steps enqueued, with no device sync.  The config's ``quant`` tier (``ops/quant.py``) reaches
+  the UNet's evaluations (and reference-only's capture pass), not CLIP,
+  the VAE or the side nets; each weight is quantized once a request.
+  ``mesh`` (``core/mesh.py``, one process a rank): the batch is split over
+  the data axis, each rank drawing its samples' noise at their indices in
+  the whole batch and the images gathered so that every rank returns all
+  of them; the batch-wide reductions (the int8 activation scale,
+  dpm_adaptive's error norm) are taken over the whole batch.  A model axis
+  > 1 turns ``fuse_qkv`` off, as in the JAX package: the models are
+  sharded by ``parallel/tp.shard_models`` (``generate_images_tp``,
+  ``StableDiffusion(mesh=)``).
+
+Every keyword of the JAX ``generate()`` is ported but
+``sequence_parallel=True``, which raises ``NotImplementedError`` naming
+slice H3 (ROADMAP.md §1); a value the JAX package does not know either
+raises ``ValueError``, as it does there.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Optional
 
@@ -170,6 +185,7 @@ from .models import vae as vae_mod
 from .models.config import (SDConfig, check_ported, sd15_config, with_clip_skip, with_freeu,
                             with_tome)
 from .ops import conv as conv_ops
+from .ops import quant as quant_mod
 from .sampling import (ddim, ddpm, dpm, dpm2, dpm_adaptive, dpm_fast, euler, lcm, lms,
                        pndm, restart, unipc)
 
@@ -187,22 +203,11 @@ _OWN_GRID = ("restart", "dpm_fast", "dpm_adaptive")
 #: is on, even where ``min_tokens`` or a prime side leaves level 1 whole).
 MAX_VALIDATED_ATTN_TOKENS = 65536
 
-#: JAX ``generate()`` keywords not ported yet: name -> (default, slice)
-_UNPORTED = {
-    "mesh": (None, "slice H"), "sequence_parallel": (False, "slice H"),
-    "progress": (False, "slice H"),
-}
-
-
-def _check_unported(kwargs) -> None:
-    for name, value in kwargs.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"generate() got an unexpected keyword argument {name!r}")
-        default, where = _UNPORTED[name]
-        if value is not None if default is None else value != default:
-            raise NotImplementedError(
-                f"generate({name}=...) is not ported yet: it comes with {where} "
-                f"(ROADMAP.md §1)")
+def _progress_tick(step_i: int, n_steps: int) -> None:
+    """The JAX package's denoise progress line (the reference's tqdm bar)."""
+    print(f"\rdenoise step {step_i + 1}/{n_steps}", end="", flush=True)
+    if step_i + 1 == n_steps:
+        print()
 
 
 # --------------------------------------------------------------- tokenizing
@@ -681,45 +686,115 @@ def _window_starts(total: int, win: int, step: int):
 
 
 # -------------------------------------------------------------- public API
-def _run_generate(prompt, uncond_prompt="", input_image=None,
-                  strength: float = 0.8, do_cfg: bool = True,
-                  cfg_scale: float = 7.5, sampler_name: str = "ddpm",
-                  n_inference_steps: int = 50, models=None,
-                  seed: Optional[int] = None, device=None, idle_device=None,
-                  tokenizer=None, *, config: Optional[SDConfig] = None,
-                  height: int = 512, width: int = 512,
-                  fixed_noise: Optional[Dict[str, np.ndarray]] = None,
-                  decode_tile: Optional[int] = None,
-                  encode_tile: Optional[int] = None,
-                  long_prompts: bool = False, emphasis: bool = False,
-                  clip_skip: Optional[int] = None,
-                  timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
-                  hypernetwork=None, hypernetwork_strength: float = 1.0,
-                  init_latents=None, original_size=None, crop_coords=(0, 0),
-                  target_size=None, mask_image=None, mask_blur: float = 0,
-                  edit_image=None, image_guidance_scale: float = 1.5,
-                  color_correction: bool = False, control_image=None,
-                  controlnet_scale=1.0, adapter_image=None, adapter_scale=1.0,
-                  ip_adapter_image=None, ip_adapter_scale: float = 1.0,
-                  clip_vision_config=None, reference_image=None,
-                  reference_fidelity: float = 0.5, reference_mode: str = "attn",
-                  region_masks=None, freeu=None, deepcache: Optional[int] = None,
-                  guidance_rescale: float = 0.0, variation_seed: Optional[int] = None,
-                  variation_strength: float = 0.0, pag_scale: float = 0.0,
-                  sag_scale: float = 0.0, tiling: bool = False,
-                  dynamic_threshold: Optional[float] = None,
-                  noise_multiplier: Optional[float] = None,
-                  tome_ratio: Optional[float] = None, panorama: bool = False,
-                  panorama_window: int = 512, panorama_stride: Optional[int] = None,
-                  n_frames: Optional[int] = None, motion_window: Optional[int] = None,
-                  motion_stride: Optional[int] = None,
-                  _device_output: bool = False, **unported):
+def _run_generate(prompt, uncond_prompt="", *, mesh=None, **kwargs):
+    """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32) of
+    the request, on one device or over ``mesh``'s ranks."""
+    if mesh is not None:
+        return _run_on_mesh(prompt, uncond_prompt, mesh, kwargs)
+    return _generate_local(prompt, uncond_prompt, **kwargs)
+
+
+def _run_on_mesh(prompt, uncond_prompt, mesh, kwargs):
+    """The request over a (data, model) mesh, every rank calling it alike:
+    each data rank runs its rows of the batch (its prompts, per-sample
+    init images or latents and injected noise; its noise drawn at the
+    samples' indices in the whole batch), the batch-wide reductions taken
+    over the data group, and the images and latents gathered, so that every
+    rank returns the whole batch's.  A model axis > 1 (the models sharded
+    by ``parallel/tp.shard_models``) turns ``fuse_qkv`` off."""
+    from .core import mesh as mesh_mod
+
+    cfg = kwargs.get("config") or sd15_config()
+    if mesh_mod.axis_size(mesh, mesh_mod.MODEL_AXIS) > 1 and cfg.fuse_qkv:
+        # the projections stay apart over the column-split heads, as the JAX
+        # package's pipeline runs them under TP
+        kwargs = dict(kwargs, config=dataclasses.replace(cfg, fuse_qkv=False))
+    n_data = mesh_mod.axis_size(mesh, mesh_mod.DATA_AXIS)
+    prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+    n = len(prompts)
+    local = mesh_mod.local_batch(n, mesh)
+    first = mesh_mod.axis_rank(mesh, mesh_mod.DATA_AXIS) * local
+    rows = slice(first, first + local)
+    if not isinstance(uncond_prompt, str) and len(uncond_prompt) == n:
+        uncond_prompt = list(uncond_prompt)[rows]
+    kwargs = dict(kwargs)
+
+    def own_rows(v):  # a 4-D batch of one image or latent for each prompt
+        if v is not None and not hasattr(v, "convert") and np.ndim(v) == 4 and len(v) == n:
+            return v[rows]
+        return v
+    for name in ("input_image", "init_latents", "edit_image", "reference_image"):
+        kwargs[name] = own_rows(kwargs.get(name))
+    for name in ("control_image", "adapter_image"):  # an image (or batch) for each net
+        v = kwargs.get(name)
+        if isinstance(v, (list, tuple)):
+            kwargs[name] = [own_rows(im) for im in v]
+        else:
+            kwargs[name] = own_rows(v)
+    if kwargs.get("fixed_noise") is not None:
+        steps = kwargs.get("n_inference_steps", 50)
+        kwargs["fixed_noise"] = {
+            k: np.reshape(v, (steps, n, -1))[:, rows] if k == "sampler_noise"
+            else np.reshape(v, (n, -1))[rows] for k, v in kwargs["fixed_noise"].items()}
+    group = mesh_mod.axis_group(mesh, mesh_mod.DATA_AXIS)
+    with mesh_mod.split_batch((group,)):
+        outs = _generate_local(prompts[rows], uncond_prompt, _sample_offset=first, **kwargs)
+
+    def gather(x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        t = t.to(mesh.device_type).contiguous()
+        parts = [torch.empty_like(t) for _ in range(n_data)]
+        torch.distributed.all_gather(parts, t, group=group)
+        full = torch.cat(parts)
+        return full if isinstance(x, torch.Tensor) else full.cpu().numpy()
+    return tuple(gather(x) for x in outs)
+
+
+def _generate_local(prompt, uncond_prompt="", input_image=None,
+                    strength: float = 0.8, do_cfg: bool = True,
+                    cfg_scale: float = 7.5, sampler_name: str = "ddpm",
+                    n_inference_steps: int = 50, models=None,
+                    seed: Optional[int] = None, device=None, idle_device=None,
+                    tokenizer=None, *, config: Optional[SDConfig] = None,
+                    height: int = 512, width: int = 512,
+                    fixed_noise: Optional[Dict[str, np.ndarray]] = None,
+                    decode_tile: Optional[int] = None,
+                    encode_tile: Optional[int] = None,
+                    long_prompts: bool = False, emphasis: bool = False,
+                    clip_skip: Optional[int] = None,
+                    timestep_spacing: str = "uniform", ddim_eta: float = 0.0,
+                    hypernetwork=None, hypernetwork_strength: float = 1.0,
+                    init_latents=None, original_size=None, crop_coords=(0, 0),
+                    target_size=None, mask_image=None, mask_blur: float = 0,
+                    edit_image=None, image_guidance_scale: float = 1.5,
+                    color_correction: bool = False, control_image=None,
+                    controlnet_scale=1.0, adapter_image=None, adapter_scale=1.0,
+                    ip_adapter_image=None, ip_adapter_scale: float = 1.0,
+                    clip_vision_config=None, reference_image=None,
+                    reference_fidelity: float = 0.5, reference_mode: str = "attn",
+                    region_masks=None, freeu=None, deepcache: Optional[int] = None,
+                    guidance_rescale: float = 0.0, variation_seed: Optional[int] = None,
+                    variation_strength: float = 0.0, pag_scale: float = 0.0,
+                    sag_scale: float = 0.0, tiling: bool = False,
+                    dynamic_threshold: Optional[float] = None,
+                    noise_multiplier: Optional[float] = None,
+                    tome_ratio: Optional[float] = None, panorama: bool = False,
+                    panorama_window: int = 512, panorama_stride: Optional[int] = None,
+                    n_frames: Optional[int] = None, motion_window: Optional[int] = None,
+                    motion_stride: Optional[int] = None, sequence_parallel: bool = False,
+                    progress: bool = False, _device_output: bool = False,
+                    _sample_offset: int = 0):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
-    numpy arrays, or with ``_device_output`` tensors left on the device."""
+    numpy arrays, or with ``_device_output`` tensors left on the device.
+    ``_sample_offset``: the index of the first sample in the whole batch
+    (a data rank's share)."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
+    if sequence_parallel:
+        raise NotImplementedError(
+            "generate(sequence_parallel=True) is not ported yet: it comes with "
+            "slice H3 (ROADMAP.md §1)")
     cfg = config or sd15_config()
     inpaint = _inpaint_mode(cfg, mask_image, input_image, init_latents)
-    _check_unported(unported)
     if color_correction:
         if _device_output:
             raise ValueError("color_correction is not supported on the "
@@ -1103,25 +1178,30 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
         noise = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in noise.items()}
     else:
         s = 0 if seed is None else int(seed)
-        noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape),
-                 "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape)}
+        # a data rank draws its samples at their indices in the whole batch
+        first = dict(first=_sample_offset)
+        noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape,
+                                                     **first),
+                 "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape,
+                                                 **first)}
         if input_image is not None:
-            noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch,
-                                                    lat_shape)
+            noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch, lat_shape,
+                                                    **first)
         if inpaint == "unet9":
             noise["mask_encoder"] = rng_mod.batch_normal(s, "mask_encoder_noise", batch,
-                                                         lat_shape)
+                                                         lat_shape, **first)
         elif inpaint == "blend":
             noise["inpaint"] = rng_mod.step_normals(s, "inpaint", n_inference_steps, batch,
-                                                    lat_shape)
+                                                    lat_shape, **first)
         if reference_image is not None:
-            noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape)
+            noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape,
+                                                        **first)
             noise["ref_noise"] = rng_mod.step_normals(s, "ref_noise", n_inference_steps,
-                                                      batch, lat_shape)
+                                                      batch, lat_shape, **first)
         if use_variation:
             noise["latent_init"] = slerp_noise(
                 torch.tensor(variation_strength, dtype=torch.float32), noise["latent_init"],
-                rng_mod.variation_normal(int(variation_seed), batch, lat_shape))
+                rng_mod.variation_normal(int(variation_seed), batch, lat_shape, **first))
         if noise_multiplier is not None:
             # A1111's initial-noise multiplier, after the variation slerp
             noise["latent_init"] = noise["latent_init"] \
@@ -1138,7 +1218,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
 
     # seamless tiling: every conv of the request wraps (cleared on the way
     # out, also when the request raises)
-    with torch.inference_mode(), conv_ops.circular_padding(bool(tiling)):
+    with torch.inference_mode(), conv_ops.circular_padding(bool(tiling)), \
+            quant_mod.weight_cache():
         # one CLIP call for cond and uncond, every window, every
         # realization of an edited prompt and every AND part
         tokens = np.concatenate([cond_tokens, uncond_tokens]) if do_cfg else cond_tokens
@@ -1364,7 +1445,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 add = None if add_cond is None else add_cond[int(sched_idx[i])]
             kw = dict(attention_backend=cfg.attention_backend,
                       reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
-                      conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet)
+                      conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet,
+                      quant=cfg.quant)
             if n_frames is not None:
                 # AnimateDiff: the lanes of each CFG group are the frames
                 kw.update(motion=models["motion"], frames=n_frames)
@@ -1490,6 +1572,8 @@ def _run_generate(prompt, uncond_prompt="", input_image=None,
                 q = torch.clamp(q, min=1.0)[:, None, None, None]
                 x0 = torch.maximum(torch.minimum(x0, q), -q) / q
                 eps = (l32 - sa * x0) / sb
+            if progress:  # the steps enqueued: no device sync
+                _progress_tick(min(i, n_inference_steps - 1), n_inference_steps)
             return eps
 
         latents = _sample(sampler_name, schedule, timesteps, latents.float(),

@@ -29,6 +29,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..core import mesh as mesh_mod
+
 from .ddpm import DDPMSchedule, sigmas_all
 
 _F = np.float32
@@ -124,8 +126,15 @@ def sample(schedule: DDPMSchedule, x_vp: torch.Tensor, t_entry: int, eval_eps,
             - float(sigma(t_) / r2 * (e_h / h_ - one)) * (eps2 - eps0)
 
         delta = torch.clamp(RTOL * torch.maximum(x_low.abs(), x_prev.abs()), min=ATOL)
-        err = _F((torch.linalg.vector_norm((x_low - x_high) / delta)
-                  / math.sqrt(x_low.numel())).item())  # the iteration's host sync
+        rel = (x_low - x_high) / delta
+        groups = mesh_mod.batch_groups()
+        if groups:  # one norm over the whole batch: the data ranks add their parts
+            n_all = rel.numel() * math.prod(torch.distributed.get_world_size(g)
+                                            for g in groups)
+            norm = torch.sqrt(mesh_mod.all_reduce_sum(rel.float().square().sum(), groups))
+        else:
+            n_all, norm = rel.numel(), torch.linalg.vector_norm(rel)
+        err = _F((norm / math.sqrt(n_all)).item())  # the iteration's host sync
         factor = (one / (err + _F(1e-8))) ** b1
         factor = one + np.arctan(factor - one)
         factors.append(factor)

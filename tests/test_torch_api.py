@@ -207,9 +207,27 @@ def test_with_methods_leave_the_original_untouched(sd):
     assert "<t>" not in sd.tokenizer.placeholders
 
 
-def test_mesh_and_missing_card_raise(models, tok, monkeypatch):
-    with pytest.raises(NotImplementedError, match="slice H2"):
-        StableDiffusion(models, tok, CFG, mesh=object(), device="cpu")
+def test_mesh_and_missing_card_raise(models, tok, sd, monkeypatch):
+    """``mesh=`` is taken (a 1x1 mesh over a one-process gloo group: the
+    same image as without one; tests/test_torch_parallel.py runs two
+    ranks); without a card and without ``device=`` the bundle raises."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pytorch_stable_diffusion_tpu_torch.core.mesh import single_device_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        meshed = StableDiffusion(models, tok, CFG, mesh=single_device_mesh(), device="cpu")
+        np.testing.assert_array_equal(meshed.txt2img("a cat", seed=1, **KW),
+                                      sd.txt2img("a cat", seed=1, **KW))
+    finally:
+        dist.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StableDiffusion(models, tok, CFG)

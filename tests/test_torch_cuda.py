@@ -850,3 +850,86 @@ def test_tiling_unet_forward_runs_no_k5(cuda):
         unet(x, ctx, t, conv_backend="kernel", attention_backend="kernel")
     torch.cuda.synchronize()
     assert k5.scaled_silu_conv3x3.launches > before  # outside the mode K5 runs
+
+
+# ---------------------------------------------------------------- slice H2
+@pytest.mark.parametrize("x_shape,w_shape", [
+    ((2, 256, 1280), (1280, 1280)), ((1, 9, 1280), (1280, 1280)), ((3, 5, 100), (36, 100)),
+    ((2, 1280, 16, 16), (1280, 1280, 3, 3)), ((2, 320, 64, 64), (320, 320, 3, 3))],
+    ids=["linear", "linear_m9", "linear_unaligned", "conv_1280", "conv_320"])
+def test_int8_on_the_card_equals_the_cpu(cuda, x_shape, w_shape):
+    """``int8_linear`` / ``int8_conv`` (``_int_mm``: cuBLASLt's int8 product)
+    on the card against the CPU from the same seeded inputs, at chip_smoke's
+    (b) shapes, a product of M <= 16 and one with K and N not multiples of
+    8 (both padded for ``_int_mm``'s CUDA rules), and SD-1.5's 64² conv:
+    equal int8 values, scales and int32 sums; outputs within fp32
+    rounding."""
+    from pytorch_stable_diffusion_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(12)
+    x, w = torch.randn(*x_shape, generator=g), torch.randn(*w_shape, generator=g) * 0.02
+    b = torch.randn(w_shape[0], generator=g)
+    conv = len(w_shape) == 4
+    got = {}
+    for dev in ("cpu", "cuda"):
+        xd, wd, bd = x.to(dev), w.to(dev), b.to(dev)
+        xq, xs = quant.quantize(xd, tuple(range(x.dim())))
+        wq, ws = quant.quantize(wd, tuple(range(1, w.dim())))
+        acc = quant.conv_int32(xq, wq, w_shape[2:], padding=1) if conv \
+            else quant.int_mm(xq.reshape(-1, w_shape[1]), wq)
+        y = quant.int8_conv(xd, wd, padding=1, bias=bd) if conv else quant.int8_linear(xd, wd, bd)
+        got[dev] = [t.cpu() for t in (xq, xs, wq, ws, acc, y)]
+    for name, a, c in zip(("x int8", "x scale", "w int8", "w scales", "int32 sums"),
+                          got["cpu"], got["cuda"]):
+        assert torch.equal(a, c), name
+    ref = got["cpu"][-1]
+    torch.testing.assert_close(got["cuda"][-1], ref, rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+def test_dp_and_tp_over_nccl(cuda, tmp_path):
+    """Data and tensor parallelism over NCCL, one process a card
+    (``tests/torch_dist_worker.run_cards``): SD-1.5 at full width (BF16,
+    kernel attention), 4 prompts, 8 dpm++ Karras steps at 512².  Over a
+    data-parallel mesh of every card the images equal, bit for bit, each
+    sample run alone on one card at its index in the batch (what a rank
+    of batch one computes); against the one-card batch of four they are
+    within 35 dB: cuBLAS and cuDNN take other kernels at batch one than at
+    four, on one card as well.  Over a (cards / 2, 2) DP x TP mesh, where
+    each rank's attention runs K1 at 4 of the 8 heads and the row-parallel
+    layers sum their halves in bf16, within 35 dB of the batch of four.
+    Every rank returns all four images.  Needs two cards or more (four on
+    a 4-card machine)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    import torch_dist_worker
+    from pytorch_stable_diffusion_tpu_torch.utils.metrics import image_psnr
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    world = 4 if n >= 4 else 2
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(torch_dist_worker.run_cards, args=(world, port, str(tmp_path), "cuda"),
+             nprocs=world, join=True)
+    ranks = [torch.load(tmp_path / f"cards{r}.pt", weights_only=False) for r in range(world)]
+    ref = ranks[0]["one"]
+    for r, res in enumerate(ranks):
+        print(f"rank {r} of {world}: one card, batch 4, {res['t_one']:.3f} s; DP "
+              f"{res['t_dp']:.3f} s, max |diff| to each sample alone "
+              f"{int(np.abs(res['dp'].astype(np.int16) - res['each']).max())}, to the batch "
+              f"of 4 {int(np.abs(res['dp'].astype(np.int16) - ref).max())} "
+              f"({image_psnr(res['dp'], ref):.2f} dB); DP x TP {res['t_tp']:.3f} s "
+              f"({image_psnr(res['tp'], ref):.2f} dB, max |diff| "
+              f"{int(np.abs(res['tp'].astype(np.int16) - ref).max())}, K1 {res['k1_tp']} "
+              f"launches)  [{torch.cuda.get_device_name(r)}]", flush=True)
+    for r, res in enumerate(ranks):
+        assert res["dp"].shape == res["tp"].shape == ref.shape == (4, 512, 512, 3), r
+        np.testing.assert_array_equal(res["dp"], res["each"])
+        assert image_psnr(res["dp"], ref) > 35.0, r
+        assert image_psnr(res["tp"], ref) > 35.0, r
+        np.testing.assert_array_equal(res["tp"], ranks[0]["tp"])

@@ -49,7 +49,9 @@ def test_port_imports_without_jax():
     for mod in KERNEL_MODULES + ("ops.norm", "ops.tome", "models.unet", "pipeline", "api",
                                  "utils.annotators", "utils.image", "models.controlnet",
                                  "models.t2i_adapter", "models.clip_vision", "models.motion",
-                                 "models.esrgan") + tuple(
+                                 "models.esrgan", "ops.quant", "core.mesh", "parallel.dp",
+                                 "parallel.tp", "utils.metrics", "utils.profiling",
+                                 "__main__") + tuple(
             f"weights.{m}" for m in ("ckpt_reader", "native_io", "convert", "diffusers", "lora",
                                      "textual_inversion", "hypernetwork", "merge", "stream",
                                      "save", "ip_adapter", "animatediff", "esrgan")):

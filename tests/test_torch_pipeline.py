@@ -317,9 +317,7 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
 
 
 @pytest.mark.parametrize("kwargs,where", [
-    ({"sequence_parallel": True}, "slice H"),
-    ({"progress": True}, "slice H"),
-    ({"config": tiny_sd_config(quant="wide")}, "slice H"),
+    ({"sequence_parallel": True}, "slice H3"),
 ])
 def test_unported_features_raise(slice_setup, kwargs, where):
     cfg, models, _, _ = slice_setup
@@ -340,7 +338,7 @@ def test_unported_features_raise(slice_setup, kwargs, where):
 def test_unknown_option_values_raise_value_error(slice_setup, kwargs, match):
     """Values the JAX package does not know either raise ValueError there
     (``generate()``'s quant and timestep_spacing checks), and so here; the
-    JAX package's own tiers raise NotImplementedError above.  So do the
+    JAX package's own tiers run (tests/test_torch_quant.py).  So do the
     samplers' refusals there: lcm and dpm_fast off the "uniform" spacing,
     restart with injected noise."""
     cfg, models, noise, _ = slice_setup

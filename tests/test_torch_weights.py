@@ -242,11 +242,47 @@ def test_save_native_roundtrip(models, tmp_path):
         save.load_native(sds, path)
 
 
+class _ModelAxis:
+    """A stand-in for a (data 1, model 2) ``DeviceMesh`` seen from model rank
+    1: the loader reads only the model axis's size and rank."""
+
+    def __getitem__(self, axis):
+        return type("Axis", (), {"size": lambda self: 2 if axis == "model" else 1})()
+
+    def get_local_rank(self, axis):
+        return 1 if axis == "model" else 0
+
+
 @pytest.mark.parametrize("kind", ["safetensors", "ckpt"])
 def test_streamed_load_equals_eager_load(files, kind):
+    """And with ``tp=True``, model rank 1's slices: the second half of each
+    column-parallel tensor's rows (of each GeGLU half's), of each
+    row-parallel weight's columns; every other tensor whole."""
+    from pytorch_stable_diffusion_tpu_torch.parallel import tp
+
+    eager = convert.load_sd_checkpoint(files[kind], CFG)
     got = stream.load_sd_checkpoint_streamed(files[kind], CFG, device="cpu")
-    _assert_state_dicts_equal(got, convert.load_sd_checkpoint(files[kind], CFG))
-    with pytest.raises(NotImplementedError, match="slice H2"):
+    _assert_state_dicts_equal(got, eager)
+    sliced = stream.load_sd_checkpoint_streamed(files[kind], CFG, device="cpu",
+                                                mesh=_ModelAxis(), tp=True)
+    q = "encoder.1.attn.self_attn.q.weight"
+    torch.testing.assert_close(sliced["diffusion"][q], eager["diffusion"][q][8:],
+                               rtol=0, atol=0)
+    g = eager["diffusion"]["encoder.1.attn.geglu_proj.weight"]
+    torch.testing.assert_close(sliced["diffusion"]["encoder.1.attn.geglu_proj.weight"],
+                               torch.cat([g[32:64], g[96:]]), rtol=0, atol=0)
+    o = "encoder.1.attn.geglu_out.weight"
+    torch.testing.assert_close(sliced["diffusion"][o], eager["diffusion"][o][:, 32:],
+                               rtol=0, atol=0)
+    n = {"col": 0, "geglu": 0, "row": 0}
+    for name, sd in eager.items():
+        for key, full in sd.items():
+            spec = tp.tp_spec(name, key)
+            n[spec] = n.get(spec, 0) + 1
+            if spec is None:
+                torch.testing.assert_close(sliced[name][key], full, rtol=0, atol=0)
+    assert min(n.values()) > 0  # every split met
+    with pytest.raises(ValueError, match="needs a mesh"):
         stream.load_sd_checkpoint_streamed(files[kind], CFG, device="cpu", tp=True)
 
 
