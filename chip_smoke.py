@@ -355,6 +355,24 @@ Phases (any failure exits non-zero):
                 ``generate_images_tp`` over its 1x1 mesh equal the single
                 card's images bit for bit; (e) ``device_trace`` around a
                 2-step request writes a Chrome trace naming K1's kernel.
+ 10. slice H3a — sequence parallelism (``phase_slice_h3a``, lines ``H3a
+                ...``), two gloo ranks spawned on the one card (each
+                computes on cuda:0, the collectives go through the host:
+                the exchanges are checked, not SP's latency), SD-1.5 full
+                width, kernel attention, seed-0 weights built alike on
+                every rank, ``parallel/sp.generate_spatial`` over a (1, 2)
+                mesh: (a) 512² BF16, 20 dpm++ Karras steps, CFG 7.5, within
+                35 dB of the same request on one process (K2 on each rank's
+                q rows over the gathered K/V replaces K1); (b) 2048² BF16 at
+                2 steps (K4, K3 and K2 on the local rows); (c) 256² FP32, 8
+                steps, within one uint8 level of one process.  Each rank
+                returns the whole image; its launches are held to the plan
+                (``expected_launches(sp=2)``: 15 K2 an evaluation at 512²;
+                K4 5, K3 5, K2 6 at 2048²; no K1, no K5).  Phase 3 holds K2,
+                K3 and K4 at those shapes (``SP_PLANS``, ``sp_shapes``: q a
+                view of the rank's fused projection, k and v the halves of
+                the gathered (B, S, 2C) tensor), timed beside SDPA and the
+                bound.
 Then one JSON line on the kernels, and last the contract line
 {"ok": true, "device": {...}}.
 
@@ -772,13 +790,21 @@ def phase_long(fa, card, results):
     for b, h, sq, sk, dh in e:
         cases += [("K4", b, sq, sk, h, dh, bf, False, 2048, "e"),
                   ("K4", b, sq, sk, h, dh, f32, False, 512, "")]
+    # slice H3a: K4 and K3 on each rank's q rows over the gathered K/V at
+    # 2048² (SP_PLANS)
+    sp = {**sp_shapes("K4"), **sp_shapes("K3")}
+    for b, h, sq, sk, dh in sp:
+        kname = "K4" if dh in K4_DH else "K3"
+        cases += [(kname, b, sq, sk, h, dh, bf, False, 2048, "sp"),
+                  (kname, b, sq, sk, h, dh, f32, False, 512, "")]
     for kname, b, sq, sk, h, dh, dtype, causal, rows, role in cases:
         name = "flash_attention_streamed" if kname == "K4" else "flash_attention_multipass"
         wrapper = getattr(fa, name)
         plain = getattr(fa, f"{name}_plain")
         kw = {} if kname == "K4" else {"causal": causal}
         rec = results[name]
-        views = separate_views if kname == "K4" and (b, h, sq, sk, dh) in e else fused_views
+        views = separate_views if kname == "K4" and (b, h, sq, sk, dh) in e else \
+            sp_views if (b, h, sq, sk, dh) in sp else fused_views
         args = views(b, sq, sk, h, dh, dtype, g)
         t0 = time.perf_counter()
         err, tol, ref = _check_rows(kname, wrapper, plain, args, kw, rows, dtype, rec)
@@ -811,11 +837,15 @@ def phase_long(fa, card, results):
             if role in ("c2", "c3"):
                 rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                   library_ms=lib, bound_ms=bms, bound_by=by))
-            if role == "e":
-                n, label = e[(b, h, sq, sk, dh)]
-                rec["e_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
-                                            bound_ms=bms, bound_by=by, per_eval=n,
-                                            request=label))
+            if role in ("e", "sp"):
+                n, label = (e if role == "e" else sp)[(b, h, sq, sk, dh)]
+                rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
+                                                  library_ms=lib, bound_ms=bms, bound_by=by,
+                                                  per_eval=n, request=label))
+            if role == "sp":
+                pms = cuda_ms(lambda: plain(*args, *kw.values()), 1)
+                rec["sp_shapes"][-1]["plain_ms"] = pms
+                line += f"; plain {pms:.3f} ms"
             if role == "g":
                 n, label = g_k3[(b, h, sq, sk, dh)]
                 rec["g_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms, library_ms=lib,
@@ -851,6 +881,17 @@ def cross_views(b, sq, sk, heads, dh, dtype, g):
     Dh), as the UNet's cross-attention makes them."""
     c = heads * dh
     q = torch.randn(b, sq, c, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(b, sk, 2 * c, device="cuda", generator=g).to(dtype)
+    return [t.reshape(b, t.shape[1], heads, dh).transpose(1, 2)
+            for t in (q, *kv.split(c, dim=-1))]
+
+
+def sp_views(b, sq, sk, heads, dh, dtype, g):
+    """q as a (B, H, Sq, Dh) view of a rank's fused (B, Sq, 3C) projection,
+    k and v as the halves of the gathered (B, Sk, 2C) K/V: a self-attention
+    under sequence parallelism."""
+    c = heads * dh
+    q = torch.randn(b, sq, 3 * c, device="cuda", generator=g).to(dtype)[..., :c]
     kv = torch.randn(b, sk, 2 * c, device="cuda", generator=g).to(dtype)
     return [t.reshape(b, t.shape[1], heads, dh).transpose(1, 2)
             for t in (q, *kv.split(c, dim=-1))]
@@ -905,6 +946,9 @@ def phase_k2(fa, card, results):
     # k/v from separate projections
     e = e_shapes("K2")
     cases += [(b, h, sq, sk, dh, False, min(sq, 2048), "e") for b, h, sq, sk, dh in e]
+    # slice H3a: each rank's q rows over the gathered K/V (SP_PLANS)
+    sp = sp_shapes("K2")
+    cases += [(b, h, sq, sk, dh, False, min(sq, 2048), "sp") for b, h, sq, sk, dh in sp]
     cases += [(2, 8, 1000, 300, 40, False, 1000, ""),   # ragged q and KV
               (1, 2, 1024, 1024, 64, True, 1024, ""),   # causal across 64-row CTAs
               (4, 8, 2000, 2000, 40, True, 512, ""),    # causal across 128-row CTAs
@@ -917,7 +961,8 @@ def phase_k2(fa, card, results):
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, sq, sk, dh, causal, rows, role in cases:
-            views = separate_views if role in ("separate", "e") else cross_views
+            views = separate_views if role in ("separate", "e") else \
+                sp_views if role == "sp" else cross_views
             args = views(b, sq, sk, h, dh, dtype, g)
             kw = {"causal": causal}
             err, tol, ref = _check_rows("K2", wrapper, plain, args, kw, rows, dtype, rec)
@@ -930,7 +975,8 @@ def phase_k2(fa, card, results):
                 line += f"; {k2_schedule_text(fa.onepass_schedule(b, h, sq, sk, dh, causal))}"
             if role == "main":
                 line += _planted_fault("K2", wrapper, args, kw, rows, ref, tol, drop=64)
-            if role in ("main", "level", "time", "c2", "c3", "e") and dtype == torch.bfloat16:
+            if role in ("main", "level", "time", "c2", "c3", "e", "sp") \
+                    and dtype == torch.bfloat16:
                 # a call is shorter than its host launch cost, so CUDA events
                 # around back-to-back calls time the host: the recorded times
                 # are device times under the profiler
@@ -940,7 +986,7 @@ def phase_k2(fa, card, results):
                 ms = one_call_device_ms(lambda: wrapper(*args, **kw))
                 line += (f"; kernel {ms:.4f} ms device ({flops / (ms * 1e-3) / 1e12:.2f} "
                          f"TFLOP/s), {events:.4f} ms by events")
-                if role in ("main", "level", "c2", "c3", "e"):
+                if role in ("main", "level", "c2", "c3", "e", "sp"):
                     lib, why = sdpa_ms(*args, timer=one_call_device_ms)
                     nbytes = b * h * (2 * sq + 2 * sk) * dh * args[0].element_size()
                     bms, by = bound_ms(flops, nbytes, dtype)
@@ -950,11 +996,15 @@ def phase_k2(fa, card, results):
                 if role == "c2":
                     rec["c2_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                  library_ms=lib, bound_ms=bms, bound_by=by))
-                if role in ("c3", "e"):
-                    n, label = (c3 if role == "c3" else e)[(b, h, sq, sk, dh)]
+                if role in ("c3", "e", "sp"):
+                    n, label = {"c3": c3, "e": e, "sp": sp}[role][(b, h, sq, sk, dh)]
                     rec[f"{role}_shapes"].append(dict(shape=[b, h, sq, sk, dh], ms=ms,
                                                       library_ms=lib, bound_ms=bms,
                                                       bound_by=by, per_eval=n, request=label))
+                if role == "sp":
+                    pms = one_call_device_ms(lambda: plain(*args, causal))
+                    rec["sp_shapes"][-1]["plain_ms"] = pms
+                    line += f"; plain {pms:.4f} ms device"
                 if role == "main":
                     pms = one_call_device_ms(lambda: plain(*args, causal))
                     rec.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bms, bound_by=by,
@@ -1498,7 +1548,7 @@ def deepcache_evals(sampler, steps, start, interval):
 
 def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ONLY_KV,
                       context=77, encodes=None, controlnets=0, reference=None, cfg_lanes=True,
-                      pag=False, sag=False, shallow=0, tiling=False, canvas=None):
+                      pag=False, sag=False, shallow=0, tiling=False, canvas=None, sp=1):
     """Kernel launches of one request, derived from the UNet's plan (which
     stages carry attention, at which level, of how many stacked layers,
     at which head width; its res blocks), the length of the
@@ -1525,7 +1575,11 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
     int8 tier (``cfg.quant``, slice H2).  Slice G:
     ``steps`` counts every UNet call, a frame window's or a panorama
     window's each; ``canvas``, the (height, width) of a panorama's VAE
-    where ``height`` x ``width`` is its window.  One launch
+    where ``height`` x ``width`` is its window.  Slice H3a: the launches of
+    one of ``sp`` model ranks under sequence parallelism, whose
+    self-attentions take the rank's q rows over the whole KV (the cross
+    path: K2, or K4/K3 past 9216 padded KV tokens) and whose res blocks run
+    no K5; the VAE runs whole on every rank.  One launch
     serves every lane and every tile of an evaluation, so the lane count (1
     without CFG, 2 with it, 3 for InstructPix2Pix, n_and + 1 with AND) does
     not enter the counts; it enters the shapes phase 3 holds
@@ -1552,9 +1606,9 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
         dh = c // u.heads_for(c)
         main = full + (shallow if blk["shallow"] else 0)
         net = steps * controlnets if i < n_net_blocks else 0
-        k_self = expected_kernel(self_attention_plan(cfg, blk)[1], dh, cross=False,
+        k_self = expected_kernel(self_attention_plan(cfg, blk)[1], dh, cross=sp > 1,
                                  backend=cfg.attention_backend, flash_only=flash_only)
-        k_net = expected_kernel(tokens, dh, cross=False, backend=cfg.attention_backend,
+        k_net = expected_kernel(tokens, dh, cross=sp > 1, backend=cfg.attention_backend,
                                 flash_only=flash_only)
         add(k_self, layers * (main + steps * extra + (steps * pag if not blk["mid"] else 0)))
         add(k_net, layers * net)
@@ -1571,7 +1625,8 @@ def expected_launches(cfg, height, width, *, steps, img2img, flash_only=FLASH_ON
                                 flash_only=flash_only), steps * layers)
             if not cfg_lanes:
                 add(k_self, -steps * layers)
-    if cfg.conv_backend in ("kernel", "kernel_fold") and not tiling and cfg.quant == "none":
+    if cfg.conv_backend in ("kernel", "kernel_fold") and not tiling and cfg.quant == "none" \
+            and sp == 1:
         # both halves of every res block; a shallow pass's: level 0's and
         # the last decoder level's
         enc_blocks = sum(st["kind"] == "block" for st in unet.encoder_plan(u))
@@ -1717,6 +1772,33 @@ def g_shapes(kernel):
     for preset, height, width, lanes, label in G_PLANS:
         for key, n in plan_shapes(getattr(port, preset)(), height, width, lanes)[kernel].items():
             out.setdefault(key, (n, label))
+    return out
+
+
+#: slice H3a's requests: (height, width, lanes, model ranks, request); the
+#: shapes K2, K3 and K4 take on a rank under sequence parallelism
+SP_PLANS = ((512, 512, 2, 2, "H3a a: 512², 2 ranks"), (2048, 2048, 2, 2, "H3a b: 2048², 2 ranks"))
+
+
+def sp_shapes(kernel):
+    """{(B, H, Sq, KV, Dh): (launches a rank an evaluation, request)} of
+    ``kernel`` (K2, K3 or K4) over :data:`SP_PLANS`: each rank's q rows
+    (rank 0's ceil-sized block of the level's rows) over the level's whole
+    KV, on the cross path of :func:`expected_kernel`."""
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    out = {}
+    for height, width, lanes, n, label in SP_PLANS:
+        cfg = port.sd15_config()
+        plan = {}
+        for blk in transformer_blocks(cfg, height, width):
+            heads = cfg.unet.heads_for(blk["c"])
+            dh = blk["c"] // heads
+            if expected_kernel(blk["tokens"], dh, cross=True, backend="kernel") == kernel:
+                key = (lanes, heads, -(-blk["h"] // n) * blk["w"], blk["tokens"], dh)
+                plan[key] = plan.get(key, 0) + blk["layers"]
+        for key, n_eval in plan.items():
+            out.setdefault(key, (n_eval, label))
     return out
 
 
@@ -3964,6 +4046,141 @@ def phase_slice_h2(port, card, request, zero_counts, read_path):
     print(f"H2: {time.perf_counter() - t_phase:.1f} s in all  [{card}]", flush=True)
 
 
+#: slice H3a's requests: (label, policy, size, steps, bar): the bar is the
+#: PSNR floor against one process in dB, or None for one uint8 level
+H3A_REQUESTS = (("a", "BF16", 512, 20, 35.0), ("b", "BF16", 2048, 2, 35.0),
+                ("c", "FP32", 256, 8, None))
+
+
+def h3a_request_kw(port, models, cfg, size, steps):
+    return dict(cfg_scale=7.5, sampler_name="dpm++", timestep_spacing="karras",
+                n_inference_steps=steps, seed=1337, height=size, width=size, models=models,
+                config=cfg, tokenizer=_tokenizer(), device="cuda")
+
+
+def h3a_models(port, policy):
+    """SD-1.5 at full width on the card, kernel attention, seed-0 weights:
+    every rank and the one-process reference build the same."""
+    cfg = port.sd15_config(policy=getattr(port, policy), attention_backend="kernel")
+    return cfg, port.build_models(cfg, device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def h3a_rank(rank, world, port_no, out_dir):
+    """One gloo rank of slice H3a on the one card: each request of
+    :data:`H3A_REQUESTS` through ``parallel/sp.generate_spatial`` over a (1,
+    world) mesh, its launches counted from 0 and its wall time taken;
+    saves them with the image."""
+    import datetime
+    import os
+
+    import pytorch_stable_diffusion_tpu_torch as port
+    from pytorch_stable_diffusion_tpu_torch.core import mesh as mesh_mod
+    from pytorch_stable_diffusion_tpu_torch.parallel import sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port_no}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = mesh_mod.make_mesh(data=1, model=world)
+        out, built, models = {}, None, None
+        for label, policy, size, steps, _ in H3A_REQUESTS:
+            if built != policy:
+                models = None
+                torch.cuda.empty_cache()
+                cfg, models = h3a_models(port, policy)
+                built = policy
+            kw = h3a_request_kw(port, models, cfg, size, steps)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image = sp.generate_spatial(PROMPTS[0], mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            out[label] = dict(image=image, seconds=time.perf_counter() - t0,
+                              launches=launch_counts())
+        torch.save(out, os.path.join(out_dir, f"h3a_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_slice_h3a(port, card, zero_counts, read_path, main_launches):
+    """Slice H3a: sequence parallelism as two gloo ranks on the one card
+    (the module docstring's phase 10).  Each request of :data:`H3A_REQUESTS`
+    on one process first (the reference), then on the ranks; every rank's
+    image is the whole image, within the request's bar of the reference,
+    and its launches are the plan's (``expected_launches(sp=2)``), which
+    join the main paths' counts."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from pytorch_stable_diffusion_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    world = 2
+    want, one_s = {}, {}
+    zero_counts()
+    for policy in ("BF16", "FP32"):
+        cfg, models = h3a_models(port, policy)
+        for label, pol, size, steps, _ in H3A_REQUESTS:
+            if pol != policy:
+                continue
+            kw = h3a_request_kw(port, models, cfg, size, steps)
+            port.generate(PROMPTS[0], **dict(kw, n_inference_steps=1))  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want[label] = port.generate(PROMPTS[0], **kw)
+            torch.cuda.synchronize()
+            one_s[label] = time.perf_counter() - t0
+        del models
+        torch.cuda.empty_cache()
+    read_path()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_h3a_")
+    t0 = time.perf_counter()
+    mp.spawn(h3a_rank, args=(world, port_no, tmp.name), nprocs=world, join=True)
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp.name}/h3a_rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    tmp.cleanup()
+    for label, policy, size, steps, bar in H3A_REQUESTS:
+        cfg = port.sd15_config(policy=getattr(port, policy), attention_backend="kernel")
+        plan = expected_launches(cfg, size, size, steps=steps, img2img=False, sp=world)
+        ref = want[label]
+        for r, res in enumerate(ranks):
+            got = res[label]
+            name = f"H3a {label} rank {r}"
+            image = got["image"]
+            check(image.dtype == np.uint8 and image.shape == ref.shape == (size, size, 3),
+                  f"{name}: image {image.dtype} {image.shape}")
+            check(image.max() > image.min(), f"{name}: constant image")
+            diff = int(np.abs(image.astype(np.int16) - ref.astype(np.int16)).max())
+            db = metrics.image_psnr(image, ref)
+            if bar is None:
+                check(diff <= 1, f"{name}: {diff} uint8 levels from one process")
+            else:
+                check(db > bar, f"{name}: {db:.2f} dB from one process (bar {bar})")
+            check(got["launches"] == plan, f"{name}: launched {got['launches']}, want {plan}")
+            check(np.array_equal(image, ranks[0][label]["image"]),
+                  f"{name}: differs from rank 0's image")
+            for k, v in got["launches"].items():
+                main_launches[k] += v
+            print(f"H3a {label} SD-1.5 {policy} {size}², {steps} dpm++ Karras steps, CFG 7.5, "
+                  f"rank {r} of {world} (two gloo ranks sharing one card): "
+                  f"{got['seconds']:.2f} s wall (one process {one_s[label]:.2f} s); "
+                  f"{db:.2f} dB, max {diff} uint8 levels from one process; launches "
+                  f"{got['launches']} (the plan's)  [{card}]", flush=True)
+    print(f"H3a: {time.perf_counter() - t_phase:.1f} s in all, the ranks' spawn "
+          f"{t_ranks:.1f} s  [{card}]", flush=True)
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -4029,7 +4246,7 @@ def main():
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "c2_shapes": [], "c3_shapes": [],
-                      "e_shapes": [], "f_shapes": [], "g_shapes": []}
+                      "e_shapes": [], "f_shapes": [], "g_shapes": [], "sp_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
     host_cost(fa, card)
@@ -4273,6 +4490,8 @@ def main():
     torch.cuda.empty_cache()
     # slice H2: the int8 tiers, DP/TP over NCCL, the CLI and device_trace
     phase_slice_h2(port, card, request, zero_counts, read_path)
+    # slice H3a: sequence parallelism, two gloo ranks on the one card
+    phase_slice_h3a(port, card, zero_counts, read_path, main_launches)
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")

@@ -45,6 +45,15 @@
   the res blocks run "kernel" as "plain" and "kernel_fold" as "fold": K5
   never launches, as the JAX package gates its Pallas conv on
   ``quant == "none"``.
+* Slice H3a, sequence parallelism (``core/mesh.split_rows``, held by the
+  pipeline around each evaluation): the UNet takes the rank's rows of the
+  latents and returns its rows of the output.  The convs, norms and
+  self-attention exchange what they need (``ops/``), on the "plain" conv
+  tier that the pipeline sets under SP (K5 fetches no halo); here the
+  reference read attends over the whole of its own and the banked
+  tokens, AdaIN takes the whole tensor's moments, and FreeU filters the
+  whole skip and keeps its rows.  The side inputs come as the rank's rows
+  (ControlNet residuals, adapter features, DeepCache's feature).
 * Slice G: AnimateDiff's motion modules (``models/motion.py``), passed per
   call as ``motion=`` with the ``frames`` of a lane group: each runs after
   its encoder or decoder stage's (res + attn) pair, before the skip is
@@ -61,6 +70,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from ..core import mesh as mesh_mod
 from ..core.dtypes import FP32, Policy
 from ..ops import attention, conv, linear, norm
 from ..ops import tome as tome_mod
@@ -368,7 +378,8 @@ class AttnBlock(nn.Module):
 
             def self_attention():
                 return attention.apply(lp.self_attn, t, n_heads=n_heads, backend=backend,
-                                       policy=policy, fuse=fuse_qkv, quant=quant)
+                                       policy=policy, fuse=fuse_qkv, quant=quant,
+                                       grid_width=w)
 
             if pag_self_attn:
                 y = y + attention.apply_identity(lp.self_attn, t, policy=policy, quant=quant)
@@ -376,7 +387,7 @@ class AttnBlock(nn.Module):
                 a, self_probs = attention.apply(lp.self_attn, t, n_heads=n_heads,
                                                 backend=backend, policy=policy,
                                                 fuse=fuse_qkv, return_probs=True,
-                                                quant=quant)
+                                                quant=quant, grid_width=w)
                 y = y + a
             elif tome_plan is not None:
                 tm, t_info = tome_mod.merge(t, *tome_plan)
@@ -395,7 +406,10 @@ class AttnBlock(nn.Module):
                 y = y + self_attention()
             else:
                 _, bank, fidelity, plain_mask = ref
-                t_kv = torch.cat([t, bank[f"{ref_key}_{li}"].to(t.dtype)], dim=1)
+                own, banked = t, bank[f"{ref_key}_{li}"].to(t.dtype)
+                if mesh_mod.row_split() is not None:  # the whole grid of each
+                    own, banked = (mesh_mod.gather_tokens(u, w) for u in (own, banked))
+                t_kv = torch.cat([own, banked], dim=1)
                 a_ref = attention.apply(lp.self_attn, t, t_kv, n_heads=n_heads,
                                         backend=backend, policy=policy, fuse=False,
                                         quant=quant)
@@ -630,8 +644,12 @@ class UNet(nn.Module):
             if ref_adain is None:
                 return x
             xf = x.float()
-            mean = xf.mean(dim=(2, 3), keepdim=True)
-            var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+            if mesh_mod.row_split() is None:
+                mean = xf.mean(dim=(2, 3), keepdim=True)
+                var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+            else:  # the whole tensor's moments
+                var, mean = (m[:, :, None, None]
+                             for m in mesh_mod.split_var_mean(xf, (2, 3)))
             if ref_adain[0] == "capture":
                 ref_adain[1][key] = (mean, var)
                 return x
@@ -705,7 +723,11 @@ class UNet(nn.Module):
                     x = x.clone()
                     x[:, :x.shape[1] // 2] *= b_x
                 if s != 1.0:
-                    skip = _fourier_lowpass_scale(skip, s)
+                    if mesh_mod.row_split() is None:
+                        skip = _fourier_lowpass_scale(skip, s)
+                    else:  # the filter needs whole columns: the rank's rows of it
+                        skip = mesh_mod.local_rows(
+                            _fourier_lowpass_scale(mesh_mod.gather_rows(skip), s))
             x = block(stage.res, stage.attn, torch.cat([x, skip], dim=1), f"dec_{si}")
             x = adain_site(x, f"dec_{si}")
             if stage.upsample is not None:

@@ -54,6 +54,16 @@ Under tensor parallelism (``parallel/tp.py`` sets the module's
 attention runs at the local head count, the IP-Adapter's replicated k/v
 projections are sliced to the local heads' columns, and SAG's map is
 gathered over the heads.
+
+Under sequence parallelism (a row split, ``core/mesh.split_rows``) x holds
+the rank's rows of the token grid (``grid_width`` tokens a row): a
+self-attention projects its own q, k and v, all-gathers k and v over the
+model group, and attends its q rows over the whole KV, as the JAX
+package's ``_sp_self_attention`` does.  :func:`route` then sees Sq != Sk,
+as for cross-attention: K2 where the padded KV fits its one pass, else K4
+or K3, never K1 (whose grid assumes Sq = Sk); below 256 KV tokens
+materialized scores on the local rows.  SAG's map (``return_probs``) is
+gathered over the q rows, since SAG's mask reads it whole.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core import mesh as mesh_mod
 from ..core.dtypes import FP32, Policy
 from . import linear
 from .cuda.flash_attention import (MULTIPASS_MAX_DH, ONEPASS_MAX_KV, flash_attention_bsc,
@@ -193,7 +204,7 @@ def apply_identity(p: Attention, x: torch.Tensor, *, policy: Policy = FP32,
 def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
           *, n_heads: int, causal: bool = False, backend: str = "plain",
           policy: Policy = FP32, fuse: bool = True, ip=None, return_probs: bool = False,
-          quant: str = "none"):
+          quant: str = "none", grid_width: Optional[int] = None):
     """x: (B, S, D); context: (B, S_kv, D_cross) for cross-attention, or a
     ``(ctx_k, ctx_v)`` pair of such tensors (a hypernetwork's, as the JAX
     package takes it), k projected from ``ctx_k`` and v from ``ctx_v``.
@@ -207,7 +218,10 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
     ``return_probs`` (SAG's capture of the mid block's map): materialized
     scores whatever the backend, as the JAX package's ``_xla_attention``,
     -> (output, probabilities (B, H, S, S_kv) in ``policy.softmax_dtype``);
-    :func:`route` never sees such a call."""
+    :func:`route` never sees such a call.
+
+    ``grid_width``: the width of the token grid x's tokens lie on, which a
+    self-attention needs under a row split (module docstring)."""
     tp = getattr(p, "tp_group", None)
     if tp is not None:  # the rank's heads
         n_heads //= torch.distributed.get_world_size(tp)
@@ -231,6 +245,12 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
             # the JAX package's unfused path (w8 reaches it with a pair)
             k, v = linear.apply(p.k, ctx_k, policy, quant), linear.apply(p.v, ctx_v, policy,
                                                                         quant)
+    split = mesh_mod.row_split() if context is None else None
+    if split is not None:  # the whole KV over the rank's q rows
+        if grid_width is None:
+            raise ValueError("self-attention under a row split needs the grid_width of "
+                             "its tokens")
+        k, v = mesh_mod.gather_tokens(torch.cat([k, v], -1), grid_width).split(k.shape[-1], -1)
     if return_probs:
         out, probs = materialized_attention(*(_split_heads(t, n_heads) for t in (q, k, v)),
                                             causal, policy, return_probs=True)
@@ -239,9 +259,14 @@ def apply(p: Attention, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                      for _ in range(torch.distributed.get_world_size(tp))]
             torch.distributed.all_gather(parts, probs.contiguous(), group=tp)
             probs = torch.cat(parts, dim=1)
+        if split is not None:  # every q row's map
+            probs = mesh_mod.gather_tokens(probs, grid_width, dim=2)
         return linear.apply(p.out, _merge_heads(out), policy, quant), probs
     path = route(k.shape[1], q.shape[-1] // n_heads, causal=causal,
-                 cross=context is not None, backend=backend, cuda=q.is_cuda)
+                 cross=context is not None or q.shape[1] != k.shape[1], backend=backend,
+                 cuda=q.is_cuda)
+    if q.shape[1] == 0:  # a rank with no rows of the grid
+        path = "plain"
     if path == "bsc":
         out = flash_attention_bsc(q, k, v, n_heads=n_heads)
     else:

@@ -10,6 +10,12 @@ statistics in ``policy.norm_dtype`` but apply the normalize as a
 per-(batch, channel) or per-token affine in x's dtype, with no fp32
 full-tensor intermediate; they differ from the exact ones only by the
 rounding of that apply.
+
+Under a row split (sequence parallelism, ``core/mesh.split_rows``) the
+GroupNorm statistics are the whole tensor's: each rank's sums, sums of
+squares and counts are added over the model group
+(``core/mesh.split_var_mean``).  The folded tiers do not run there: the
+pipeline takes the "plain" conv tier under sequence parallelism.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import mesh as mesh_mod
 from ..core.dtypes import FP32, Policy
 from .act import silu
 from .cuda.conv import fold_gn_affine
@@ -50,8 +57,15 @@ def group_norm(p: Norm, x: torch.Tensor, num_groups: int = 32,
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
     nd = policy.norm_dtype
-    y = F.group_norm(x.to(nd), num_groups, p.weight.to(nd), p.bias.to(nd), eps)
-    return y.to(x.dtype)
+    if mesh_mod.row_split() is None:
+        y = F.group_norm(x.to(nd), num_groups, p.weight.to(nd), p.bias.to(nd), eps)
+        return y.to(x.dtype)
+    xg = x.to(nd).unflatten(1, (num_groups, c // num_groups))
+    var, mean = mesh_mod.split_var_mean(xg, tuple(range(2, xg.dim())))
+    stat = (x.shape[0], num_groups) + (1,) * (xg.dim() - 2)
+    y = ((xg - mean.reshape(stat)) * torch.rsqrt(var + eps).reshape(stat)).flatten(1, 2)
+    affine = (1, c) + (1,) * (x.dim() - 2)
+    return (y * p.weight.to(nd).reshape(affine) + p.bias.to(nd).reshape(affine)).to(x.dtype)
 
 
 def group_norm_silu(p: Norm, x: torch.Tensor, num_groups: int = 32,

@@ -25,8 +25,10 @@ each weight is quantized once, w8's int8 values stored once in the compute
 dtype.
 
 Under a data axis (``parallel/dp.py``) a rank holds a slice of the batch,
-so the activation absmax is reduced (MAX) over the groups of
-``core.mesh.batch_groups()``; under tensor parallelism a row-parallel
+and under sequence parallelism its rows of each UNet level, so the
+activation absmax is reduced (MAX) over the groups of
+``core.mesh.reduce_groups()`` (a conv's halo rows are rows of the same
+tensor, so the MAX is unchanged by them); under tensor parallelism a row-parallel
 layer's contraction is split over the model group (``k_group``): its
 activation and per-channel weight absmax are reduced (MAX) over it and its
 int32 accumulators summed before the dequantize.  Either way the scales,
@@ -84,7 +86,11 @@ def fused(parts):
 def _absmax_scale(x: torch.Tensor, dims, eps: float = 1e-12, groups=()) -> torch.Tensor:
     """Symmetric absmax scale over ``dims`` (kept), fp32; reduced (MAX)
     over ``groups`` where the tensor is split across ranks."""
-    m = torch.amax(x.float().abs(), dim=dims, keepdim=True)
+    if x.numel():
+        m = torch.amax(x.float().abs(), dim=dims, keepdim=True)
+    else:  # a rank with no rows of the tensor (sequence parallelism)
+        m = torch.zeros([1 if d in dims else n for d, n in enumerate(x.shape)],
+                        device=x.device)
     m = mesh_mod.all_reduce_max(m, groups)
     # a tensor divisor: torch divides by a Python scalar on the card as a
     # product with its reciprocal, one ulp off the CPU's and XLA's quotient
@@ -143,7 +149,7 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias=None, *, k_group=Non
     per-tensor activation scale.  ``k_group``: the process group over which
     K is split (a row-parallel layer)."""
     wq, ws = _weight_int8(weight, k_group)
-    groups = mesh_mod.batch_groups() + (() if k_group is None else (k_group,))
+    groups = mesh_mod.reduce_groups() + (() if k_group is None else (k_group,))
     xq, xs = quantize(x, tuple(range(x.dim())), groups=groups)
     acc = int_mm(xq.reshape(-1, x.shape[-1]), wq)
     return _dequantize(acc, xs, ws, bias, k_group).reshape(*x.shape[:-1], -1)
@@ -157,7 +163,7 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1, padding
     :func:`int_mm`.  ``padding``: the same on every side (``conv.apply``
     pads an asymmetric conv's input before it dispatches)."""
     wq, ws = _weight_int8(weight, None)
-    xq, xs = quantize(x, (0, 1, 2, 3), groups=mesh_mod.batch_groups())
+    xq, xs = quantize(x, (0, 1, 2, 3), groups=mesh_mod.reduce_groups())
     acc = conv_int32(xq, wq, weight.shape[2:], stride=stride, padding=padding)
     y = _dequantize(acc.reshape(-1, acc.shape[-1]), xs, ws, bias, None)
     return y.reshape(acc.shape).permute(0, 3, 1, 2)

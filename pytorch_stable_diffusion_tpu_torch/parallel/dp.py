@@ -35,20 +35,24 @@ def _checksum(models) -> torch.Tensor:
     return torch.cat(sums) if sums else torch.zeros(0, dtype=torch.float64)
 
 
-def replicate_params(models, mesh):
-    """Check that every rank of the data axis holds the same weights (a
-    checksum of each parameter, gathered over the data group); raises
-    ``ValueError`` where one differs.  Returns ``models``."""
-    if mesh_mod.axis_size(mesh, mesh_mod.DATA_AXIS) == 1:
-        return models
-    group = mesh_mod.axis_group(mesh, mesh_mod.DATA_AXIS)
-    mine = _checksum(models).to(mesh.device_type)
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, mine, group=group)
-    for r, other in enumerate(parts):
-        if not torch.equal(other, parts[0]):
-            raise ValueError(f"data rank {r} holds other weights than data rank 0: "
-                             "every rank must load or build the same models")
+def replicate_params(models, mesh, axes=(mesh_mod.DATA_AXIS,)):
+    """Check that every rank of each of the mesh's ``axes`` holds the same
+    weights (a checksum of each parameter, gathered over the axis's
+    group); raises ``ValueError`` where one differs.  Returns ``models``.
+    Sequence parallelism (``parallel/sp.py``) checks the model axis too."""
+    mine = None
+    for axis in axes:
+        if mesh_mod.axis_size(mesh, axis) == 1:
+            continue
+        group = mesh_mod.axis_group(mesh, axis)
+        if mine is None:
+            mine = _checksum(models).to(mesh.device_type)
+        parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, mine, group=group)
+        for r, other in enumerate(parts):
+            if not torch.equal(other, parts[0]):
+                raise ValueError(f"{axis} rank {r} holds other weights than {axis} rank 0: "
+                                 "every rank must load or build the same models")
     return models
 
 

@@ -161,12 +161,25 @@ Same public keyword surface as the JAX package's ``generate()`` and
   dpm_adaptive's error norm) are taken over the whole batch.  A model axis
   > 1 turns ``fuse_qkv`` off, as in the JAX package: the models are
   sharded by ``parallel/tp.shard_models`` (``generate_images_tp``,
-  ``StableDiffusion(mesh=)``).
+  ``StableDiffusion(mesh=)``).  What a data rank would decide from its
+  prompts alone (long prompts on, the window count) is decided from the
+  whole batch.
 
-Every keyword of the JAX ``generate()`` is ported but
-``sequence_parallel=True``, which raises ``NotImplementedError`` naming
-slice H3 (ROADMAP.md §1); a value the JAX package does not know either
-raises ``ValueError``, as it does there.
+* Slice H3a.  ``sequence_parallel=True`` over a mesh with a model axis
+  of 2 or more (``parallel/sp.generate_spatial``): the models stay whole
+  and ``fuse_qkv`` on; every UNet (and ControlNet) evaluation takes the
+  rank's rows of its input and gathers its output's rows
+  (``core/mesh.split_rows``), while the host loop, the samplers, the
+  guidance combines, the VAE and the text towers run on the whole latents
+  on every model rank.  The res blocks and the ControlNet take the
+  "plain" conv tier, as the JAX package takes its ``"xla"`` one.  Under a
+  data axis too, each data rank's model group splits the rows of its
+  samples.  The JAX package's refusals, with its messages: a model axis
+  below 2, a latent height the axis does not divide, ToMe, Hypertile,
+  ``n_frames`` and ``panorama``.
+
+Every keyword of the JAX ``generate()`` is ported; a value the JAX
+package does not know raises ``ValueError``, as it does there.
 """
 
 from __future__ import annotations
@@ -179,6 +192,7 @@ import numpy as np
 import torch
 
 from . import prompt_schedule
+from .core import mesh as mesh_mod
 from .core import rng as rng_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
@@ -223,15 +237,18 @@ def _encode_tokens(tokenizer, prompts, max_len: int) -> np.ndarray:
 
 
 def _tokenize(tokenizer, prompts, uncond, max_len: int, *, long_prompts: bool,
-              emphasis: bool):
+              emphasis: bool, agree=None):
     """-> (cond_tokens, uncond_tokens, cond_weights, uncond_weights).
 
     Tokens are (N, L) int64, or (N, k, L) with long prompts of k > 1
     windows (every prompt padded to the common k with ``[sot] + [eot] *
     (L - 1)`` windows of weight 1); weights are float32 of the same shape,
-    or None without emphasis.  A ``BREAK`` keyword turns long prompts on."""
-    if not long_prompts and hasattr(tokenizer, "encode_windows") and any(
-            re.search(r"\bBREAK\b", t) for t in prompts + uncond):
+    or None without emphasis.  A ``BREAK`` keyword turns long prompts on.
+    ``agree``: a data rank's values -> their MAX over the whole batch
+    (``core/mesh.agree_max``), so that the switch and k are the batch's."""
+    agree = agree or list
+    if not long_prompts and hasattr(tokenizer, "encode_windows") and agree([any(
+            re.search(r"\bBREAK\b", t) for t in prompts + uncond)])[0]:
         # without windows the keyword would encode as a literal "break" token
         long_prompts = True
     if emphasis and not hasattr(tokenizer, "encode_weighted"):
@@ -249,7 +266,7 @@ def _tokenize(tokenizer, prompts, uncond, max_len: int, *, long_prompts: bool,
         else:
             cw = [tokenizer.encode_windows(t) for t in prompts]
             uw = [tokenizer.encode_windows(t) for t in uncond]
-        k = max(len(w) for w in cw + uw)
+        k = agree([max(len(w) for w in cw + uw)])[0]
         pad_win = [tokenizer.sot] + [tokenizer.eot] * (max_len - 1)
 
         def stack(wins, pad=pad_win, dt=np.int64):
@@ -641,7 +658,8 @@ def encode_image(models, image: torch.Tensor, noise: torch.Tensor, cfg: SDConfig
 
 
 def _panorama_plan(cfg: SDConfig, height: int, width: int, window: int,
-                   stride: Optional[int], *, composed: bool, deepcache, fixed_noise):
+                   stride: Optional[int], *, composed: bool, deepcache, fixed_noise,
+                   sequence_parallel: bool = False):
     """MultiDiffusion's window sweep over a canvas larger than the model's
     native size (Bar-Tal et al. 2023; diffusers' panorama pipeline): ->
     (window, ys, xs) in latent pixels, the windows in row-major order, each
@@ -655,6 +673,9 @@ def _panorama_plan(cfg: SDConfig, height: int, width: int, window: int,
                          "AND/prompt-editing)")
     if deepcache is not None:
         raise ValueError("panorama does not compose with deepcache")
+    if sequence_parallel:
+        raise ValueError("panorama does not compose with "
+                         "sequence_parallel")
     if fixed_noise is not None:
         raise ValueError("panorama is not supported in fixed_noise "
                          "parity mode")
@@ -701,11 +722,11 @@ def _run_on_mesh(prompt, uncond_prompt, mesh, kwargs):
     samples' indices in the whole batch), the batch-wide reductions taken
     over the data group, and the images and latents gathered, so that every
     rank returns the whole batch's.  A model axis > 1 (the models sharded
-    by ``parallel/tp.shard_models``) turns ``fuse_qkv`` off."""
-    from .core import mesh as mesh_mod
-
+    by ``parallel/tp.shard_models``) turns ``fuse_qkv`` off, but under
+    ``sequence_parallel``, whose model axis splits the latent rows."""
     cfg = kwargs.get("config") or sd15_config()
-    if mesh_mod.axis_size(mesh, mesh_mod.MODEL_AXIS) > 1 and cfg.fuse_qkv:
+    if mesh_mod.axis_size(mesh, mesh_mod.MODEL_AXIS) > 1 and cfg.fuse_qkv \
+            and not kwargs.get("sequence_parallel"):
         # the projections stay apart over the column-split heads, as the JAX
         # package's pipeline runs them under TP
         kwargs = dict(kwargs, config=dataclasses.replace(cfg, fuse_qkv=False))
@@ -723,7 +744,8 @@ def _run_on_mesh(prompt, uncond_prompt, mesh, kwargs):
         if v is not None and not hasattr(v, "convert") and np.ndim(v) == 4 and len(v) == n:
             return v[rows]
         return v
-    for name in ("input_image", "init_latents", "edit_image", "reference_image"):
+    for name in ("input_image", "init_latents", "edit_image", "reference_image",
+                 "ip_adapter_image"):
         kwargs[name] = own_rows(kwargs.get(name))
     for name in ("control_image", "adapter_image"):  # an image (or batch) for each net
         v = kwargs.get(name)
@@ -738,7 +760,8 @@ def _run_on_mesh(prompt, uncond_prompt, mesh, kwargs):
             else np.reshape(v, (n, -1))[rows] for k, v in kwargs["fixed_noise"].items()}
     group = mesh_mod.axis_group(mesh, mesh_mod.DATA_AXIS)
     with mesh_mod.split_batch((group,)):
-        outs = _generate_local(prompts[rows], uncond_prompt, _sample_offset=first, **kwargs)
+        outs = _generate_local(prompts[rows], uncond_prompt, _sample_offset=first, _mesh=mesh,
+                               **kwargs)
 
     def gather(x):
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
@@ -783,16 +806,12 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                     n_frames: Optional[int] = None, motion_window: Optional[int] = None,
                     motion_stride: Optional[int] = None, sequence_parallel: bool = False,
                     progress: bool = False, _device_output: bool = False,
-                    _sample_offset: int = 0):
+                    _sample_offset: int = 0, _mesh=None):
     """-> (images (B, H, W, 3) uint8, final latents (B, 4, h, w) float32),
     numpy arrays, or with ``_device_output`` tensors left on the device.
     ``_sample_offset``: the index of the first sample in the whole batch
-    (a data rank's share)."""
+    (a data rank's share); ``_mesh``: the mesh whose data rank this is."""
     del idle_device  # accepted for the reference's signature, as in the JAX package
-    if sequence_parallel:
-        raise NotImplementedError(
-            "generate(sequence_parallel=True) is not ported yet: it comes with "
-            "slice H3 (ROADMAP.md §1)")
     cfg = config or sd15_config()
     inpaint = _inpaint_mode(cfg, mask_image, input_image, init_latents)
     if color_correction:
@@ -960,7 +979,7 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                 or control_image is not None or adapter_image is not None
                 or reference_image is not None or panorama
                 or inpaint is not None or deepcache is not None
-                or region_masks is not None):
+                or sequence_parallel or region_masks is not None):
             raise ValueError("n_frames (AnimateDiff) composes only with "
                              "the plain txt2img/img2img path in this "
                              "build")
@@ -1001,7 +1020,8 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                     or pag_scale or sag_scale or n_and > 1 or sched_idx is not None)
         pano = _panorama_plan(cfg, height, width, panorama_window, panorama_stride,
                               composed=bool(composed), deepcache=deepcache,
-                              fixed_noise=fixed_noise)
+                              fixed_noise=fixed_noise,
+                              sequence_parallel=sequence_parallel)
     if reference_image is not None:
         reference_mode = _check_reference(
             cfg, edited=guided, ip2p=ip2p, inpaint=inpaint, fixed_noise=fixed_noise,
@@ -1076,7 +1096,7 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
         unet_mod.deepcache_shape(cfg.unet, 1, 1, 1)  # validates
     cond_tokens, uncond_tokens, cond_w, uncond_w = _tokenize(
         tokenizer, prompts, uncond, cfg.clip.max_len, long_prompts=long_prompts,
-        emphasis=emphasis)
+        emphasis=emphasis, agree=lambda v: mesh_mod.agree_max(v, _mesh))
     vmax = max(cond_tokens.max(), uncond_tokens.max())
     if vmax >= cfg.clip.vocab_size:
         raise ValueError(f"token id {vmax} >= vocab_size {cfg.clip.vocab_size} "
@@ -1087,6 +1107,34 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
         raise ValueError(f"height/width must be multiples of {factor}, "
                          f"got {height}x{width}")
     h_lat, w_lat = height // factor, width // factor
+    row_split = None
+    if sequence_parallel:
+        # the latency mode (parallel/sp.py): every UNet evaluation split
+        # over the model axis by latent rows
+        n_model = 0 if _mesh is None else mesh_mod.axis_size(_mesh, mesh_mod.MODEL_AXIS)
+        if n_model < 2:
+            raise ValueError("sequence_parallel needs a mesh with a model "
+                             f"axis > 1 (got {n_model})")
+        if h_lat % n_model:
+            raise ValueError(f"latent height {h_lat} not divisible by model "
+                             f"axis {n_model}")
+        if cfg.unet.tome is not None:
+            raise ValueError("ToMe token merging does not compose with "
+                             "sequence_parallel (the spatial shard_map "
+                             "needs the full token grid)")
+        if cfg.unet.hypertile is not None:
+            raise ValueError("Hypertile does not compose with "
+                             "sequence_parallel (tile folding needs the "
+                             "full token grid, not a spatial shard)")
+        if getattr(models.get("diffusion"), "tp_group", None) is not None:
+            # the port's own refusal: a rank's heads are not the whole layer
+            raise ValueError("sequence_parallel needs the whole UNet on every rank; "
+                             "these models are split by tensor parallelism "
+                             "(parallel/tp.shard_models)")
+        row_split = mesh_mod.model_rows(_mesh, h_lat, w_lat)
+        # no K5 (it fetches no halo) and no folded norms, as the JAX
+        # package runs its "xla" tier under sequence parallelism
+        cfg = dataclasses.replace(cfg, conv_backend="plain")
     lat_shape = (cfg.vae.latent_channels, h_lat, w_lat)
     size_ids = canonical_size_ids(cfg, height, width, original_size, crop_coords,
                                   target_size)
@@ -1315,11 +1363,17 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
         def dev(x):
             return _to_device(torch.from_numpy(np.array(x, np.float32)), device)
 
+        def local(x):
+            """The rank's latent rows of a whole feature (sequence parallelism)."""
+            if row_split is None:
+                return x
+            return mesh_mod.local_rows(x, row_split).contiguous(memory_format=memory_format)
+
         hint_feats = adapter_feats = adapter_single = ip_arg = ref_lat0 = None
         if nets is not None:
             hints = dev(_hints(control_image, width, height, batch))
-            hint_feats = [lanes(net.encode_hint(hints[ci].contiguous(
-                memory_format=memory_format), policy)) for ci, net in enumerate(nets)]
+            hint_feats = [local(lanes(net.encode_hint(hints[ci].contiguous(
+                memory_format=memory_format), policy))) for ci, net in enumerate(nets)]
             ctrl_scale = dev(controlnet_scale)
         if adapters is not None:
             a_hints, a_scale = dev(_hints(adapter_image, width, height, batch)), \
@@ -1331,7 +1385,7 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                     [a + b for a, b in zip(adapter_feats, fs)]
             # PAG's and SAG's single-lane evaluations take the features as
             # they are, the main one lane-matched
-            adapter_single = adapter_feats
+            adapter_single = adapter_feats = [local(f) for f in adapter_feats]
             adapter_feats = [lanes(f) for f in adapter_feats]
         if ip_img is not None:
             ipa, tower = models["ip_adapter"], models["clip_vision"]
@@ -1358,6 +1412,20 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                 cfg.unet.time_cond_dim), device)
 
         unet = models["diffusion"]
+
+        def unet_eval(x, *args, **kw):
+            """One UNet evaluation; under sequence parallelism on the rank's
+            rows of ``x``, the output's rows gathered (SAG's map comes whole,
+            DeepCache's feature stays the rank's rows)."""
+            if row_split is None:
+                return unet(x, *args, **kw)
+            with mesh_mod.split_rows(row_split):
+                out = unet(local(x), *args, **kw)
+            if out is None:
+                return None
+            if isinstance(out, tuple):
+                return (mesh_mod.gather_rows(out[0], row_split),) + out[1:]
+            return mesh_mod.gather_rows(out, row_split)
         # slice F's per-request tensors: the guidance scales, the AND
         # weights and region masks, the dynamic-threshold quantile
         pag_s = dev(pag_scale) if pag else None
@@ -1455,11 +1523,13 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                 # the ControlNets take the 4-channel latents, whatever the UNet's
                 ctrl_in = lanes(lat.to(cd)).contiguous(memory_format=memory_format)
                 for ci, net in enumerate(nets):
-                    c_i = net(ctrl_in, ctx, t_all[int(t)], hint_feats[ci], policy,
-                              conditioning_scale=ctrl_scale[ci],
-                              attention_backend=cfg.attention_backend,
-                              fuse_qkv=cfg.fuse_qkv, add_cond=add,
-                              conv_backend=cfg.conv_backend)
+                    # the rank's rows of the residuals under sequence parallelism
+                    with mesh_mod.split_rows(row_split):
+                        c_i = net(local(ctrl_in), ctx, t_all[int(t)], hint_feats[ci], policy,
+                                  conditioning_scale=ctrl_scale[ci],
+                                  attention_backend=cfg.attention_backend,
+                                  fuse_qkv=cfg.fuse_qkv, add_cond=add,
+                                  conv_backend=cfg.conv_backend)
                     control = c_i if control is None else {  # residuals sum
                         "mid": control["mid"] + c_i["mid"],
                         "down": [a + b for a, b in zip(control["down"], c_i["down"])]}
@@ -1471,10 +1541,10 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                                     noise["ref_noise"][min(i, len(timesteps) - 1)])
                 bank = {} if "attn" in reference_mode else None
                 abank = {} if "adain" in reference_mode else None
-                unet(lanes(rn.to(cd)).contiguous(memory_format=memory_format), ctx,
-                     t_all[int(t)], policy, head=False, add_cond=add, **kw,
-                     ref=None if bank is None else ("capture", bank),
-                     ref_adain=None if abank is None else ("capture", abank))
+                unet_eval(lanes(rn.to(cd)).contiguous(memory_format=memory_format), ctx,
+                          t_all[int(t)], policy, head=False, add_cond=add, **kw,
+                          ref=None if bank is None else ("capture", bank),
+                          ref_adain=None if abank is None else ("capture", abank))
                 side.update(ref=None if bank is None else ("read", bank, ref_fid, ref_mask),
                             ref_adain=None if abank is None
                             else ("read", abank, ref_fid, ref_mask))
@@ -1484,24 +1554,26 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
             if mwin is not None or pano is not None:
                 eps = window_sweep(model_in, ctx, t_all[int(t)], main).to(cd)
             elif deepcache is None:
-                out = unet(model_in, ctx, t_all[int(t)], policy, return_mid_attn=sag, **main)
+                out = unet_eval(model_in, ctx, t_all[int(t)], policy, return_mid_attn=sag,
+                                **main)
                 eps, mid_probs = out if sag else (out, None)
             elif ((i - start_step) % deepcache == 0 if refresh is None else refresh):
-                eps, dc["cache"] = unet(model_in, ctx, t_all[int(t)], policy,
-                                        return_cache=True, **main)
+                eps, dc["cache"] = unet_eval(model_in, ctx, t_all[int(t)], policy,
+                                             return_cache=True, **main)
             else:
-                eps = unet(model_in, ctx, t_all[int(t)], policy, cache=dc["cache"], **main)
+                eps = unet_eval(model_in, ctx, t_all[int(t)], policy, cache=dc["cache"],
+                                **main)
             eps = eps.float()
             raw = eps
             if pag:
                 # the perturbed evaluation: the cond lanes, identity
                 # self-attention in the mid block
                 cond = slice(None, batch)
-                eps_ptb = unet(lat_in.contiguous(memory_format=memory_format),
-                               _lane(ctx, cond) if do_cfg else ctx, t_all[int(t)], policy,
-                               pag=True, **kw, **lane_side(side, cond),
-                               add_cond=add[cond] if do_cfg and add is not None else add
-                               ).float()
+                eps_ptb = unet_eval(lat_in.contiguous(memory_format=memory_format),
+                                    _lane(ctx, cond) if do_cfg else ctx, t_all[int(t)],
+                                    policy, pag=True, **kw, **lane_side(side, cond),
+                                    add_cond=add[cond] if do_cfg and add is not None else add
+                                    ).float()
             if sag:
                 # blur x0 of the base lanes (uncond under CFG) where the mid
                 # block's attention mass concentrates, re-noise with their
@@ -1525,10 +1597,10 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                 deg_in = lat_deg.to(cd)
                 if inpaint_extra is not None:
                     deg_in = torch.cat([deg_in, inpaint_extra], dim=1)
-                eps_deg = unet(deg_in.contiguous(memory_format=memory_format),
-                               _lane(ctx, base), t_all[int(t)], policy, **kw,
-                               **lane_side(side, base),
-                               add_cond=None if add is None else add[base]).float()
+                eps_deg = unet_eval(deg_in.contiguous(memory_format=memory_format),
+                                    _lane(ctx, base), t_all[int(t)], policy, **kw,
+                                    **lane_side(side, base),
+                                    add_cond=None if add is None else add[base]).float()
                 eps_deg = ddpm.to_epsilon(schedule, t, lat_deg, eps_deg, cfg.prediction_type)
             if ip2p:
                 # dual guidance (Brooks et al. 2023, eq. 3)

@@ -898,8 +898,13 @@ def test_dp_and_tp_over_nccl(cuda, tmp_path):
     four, on one card as well.  Over a (cards / 2, 2) DP x TP mesh, where
     each rank's attention runs K1 at 4 of the 8 heads and the row-parallel
     layers sum their halves in bf16, within 35 dB of the batch of four.
-    Every rank returns all four images.  Needs two cards or more (four on
-    a 4-card machine)."""
+    Under sequence parallelism over every card and over a (cards / 2, 2)
+    DP x SP mesh, where each rank's self-attention runs K2 on its q rows
+    over the gathered K/V in place of K1, within 35 dB of the batch of four,
+    with no K1 launch.  Every rank returns all four images.  Prints the
+    times of one prompt on one card, two and every card, at 512² and at
+    2048² (2 steps).  Needs two cards
+    or more (four on a 4-card machine)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -927,9 +932,22 @@ def test_dp_and_tp_over_nccl(cuda, tmp_path):
               f"({image_psnr(res['tp'], ref):.2f} dB, max |diff| "
               f"{int(np.abs(res['tp'].astype(np.int16) - ref).max())}, K1 {res['k1_tp']} "
               f"launches)  [{torch.cuda.get_device_name(r)}]", flush=True)
+        print(f"rank {r} of {world}: SP over {world} cards {res['t_sp']:.3f} s "
+              f"({image_psnr(res['sp'], ref):.2f} dB, K1 {res['k1_sp']}, K2 {res['k2_sp']} "
+              f"launches); DP x SP {res['t_dpsp']:.3f} s ({image_psnr(res['dpsp'], ref):.2f} "
+              f"dB); one prompt, 8 steps: "
+              + ", ".join(f"{k} card(s) {t:.3f} s" for k, t in sorted(res["t_b1"].items()))
+              + "; at 2048², 2 steps: "
+              + ", ".join(f"{k} card(s) {t:.3f} s" for k, t in sorted(res["t_b1_big"].items()))
+              + f"  [{torch.cuda.get_device_name(r)}]", flush=True)
     for r, res in enumerate(ranks):
         assert res["dp"].shape == res["tp"].shape == ref.shape == (4, 512, 512, 3), r
         np.testing.assert_array_equal(res["dp"], res["each"])
         assert image_psnr(res["dp"], ref) > 35.0, r
         assert image_psnr(res["tp"], ref) > 35.0, r
         np.testing.assert_array_equal(res["tp"], ranks[0]["tp"])
+        assert res["sp"].shape == res["dpsp"].shape == ref.shape, r
+        assert image_psnr(res["sp"], ref) > 35.0, r
+        assert image_psnr(res["dpsp"], ref) > 35.0, r
+        assert res["k1_sp"] == 0 and res["k2_sp"] > 0, r
+        np.testing.assert_array_equal(res["sp"], ranks[0]["sp"])

@@ -7,7 +7,9 @@ loopback port (``tests/torch_dist_worker.py``, which imports neither JAX
 nor this module) runs every scenario: DP txt2img, DP with a ControlNet, DP
 InstructPix2Pix with one edit image a prompt, DP under "conv" at width 160
 (prompts whose rank-local activation absmax differs from the whole
-batch's), TP model=2 on tiny SD-1.5 and tiny SDXL, TP with PAG and SAG, TP
+batch's), DP with a BREAK prompt beside a one-window prompt (each data
+rank takes long prompts and the window count from the whole batch), DP
+with one IP-Adapter image a prompt, TP model=2 on tiny SD-1.5 and tiny SDXL, TP with PAG and SAG, TP
 under "conv", "wide", "w8" and "none" at width 160,
 ``mesh=`` through ``StableDiffusion``, and the streamed loader's TP slices.
 Each request is held to the same request on one process without a mesh
@@ -36,8 +38,9 @@ from pytorch_stable_diffusion_tpu_torch.utils import metrics, profiling
 from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
 
 WORLD = 2
-SCENARIOS = ("dp", "dp controlnet", "dp ip2p", "dp conv 160", "tp sd", "tp sdxl",
-             "tp pag sag", "tp wide 160", "tp w8 160", "tp none 160", "api dp", "api tp")
+SCENARIOS = ("dp", "dp controlnet", "dp ip2p", "dp conv 160", "dp long mixed",
+             "dp ip a prompt", "tp sd", "tp sdxl", "tp pag sag", "tp wide 160", "tp w8 160",
+             "tp none 160", "api dp", "api tp")
 
 
 def _free_port():
@@ -126,13 +129,6 @@ def test_tp_shards_the_models_and_the_streamed_load(ranks):
         assert res["api tp sharded"] == 16
         assert res["stream"]["equal"] and res["stream"]["sliced"] > 0
         assert res["stream"]["assembled"] == 16
-
-
-def test_sequence_parallel_names_slice_h3():
-    cfg = config.tiny_sd_config()
-    with pytest.raises(NotImplementedError, match="slice H3"):
-        pipeline.generate("a cat", models={}, config=cfg, sequence_parallel=True,
-                          tokenizer=make_test_tokenizer(["a", "cat"], 16))
 
 
 def test_progress_prints_the_enqueued_steps():

@@ -320,11 +320,15 @@ def test_exact_mode_refuses_more_than_65536_level1_tokens(slice_setup, tiny_mode
     ({"sequence_parallel": True}, "slice H3"),
 ])
 def test_unported_features_raise(slice_setup, kwargs, where):
+    """The last feature that raised NotImplementedError naming its slice
+    (``where``), sequence parallelism, is ported there: without a mesh it
+    now raises the JAX package's ValueError, before any work
+    (tests/test_torch_sequence_parallel.py runs it over gloo ranks)."""
     cfg, models, _, _ = slice_setup
     kw = dict(prompt="a cat", models=models, config=cfg, height=HW, width=HW,
               tokenizer=make_test_tokenizer(WORDS, max_len=cfg.clip.max_len))
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(ValueError, match=r"needs a mesh with a model axis > 1 \(got 0\)"):
         pipeline.generate(**kw)
 
 

@@ -140,8 +140,9 @@ def run(rank: int, world: int, port: int, out_dir: str) -> None:
     try:
         from pytorch_stable_diffusion_tpu_torch import api, pipeline
         from pytorch_stable_diffusion_tpu_torch.core import mesh as mesh_mod
-        from pytorch_stable_diffusion_tpu_torch.models import controlnet
+        from pytorch_stable_diffusion_tpu_torch.models import clip_vision, controlnet
         from pytorch_stable_diffusion_tpu_torch.parallel import dp, tp
+        from pytorch_stable_diffusion_tpu_torch.weights import ip_adapter
 
         dp_mesh = mesh_mod.make_mesh()
         tp_mesh = mesh_mod.make_mesh(data=1, model=2)
@@ -164,6 +165,24 @@ def run(rank: int, world: int, port: int, out_dir: str) -> None:
                    controlnet_scale=0.8)
         pair("dp controlnet", lambda: dp.generate_images_dp(PROMPTS, mesh=dp_mesh, **ckw),
              lambda: pipeline.generate_images(PROMPTS, **ckw))
+        # a data rank decides long prompts and the window count from the
+        # whole batch: sample 1 alone has one window and no BREAK
+        long = ["a (cat:1.3) BREAK a dog", "a dog"]
+        lkw = dict(kw, emphasis=True)
+        pair("dp long mixed", lambda: dp.generate_images_dp(long, mesh=dp_mesh, **lkw),
+             lambda: pipeline.generate_images(long, **lkw))
+        # one IP-Adapter image a prompt, split over the data ranks
+        vis = clip_vision.tiny_vision_config()
+        ip_models = dict(models, clip_vision=clip_vision.build_clip_vision(
+            vis, device="cpu", generator=torch.Generator().manual_seed(8)),
+            ip_adapter=clip_vision.build_ip_adapter(ip_adapter.convert_ip_adapter(
+                ip_adapter.synthetic_ip_state(cfg.unet, embed_dim=vis.proj_dim, seed=9),
+                cfg.unet), device="cpu"))
+        ikw = dict(kw, models=ip_models, ip_adapter_scale=0.7,
+                   ip_adapter_image=np.random.RandomState(2).randint(
+                       0, 256, (2, 16, 16, 3)).astype(np.uint8))
+        pair("dp ip a prompt", lambda: dp.generate_images_dp(PROMPTS, mesh=dp_mesh, **ikw),
+             lambda: pipeline.generate_images(PROMPTS, **ikw))
         pair("tp sd", lambda: tp.generate_images_tp(PROMPTS, mesh=tp_mesh, **kw), one)
         gkw = dict(pag_scale=2.0, sag_scale=0.75)
         pair("tp pag sag", lambda: tp.generate_images_tp(PROMPTS, mesh=tp_mesh, **kw, **gkw),
@@ -226,9 +245,13 @@ def run_cards(rank: int, world: int, port: int, out_dir: str, device_type: str =
     dpm++ Karras request on the rank's card alone (the reference), each of
     its samples alone at its index in the batch, the request over a
     data-parallel mesh of every rank and over a (world / 2, 2) DP x TP
-    mesh.  ``device_type="cpu"`` runs the same code on gloo with the tiny
+    mesh, and under sequence parallelism over a (1, world) mesh and a
+    (world / 2, 2) DP x SP one; then one prompt on one card, over two cards
+    (a DP x SP group of two, two prompts: a group a prompt) and over every
+    card, at 512² (8 steps) and at 2048² (2 steps).  ``device_type="cpu"`` runs the same code on gloo with the tiny
     config (a rehearsal).  Saves the images, the host times (the second of
-    two calls each) and the K1 launches of the TP request."""
+    two calls each) and the K1 and K2 launches of the TP and SP
+    requests."""
     cuda = device_type == "cuda"
     if cuda:
         torch.cuda.set_device(rank)
@@ -244,7 +267,7 @@ def run_cards(rank: int, world: int, port: int, out_dir: str, device_type: str =
         from pytorch_stable_diffusion_tpu_torch import pipeline
         from pytorch_stable_diffusion_tpu_torch.core import mesh as mesh_mod
         from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
-        from pytorch_stable_diffusion_tpu_torch.parallel import dp, tp
+        from pytorch_stable_diffusion_tpu_torch.parallel import dp, sp, tp
         from pytorch_stable_diffusion_tpu_torch.weights.tokenizer import make_test_tokenizer
 
         dev = f"cuda:{rank}" if cuda else "cpu"
@@ -285,6 +308,31 @@ def run_cards(rank: int, world: int, port: int, out_dir: str, device_type: str =
         out["tp"], out["t_tp"] = twice(lambda: tp.generate_images_tp(prompts, mesh=tp_mesh,
                                                                      **kw))
         out["k1_tp"] = (fa.flash_attention_bsc.launches - before) // 2
+        sp_mesh = mesh_mod.make_mesh(data=1, model=world)
+        dpsp_mesh = mesh_mod.make_mesh(data=world // 2, model=2)
+        before = (fa.flash_attention_bsc.launches, fa.flash_attention_onepass.launches)
+        out["sp"], out["t_sp"] = twice(lambda: pipeline.generate_images(
+            prompts, mesh=sp_mesh, sequence_parallel=True, **kw))
+        out["k1_sp"], out["k2_sp"] = ((fa.flash_attention_bsc.launches - before[0]) // 2,
+                                      (fa.flash_attention_onepass.launches - before[1]) // 2)
+        out["dpsp"], out["t_dpsp"] = twice(lambda: pipeline.generate_images(
+            prompts, mesh=dpsp_mesh, sequence_parallel=True, **kw))
+        # one prompt: on one card, over two (each DP x SP group of two takes
+        # a prompt) and over every card
+        out["t_b1"] = {1: twice(lambda: sdt.generate(prompts[0], **kw))[1]}
+        if world > 2:
+            out["t_b1"][2] = twice(lambda: pipeline.generate_images(
+                prompts[:world // 2], mesh=dpsp_mesh, sequence_parallel=True, **kw))[1]
+        out["t_b1"][world] = twice(lambda: sp.generate_spatial(prompts[0], mesh=sp_mesh,
+                                                               **kw))[1]
+        # the same at 4x the side, 2 steps: a device-bound evaluation
+        big = dict(kw, height=4 * size, width=4 * size, n_inference_steps=2)
+        out["t_b1_big"] = {1: twice(lambda: sdt.generate(prompts[0], **big))[1]}
+        if world > 2:
+            out["t_b1_big"][2] = twice(lambda: pipeline.generate_images(
+                prompts[:world // 2], mesh=dpsp_mesh, sequence_parallel=True, **big))[1]
+        out["t_b1_big"][world] = twice(lambda: sp.generate_spatial(prompts[0], mesh=sp_mesh,
+                                                                   **big))[1]
         torch.save(out, os.path.join(out_dir, f"cards{rank}.pt"))
     finally:
         dist.destroy_process_group()
