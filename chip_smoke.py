@@ -127,8 +127,8 @@ Phases (any failure exits non-zero):
                 schedule and the trailing grid (3 steps); with exact launch
                 counts from each sampler's UNet evaluations.
                 Slice C2 (``phase_small_c2``, lines ``small C2``): SDXL
-                and SD-2.1 768-v at full width, FP32, 256², 2 DDPM+CFG
-                steps, card against the CPU plain path (> 55 dB latents,
+                and SD-2.1 768-v at full width, FP32, 256², 1 DDPM+CFG
+                step, card against the CPU plain path (> 55 dB latents,
                 > 40 dB image): SDXL with K1 at level 1 (256 tokens, Dh 64)
                 and K3 in the VAE; SD-2.1 with FLASH_ONLY_KV lowered to 1024
                 so that K4 carries level 1 at Dh 64; the CPU side's host
@@ -141,15 +141,15 @@ Phases (any failure exits non-zero):
                 CFG, each UNet SD-1.5's with its conv_in or cond_proj
                 drawn from a seed.
                 Slice E (``phase_small_e``, lines ``small E``), on the
-                same CPU models: SD-1.5 at full width, FP32, 256², 2
-                euler_a steps, CFG 5, card against the CPU plain path (>
+                same CPU models: SD-1.5 at full width, FP32, 256², 1
+                euler_a step, CFG 5, card against the CPU plain path (>
                 55 dB latents, > 40 dB image, the plan's launches): a
                 ControlNet, two, the T2I-Adapter, IP-Adapter standard and
                 plus (the ViT-H/14 tower at 224²), reference attn and
                 adain; every side net drawn from a seed on the CPU (the
                 ControlNets' zero convs too) and copied to the card.
                 Slice F (``phase_small_f``, lines ``small F``), on the same
-                CPU models, 2 dpm++ steps, the card on the kernel
+                CPU models, 1 dpm++ step (DeepCache 2), the card on the kernel
                 attention, conv and VAE: guidance rescale 0.7 with dynamic
                 thresholding 0.995, PAG 3, SAG 0.75, AND with two region
                 masks, a variation seed with the noise multiplier,
@@ -157,7 +157,7 @@ Phases (any failure exits non-zero):
                 (their K1 shapes held to the plan), FreeU and tiling.
                 Slice G (``phase_small_g``, lines ``small G``), on the same
                 CPU models with SD-1.5's 21 motion modules drawn from a
-                seed, 2 dpm++ steps, CFG 5, the card on the kernel
+                seed, 1 dpm++ step, CFG 5, the card on the kernel
                 attention, conv and VAE: animate 3 frames, 4 frames through
                 windows of 3, and a 256x384 panorama (2 windows).
   5. model    — full-width SD-1.5 (BF16, kernel attention) on the card with
@@ -169,20 +169,22 @@ Phases (any failure exits non-zero):
                 (g) hires pass: (a) upscaled to 2048², img2img at strength
                 0.5 with encode_tile and decode_tile; (h) 512² img2img with
                 vae_attention_backend="kernel"; (i) 4096² must raise
-                ValueError.  Slice H1, the conv_backend tiers at 512²: (j)
-                txt2img on "kernel", (k) on "fold", (l) on "kernel_fold"
-                twice (bit-identical), (m) generate_images() x4 on
+                ValueError.  Slice H1, the conv_backend tiers at 512², 20
+                steps: (j0) txt2img on "plain", (j) on "kernel", (k) on
+                "fold", (l) on "kernel_fold" twice (bit-identical), (m0)
+                and (m) generate_images() x4 on "plain" and
                 "kernel_fold", (n) img2img at strength 0.8 on "kernel",
                 (o) and (p) generate_images() x4 on "kernel" and "fold";
-                each one's PSNR against (a) or (e) is printed, not gated.
-                Slice D1, prompt features at 512²: (q) txt2img with a
-                4-window prompt (308 context tokens), emphasis, BREAK and
-                clip_skip=2; (r) generate_images() x4 with long prompts
-                (CFG batch 8); (s) a prompt edit [..:..:25] in a long
-                prompt: K2 at every cross-attention, 16 a UNet evaluation.
+                each one's PSNR against (j0) or (m0) is printed, not gated.
+                Slice D1, prompt features at 512², 20 steps: (q) txt2img
+                with a 4-window prompt (308 context tokens), emphasis,
+                BREAK and clip_skip=2; (r) generate_images() x4 with long
+                prompts (CFG batch 8); (s) a prompt edit [..:..:10] in a
+                long prompt: K2 at every cross-attention, 16 a UNet
+                evaluation.
                 Slice B, the samplers at 512² (BF16, batch 1, CFG 7.5, seed
-                1337): each of the 17 besides ddpm once, at 20 steps (lcm
-                4; dpm_adaptive at most 20 iterations), on the Karras grid
+                1337): each of the 17 besides ddpm once, at 10 steps (lcm
+                4; dpm_adaptive at most 10 iterations), on the Karras grid
                 for dpm++, dpm++_sde, dpm++_3m_sde, euler, heun, dpm2 and
                 dpm2_a; img2img at strength 0.6 with dpm++ (Karras) and
                 restart; euler_a on conv_backend="kernel" (K5); dpm++ with
@@ -228,12 +230,12 @@ Phases (any failure exits non-zero):
                 Slice C2 (``phase_slice_c2``, lines ``C2 ...``), run after
                 phase 7 with the SD-1.5 models freed: BF16, full width,
                 attention, conv and VAE on the kernels, batch 1: (a) SDXL
-                base 1024², dpm++ Karras 20 steps, CFG 5, and (a') again,
+                base 1024², dpm++ Karras 10 steps, CFG 5, and (a') again,
                 bit-identical; (b) with the 4-window prompt (K2 at all 70
                 cross-attention layers an evaluation); (c) with
                 original_size=(2048, 2048), crop_coords=(64, 64); (d) the
                 refiner at 1024² over (a)'s latents through init_latents,
-                strength 0.3; (e) SD-2.1 768-v at 768², euler_a 20 steps on
+                strength 0.3; (e) SD-2.1 768-v at 768², euler_a 10 steps on
                 the trailing grid; (f) generate_many of 3 SDXL prompts at
                 batch 2 (at most one host sync); then files: a full-width
                 SDXL fp16 .safetensors in the sgm key schema ((C, C)
@@ -252,7 +254,7 @@ Phases (any failure exits non-zero):
                 kernels, seed 1337, the inpaint, InstructPix2Pix and LCM
                 UNets phase 5's with conv_in or cond_proj drawn
                 (``c3_variant``): (a) 9-channel inpainting at 512², dpm++
-                Karras 20 steps, the right half masked, strength 1.0, and
+                Karras 10 steps, the right half masked, strength 1.0, and
                 (a') again, bit-identical; (b) latent-blend inpainting on
                 the 4-channel model at strength 0.75, mask_blur 4, on
                 euler_a and heun: the final latents equal the init image's
@@ -261,12 +263,12 @@ Phases (any failure exits non-zero):
                 every pixel outside the crop equal to the input's; (d)
                 masked_content="fill"; (e) outpaint 64 px left and right
                 (a 640x512 canvas); (f) img2img with color_correction; (g)
-                edit, euler_a 20 steps, CFG 7.5, image guidance 1.5, also
+                edit, euler_a 10 steps, CFG 7.5, image guidance 1.5, also
                 with the 4-window prompt (K2 at three lanes); (h) LCM 4
                 steps without CFG; (i) hires_fix 512² -> 1024² at strength
                 0.6, bilinear and lanczos3.  After slice C2, on SDXL
                 (``phase_slice_c3_xl``): (j) 9-channel inpainting at 1024²,
-                20 steps; (k) LCM 1024², 4 steps, without CFG.  Each
+                10 steps; (k) LCM 1024², 4 steps, without CFG.  Each
                 request's launches are held to the plan of its generate()
                 calls (``c3_run``: VAE encodes, two passes for hires_fix);
                 its wall time and peak memory printed; one InstructPix2Pix
@@ -274,7 +276,7 @@ Phases (any failure exits non-zero):
                 SDXL LCM evaluation at 1024², profiled as in phase 7.
                 Slice E (``phase_slice_e`` after slice C3, lines ``E
                 ...``): BF16, full width, kernel attention, conv and VAE,
-                SD-1.5 512², dpm++ Karras 20 steps, CFG 7.5, the phase-5
+                SD-1.5 512², dpm++ Karras 10 steps, CFG 7.5, the phase-5
                 models with side nets drawn from a seed (``side_nets``):
                 (a0) no side net; (a) a ControlNet on a Canny hint
                 (``utils/annotators.canny`` of a seeded image), (a') again,
@@ -286,7 +288,7 @@ Phases (any failure exits non-zero):
                 (K4 in the read); (f) a ControlNet with an IP-Adapter.
                 After slice C3's SDXL requests (``phase_slice_e_xl``): (g)
                 an SDXL ControlNet, (h) full_adapter_xl, (i) reference attn
-                at 1024², 20 steps.  Each request's launches are held to
+                at 1024², 10 steps.  Each request's launches are held to
                 the plan (``expected_launches(controlnets=, reference=)``:
                 each ControlNet's encoder and mid an evaluation, the
                 capture pass, the read's K2/K4 calls and the reference
@@ -294,7 +296,7 @@ Phases (any failure exits non-zero):
                 512² and at SDXL 1024² profiled as in phase 7.
                 Slice F (``phase_slice_f`` after slice E, lines ``F
                 ...``): the phase-5 models, BF16, kernel attention, conv
-                and VAE, 512², dpm++ Karras 20 steps, CFG 7.5: each mode of
+                and VAE, 512², dpm++ Karras 10 steps, CFG 7.5: each mode of
                 ``phase_slice_f``'s docstring, with the bit-identities of
                 variation strength 1 (seed 2's noise), the multiplier 1.0,
                 DeepCache 1, Hypertile 64, FreeU (1, 1, 1, 1) and ToMe
@@ -308,7 +310,7 @@ Phases (any failure exits non-zero):
                 plan (``expected_launches(pag=, sag=, shallow=, tiling=)``).
                 Slice G (``phase_slice_g`` after slice F, lines ``G
                 ...``): the phase-5 models, BF16, kernel attention, conv
-                and VAE, dpm++ Karras 20 steps, CFG 7.5, seed 1337: (a)
+                and VAE, dpm++ Karras 10 steps, CFG 7.5, seed 1337: (a)
                 ``with_motion`` on an fp16 .safetensors in the
                 ``mm_sd_v15_v2`` key schema (21 modules, 453 M parameters,
                 a 32-frame window; every loaded tensor the file's),
@@ -361,7 +363,7 @@ Phases (any failure exits non-zero):
                 the exchanges are checked, not SP's latency), SD-1.5 full
                 width, kernel attention, seed-0 weights built alike on
                 every rank, ``parallel/sp.generate_spatial`` over a (1, 2)
-                mesh: (a) 512² BF16, 20 dpm++ Karras steps, CFG 7.5, within
+                mesh: (a) 512² BF16, 8 dpm++ Karras steps, CFG 7.5, within
                 35 dB of the same request on one process (K2 on each rank's
                 q rows over the gathered K/V replaces K1); (b) 2048² BF16 at
                 2 steps (K4, K3 and K2 on the local rows); (c) 256² FP32, 8
@@ -373,8 +375,30 @@ Phases (any failure exits non-zero):
                 view of the rank's fused projection, k and v the halves of
                 the gathered (B, S, 2C) tensor), timed beside SDPA and the
                 bound.
-Then one JSON line on the kernels, and last the contract line
-{"ok": true, "device": {...}}.
+ 11. slice H3b — the exported program (``phase_slice_h3b``, lines ``H3b
+                ...``, run after slice H2's phase, before H3a's): SD-1.5
+                BF16 at full width, seed-0 weights, attention, res blocks
+                and VAE on the kernels (K1, K5 and K3 inside the
+                artifact): ``utils/aot.export_pipeline`` of txt2img (512²,
+                batch 1, 50 DDPM steps, CFG) and of img2img, each under 64
+                MiB (the blob holds no weight; export launches no kernel),
+                saved to a temporary directory, loaded and primed; seed
+                1337 bit-identical to eager ``generate()`` (image and
+                latents) with the plan's launches during the call, twice;
+                img2img at strengths 0.8 and 0.5 from the one artifact,
+                each bit-identical to eager with the plan's K3; a second
+                model (seed 1) through the txt2img artifact, equal to eager
+                with it and not to the first model's image; then each of
+                the five custom ops called once through ``torch.ops.
+                sdt_torch`` at a phase-3 shape against its plain version
+                (K2 and K4 are not on the 512² artifact's path).  It
+                prints the export, save, load and prime seconds, the
+                artifact's first and second call against eager's wall;
+                phase 3's host-cost line holds a K1 call through the op
+                against the direct ctypes path under it.
+Each phase prints its seconds on a line of its own (``phase ...``).  Then
+one JSON line on the kernels, and last the contract line {"ok": true,
+"device": {...}}.
 
 Imports only torch, numpy and the port (no jax).  Kernels are built into
 build/kernels/ of the checkout.
@@ -455,7 +479,19 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
 LONG_PROMPT = " BREAK ".join(["a (photograph:1.2) of an astronaut riding a horse",
                               *PROMPTS[1:3], "an isometric [drawing] of a small city"])
 #: the same with a prompt edit at step 25 of 50
-LONG_EDIT = LONG_PROMPT.replace("riding a horse", "riding a [horse:fox:25]")
+LONG_EDIT = LONG_PROMPT.replace("riding a horse", "riding a [horse:fox:10]")
+
+
+#: the phase clock of main(): the start of the run and of the current phase
+LAP = {"start": 0.0, "phase": 0.0}
+
+
+def lap(name):
+    """Print the seconds of the phase that ends here, on a line of its own."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - LAP['phase']:.1f} s ({now - LAP['start']:.1f} s in all)",
+          flush=True)
+    LAP["phase"] = now
 
 
 def check(cond, msg):
@@ -675,11 +711,16 @@ def phase_k1(fa, card, results):
 
 
 def host_cost(fa, card):
-    """Host time of one small K1 call (2, 256, 1280), by CUDA events around
-    50 back-to-back calls (the kernel is shorter than its launch):
-    the wrapper as it is, whose C function's argument types are bound once,
-    against the same call with them bound again before every launch, as the
-    wrappers did before; alternated, twice each."""
+    """Host time of one small K1 call (2, 256, 1280) under inference mode,
+    by CUDA events around 50 back-to-back calls (the kernel is shorter than
+    its launch): the wrapper as it is, through the op ``torch.ops.sdt_torch.
+    flash_attention_bsc`` (the dispatcher picks the op's CUDA
+    implementation); the direct ctypes path under it (the wrapper's checks,
+    then the CUDA implementation called as a function); and the wrapper with the C
+    function's argument types bound again before every launch, as the
+    wrappers did before they were bound once; alternated, twice each.  The
+    op's cost over the direct path is also given for a 512² evaluation on
+    the kernel backends (its K1 and K5 calls)."""
     import ctypes
 
     qkv = torch.randn(2, 256, 3 * 1280, device="cuda").to(torch.bfloat16)
@@ -691,16 +732,30 @@ def host_cost(fa, card):
         fn.restype = ctypes.c_int
         return fa.flash_attention_bsc(q, k, v, n_heads=8)
 
-    def bound_once():
+    def through_op():
         return fa.flash_attention_bsc(q, k, v, n_heads=8)
 
-    times = {"bound once": [], "bound every call": []}
-    for _ in range(2):
-        times["bound once"].append(cuda_ms(bound_once, 50) * 1e3)
-        times["bound every call"].append(cuda_ms(rebinding, 50) * 1e3)
+    def direct():  # the wrapper as it was before the op: its checks, then ctypes
+        fa._check(q, k, v, 8)
+        return fa._launch(q, k, v, 8)
+
+    arms = {"custom op": through_op, "direct ctypes": direct, "bound every call": rebinding}
+    times = {name: [] for name in arms}
+    with torch.inference_mode():  # as generate() and the artifact run them
+        for _ in range(2):
+            for name, fn in arms.items():
+                times[name].append(cuda_ms(fn, 50) * 1e3)
+    extra = min(times["custom op"]) - min(times["direct ctypes"])
+    import pytorch_stable_diffusion_tpu_torch as port
+
+    cfg = port.sd15_config(attention_backend="kernel", conv_backend="kernel",
+                           vae_attention_backend="kernel")
+    per_eval = expected_launches(cfg, 512, 512, steps=1, img2img=False)
+    calls = per_eval["K1"] + per_eval["K5"]
     print("host: one K1 call (2, 256, 1280), CUDA events around 50 calls: "
           + "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in v)} us" for k, v in times.items())
-          + f"  [{card}]", flush=True)
+          + f"; the op adds {extra:.1f} us a call over the direct path, {extra * calls / 1e3:.3f}"
+          f" ms a 512² evaluation ({calls} K1 and K5 calls)  [{card}]", flush=True)
 
 
 def _check_rows(name, wrapper, plain, args, kw, rows, dtype, rec):
@@ -1346,8 +1401,7 @@ def phase_small_reference(port, attention):
     cfg_cpu = port.sd15_config(policy=port.FP32, attention_backend="plain")
     cfg_gpu = port.sd15_config(policy=port.FP32, attention_backend="kernel")
     t0 = time.perf_counter()
-    cpu_models = port.build_models(cfg_cpu, device="cpu",
-                                   generator=torch.Generator().manual_seed(7))
+    cpu_models = seeded_cpu_models(port, cfg_cpu, 7)
     sds = {k: m.state_dict() for k, m in cpu_models.items()}
     gpu_models = port.build_models(cfg_gpu, device="cuda", state_dicts=sds)
     del sds
@@ -1356,7 +1410,7 @@ def phase_small_reference(port, attention):
               tokenizer=tok, return_latents=True)
     zero_snr = dataclasses.replace(cfg_gpu, zero_terminal_snr=True)
 
-    def opts(sampler_name="ddpm", n_inference_steps=3, **more):
+    def opts(sampler_name="ddpm", n_inference_steps=2, **more):
         return dict(sampler_name=sampler_name, n_inference_steps=n_inference_steps, **more)
 
     runs = [  # label, card config, FLASH_ONLY_KV, prompt, options, context
@@ -1369,8 +1423,8 @@ def phase_small_reference(port, attention):
          opts(emphasis=True, clip_skip=2), 308),
         ("K1 dpm++_3m_sde karras", cfg_gpu, None, PROMPTS[0],
          opts("dpm++_3m_sde", 4, timestep_spacing="karras"), 77),
-        ("K1 heun", cfg_gpu, None, PROMPTS[0], opts("heun"), 77),
-        ("K1 restart", cfg_gpu, None, PROMPTS[0], opts("restart"), 77),
+        ("K1 heun", cfg_gpu, None, PROMPTS[0], opts("heun", 3), 77),
+        ("K1 restart", cfg_gpu, None, PROMPTS[0], opts("restart", 3), 77),
         ("K1 ddim eta 0.5, zero-terminal SNR, trailing", zero_snr, None, PROMPTS[0],
          opts("ddim", ddim_eta=0.5, timestep_spacing="trailing"), 77)]
 
@@ -1836,13 +1890,13 @@ def sampler_evals(sampler, steps, start, iterations=None):
 
 
 #: slice B's requests: sampler -> (timestep_spacing, steps)
-SLICE_B = {"ddim": ("uniform", 20), "dpm++": ("karras", 20), "dpm++_sde": ("karras", 20),
-           "dpm++_3m_sde": ("karras", 20), "dpm++_2s_a": ("uniform", 20),
-           "euler": ("karras", 20), "euler_a": ("uniform", 20), "heun": ("karras", 20),
-           "unipc": ("uniform", 20), "lcm": ("uniform", 4), "plms": ("uniform", 20),
-           "lms": ("uniform", 20), "dpm2": ("karras", 20), "dpm2_a": ("karras", 20),
-           "restart": ("uniform", 20), "dpm_fast": ("uniform", 20),
-           "dpm_adaptive": ("uniform", 20)}
+SLICE_B = {"ddim": ("uniform", 10), "dpm++": ("karras", 10), "dpm++_sde": ("karras", 10),
+           "dpm++_3m_sde": ("karras", 10), "dpm++_2s_a": ("uniform", 10),
+           "euler": ("karras", 10), "euler_a": ("uniform", 10), "heun": ("karras", 10),
+           "unipc": ("uniform", 10), "lcm": ("uniform", 4), "plms": ("uniform", 10),
+           "lms": ("uniform", 10), "dpm2": ("karras", 10), "dpm2_a": ("karras", 10),
+           "restart": ("uniform", 10), "dpm_fast": ("uniform", 10),
+           "dpm_adaptive": ("uniform", 10)}
 
 
 def phase_slice_b(port, request, base, init_image, zero_counts, read_path):
@@ -1870,14 +1924,14 @@ def phase_slice_b(port, request, base, init_image, zero_counts, read_path):
     img2img = dict(input_image=init_image, strength=0.6)
     runs = [(s, s, sp, n, {}) for s, (sp, n) in SLICE_B.items()] + [
         # label, sampler, spacing, steps, options
-        ("dpm++ img2img 0.6", "dpm++", "karras", 20, img2img),
-        ("restart img2img 0.6", "restart", "uniform", 20, img2img),
-        ("euler_a conv kernel", "euler_a", "uniform", 20,
+        ("dpm++ img2img 0.6", "dpm++", "karras", 10, img2img),
+        ("restart img2img 0.6", "restart", "uniform", 10, img2img),
+        ("euler_a conv kernel", "euler_a", "uniform", 10,
          dict(config=dataclasses.replace(base["config"], conv_backend="kernel"))),
-        ("dpm++ 4-window prompt", "dpm++", "karras", 20,
+        ("dpm++ 4-window prompt", "dpm++", "karras", 10,
          dict(prompt=LONG_PROMPT, emphasis=True, clip_skip=2)),
-        ("dpm++_sde again", "dpm++_sde", "karras", 20, {}),
-        ("dpm_adaptive again", "dpm_adaptive", "uniform", 20, {})]
+        ("dpm++_sde again", "dpm++_sde", "karras", 10, {}),
+        ("dpm_adaptive again", "dpm_adaptive", "uniform", 10, {})]
     images = {}
     try:
         for label, sampler, spacing, steps, options in runs:
@@ -2377,7 +2431,7 @@ def phase_slice_d(port, card, request, zero_counts, read_path):
 
 # ----------------------------------------------------------------- slice C2
 def phase_small_c2(port, attention):
-    """Full width, FP32, 256², 2 DDPM+CFG steps, the card against the CPU
+    """Full width, FP32, 256², 1 DDPM+CFG step, the card against the CPU
     plain path on the same seeded weights and noise: SDXL (K1 at level 1's
     256 tokens, Dh 64; the VAE's mid block on K3), and SD-2.1 768-v with
     FLASH_ONLY_KV lowered to 1024 so that K4 carries level 1 (1024 tokens,
@@ -2390,7 +2444,7 @@ def phase_small_c2(port, attention):
 
     tok = _tokenizer()
     kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
-              tokenizer=tok, return_latents=True, sampler_name="ddpm", n_inference_steps=2)
+              tokenizer=tok, return_latents=True, sampler_name="ddpm", n_inference_steps=1)
     kernels = dict(attention_backend="kernel", vae_attention_backend="kernel")
     for label, make, flash_only in (("SDXL", port.sdxl_config, None),
                                     ("SD-2.1 768-v", port.sd21_config, 1024)):
@@ -2398,8 +2452,7 @@ def phase_small_c2(port, attention):
         cfg_cpu = make(policy=port.FP32)
         cfg_gpu = make(policy=port.FP32, **kernels)
         with HostPeak() as peak:
-            cpu = port.build_models(cfg_cpu, device="cpu",
-                                    generator=torch.Generator().manual_seed(29))
+            cpu = seeded_cpu_models(port, cfg_cpu, 29)
             t_build = time.perf_counter() - t0
             t1 = time.perf_counter()
             img_c, lat_c = port.generate(PROMPTS[0], models=cpu, config=cfg_cpu, device="cpu",
@@ -2414,7 +2467,7 @@ def phase_small_c2(port, attention):
         if flash_only is not None:
             attention.FLASH_ONLY_KV = flash_only
         try:
-            want = expected_launches(cfg_gpu, 256, 256, steps=2, img2img=False,
+            want = expected_launches(cfg_gpu, 256, 256, steps=1, img2img=False,
                                      flash_only=flash_only or FLASH_ONLY_KV)
             before = launch_counts()
             img_g, lat_g = port.generate(PROMPTS[0], models=gpu, config=cfg_gpu,
@@ -2427,7 +2480,7 @@ def phase_small_c2(port, attention):
         torch.cuda.empty_cache()
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-        print(f"small C2 ({label}): full-width FP32 256², 2 DDPM steps, CFG 5, card vs CPU "
+        print(f"small C2 ({label}): full-width FP32 256², 1 DDPM step, CFG 5, card vs CPU "
               f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, "
               f"launches {got}; CPU side: models built in {t_build:.1f} s, the request in "
               f"{t_cpu:.1f} s, {peak.text()} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2480,10 +2533,10 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     tok = _tokenizer()
     base = dict(uncond_prompt="", cfg_scale=5.0, sampler_name="dpm++", timestep_spacing="karras",
-                n_inference_steps=20, tokenizer=tok, device="cuda", height=1024, width=1024,
+                n_inference_steps=10, tokenizer=tok, device="cuda", height=1024, width=1024,
                 return_latents=True, seed=1337)
 
-    def run(label, fn, family, *, size=1024, steps=20, n_images=1, config=xl_cfg, context=77):
+    def run(label, fn, family, *, size=1024, steps=10, n_images=1, config=xl_cfg, context=77):
         zero_counts()
         out = request(f"C2 {label}", fn, size=size, steps=steps, n_images=n_images,
                       config=config, context=context, per_eval=C2_PER_EVAL[family])
@@ -2494,7 +2547,7 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
         return lambda: port.generate(prompt, models=models or xl,
                                      **{**base, "config": xl_cfg, **more})
 
-    a, lat_a = run("a SDXL 1024² dpm++ karras 20 steps, CFG 5, seed 1337", xl_request(), "sdxl")
+    a, lat_a = run("a SDXL 1024² dpm++ karras 10 steps, CFG 5, seed 1337", xl_request(), "sdxl")
     a2, _ = run("a' the same again", xl_request(), "sdxl")
     check(np.array_equal(a, a2), "SDXL: the same seed gave a different image")
     long_img, _ = run("b 4-window prompt (emphasis, BREAK): K2", xl_request(
@@ -2510,11 +2563,11 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
     rf_cfg = port.sdxl_refiner_config(policy=port.BF16, **kernels)
     rf = port.build_models(rf_cfg, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(22))
-    start = 20 - int(20 * 0.3)
+    start = 10 - int(10 * 0.3)
     refined, _ = run("d refiner 1024² over a's latents (init_latents), strength 0.3",
                      lambda: port.generate(PROMPTS[0], models=rf, init_latents=lat_a,
                                            strength=0.3, **{**base, "config": rf_cfg}),
-                     "refiner", steps=20 - start, config=rf_cfg)
+                     "refiner", steps=10 - start, config=rf_cfg)
     check(not np.array_equal(refined, a), "refiner: the image did not change")
     del rf
     torch.cuda.empty_cache()
@@ -2523,7 +2576,7 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
     v_cfg = port.sd21_config(policy=port.BF16, **kernels)
     v_models = port.build_models(v_cfg, device="cuda",
                                  generator=torch.Generator(device="cuda").manual_seed(23))
-    run("e SD-2.1 768-v 768² euler_a 20 steps, trailing",
+    run("e SD-2.1 768-v 768² euler_a 10 steps, trailing",
         lambda: port.generate(PROMPTS[1], models=v_models, **{
             **base, "config": v_cfg, "height": 768, "width": 768, "sampler_name": "euler_a",
             "timestep_spacing": "trailing", "cfg_scale": 7.0}),
@@ -2542,7 +2595,7 @@ def phase_slice_c2(port, card, request, zero_counts, read_path):
             many = run("f generate_many 3 prompts, batch_size=2 (2 chunks, one padded)",
                        lambda: port.generate_many(PROMPTS[:3], batch_size=2, models=xl,
                                                   **{**many_kw, "config": many_cfg}),
-                       "sdxl", steps=2 * 20, n_images=3, config=many_cfg)
+                       "sdxl", steps=2 * 10, n_images=3, config=many_cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in syncs
@@ -2656,14 +2709,26 @@ def _c3_mask(height, width, box):
     return m
 
 
+def seeded_cpu_models(port, cfg, seed):
+    """``cfg``'s models on the CPU with weights drawn from ``seed`` on the card
+    (its generator is many times faster than the host's) and copied over:
+    the CPU side of the small checks."""
+    gpu = port.build_models(cfg, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed))
+    sds = {k: {n: t.cpu() for n, t in m.state_dict().items()} for k, m in gpu.items()}
+    del gpu
+    torch.cuda.empty_cache()
+    return port.build_models(cfg, device="cpu", state_dicts=sds)
+
+
 def small_sd15_cpu(port):
     """SD-1.5 at full width in FP32 on the CPU, from a seed: the CPU side of
     the ``small C3`` and ``small E`` checks."""
     t0 = time.perf_counter()
     base = port.sd15_config(policy=port.FP32)
     with HostPeak() as peak:
-        cpu = port.build_models(base, device="cpu", generator=torch.Generator().manual_seed(31))
-    print(f"small C3/E: SD-1.5 FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
+        cpu = seeded_cpu_models(port, base, 31)
+    print(f"small C3/E: SD-1.5 FP32 built for the CPU in {time.perf_counter() - t0:.1f} s, "
           f"{peak.text()}", flush=True)
     return cpu, base
 
@@ -2804,7 +2869,7 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
     image = r.randint(0, 256, (512, 512, 3)).astype(np.uint8)
     half = _c3_mask(512, 512, (0, 512, 256, 512))  # the right half
     kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10)
 
     def run(label, fn, parts, shape):
         return c3_run(label, fn, parts, shape, card, zero_counts, read_path)
@@ -2814,12 +2879,12 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
                                      return_latents=True, **{**kw, **more})
 
     sq = (512, 512, 3)
-    a, lat_a = run("a unet9 inpaint 512², dpm++ karras 20 steps, half mask, strength 1.0",
+    a, lat_a = run("a unet9 inpaint 512², dpm++ karras 10 steps, half mask, strength 1.0",
                    gen(inp, inp_cfg, input_image=image, mask_image=half, strength=1.0),
-                   [(inp_cfg, 512, 512, 20, 2, 77)], sq)
+                   [(inp_cfg, 512, 512, 10, 2, 77)], sq)
     a2, lat_a2 = run("a' the same again", gen(inp, inp_cfg, input_image=image, mask_image=half,
                                              strength=1.0),
-                     [(inp_cfg, 512, 512, 20, 2, 77)], sq)
+                     [(inp_cfg, 512, 512, 10, 2, 77)], sq)
     check(np.array_equal(a, a2) and np.array_equal(lat_a, lat_a2),
           "C3 unet9 inpaint: the same seed gave a different result")
     kept = a[:, :256].astype(np.float32)
@@ -2828,7 +2893,7 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
 
     # (b) latent blend on the 4-channel model: the kept latents are the init's
     mask_b = _c3_mask(512, 512, (128, 384, 192, 448))
-    start = ddpm.start_step_for_strength(20, 0.75)
+    start = ddpm.start_step_for_strength(10, 0.75)
     pixels = torch.as_tensor(pipeline._prepare_image(image, 512, 512)).cuda()
     pixels = pixels.contiguous(memory_format=torch.channels_last if pixels.is_cuda
                                else torch.contiguous_format)  # the pipeline's layout
@@ -2839,7 +2904,7 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
     blurred = np.clip(blur(pipeline._prepare_mask(mask_b, 512, 512)[0, ..., 0], sigma=4.0),
                       0.0, 1.0)[None, ..., None].astype(np.float32)
     keep = pipeline.mask_to_latent_area(blurred, 8)[0, ..., 0] == 0
-    for sampler, evals in (("euler_a", 20 - start), ("heun", 2 * (20 - start) - 1)):
+    for sampler, evals in (("euler_a", 10 - start), ("heun", 2 * (10 - start) - 1)):
         _, lat_b = run(f"b blend inpaint, {sampler}, strength 0.75, mask_blur=4",
                        gen(models, base_cfg, input_image=image, mask_image=mask_b,
                            strength=0.75, mask_blur=4, sampler_name=sampler,
@@ -2857,7 +2922,7 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
     full = run("c inpaint(full_res=True), a 96x96 mask in a 768x512 image",
                lambda: sd_inp.inpaint(PROMPTS[0], wide, _c3_mask(512, 768, box), full_res=True,
                                       **{k: v for k, v in kw.items() if k != "tokenizer"}),
-               [(inp_cfg, 512, 512, 20, 2, 77)], (512, 768, 3))
+               [(inp_cfg, 512, 512, 10, 2, 77)], (512, 768, 3))
     pad = 32  # full_res_padding: a 160x160 crop, square as the 512² processing size
     crop = np.zeros((512, 768), bool)
     crop[box[0] - pad:box[1] + pad, box[2] - pad:box[3] + pad] = True
@@ -2873,28 +2938,28 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
     run("d inpaint(masked_content='fill'), blend, strength 0.75",
         lambda: sd_base.inpaint(PROMPTS[0], image, mask_b, strength=0.75,
                                 masked_content="fill", height=512, width=512, **skw),
-        [(base_cfg, 512, 512, 20 - start, 1, 77)], sq)
+        [(base_cfg, 512, 512, 10 - start, 1, 77)], sq)
     out_e = run("e outpaint 64 px left and right (640x512 canvas), unet9",
                 lambda: sd_inp.outpaint(PROMPTS[0], image, pixels=64,
                                         directions=("left", "right"), **skw),
-                [(inp_cfg, 512, 640, 20, 2, 77)], (512, 640, 3))
+                [(inp_cfg, 512, 640, 10, 2, 77)], (512, 640, 3))
     check(out_e.shape == (512, 640, 3), "C3 e: canvas shape")
-    start_f = ddpm.start_step_for_strength(20, 0.6)
+    start_f = ddpm.start_step_for_strength(10, 0.6)
     f_img, _ = run("f img2img strength 0.6 with color_correction",
                    gen(models, base_cfg, input_image=image, strength=0.6,
                        color_correction=True),
-                   [(base_cfg, 512, 512, 20 - start_f, 1, 77)], sq)
+                   [(base_cfg, 512, 512, 10 - start_f, 1, 77)], sq)
 
     # (g) InstructPix2Pix: three lanes; with a 4-window prompt K2 at lane count 3
     sd_ip = port.StableDiffusion(ip, tok, ip_cfg, device="cuda")
     ekw = dict(skw, sampler_name="euler_a", timestep_spacing="uniform")
-    run("g edit, euler_a 20 steps, CFG 7.5, image guidance 1.5",
+    run("g edit, euler_a 10 steps, CFG 7.5, image guidance 1.5",
         lambda: sd_ip.edit(PROMPTS[0], image, image_guidance_scale=1.5, **ekw),
-        [(ip_cfg, 512, 512, 20, 1, 77)], sq)
+        [(ip_cfg, 512, 512, 10, 1, 77)], sq)
     run("g' edit with the 4-window prompt (K2 at lane count 3)",
         lambda: sd_ip.edit(LONG_PROMPT, image, image_guidance_scale=1.5, emphasis=True,
                            **ekw),
-        [(ip_cfg, 512, 512, 20, 1, 308)], sq)
+        [(ip_cfg, 512, 512, 10, 1, 308)], sq)
 
     # (h) LCM, 4 steps, no CFG: one lane and the guidance embedding
     run("h LCM 4 steps, do_cfg=False", gen(lcm, lcm_cfg, do_cfg=False, sampler_name="lcm",
@@ -2902,12 +2967,12 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
         [(lcm_cfg, 512, 512, 4, 0, 77)], sq)
 
     # (i) hires_fix 512² -> 1024², strength 0.6
-    start_i = ddpm.start_step_for_strength(20, 0.6)
+    start_i = ddpm.start_step_for_strength(10, 0.6)
     for method in ("bilinear", "lanczos3"):
         run(f"i hires_fix 512² -> 1024², strength 0.6, {method}",
             lambda: sd_base.hires_fix(PROMPTS[0], height=1024, width=1024, strength=0.6,
                                       upscale_method=method, **skw),
-            [(base_cfg, 512, 512, 20, 0, 77), (base_cfg, 1024, 1024, 20 - start_i, 0, 77)],
+            [(base_cfg, 512, 512, 10, 0, 77), (base_cfg, 1024, 1024, 10 - start_i, 0, 77)],
             (1024, 1024, 3))
 
     # one evaluation of each new lane count, profiled
@@ -2919,7 +2984,7 @@ def phase_slice_c3(port, card, models, cfg, zero_counts, read_path):
 
 def phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     """Slice C3 on SDXL 1024² (after slice C2, the SD-1.5 models freed):
-    (j) unet9 inpainting, 20 dpm++ Karras steps, and (k) LCM, 4 steps,
+    (j) unet9 inpainting, 10 dpm++ Karras steps, and (k) LCM, 4 steps,
     without CFG; the UNets are C2's SDXL base with its conv_in or cond_proj
     drawn (:func:`c3_variant`)."""
     import numpy as np
@@ -2930,12 +2995,12 @@ def phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     image = r.randint(0, 256, (1024, 1024, 3)).astype(np.uint8)
     kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
               device="cuda", height=1024, width=1024, return_latents=True,
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
-    c3_run("j SDXL unet9 inpaint 1024², dpm++ karras 20 steps, strength 1.0",
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10)
+    c3_run("j SDXL unet9 inpaint 1024², dpm++ karras 10 steps, strength 1.0",
            lambda: port.generate(PROMPTS[0], models=inp, config=inp_cfg, input_image=image,
                                  mask_image=_c3_mask(1024, 1024, (256, 768, 256, 768)),
                                  strength=1.0, **kw),
-           [(inp_cfg, 1024, 1024, 20, 2, 77)], (1024, 1024, 3), card, zero_counts, read_path)
+           [(inp_cfg, 1024, 1024, 10, 2, 77)], (1024, 1024, 3), card, zero_counts, read_path)
     c3_run("k SDXL LCM 1024², 4 steps, do_cfg=False",
            lambda: port.generate(PROMPTS[0], models=lcm, config=lcm_cfg, do_cfg=False,
                                  **{**kw, "sampler_name": "lcm", "timestep_spacing": "uniform",
@@ -3076,11 +3141,16 @@ def phase_small_e(port, cpu, base):
     tok = _tokenizer()
     r = np.random.RandomState(36)
     kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
-              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="euler_a")
+              tokenizer=tok, return_latents=True, n_inference_steps=1, sampler_name="euler_a")
     t0 = time.perf_counter()
     with HostPeak() as peak:
-        side = side_nets(port, base, "cpu", 80)
-    print(f"small E: side nets FP32 built on the CPU in {time.perf_counter() - t0:.1f} s, "
+        # drawn on the card (its generator is many times faster than the
+        # host's) and copied to the CPU in its layout
+        side = {k: [n.to("cpu", memory_format=torch.contiguous_format) for n in v]
+                if isinstance(v, list) else v.to("cpu", memory_format=torch.contiguous_format)
+                for k, v in side_nets(port, base, "cuda", 80).items()}
+        torch.cuda.empty_cache()
+    print(f"small E: side nets FP32 built for the CPU in {time.perf_counter() - t0:.1f} s, "
           f"{peak.text()}", flush=True)
     ip_image = r.randint(0, 256, (224, 224, 3)).astype(np.uint8)
     hint = hint_image(256, 37)
@@ -3108,7 +3178,7 @@ def phase_small_e(port, cpu, base):
                                      config=base, device="cpu", clip_vision_config=cv.vit_h14(),
                                      **kw, **opts)
         t_cpu = time.perf_counter() - t1
-        want = expected_launches(cfg_g, 256, 256, steps=2, img2img=False, **plan)
+        want = expected_launches(cfg_g, 256, 256, steps=1, img2img=False, **plan)
         before = launch_counts()
         img_g, lat_g = port.generate(PROMPTS[0], models=with_side(gpu, side_g, **pick),
                                      config=cfg_g, device="cuda", **kw, **opts)
@@ -3116,7 +3186,7 @@ def phase_small_e(port, cpu, base):
         got = {k: v - before[k] for k, v in launch_counts().items()}
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-        print(f"small E ({label}): full-width FP32 256², 2 euler_a steps, CFG 5, card vs CPU "
+        print(f"small E ({label}): full-width FP32 256², 1 euler_a step, CFG 5, card vs CPU "
               f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
               f"{got}; CPU side {t_cpu:.1f} s", flush=True)
         check(got == want, f"small E ({label}) launched {got}, want {want}")
@@ -3130,7 +3200,7 @@ def phase_small_e(port, cpu, base):
 
 def phase_slice_e(port, card, models, cfg, zero_counts, read_path):
     """Slice E at SD-1.5 512², full width, BF16, attention, conv and VAE on
-    the kernels, dpm++ Karras 20 steps, CFG 7.5, seed 1337, on the phase-5
+    the kernels, dpm++ Karras 10 steps, CFG 7.5, seed 1337, on the phase-5
     models with side nets drawn from a seed (:func:`side_nets`): (a) a
     ControlNet on a Canny hint, (a') again, bit-identical, (a'') at scale 0,
     bit-identical to the request without it; (b) two ControlNets at [1.0,
@@ -3157,7 +3227,7 @@ def phase_slice_e(port, card, models, cfg, zero_counts, read_path):
     ip_image = r.randint(0, 256, (224, 224, 3)).astype(np.uint8)
     ref_image = r.randint(0, 256, (512, 512, 3)).astype(np.uint8)
     kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20,
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10,
               return_latents=True, clip_vision_config=cv.vit_h14())
     sq = (512, 512, 3)
 
@@ -3167,7 +3237,7 @@ def phase_slice_e(port, card, models, cfg, zero_counts, read_path):
             **{**kw, **more}), parts, shape, card, zero_counts, read_path, slice_name="E")
 
     def plan(**side_plan):
-        return [(base_cfg, 512, 512, 20, 0, 77, side_plan)]
+        return [(base_cfg, 512, 512, 10, 0, 77, side_plan)]
 
     plain = run("a0 the request without a side net", {}, plan())
     a = run("a ControlNet, Canny hint of a seeded image", dict(nets=1), plan(controlnets=1),
@@ -3248,7 +3318,7 @@ def profile_side_evals(models, cfg, side, card, size, label):
 
 def phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     """Slice E on SDXL 1024² (after slice C3's SDXL requests), dpm++ Karras
-    20 steps, CFG 5: (g) an SDXL ControlNet, (h) a full_adapter_xl
+    10 steps, CFG 5: (g) an SDXL ControlNet, (h) a full_adapter_xl
     T2I-Adapter, (i) reference attn; one ControlNet and one reference
     evaluation profiled."""
     import numpy as np
@@ -3261,12 +3331,12 @@ def phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path):
     hint = hint_image(1024, 42)
     kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
               device="cuda", height=1024, width=1024, return_latents=True,
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10)
 
     def run(label, pick, side_plan, **more):
         return c3_run(label, lambda: port.generate(
             PROMPTS[0], models=with_side(xl, side, **pick), config=xl_cfg, **{**kw, **more}),
-            [(xl_cfg, 1024, 1024, 20, 0, 77, side_plan)], (1024, 1024, 3), card, zero_counts,
+            [(xl_cfg, 1024, 1024, 10, 0, 77, side_plan)], (1024, 1024, 3), card, zero_counts,
             read_path, slice_name="E")
 
     run("g SDXL ControlNet 1024²", dict(nets=1), dict(controlnets=1), control_image=hint)
@@ -3315,7 +3385,7 @@ def k1_calls():
 
 
 def phase_small_f(port, cpu, base):
-    """Slice F at full width, FP32, 256², 2 dpm++ steps, CFG 5: the card
+    """Slice F at full width, FP32, 256², 1 dpm++ step (DeepCache 2), CFG 5: the card
     (kernel attention, conv and VAE) against the port's CPU plain path on
     the same seeded weights and noise (> 55 dB latents, > 40 dB image, the
     plan's launches): guidance rescale 0.7 with dynamic thresholding 0.995,
@@ -3327,7 +3397,7 @@ def phase_small_f(port, cpu, base):
 
     tok = _tokenizer()
     kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
-              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="dpm++")
+              tokenizer=tok, return_latents=True, sampler_name="dpm++")
     cfg_g = dataclasses.replace(base, attention_backend="kernel", vae_attention_backend="kernel",
                                 conv_backend="kernel")
     gpu = port.build_models(cfg_g, device="cuda",
@@ -3343,22 +3413,24 @@ def phase_small_f(port, cpu, base):
          {}),
         ("variation seed 0.3, noise multiplier 1.05", cfg_g,
          dict(variation_seed=18, variation_strength=0.3, noise_multiplier=1.05), {}),
-        ("DeepCache 2", cfg_g, dict(deepcache=2),
+        ("DeepCache 2", cfg_g, dict(deepcache=2, n_inference_steps=2),
          dict(shallow=deepcache_evals("dpm++", 2, 0, 2)[1])),
         ("Hypertile 16, 1024 tokens", ht, {}, {}),
         ("ToMe 0.5, 1024 tokens", tome, {}, {}),
         ("FreeU", cfg_g, dict(freeu=True), {}),
         ("tiling", cfg_g, dict(tiling=True), dict(tiling=True)))
     for label, cfg_r, opts, plan in requests:
+        # one step each, DeepCache two (a full evaluation, then a shallow one)
         opts = dict(opts)
         prompt = opts.pop("prompt", PROMPTS[0])
+        steps = opts.setdefault("n_inference_steps", 1)
         t1 = time.perf_counter()
         img_c, lat_c = port.generate(
             prompt, models=cpu, device="cpu", **kw, **opts,
             config=dataclasses.replace(cfg_r, attention_backend="plain",
                                        vae_attention_backend="plain", conv_backend="plain"))
         t_cpu = time.perf_counter() - t1
-        want = expected_launches(cfg_r, 256, 256, steps=2, img2img=False, **plan)
+        want = expected_launches(cfg_r, 256, 256, steps=steps, img2img=False, **plan)
         before = launch_counts()
         with k1_calls() as shapes:
             img_g, lat_g = port.generate(prompt, models=gpu, config=cfg_r, device="cuda",
@@ -3367,7 +3439,7 @@ def phase_small_f(port, cpu, base):
         got = {k: v - before[k] for k, v in launch_counts().items()}
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-        print(f"small F ({label}): full-width FP32 256², 2 dpm++ steps, CFG 5, card vs CPU "
+        print(f"small F ({label}): full-width FP32 256², {steps} dpm++ step(s), CFG 5, card vs CPU "
               f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
               f"{got}, K1 shapes {sorted(shapes)}; CPU side {t_cpu:.1f} s", flush=True)
         check(got == want, f"small F ({label}) launched {got}, want {want}")
@@ -3399,7 +3471,7 @@ def seam_ratio(image):
 
 def phase_slice_f(port, card, models, cfg, zero_counts, read_path):
     """Slice F at SD-1.5 512², full width, BF16, kernel attention, conv and
-    VAE, dpm++ Karras 20 steps, CFG 7.5, seed 1337, on the phase-5 models:
+    VAE, dpm++ Karras 10 steps, CFG 7.5, seed 1337, on the phase-5 models:
     (a) guidance rescale 0.7, (b) dynamic thresholding 0.995, (c) PAG 3.0,
     (d) SAG 0.75, (e) "... AND ...:0.8" and (e') with two half-canvas
     region masks, (f) a variation seed at 0.3 and (f') seed 1 at strength 1
@@ -3416,14 +3488,14 @@ def phase_slice_f(port, card, models, cfg, zero_counts, read_path):
     base_cfg = dataclasses.replace(cfg, conv_backend="kernel", vae_attention_backend="kernel")
     tok = _tokenizer()
     kw = dict(uncond_prompt="", cfg_scale=7.5, seed=1337, tokenizer=tok, device="cuda",
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20,
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10,
               return_latents=True)
     sq = (512, 512, 3)
 
     def run(label, config=base_cfg, prompt=PROMPTS[0], plan=None, **more):
         return c3_run(label, lambda: port.generate(prompt, models=models, config=config,
                                                    **{**kw, **more}),
-                      [(config, 512, 512, 20, 0, 77, plan or {})], sq, card, zero_counts,
+                      [(config, 512, 512, 10, 0, 77, plan or {})], sq, card, zero_counts,
                       read_path, slice_name="F")
 
     def same(x, y, what):
@@ -3447,7 +3519,7 @@ def phase_slice_f(port, card, models, cfg, zero_counts, read_path):
     same(f1, run("f' seed 2 without variation", seed=2), "f' (seed 2's noise)")
     out["g"] = run("g noise_multiplier 1.05", noise_multiplier=1.05)
     same(run("g' noise_multiplier 1.0", noise_multiplier=1.0), plain, "g'")
-    full, shallow = deepcache_evals("dpm++", 20, 0, 3)
+    full, shallow = deepcache_evals("dpm++", 10, 0, 3)
     out["h"] = run(f"h deepcache 3 ({full} full, {shallow} shallow)", deepcache=3,
                    plan=dict(shallow=shallow))
     same(run("h' deepcache 1", deepcache=1), plain, "h'")
@@ -3549,17 +3621,17 @@ def phase_slice_f_big(port, card, models, cfg, zero_counts, read_path):
 
 
 def phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path):
-    """Slice F on SDXL 1024², 20 dpm++ Karras steps, CFG 5 (after slice E's
+    """Slice F on SDXL 1024², 10 dpm++ Karras steps, CFG 5 (after slice E's
     SDXL requests): (o) PAG 3.0, FreeU with the SDXL defaults, and Hypertile
     32 (level 1's 4096 tokens in four tiles)."""
     kw = dict(uncond_prompt="", cfg_scale=5.0, seed=1337, tokenizer=_tokenizer(),
               device="cuda", height=1024, width=1024, return_latents=True,
-              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=20)
+              sampler_name="dpm++", timestep_spacing="karras", n_inference_steps=10)
 
     def run(label, config=xl_cfg, plan=None, **more):
         return c3_run(label, lambda: port.generate(PROMPTS[0], models=xl, config=config,
                                                    **{**kw, **more}),
-                      [(config, 1024, 1024, 20, 0, 77, plan or {})], (1024, 1024, 3), card,
+                      [(config, 1024, 1024, 10, 0, 77, plan or {})], (1024, 1024, 3), card,
                       zero_counts, read_path, slice_name="F")
 
     run("o SDXL PAG 3.0", pag_scale=3.0, plan=dict(pag=True))
@@ -3604,12 +3676,12 @@ def phase_slice_g(port, card, models, cfg, zero_counts, read_path):
     """Slice G at SD-1.5 full width, BF16, kernel attention, conv and VAE,
     seed 1337, on the phase-5 models: (a) ``with_motion`` on a file in the
     ``mm_sd_v15_v2`` key schema (21 modules, a 32-frame window), ``animate``
-    16 frames at 512², dpm++ Karras 20 steps, CFG 7.5 (32 lanes an
+    16 frames at 512², dpm++ Karras 10 steps, CFG 7.5 (32 lanes an
     evaluation), and (a') again, bit-identical; (b) 24 frames through
     ``motion_window=16`` (windows at frames 0 and 8); (c) ``panorama``
-    512x2048, window 512, stride 256 (7 windows), 20 steps, and a
+    512x2048, window 512, stride 256 (7 windows), 10 steps, and a
     single-window 512² panorama bit-identical to plain ``generate``; (d)
-    ``panorama`` 2048x4096, 2 steps (105 windows; the JAX package's guard
+    ``panorama`` 2048x4096, 1 step (105 windows; the JAX package's guard
     refuses the canvas, the port counts a window), the decode's mid block
     on K3 over 131072 tokens and its tail tiled (``decode_tile=64``: whole,
     its 256-channel upsample would hold 2^31 elements, past the 32-bit
@@ -3635,7 +3707,7 @@ def phase_slice_g(port, card, models, cfg, zero_counts, read_path):
     tok = _tokenizer()
     sd = port.StableDiffusion(models, tok, base_cfg, device="cuda")
     kw = dict(cfg_scale=7.5, seed=1337, sampler_name="dpm++", timestep_spacing="karras",
-              n_inference_steps=20)
+              n_inference_steps=10)
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_g_")
 
     def run(label, fn, parts, shape):
@@ -3663,28 +3735,28 @@ def phase_slice_g(port, card, models, cfg, zero_counts, read_path):
           flush=True)
     anim = dict(kw, height=512, width=512)
     a = run("a animate 16 frames 512²", lambda: sd_m.animate(PROMPTS[0], n_frames=16, **anim),
-            [(base_cfg, 512, 512, 20, 0, 77)], (16, 512, 512, 3))
+            [(base_cfg, 512, 512, 10, 0, 77)], (16, 512, 512, 3))
     same(a, run("a' animate again", lambda: sd_m.animate(PROMPTS[0], n_frames=16, **anim),
-                [(base_cfg, 512, 512, 20, 0, 77)], (16, 512, 512, 3)), "a'")
+                [(base_cfg, 512, 512, 10, 0, 77)], (16, 512, 512, 3)), "a'")
     check(not np.array_equal(a[0], a[1]), "G a: frames 0 and 1 are equal")
     b = run("b animate 24 frames, motion_window 16 (windows at 0 and 8)",
             lambda: sd_m.animate(PROMPTS[0], n_frames=24, motion_window=16, **anim),
-            [(base_cfg, 512, 512, 20 * 2, 0, 77)], (24, 512, 512, 3))
+            [(base_cfg, 512, 512, 10 * 2, 0, 77)], (24, 512, 512, 3))
     # (c), (d) panoramas: the UNet over windows, the VAE over the canvas
     pano = dict(kw, panorama=True, panorama_window=512, return_latents=True)
     c = run("c panorama 512x2048, window 512, stride 256 (7 windows)",
             lambda: sd.txt2img(PROMPTS[1], height=512, width=2048, panorama_stride=256, **pano),
-            [(base_cfg, 512, 512, 20 * 7, 0, 77, dict(canvas=(512, 2048)))], (512, 2048, 3))
+            [(base_cfg, 512, 512, 10 * 7, 0, 77, dict(canvas=(512, 2048)))], (512, 2048, 3))
     one = dict(kw, height=512, width=512, return_latents=True)
     plain = run("c' generate 512²", lambda: sd.txt2img(PROMPTS[1], **one),
-                [(base_cfg, 512, 512, 20, 0, 77)], (512, 512, 3))
+                [(base_cfg, 512, 512, 10, 0, 77)], (512, 512, 3))
     same(run("c' panorama 512², one window", lambda: sd.txt2img(PROMPTS[1], panorama=True,
                                                                   panorama_window=512, **one),
-             [(base_cfg, 512, 512, 20, 0, 77)], (512, 512, 3)), plain, "c' (one window)")
-    run("d panorama 2048x4096, 2 steps (105 windows), decode_tile 64",
+             [(base_cfg, 512, 512, 10, 0, 77)], (512, 512, 3)), plain, "c' (one window)")
+    run("d panorama 2048x4096, 1 step (105 windows), decode_tile 64",
         lambda: sd.txt2img(PROMPTS[1], height=2048, width=4096, decode_tile=64,
-                           **dict(pano, n_inference_steps=2)),
-        [(base_cfg, 512, 512, 2 * 105, 0, 77, dict(canvas=(2048, 4096)))], (2048, 4096, 3))
+                           **dict(pano, n_inference_steps=1)),
+        [(base_cfg, 512, 512, 105, 0, 77, dict(canvas=(2048, 4096)))], (2048, 4096, 3))
     # (e), (f), (g) the upscalers
     path = os.path.join(tmp.name, "RealESRGAN_x4plus.safetensors")
     n_esr = esrgan_file(path, seed=15)
@@ -3699,17 +3771,17 @@ def phase_slice_g(port, card, models, cfg, zero_counts, read_path):
     print(f"G e: RRDBNet {n_esr} parameters; tiled vs whole PSNR "
           f"{psnr(tiled.astype(np.float32), whole.astype(np.float32)):.1f} dB (not gated: "
           f"the 8-pixel pad is under the receptive field)", flush=True)
-    s06 = ddpm.start_step_for_strength(20, 0.6)
+    s06 = ddpm.start_step_for_strength(10, 0.6)
     run("f hires_fix 512² -> 1024², esrgan, strength 0.6",
         lambda: sd_u.hires_fix(PROMPTS[2], height=1024, width=1024, strength=0.6,
                                upscale_method="esrgan", **kw),
-        [(base_cfg, 512, 512, 20, 0, 77), (base_cfg, 1024, 1024, 20 - s06, 1, 77)],
+        [(base_cfg, 512, 512, 10, 0, 77), (base_cfg, 1024, 1024, 10 - s06, 1, 77)],
         (1024, 1024, 3))
-    s03 = ddpm.start_step_for_strength(20, 0.3)
+    s03 = ddpm.start_step_for_strength(10, 0.3)
     run("g sd_upscale 512² x2 (9 tiles, chunks of 4), strength 0.3",
         lambda: sd.sd_upscale(PROMPTS[2], image, scale=2.0, strength=0.3, overlap=64,
                               height=512, width=512, **kw),
-        [(base_cfg, 512, 512, 20 - s03, 1, 77)] * 3, (1024, 1024, 3))
+        [(base_cfg, 512, 512, 10 - s03, 1, 77)] * 3, (1024, 1024, 3))
     print(f"G: a' == a and the one-window panorama == generate, bit-identical; b's frames "
           f"0-7 vs a's (not gated) PSNR {psnr(b[:8].astype(np.float32), a[:8].astype(np.float32)):.1f} "
           f"dB", flush=True)
@@ -3751,7 +3823,7 @@ def profile_g_evals(models, cfg, card, size=512):
 
 
 def phase_small_g(port, cpu, base):
-    """Slice G at full width, FP32, 256², 2 dpm++ steps, CFG 5: the card
+    """Slice G at full width, FP32, 256², 1 dpm++ step, CFG 5: the card
     (kernel attention, conv and VAE) against the port's CPU plain path on
     the same seeded weights and noise (> 55 dB latents, > 40 dB image, the
     plan's launches): animate 3 frames and 4 frames through windows of 3
@@ -3766,17 +3838,17 @@ def phase_small_g(port, cpu, base):
     mods = motion.build(base.unet, generator=torch.Generator().manual_seed(34), device="cpu")
     cpu = dict(cpu, motion=mods)
     kw = dict(uncond_prompt="a dog", cfg_scale=5.0, seed=17, height=256, width=256,
-              tokenizer=tok, return_latents=True, n_inference_steps=2, sampler_name="dpm++")
+              tokenizer=tok, return_latents=True, n_inference_steps=1, sampler_name="dpm++")
     cfg_g = dataclasses.replace(base, attention_backend="kernel", vae_attention_backend="kernel",
                                 conv_backend="kernel")
     gpu = port.build_models(cfg_g, device="cuda",
                             state_dicts={k: m.state_dict() for k, m in cpu.items()})
     check("motion" in gpu and len(gpu["motion"]) == 21, "small G: the motion modules")
     requests = (  # label, options, UNet calls, the VAE's canvas
-        ("animate 3 frames", dict(n_frames=3), 2, None),
-        ("4 frames, motion_window 3", dict(n_frames=4, motion_window=3), 4, None),
+        ("animate 3 frames", dict(n_frames=3), 1, None),
+        ("4 frames, motion_window 3", dict(n_frames=4, motion_window=3), 2, None),
         ("panorama 256x384, window 256, stride 128", dict(
-            width=384, panorama=True, panorama_window=256, panorama_stride=128), 4, (256, 384)))
+            width=384, panorama=True, panorama_window=256, panorama_stride=128), 2, (256, 384)))
     for label, opts, calls, canvas in requests:
         t1 = time.perf_counter()
         img_c, lat_c = port.generate(
@@ -3792,7 +3864,7 @@ def phase_small_g(port, cpu, base):
         got = {k: v - before[k] for k, v in launch_counts().items()}
         lat_db = psnr(lat_c, lat_g)
         img_db = psnr(img_c.astype(np.float32), img_g.astype(np.float32))
-        print(f"small G ({label}): full-width FP32 256², 2 dpm++ steps, CFG 5, card vs CPU "
+        print(f"small G ({label}): full-width FP32 256², 1 dpm++ step, CFG 5, card vs CPU "
               f"plain path: latents PSNR {lat_db:.1f} dB, image PSNR {img_db:.1f} dB, launches "
               f"{got}; CPU side {t_cpu:.1f} s", flush=True)
         check(got == want, f"small G ({label}) launched {got}, want {want}")
@@ -4048,7 +4120,7 @@ def phase_slice_h2(port, card, request, zero_counts, read_path):
 
 #: slice H3a's requests: (label, policy, size, steps, bar): the bar is the
 #: PSNR floor against one process in dB, or None for one uint8 level
-H3A_REQUESTS = (("a", "BF16", 512, 20, 35.0), ("b", "BF16", 2048, 2, 35.0),
+H3A_REQUESTS = (("a", "BF16", 512, 8, 35.0), ("b", "BF16", 2048, 2, 35.0),
                 ("c", "FP32", 256, 8, None))
 
 
@@ -4181,6 +4253,168 @@ def phase_slice_h3a(port, card, zero_counts, read_path, main_launches):
           f"{t_ranks:.1f} s  [{card}]", flush=True)
 
 
+# ------------------------------------------------------------ slice H3b
+def h3b_ops(card):
+    """Each of the five custom ops called once on the card through
+    ``torch.ops.sdt_torch``, at a phase-3 case's shape (K2 and K4 are not
+    on the 512² artifact's path), held to its plain version with phase 3's
+    tolerance; -> the errors by kernel."""
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import conv as k5
+    from pytorch_stable_diffusion_tpu_torch.ops.cuda import flash_attention as fa
+
+    ops, bf = torch.ops.sdt_torch, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(31)
+    qkv = torch.randn(2, 1024, 3 * 640, device="cuda", generator=g).to(bf)
+    q1, k1, v1 = qkv.split(640, dim=-1)
+    q2, k2, v2 = cross_views(2, 1024, 308, 8, 80, bf, g)
+    q4, k4, v4 = fused_views(1, 999, 41000, 2, 40, bf, g)
+    q3, k3, v3 = fused_views(1, 4096, 4096, 1, 512, bf, g)
+    x, gn, weight, bias, temb = k5_inputs(2, 64, 64, 320, 320, bf, g)
+    scale, shift = k5.fold_gn_affine(gn, x, 32, temb=temb)
+    cases = (  # short name, shape, the op's call, the plain version's
+        ("K1", "(2, 1024, 640), 8 heads", lambda: ops.flash_attention_bsc(q1, k1, v1, 8),
+         lambda: fa.flash_attention_bsc_plain(q1, k1, v1, 8)),
+        ("K2", "(2, 8, 1024, 80) x KV 308",
+         lambda: ops.flash_attention_onepass(q2, k2, v2, False),
+         lambda: fa.flash_attention_onepass_plain(q2, k2, v2, False)),
+        ("K4", "(1, 2, 999, 40) x KV 41000", lambda: ops.flash_attention_streamed(q4, k4, v4),
+         lambda: fa.flash_attention_streamed_plain(q4, k4, v4)),
+        ("K3", "(1, 1, 4096, 512)", lambda: ops.flash_attention_multipass(q3, k3, v3, False),
+         lambda: fa.flash_attention_multipass_plain(q3, k3, v3, False)),
+        ("K5", "(2, 64², 320 -> 320)",
+         lambda: ops.scaled_silu_conv3x3(x, scale, shift, weight, bias),
+         lambda: k5.scaled_silu_conv3x3_plain(x, scale, shift, weight, bias)),
+    )
+    errs = {}
+    for short, shape, op, plain in cases:
+        before = launch_counts()[short]
+        got = op()
+        torch.cuda.synchronize()
+        check(launch_counts()[short] == before + 1, f"H3b op {short}: launched "
+                                                    f"{launch_counts()[short] - before}")
+        ref = plain()
+        tol = (k5_tolerance if short == "K5" else tolerance)(bf, ref)
+        errs[short] = max_err(got, ref)
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"H3b op {short}: {tuple(got.shape)} {got.dtype}")
+        check(errs[short] <= tol, f"H3b op {short} {shape}: max err {errs[short]:.3g} > {tol:.3g}")
+        print(f"H3b op {short} torch.ops.sdt_torch, {shape} bf16: max err {errs[short]:.3g} "
+              f"(tol {tol:.3g})  [{card}]", flush=True)
+    return errs
+
+
+def phase_slice_h3b(port, card, zero_counts, read_path):
+    """Slice H3b, the exported program (``utils/aot.py``) at SD-1.5 512² BF16
+    full width, the attention, the res blocks and the VAE on the kernels
+    (K1, K5, K3 inside the artifact): export txt2img (50 DDPM steps, CFG)
+    and img2img, each under 64 MiB (no weight in it), saved, loaded and
+    primed; seed 1337 bit-identical to eager ``generate`` with the plan's
+    launches during the call; img2img at strengths 0.8 and 0.5 from one
+    artifact, each bit-identical to eager; a second model's weights through
+    the same artifact, equal to eager with them and not to the first
+    model's image; the five ops through ``torch.ops``.  Lines ``H3b ...``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
+    from pytorch_stable_diffusion_tpu_torch.utils import aot
+
+    t_phase = time.perf_counter()
+    cfg = port.sd15_config(policy=port.BF16, attention_backend="kernel",
+                           conv_backend="kernel", vae_attention_backend="kernel")
+    models = port.build_models(cfg, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    tok = _tokenizer()
+    toks = np.asarray(tok.batch_encode([PROMPTS[0]]), np.int64)
+    untoks = np.asarray(tok.batch_encode([""]), np.int64)
+    eager_kw = dict(uncond_prompt="", do_cfg=True, cfg_scale=7.5, sampler_name="ddpm",
+                    n_inference_steps=50, tokenizer=tok, config=cfg, device="cuda",
+                    height=512, width=512, seed=1337, return_latents=True)
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    arts = {}
+    with tempfile.TemporaryDirectory() as d:
+        for label, img2img in (("txt2img", False), ("img2img", True)):
+            before = launch_counts()
+            blob = timed(f"export {label}", lambda: aot.export_pipeline(
+                cfg, models, n_steps=50, batch=1, height=512, width=512, img2img=img2img))
+            check(launch_counts() == before, f"H3b export {label} launched kernels")
+            check(len(blob) < 64 * 2**20, f"H3b {label} artifact is {len(blob)} bytes")
+            path = os.path.join(d, f"{label}.sdt")
+            timed(f"save {label}", lambda: open(path, "wb").write(blob))
+            data = open(path, "rb").read()
+            timed(f"load {label}", lambda: aot.load_pipeline(data))
+            arts[label] = timed(f"prime {label}", lambda: aot.prime_pipeline(data, models))
+            check(arts[label].platforms == ("cuda",), f"H3b platforms {arts[label].platforms}")
+            print(f"H3b {label}: artifact {len(blob)} bytes; export {secs['export ' + label]:.1f}"
+                  f" s, save {secs['save ' + label]:.3f} s, load {secs['load ' + label]:.1f} s, "
+                  f"prime {secs['prime ' + label]:.1f} s  [{card}]", flush=True)
+
+    def artifact_request(name, label, mods, steps, img2img, start=0, image=None):
+        zero_counts()
+        out = timed(name, lambda: arts[label](mods, toks, untoks, 1337, 7.5, start_step=start,
+                                              input_image=image))
+        launched = launch_counts()
+        read_path()
+        want = expected_launches(cfg, 512, 512, steps=steps, img2img=img2img)
+        check(launched == want, f"H3b {name}: launched {launched}, want {want}")
+        return out
+
+    def eager(name, mods, **kw):
+        return timed(name, lambda: port.generate(PROMPTS[0], models=mods,
+                                                 **dict(eager_kw, **kw)))
+
+    # seed 1337 against eager, twice for the first and a second call's wall
+    img, lat = artifact_request("txt2img call 1", "txt2img", models, 50, False)
+    img2, _ = artifact_request("txt2img call 2", "txt2img", models, 50, False)
+    ref, ref_lat = eager("eager txt2img", models)
+    check(np.array_equal(img[0], ref) and np.array_equal(lat, ref_lat),
+          "H3b txt2img: the artifact differs from eager generate")
+    check(np.array_equal(img, img2), "H3b txt2img: two calls differ")
+    print(f"H3b txt2img seed 1337: bit-identical to eager (image and latents); wall "
+          f"first call {secs['txt2img call 1']:.2f} s, second {secs['txt2img call 2']:.2f} s, "
+          f"eager {secs['eager txt2img']:.2f} s; launches the plan's  [{card}]", flush=True)
+    # img2img: one artifact, two strengths
+    image = (ref.astype(np.float32) / 255.0) * 2.0 - 1.0
+    for strength in (0.8, 0.5):
+        start = ddpm.start_step_for_strength(50, strength)
+        got, got_lat = artifact_request(f"img2img {strength}", "img2img", models, 50 - start,
+                                        True, start=start, image=image[None])
+        want, want_lat = eager(f"eager img2img {strength}", models, input_image=ref,
+                               strength=strength)
+        check(np.array_equal(got[0], want) and np.array_equal(got_lat, want_lat),
+              f"H3b img2img {strength}: the artifact differs from eager generate")
+        print(f"H3b img2img strength {strength} (start step {start}): bit-identical to eager; "
+              f"wall {secs[f'img2img {strength}']:.2f} s, eager "
+              f"{secs[f'eager img2img {strength}']:.2f} s  [{card}]", flush=True)
+    # a second model's weights through the same artifact
+    other = port.build_models(cfg, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(1))
+    got, got_lat = artifact_request("txt2img other weights", "txt2img", other, 50, False)
+    want, want_lat = eager("eager other weights", other)
+    check(np.array_equal(got[0], want) and np.array_equal(got_lat, want_lat),
+          "H3b other weights: the artifact differs from eager generate with them")
+    check(not np.array_equal(got[0], ref), "H3b other weights gave the first model's image")
+    print(f"H3b second model (seed 1) through the txt2img artifact: bit-identical to eager "
+          f"with it, differs from the first model's image (PSNR "
+          f"{psnr(got[0].astype(np.float32), ref.astype(np.float32)):.1f} dB)  [{card}]",
+          flush=True)
+    del other, models, arts
+    torch.cuda.empty_cache()
+    h3b_ops(card)
+    print(f"H3b: {time.perf_counter() - t_phase:.1f} s in all  [{card}]", flush=True)
+
+
 def _tokenizer_files(tok, d):
     """vocab.json and merges.txt of the test tokenizer in directory ``d``."""
     import os
@@ -4209,6 +4443,7 @@ def main():
     from pytorch_stable_diffusion_tpu_torch.sampling import ddpm
 
     t_start = time.perf_counter()
+    LAP.update(start=t_start, phase=t_start)
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4226,6 +4461,7 @@ def main():
                clock_hz=float(clock) * 1e6)
     print(f"{SFU['sms']} SMs, max SM clock {clock} MHz: exp2 floor at "
           f"{16 * SFU['sms'] * SFU['clock_hz'] / 1e12:.2f} T/s", flush=True)
+    lap("1 device")
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -4242,6 +4478,7 @@ def main():
                 print(f"  {SHORT[name]} {kernel}: {line.strip()}", flush=True)
             elif line.startswith("built"):
                 print(f"  {SHORT[name]} {line.strip()}", flush=True)
+    lap("2 build")
 
     # 3. kernels
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4249,13 +4486,19 @@ def main():
                       "e_shapes": [], "f_shapes": [], "g_shapes": [], "sp_shapes": []}
                for name, (src, rep) in KERNELS.items()}
     phase_k1(fa, card, results)
+    lap("3 K1")
     host_cost(fa, card)
+    lap("3 host cost")
     phase_k2(fa, card, results)
+    lap("3 K2")
     phase_long(fa, card, results)
+    lap("3 K4, K3")
     phase_k5(k5, card, results)
+    lap("3 K5")
 
     # 4. small input against the CPU plain path
     phase_small_reference(port, attention)
+    lap("4 small")
 
     # 5. model
     t0 = time.perf_counter()
@@ -4267,6 +4510,7 @@ def main():
     torch.cuda.synchronize()
     print(f"model: SD-1.5 BF16 on the card, counts {counts} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    lap("5 model")
 
     # 6. requests
     tok = _tokenizer()
@@ -4357,6 +4601,7 @@ def main():
     print(f"requests: b == a bit-identical; c != a; e[0] vs a PSNR "
           f"{psnr(e[0].astype(np.float32), a.astype(np.float32)):.1f} dB "
           f"(same seed, batch 4 vs 1)", flush=True)
+    lap("6 A")
 
     # slice C1: 2048², and the VAE on K3 at 512²
     zero_counts()
@@ -4386,74 +4631,87 @@ def main():
     else:
         check(False, "i 4096² request did not raise ValueError")
     read_path()
+    lap("6 C1")
 
-    # slice H1: the conv_backend tiers at 512²
+    # slice H1: the conv_backend tiers at 512², 20 steps (enough to compare
+    # the tiers), each against the plain tier's request of the same seed
     zero_counts()
     tier = {name: dataclasses.replace(cfg, conv_backend=name)
-            for name in ("kernel", "fold", "kernel_fold")}
+            for name in ("plain", "kernel", "fold", "kernel_fold")}
+    h1 = dict(base, n_inference_steps=20)
+    h1_batch = dict(batch_kw, n_inference_steps=20)
     txt = {}
-    for label, name in (("j", "kernel"), ("k", "fold"), ("l", "kernel_fold"),
+    for label, name in (("j0", "plain"), ("j", "kernel"), ("k", "fold"), ("l", "kernel_fold"),
                         ("l'", "kernel_fold")):
         txt[label], _ = request(
             f"{label} txt2img seed 1337, conv_backend={name}",
             lambda: port.generate(PROMPTS[0], seed=1337, return_latents=True,
-                                  **dict(base, config=tier[name])),
-            size=512, steps=50, n_images=1, config=tier[name])
+                                  **dict(h1, config=tier[name])),
+            size=512, steps=20, n_images=1, config=tier[name])
     check(np.array_equal(txt["l"], txt["l'"]), "kernel_fold: same seed gave a different image")
     batch = {}
-    for label, name in (("m", "kernel_fold"), ("o", "kernel"), ("p", "fold")):
+    for label, name in (("m0", "plain"), ("m", "kernel_fold"), ("o", "kernel"), ("p", "fold")):
         batch[label] = request(
             f"{label} generate_images x4, conv_backend={name}",
             lambda: port.generate_images(PROMPTS, uncond_prompts="", seed=1337,
-                                         **dict(batch_kw, config=tier[name])),
-            size=512, steps=50, n_images=4, config=tier[name])
+                                         **dict(h1_batch, config=tier[name])),
+            size=512, steps=20, n_images=4, config=tier[name])
     request("n img2img strength 0.8, conv_backend=kernel",
             lambda: port.generate(PROMPTS[0], seed=1337, input_image=a, strength=0.8,
-                                  return_latents=True, **dict(base, config=tier["kernel"])),
-            size=512, steps=50 - ddpm.start_step_for_strength(50, 0.8), n_images=1,
+                                  return_latents=True, **dict(h1, config=tier["kernel"])),
+            size=512, steps=20 - ddpm.start_step_for_strength(20, 0.8), n_images=1,
             img2img=True, config=tier["kernel"])
     read_path()
-    print("requests (not gated): PSNR against plain (a) / (e) of the same seed: "
-          + ", ".join(f"{k} {psnr(v.astype(np.float32), a.astype(np.float32)):.1f} dB"
-                      for k, v in txt.items())
-          + ", " + ", ".join(f"{k} {psnr(v.astype(np.float32), e.astype(np.float32)):.1f} dB"
-                             for k, v in batch.items())
+    print("requests (not gated): PSNR against the plain tier (j0) / (m0) of the same seed: "
+          + ", ".join(f"{k} {psnr(v.astype(np.float32), txt['j0'].astype(np.float32)):.1f} dB"
+                      for k, v in txt.items() if k != "j0")
+          + ", " + ", ".join(
+              f"{k} {psnr(v.astype(np.float32), batch['m0'].astype(np.float32)):.1f} dB"
+              for k, v in batch.items() if k != "m0")
           + "; l' == l bit-identical", flush=True)
+    lap("6 H1")
 
-    # slice D1: prompt features at 512², a 308-token context on K2
+    # slice D1: prompt features at 512², a 308-token context on K2, 20 steps
     zero_counts()
-    long_kw = dict(base, emphasis=True, clip_skip=2)
+    long_kw = dict(base, emphasis=True, clip_skip=2, n_inference_steps=20)
     long_img, _ = request("q txt2img 4-window prompt, emphasis, BREAK, clip_skip=2",
                           lambda: port.generate(LONG_PROMPT, seed=1337, return_latents=True,
                                                 **long_kw),
-                          size=512, steps=50, n_images=1, context=308)
+                          size=512, steps=20, n_images=1, context=308)
     long_prompts = [LONG_PROMPT] + [" BREAK ".join(PROMPTS[i:] + PROMPTS[:i])
                                     for i in (1, 2, 3)]
     request("r generate_images x4, long prompts",
             lambda: port.generate_images(long_prompts, uncond_prompts="", seed=1337,
-                                         long_prompts=True, emphasis=True, **batch_kw),
-            size=512, steps=50, n_images=4, context=308)
-    edit, _ = request("s txt2img prompt edit [horse:fox:25] in the 4-window prompt",
+                                         long_prompts=True, emphasis=True,
+                                         **dict(batch_kw, n_inference_steps=20)),
+            size=512, steps=20, n_images=4, context=308)
+    edit, _ = request("s txt2img prompt edit [horse:fox:10] in the 4-window prompt",
                       lambda: port.generate(LONG_EDIT, seed=1337, return_latents=True,
                                             **long_kw),
-                      size=512, steps=50, n_images=1, context=308)
+                      size=512, steps=20, n_images=1, context=308)
     read_path()
-    print(f"requests D1 (not gated): q vs a PSNR "
-          f"{psnr(long_img.astype(np.float32), a.astype(np.float32)):.1f} dB, s vs q "
+    print(f"requests D1 (not gated): s vs q "
           f"{psnr(edit.astype(np.float32), long_img.astype(np.float32)):.1f} dB", flush=True)
+    lap("6 D1")
 
     # slice B: every other sampler through its own denoise loop at 512²
     phase_slice_b(port, request, base, a, zero_counts, read_path)
+    lap("6 B")
     # slice D: checkpoint files, the StableDiffusion API and the weight transforms
     phase_slice_d(port, card, request, zero_counts, read_path)
+    lap("6 D")
     # slice C3: inpainting, InstructPix2Pix, LCM and hires_fix at 512²
     phase_slice_c3(port, card, models, cfg, zero_counts, read_path)
+    lap("6 C3")
     # slice E: ControlNet, T2I-Adapter, IP-Adapter and reference-only at 512²
     phase_slice_e(port, card, models, cfg, zero_counts, read_path)
+    lap("6 E")
     # slice F: the guidance and approximate modes at 512²
     phase_slice_f(port, card, models, cfg, zero_counts, read_path)
+    lap("6 F")
     # slice G: AnimateDiff, panoramas and the upscalers
     phase_slice_g(port, card, models, cfg, zero_counts, read_path)
+    lap("6 G")
 
     # 7. one UNet evaluation: time, device busy share, K2's share
     phase_vae(models, cfg, card)
@@ -4462,36 +4720,53 @@ def main():
     phase_step(models, cfg, card, size=512, context=77)
     phase_step(models, cfg, card, size=512, context=308)
     phase_step(models, cfg, card, size=512, context=77, batch=8)
+    lap("7 VAE and steps")
     # slice F at 2048² (the fast preset) and 2560² (Hypertile)
     phase_slice_f_big(port, card, models, cfg, zero_counts, read_path)
+    lap("7 F 2048², 2560²")
 
     # slice C2: SD-2.1, SDXL and the refiner, with the SD-1.5 models freed
     del models, base, batch_kw, long_kw
     torch.cuda.empty_cache()
     phase_small_c2(port, attention)
+    lap("small C2")
     cpu, cpu_cfg = small_sd15_cpu(port)
     phase_small_c3(port, cpu, cpu_cfg)
+    lap("small C3 (with the CPU models)")
     phase_small_e(port, cpu, cpu_cfg)
+    lap("small E")
     phase_small_f(port, cpu, cpu_cfg)
+    lap("small F")
     phase_small_g(port, cpu, cpu_cfg)
+    lap("small G")
     del cpu
     free_host()
     xl, xl_cfg = phase_slice_c2(port, card, request, zero_counts, read_path)
+    lap("C2")
     phase_step(xl, xl_cfg, card, size=1024, label="SDXL")
     phase_step(xl, xl_cfg, card, size=1024, context=308, label="SDXL")
+    lap("C2 steps")
     # slice C3 on SDXL: 9-channel inpainting and LCM at 1024²
     phase_slice_c3_xl(port, card, xl, xl_cfg, zero_counts, read_path)
+    lap("C3 SDXL")
     # slice E on SDXL: a ControlNet, full_adapter_xl and reference attn at 1024²
     phase_slice_e_xl(port, card, xl, xl_cfg, zero_counts, read_path)
+    lap("E SDXL")
     # slice F on SDXL: PAG, FreeU and Hypertile at 1024²
     phase_slice_f_xl(port, card, xl, xl_cfg, zero_counts, read_path)
+    lap("F SDXL")
     del xl
     free_host()
     torch.cuda.empty_cache()
     # slice H2: the int8 tiers, DP/TP over NCCL, the CLI and device_trace
     phase_slice_h2(port, card, request, zero_counts, read_path)
+    lap("H2")
+    # slice H3b: the exported program (utils/aot.py) at 512², K1, K3 and K5 inside it
+    phase_slice_h3b(port, card, zero_counts, read_path)
+    lap("H3b")
     # slice H3a: sequence parallelism, two gloo ranks on the one card
     phase_slice_h3a(port, card, zero_counts, read_path, main_launches)
+    lap("H3a")
     for name, short in SHORT.items():
         results[name]["launches"] = main_launches[short]
         check(main_launches[short] > 0, f"{short} was not launched on the main paths")

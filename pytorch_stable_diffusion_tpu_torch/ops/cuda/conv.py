@@ -16,10 +16,13 @@ Port of ``pytorch_stable_diffusion_tpu/ops/pallas/conv.py``:
 Tensors are the port's NCHW; on the card, x and the conv weight must be in
 ``channels_last`` memory (NHWC bytes, and (Cout, 3, 3, Cin) for the
 weight, as ``build_models`` lays them out): the kernel reads both in place
-and the wrapper raises rather than copy them.  The wrapper takes the plain
-version only for CPU tensors; for CUDA tensors it launches the kernel or
-raises — there is no fallback.  Launches are counted in
-``scaled_silu_conv3x3.launches``.
+and the wrapper raises rather than copy them.  The kernel is the
+``torch.library`` op ``torch.ops.sdt_torch.scaled_silu_conv3x3``
+(``ops/cuda/flash_attention.py`` says why): its CPU implementation runs the
+plain version, its CUDA implementation launches the kernel or raises (there
+is no fallback), its fake implementation gives the output's shape, dtype
+and memory format and launches nothing.  Launches are counted in
+``scaled_silu_conv3x3.launches``, inside the CUDA implementation.
 
 The JAX package's ``eligible``, ``_pick_blocks`` and ``_estimate_vmem`` are
 TPU rules (128-lane channels, W a multiple of 8, a VMEM model) and are not
@@ -33,6 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .flash_attention import define_op
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,7 +137,26 @@ def _launch(x, scale, shift, weight, bias):
         lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
         raise RuntimeError(f"scaled_silu_conv3x3 launch failed ({err}): "
                            f"{lib.sdt_cuda_error_string(err).decode()}")
+    scaled_silu_conv3x3.launches += 1
     return out
+
+
+def _k5_cpu(x, scale, shift, weight, bias):
+    return scaled_silu_conv3x3_plain(x, scale, shift, weight, bias)  # looked up when called
+
+
+def _k5_fake(x, scale, shift, weight, bias):
+    if x.device.type == "cuda":  # the kernel writes NHWC
+        b, _, h, w = x.shape
+        return torch.empty((b, weight.shape[0], h, w), dtype=x.dtype, device=x.device,
+                           memory_format=torch.channels_last)
+    # the plain version's conv, on an activation laid out as x
+    dt = x.dtype
+    return F.conv2d(torch.empty_like(x), weight.to(dt), bias.to(dt), padding=1)
+
+
+define_op("scaled_silu_conv3x3(Tensor x, Tensor scale, Tensor shift, Tensor weight, "
+          "Tensor bias) -> Tensor", _k5_cpu, _launch, _k5_fake)
 
 
 def scaled_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -144,11 +168,7 @@ def scaled_silu_conv3x3(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
     weight: (Cout, Cin, 3, 3); bias: (Cout,).  Returns (B, Cout, H, W) in x's
     dtype (channels_last memory on the card)."""
     _check(x, scale, shift, weight, bias)
-    if x.device.type == "cpu":
-        return scaled_silu_conv3x3_plain(x, scale, shift, weight, bias)
-    out = _launch(x, scale, shift, weight, bias)
-    scaled_silu_conv3x3.launches += 1
-    return out
+    return torch.ops.sdt_torch.scaled_silu_conv3x3(x, scale, shift, weight, bias)
 
 
 scaled_silu_conv3x3.launches = 0

@@ -25,10 +25,19 @@ design leaves on the table.  Which head dims each kernel takes is
 scores and softmax and return q's dtype; a row with every score masked
 gives 0 (output acc / max(l, 1e-30)).
 
-Every kernel has a plain PyTorch version (``*_plain``) beside it.  The
-wrapper takes the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises — there is no fallback.  Each wrapper counts
-its kernel launches in ``<wrapper>.launches``.
+Every kernel has a plain PyTorch version (``*_plain``) beside it.  Each
+kernel is a ``torch.library`` op in the :data:`NAMESPACE` namespace
+(``torch.ops.sdt_torch.flash_attention_bsc`` and so on), so that
+``torch.export`` and other graph tracers record the op itself rather than
+trace into either version: its CPU implementation runs the plain version,
+its CUDA implementation launches the kernel or raises (there is no
+fallback), and its fake implementation gives the output's shape, dtype and
+strides on either device, launching nothing.  The device is chosen by the
+dispatcher when the op runs, so an exported program launches the kernel
+on the card.  The public wrappers check their arguments and call the op;
+each counts its kernel launches in ``<wrapper>.launches``, incremented
+inside the CUDA implementation where the kernel is launched, and nowhere
+else (tracing counts nothing).
 
 q, k and v may be strided views, e.g. the slices of the fused q/k/v
 projection whose rows are 3C apart, or of the fused k/v projection of a
@@ -64,6 +73,24 @@ ONEPASS_MAX_KV = 9216
 #: the head dims each fixed-set kernel is built for
 _BUILT_DH = {"bsc": HEAD_DIMS, "streamed": STREAMED_HEAD_DIMS, "onepass": ONEPASS_HEAD_DIMS}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the ``torch.library`` namespace of the port's kernels (this module's four
+#: and ``ops/cuda/conv.py``'s K5)
+NAMESPACE = "sdt_torch"
+_LIBRARY = torch.library.Library(NAMESPACE, "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake) -> None:
+    """Define the op ``NAMESPACE::<schema>`` with its CPU, CUDA and fake
+    implementations.  Registered on the dispatch keys themselves (not
+    through ``torch.library.custom_op``, whose Python layers cost a K1
+    call about as much again on the card's host), so the dispatcher calls
+    the device's implementation directly.  Inference only: the ops have no
+    autograd formula."""
+    name = schema.split("(")[0]
+    _LIBRARY.define(schema)
+    _LIBRARY.impl(name, cpu, "CPU")
+    _LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIBRARY)
 #: fp32 score bytes the head-split plain versions hold at once: they walk
 #: q rows in blocks, so a (2, 8, 65536, 40) call does not materialize its
 #: 137 GB of scores
@@ -184,6 +211,15 @@ def _launch(q, k, v, n_heads):
     return out
 
 
+def _bsc_cpu(q, k, v, n_heads):
+    return flash_attention_bsc_plain(q, k, v, n_heads)  # looked up when called
+
+
+define_op("flash_attention_bsc(Tensor q, Tensor k, Tensor v, int n_heads) -> Tensor",
+          _bsc_cpu, _launch,
+          lambda q, k, v, n_heads: torch.empty(q.shape, dtype=q.dtype, device=q.device))
+
+
 def _raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
         msg = lib.sdt_cuda_error_string(err).decode()
@@ -194,12 +230,10 @@ def flash_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         n_heads: int) -> torch.Tensor:
     """Non-causal attention on (B, S, H*Dh) tensors -> (B, Sq, H*Dh)."""
     _check(q, k, v, n_heads)
-    if q.device.type == "cpu":
-        return flash_attention_bsc_plain(q, k, v, n_heads)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_bsc runs on CPU or CUDA, not "
                          f"{q.device.type}")
-    return _launch(q, k, v, n_heads)
+    return torch.ops.sdt_torch.flash_attention_bsc(q, k, v, n_heads)
 
 
 flash_attention_bsc.launches = 0
@@ -299,16 +333,51 @@ def _launch_bhsd(name, q, k, v, *extra):
     return out
 
 
+def _bhsd_fake(q, k, v, *_):
+    """The output a head-split op gives: (B, H, Sq, Dh) in q's dtype, on the
+    card the transposed view of (B, Sq, H, Dh) memory (:func:`_launch_bhsd`),
+    on the CPU the plain version's contiguous tensor."""
+    b, h, sq, dh = q.shape
+    if q.device.type == "cuda":
+        return torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    return torch.empty((b, h, sq, dh), dtype=q.dtype, device=q.device)
+
+
+def _streamed_cuda(q, k, v):
+    out = _launch_bhsd("flash_attention_streamed", q, k, v)
+    flash_attention_streamed.launches += 1
+    return out
+
+
+def _multipass_cuda(q, k, v, causal):
+    out = _launch_bhsd("flash_attention_multipass", q, k, v, int(causal))
+    flash_attention_multipass.launches += 1
+    return out
+
+
+def _onepass_cuda(q, k, v, causal):
+    out = _launch_bhsd("flash_attention_onepass", q, k, v, int(causal))
+    flash_attention_onepass.launches += 1
+    return out
+
+
+# the CPU implementations look the plain versions up when called
+define_op("flash_attention_streamed(Tensor q, Tensor k, Tensor v) -> Tensor",
+          lambda q, k, v: flash_attention_streamed_plain(q, k, v), _streamed_cuda, _bhsd_fake)
+define_op("flash_attention_multipass(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+          lambda q, k, v, causal: flash_attention_multipass_plain(q, k, v, causal),
+          _multipass_cuda, _bhsd_fake)
+define_op("flash_attention_onepass(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+          lambda q, k, v, causal: flash_attention_onepass_plain(q, k, v, causal),
+          _onepass_cuda, _bhsd_fake)
+
+
 def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
     """K4: non-causal attention over (B, H, S, Dh) tensors, Dh <= 128, for
     long KV -> (B, H, Sq, Dh)."""
     _check_bhsd("flash_attention_streamed", q, k, v, STREAMED_MAX_DH)
-    if q.device.type == "cpu":
-        return flash_attention_streamed_plain(q, k, v)
-    out = _launch_bhsd("flash_attention_streamed", q, k, v)
-    flash_attention_streamed.launches += 1
-    return out
+    return torch.ops.sdt_torch.flash_attention_streamed(q, k, v)
 
 
 def flash_attention_multipass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -317,11 +386,7 @@ def flash_attention_multipass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the card), optional causal mask (``col <= row``), KV of any length ->
     (B, H, Sq, Dh)."""
     _check_bhsd("flash_attention_multipass", q, k, v, MULTIPASS_MAX_DH)
-    if q.device.type == "cpu":
-        return flash_attention_multipass_plain(q, k, v, causal)
-    out = _launch_bhsd("flash_attention_multipass", q, k, v, int(causal))
-    flash_attention_multipass.launches += 1
-    return out
+    return torch.ops.sdt_torch.flash_attention_multipass(q, k, v, bool(causal))
 
 
 def flash_attention_onepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -333,11 +398,7 @@ def flash_attention_onepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if -(-k.shape[2] // 128) * 128 > ONEPASS_MAX_KV:
         raise ValueError(f"flash_attention_onepass takes KV up to {ONEPASS_MAX_KV} "
                          f"tokens padded to 128, got {k.shape[2]}")
-    if q.device.type == "cpu":
-        return flash_attention_onepass_plain(q, k, v, causal)
-    out = _launch_bhsd("flash_attention_onepass", q, k, v, int(causal))
-    flash_attention_onepass.launches += 1
-    return out
+    return torch.ops.sdt_torch.flash_attention_onepass(q, k, v, bool(causal))
 
 
 def onepass_schedule(batch: int, heads: int, sq: int, sk: int, dh: int,

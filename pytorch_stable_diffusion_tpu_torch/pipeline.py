@@ -178,6 +178,17 @@ Same public keyword surface as the JAX package's ``generate()`` and
   below 2, a latent height the axis does not divide, ToMe, Hypertile,
   ``n_frames`` and ``panorama``.
 
+* Slice H3b.  What a request runs on the device is three functions of
+  tensors: :func:`prepare` (the once-a-request work: text, encodes, side-net
+  features), :func:`guided_eps` (one guided UNet evaluation, with its
+  static modes in a :class:`Guidance`) and :func:`decode`.  ``generate``
+  calls them eagerly, around the host loop :func:`_denoise`, and
+  ``utils/aot.py`` exports them with ``torch.export`` and runs the same
+  loop around the exported programs, so that an artifact gives eager's
+  bits.  The modes outside the exported key (DeepCache, the frame and
+  panorama windows, reference-only's capture pass, sequence parallelism,
+  dynamic thresholding, prompt editing) ride in eager hooks around them.
+
 Every keyword of the JAX ``generate()`` is ported; a value the JAX
 package does not know raises ``ValueError``, as it does there.
 """
@@ -596,8 +607,7 @@ def _per_net(models, name: str, images, scales, what: str):
     """The nets of ``models[name]`` (a module or a list), with one image
     and one scale each, as the JAX package checks them (``what``: how its
     messages name the images, the scales and the nets)."""
-    nets = models[name]
-    nets = list(nets) if isinstance(nets, (list, tuple)) else [nets]
+    nets = _listed(models[name])
     imgs = list(images) if isinstance(images, (list, tuple)) else [images]
     image_word, scale_word, nets_word = what
     if len(imgs) != len(nets):
@@ -704,6 +714,536 @@ def _window_starts(total: int, win: int, step: int):
     if starts[-1] != total - win:
         starts.append(total - win)
     return starts
+
+
+# ------------------------------------------------- the request's device work
+# What a request runs on the device, as functions of tensors: the once-a-
+# request work (:func:`prepare`), one guided UNet evaluation
+# (:func:`guided_eps`) and the decode (:func:`decode`).  ``generate`` calls
+# them eagerly and ``utils/aot.py`` exports them, so that both run the same
+# code; the denoise loop around the evaluations stays on the host (``_sample``
+# and ``sampling/``).
+def _memory_format(device) -> torch.memory_format:
+    """The layout of a request's images and latents: channels_last on the
+    card (K5 and the convs read NHWC), NCHW on the CPU."""
+    return torch.channels_last if torch.device(device).type == "cuda" \
+        else torch.contiguous_format
+
+
+def _listed(m) -> list:
+    """A side-net entry of the models dict (a module or a list) as a list."""
+    return list(m) if isinstance(m, (list, tuple)) else [m]
+
+
+@dataclasses.dataclass(frozen=True)
+class Prep:
+    """The static modes of a request's once-a-request device work
+    (:func:`prepare`): ``n_lanes`` CFG lanes (the AND parts and the uncond
+    lane; 1 without CFG), whether the init image is encoded (pixel img2img),
+    InstructPix2Pix, the inpainting mode, the hypernetwork's (activation,
+    activate_output) and the tiled encoder's tile."""
+
+    cfg: SDConfig
+    batch: int
+    n_lanes: int
+    img2img: bool = False
+    ip2p: bool = False
+    inpaint: Optional[str] = None
+    hyper: Optional[tuple] = None
+    encode_tile: Optional[int] = None
+
+
+def prepare(p: Prep, models, x: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """A request's once-a-request device work, from the tensors ``x`` (made
+    by :func:`_prep_inputs`): "tokens" and "weights" (emphasis) -> the
+    context "ctx" and SDXL's added conditioning "add" (with "size_emb"),
+    three lanes for InstructPix2Pix, through the hypernetwork (strength
+    "hyper_strength"); the init image's latents "lat0" ("image",
+    "encoder_noise"); InstructPix2Pix's edit-image channels "ip2p_extra";
+    the 9-channel UNet's "inpaint_extra" ("mask", "mask_lat",
+    "mask_encoder_noise"); each ControlNet's hint features "hints"; the
+    T2I-Adapters' scaled sum "adapter_single" and its lanes "adapter"
+    ("adapter_hints", "adapter_scale"); the IP-Adapter's image tokens
+    "ip_tokens" ("ip_image")."""
+    cfg, batch, policy = p.cfg, p.batch, p.cfg.policy
+    cd = policy.compute_dtype
+    mf = _memory_format(x["tokens"].device)
+    vae_kw = dict(attention_backend=cfg.vae_attention_backend,
+                  reference_quirks=cfg.reference_quirks)
+
+    def lanes(v):
+        return torch.cat([v] * p.n_lanes) if p.n_lanes > 1 else v
+
+    context, add_cond = _encode_prompts(models, x["tokens"], x.get("weights"), cfg,
+                                        x.get("size_emb"))
+    if p.ip2p:
+        # InstructPix2Pix's three lanes: [text + image, image only (the
+        # uncond text), unconditional]
+        context = torch.cat([context, context[batch:]])
+        add_cond = None if add_cond is None else torch.cat([add_cond, add_cond[batch:]])
+    if p.hyper is not None:
+        # the hypernetwork transforms the whole CFG batch's context, k and v
+        # apart, once a request; the (ctx_k, ctx_v) pair rides through every
+        # cross-attention (ops/attention.apply)
+        from .weights import hypernetwork as hyper_mod
+
+        context = hyper_mod.apply_hypernetwork(
+            models["hypernetwork"], context, x["hyper_strength"], activation=p.hyper[0],
+            activate_output=p.hyper[1])
+    out = {"ctx": context}
+    if add_cond is not None:
+        out["add"] = add_cond
+    image = x.get("image")
+    if p.img2img:
+        out["lat0"] = encode_image(models, image, x["encoder_noise"], cfg,
+                                   encode_tile=p.encode_tile).float()
+    if p.ip2p:
+        # the edit image's latents: the encoder's mode (zero noise) and, a
+        # published quirk of the family, not multiplied by the latent scale
+        # factor, so the encoder's x scale_factor is divided out; zeros in
+        # the unconditional lane
+        f = cfg.vae.downsample_factor
+        zeros = torch.zeros((batch, cfg.vae.latent_channels, image.shape[2] // f,
+                             image.shape[3] // f), dtype=torch.float32, device=image.device)
+        img_lat = models["encoder"](image, zeros, policy, **vae_kw).float() \
+            / cfg.vae.scale_factor
+        out["ip2p_extra"] = torch.cat([img_lat, img_lat, torch.zeros_like(img_lat)]).to(cd)
+    if p.inpaint == "unet9":
+        # conditioning channels: the nearest-downsampled mask and the latents
+        # of the masked image (the repaint region zeroed)
+        binm = (x["mask"] > 0.5).to(image.dtype)
+        masked = (image * (1.0 - binm)).contiguous(memory_format=mf)
+        masked_lat = encode_image(models, masked, x["mask_encoder_noise"], cfg,
+                                  encode_tile=p.encode_tile)
+        out["inpaint_extra"] = torch.cat([x["mask_lat"].to(cd), masked_lat.to(cd)], dim=1)
+    # slice E, once a request: hint features, adapter features, IP tokens;
+    # every one lane-matched for CFG (and AND)
+    if "hints" in x:
+        out["hints"] = [lanes(net.encode_hint(x["hints"][ci].contiguous(memory_format=mf),
+                                              policy))
+                        for ci, net in enumerate(_listed(models["controlnet"]))]
+    if "adapter_hints" in x:
+        feats = None
+        for ai, ad in enumerate(_listed(models["t2i_adapter"])):
+            fs = [f * x["adapter_scale"][ai].to(f.dtype) for f in ad(
+                x["adapter_hints"][ai].contiguous(memory_format=mf), policy)]
+            feats = fs if feats is None else [a + b for a, b in zip(feats, fs)]
+        # PAG's and SAG's single-lane evaluations take the features as they
+        # are, the main one lane-matched
+        out["adapter_single"] = feats
+        out["adapter"] = [lanes(f) for f in feats]
+    if "ip_image" in x:
+        ipa, tower = models["ip_adapter"], models["clip_vision"]
+        px = x["ip_image"].to(cd).contiguous(memory_format=mf)
+        tokens = ipa.image_tokens(tower, px, policy)
+        if p.n_lanes > 1:
+            tokens = torch.cat([tokens] * (p.n_lanes - 1) + [ipa.negative_tokens(tower, px,
+                                                                                 policy)])
+        out["ip_tokens"] = tokens
+    return out
+
+
+def _prep_inputs(device, batch: int, *, tokens, weights=None, size_emb=None, pixels=None,
+                 noise=None, mask=None, mask_lat=None, hints=None, adapter_hints=None,
+                 adapter_scale=None, ip_image=None, hyper_strength=None):
+    """The host's inputs of :func:`prepare` on ``device``: ``tokens`` (and
+    the emphasis ``weights``) of the whole CFG batch, SDXL's ``size_emb``,
+    the ``pixels`` to encode ((1|B, 3, H, W) in [-1, 1]) with the encoders'
+    draws of ``noise``, the inpainting ``mask`` ((B, H, W, 1)) and its
+    nearest-downsampled ``mask_lat``, the ControlNet and T2I-Adapter
+    ``hints`` ((N, B, 3, H, W) in [0, 1]) with ``adapter_scale``, the
+    CLIP-preprocessed ``ip_image`` ((1|B, S, S, 3)) and the hypernetwork's
+    strength."""
+    def dev(v):
+        return _to_device(torch.from_numpy(np.array(v, np.float32)), device)
+
+    x = {"tokens": _to_device(torch.as_tensor(tokens), device)}
+    if weights is not None:
+        x["weights"] = _to_device(torch.as_tensor(weights), device)
+    if size_emb is not None:
+        x["size_emb"] = _to_device(size_emb, device)
+    if hyper_strength is not None:
+        x["hyper_strength"] = torch.full((), float(hyper_strength), dtype=torch.float32,
+                                         device=device)
+    if pixels is not None:
+        x["image"] = _to_device(torch.as_tensor(pixels), device).expand(batch, -1, -1, -1) \
+            .contiguous(memory_format=_memory_format(device))
+    for name in ("encoder", "mask_encoder"):
+        if noise is not None and name in noise:
+            x[f"{name}_noise"] = noise[name]
+    if mask is not None:
+        x["mask"] = _to_device(_nchw(mask), device)
+        x["mask_lat"] = _to_device(_nchw(mask_lat), device)
+    if hints is not None:
+        x["hints"] = dev(hints)
+    if adapter_hints is not None:
+        x["adapter_hints"], x["adapter_scale"] = dev(adapter_hints), dev(adapter_scale)
+    if ip_image is not None:
+        x["ip_image"] = dev(np.broadcast_to(ip_image, (batch,) + ip_image.shape[1:])
+                            .transpose(0, 3, 1, 2))
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Guidance:
+    """The static modes of one guided UNet evaluation (:func:`guided_eps`):
+    the CFG batch of ``n_and`` conditional lanes (the AND parts) and the
+    unconditional one (one lane without CFG; InstructPix2Pix's three),
+    AnimateDiff's ``n_frames``, PAG's and SAG's extra passes."""
+
+    cfg: SDConfig
+    batch: int
+    do_cfg: bool = True
+    n_and: int = 1
+    ip2p: bool = False
+    pag: bool = False
+    sag: bool = False
+    n_frames: Optional[int] = None
+
+    @property
+    def n_lanes(self) -> int:
+        return self.n_and + 1 if self.do_cfg else 1
+
+
+def _unet_eval(unet, row_split, x, *args, **kw):
+    """One UNet evaluation; under sequence parallelism (``row_split``) on
+    the rank's rows of ``x``, the output's rows gathered (SAG's map comes
+    whole, DeepCache's feature stays the rank's rows)."""
+    if row_split is None:
+        return unet(x, *args, **kw)
+    with mesh_mod.split_rows(row_split):
+        out = unet(_local(x, row_split), *args, **kw)
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return (mesh_mod.gather_rows(out[0], row_split),) + out[1:]
+    return mesh_mod.gather_rows(out, row_split)
+
+
+def _local(x, row_split):
+    """The rank's latent rows of a whole feature (sequence parallelism)."""
+    if row_split is None:
+        return x
+    return mesh_mod.local_rows(x, row_split).contiguous(memory_format=_memory_format(x.device))
+
+
+def guided_eps(g: Guidance, models, lat: torch.Tensor, t: torch.Tensor,
+               x: Dict[str, object], *, row_split=None, main_eval=None,
+               extra_side=None) -> torch.Tensor:
+    """The guided epsilon of the float32 latents ``lat`` at the 0-d
+    timestep tensor ``t`` (a v-prediction model's output turned into
+    epsilon): one evaluation of the CFG stack, with its side inputs ``x``
+    (:func:`_eval_inputs`: the context "ctx" (a hypernetwork's pair) and
+    "add", the inpainting and InstructPix2Pix channels, the ControlNets'
+    hint features and scales, the adapter features, the IP tokens and scale,
+    the guidance scales, LCM's "t_cond", and "coef", ``ddpm.alpha_coef`` at
+    t).
+    The combine, in the JAX package's order: AND (and its regions) or CFG
+    with guidance rescale, PAG, the conversion to epsilon, SAG.
+
+    The host's floats ("cfg_scale", "image_scale", "coef") may be Python
+    numbers or 0-d CPU tensors, which give the same bits.  Eager requests
+    also pass ``row_split`` (sequence parallelism), ``main_eval(model_in,
+    ctx, t, main)`` for the main pass (DeepCache, the frame and panorama
+    windows) and ``extra_side`` (reference-only's read)."""
+    cfg, batch, do_cfg = g.cfg, g.batch, g.do_cfg
+    policy, cd = cfg.policy, cfg.policy.compute_dtype
+    mf = _memory_format(lat.device)
+    unet = models["diffusion"]
+    cfg_scale = x["cfg_scale"]
+
+    def lanes(v):
+        return torch.cat([v] * g.n_lanes) if g.n_lanes > 1 else v
+
+    def unet_eval(inp, *args, **kw):
+        return _unet_eval(unet, row_split, inp, *args, **kw)
+
+    lat_in = lat.to(cd)
+    inpaint_extra = x.get("inpaint_extra")
+    if inpaint_extra is not None:
+        # [latents, mask, masked-image latents] (diffusers' order)
+        lat_in = torch.cat([lat_in, inpaint_extra], dim=1)
+    if g.ip2p:
+        # three lanes, each with its edit-image channels appended
+        model_in = torch.cat([torch.cat([lat_in] * 3), x["ip2p_extra"]], dim=1)
+    else:
+        model_in = lanes(lat_in)
+    ctx, add = x["ctx"], x.get("add")
+    kw = dict(attention_backend=cfg.attention_backend,
+              reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
+              conv_backend=cfg.conv_backend, t_cond=x.get("t_cond"), modes=cfg.unet,
+              quant=cfg.quant)
+    if g.n_frames is not None:
+        # AnimateDiff: the lanes of each CFG group are the frames
+        kw.update(motion=models["motion"], frames=g.n_frames)
+    control = None
+    if "hints" in x:
+        # the ControlNets take the 4-channel latents, whatever the UNet's
+        ctrl_in = lanes(lat.to(cd)).contiguous(memory_format=mf)
+        for ci, net in enumerate(_listed(models["controlnet"])):
+            # the rank's rows of the residuals under sequence parallelism
+            with mesh_mod.split_rows(row_split):
+                c_i = net(_local(ctrl_in, row_split), ctx, t, x["hints"][ci], policy,
+                          conditioning_scale=x["control_scale"][ci],
+                          attention_backend=cfg.attention_backend,
+                          fuse_qkv=cfg.fuse_qkv, add_cond=add,
+                          conv_backend=cfg.conv_backend)
+            control = c_i if control is None else {  # residuals sum
+                "mid": control["mid"] + c_i["mid"],
+                "down": [a + b for a, b in zip(control["down"], c_i["down"])]}
+    ip_arg = None
+    if "ip_tokens" in x:
+        ip_arg = (models["ip_adapter"].layers, x["ip_tokens"], x["ip_scale"])
+    side = dict(control=control, adapter=x.get("adapter"), ip=ip_arg)
+    side.update(extra_side or {})
+
+    def lane_side(sl):
+        """The side inputs of the lanes ``sl`` of the CFG stack (PAG's cond
+        lanes, SAG's base lanes): the per-lane IP tokens and ControlNet
+        residuals sliced, the adapter features single-lane."""
+        out = dict(side, adapter=x.get("adapter_single"))
+        if do_cfg and ip_arg is not None:
+            out["ip"] = (ip_arg[0], ip_arg[1][sl], ip_arg[2])
+        if do_cfg and control is not None:
+            out["control"] = {"mid": control["mid"][sl],
+                              "down": [d[sl] for d in control["down"]]}
+        return out
+
+    main = dict(kw, add_cond=add, **side)
+    model_in = model_in.contiguous(memory_format=mf)
+    mid_probs = None
+    if main_eval is not None:
+        eps = main_eval(model_in, ctx, t, main)
+    else:
+        out = unet_eval(model_in, ctx, t, policy, return_mid_attn=g.sag, **main)
+        eps, mid_probs = out if g.sag else (out, None)
+    eps = eps.float()
+    raw = eps
+    if g.pag:
+        # the perturbed evaluation: the cond lanes, identity self-attention
+        # in the mid block
+        cond = slice(None, batch)
+        eps_ptb = unet_eval(lat_in.contiguous(memory_format=mf),
+                            _lane(ctx, cond) if do_cfg else ctx, t, policy, pag=True, **kw,
+                            **lane_side(cond),
+                            add_cond=add[cond] if do_cfg and add is not None else add
+                            ).float()
+    if g.sag:
+        # blur x0 of the base lanes (uncond under CFG) where the mid block's
+        # attention mass concentrates, re-noise with their epsilon and
+        # evaluate them there
+        base = slice(batch, None) if do_cfg else slice(None)
+        lat32 = lat.float()
+        base_eps = ddpm.to_epsilon(None, None, lat32, raw[base], cfg.prediction_type,
+                                   coef=x["coef"])
+        sa, sb = x["coef"]
+        x0 = (lat32 - sb * base_eps) / sa
+        # a key's attention mass over the queries, the heads' mean
+        mass = mid_probs[base].float().mean(dim=1).sum(dim=1)   # (B, S_mid)
+        down = 2 ** (len(cfg.unet.ch_mults) - 1)
+        mh, mw = lat.shape[2] // down, lat.shape[3] // down
+        from .utils.image import resize
+
+        mask = resize((mass > 1.0).float().reshape(batch, 1, mh, mw),
+                      (batch, 1, lat.shape[2], lat.shape[3]), "nearest")
+        x0_deg = gaussian_blur(x0) * mask + x0 * (1.0 - mask)
+        lat_deg = sa * x0_deg + sb * base_eps
+        deg_in = lat_deg.to(cd)
+        if inpaint_extra is not None:
+            deg_in = torch.cat([deg_in, inpaint_extra], dim=1)
+        eps_deg = unet_eval(deg_in.contiguous(memory_format=mf), _lane(ctx, base), t, policy,
+                            **kw, **lane_side(base),
+                            add_cond=None if add is None else add[base]).float()
+        eps_deg = ddpm.to_epsilon(None, None, lat_deg, eps_deg, cfg.prediction_type,
+                                  coef=x["coef"])
+    if g.ip2p:
+        # dual guidance (Brooks et al. 2023, eq. 3)
+        e_t, e_i, e_u = eps.chunk(3)
+        eps = e_u + cfg_scale * (e_t - e_i) + x["image_scale"] * (e_i - e_u)
+    elif g.n_and > 1:
+        # composable diffusion: eps_u + cfg Σ w_i (eps_i - eps_u), each
+        # weight times its region mask
+        parts = eps.chunk(g.n_and + 1)
+        eps_u = eps = parts[-1]
+        regions = x.get("regions")
+        for k in range(g.n_and):
+            w_k = x["and_w"][:, k, None, None, None]
+            if regions is not None:
+                w_k = w_k * regions[k]
+            eps = eps + cfg_scale * w_k * (parts[k] - eps_u)
+    elif do_cfg:
+        eps_cond, eps_uncond = eps.chunk(2)
+        eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
+        if "rescale" in x:
+            # "Common Diffusion Noise Schedules and Sample Steps are Flawed",
+            # eq. 15-16: the std pulled back toward the conditional one's, in
+            # model-output space (ddof 0)
+            dims = tuple(range(1, eps.dim()))
+            std_c = eps_cond.std(dim=dims, correction=0, keepdim=True)
+            std_g = eps.std(dim=dims, correction=0, keepdim=True)
+            rescaled = eps * (std_c / torch.clamp(std_g, min=1e-12))
+            eps = x["rescale"][0] * rescaled + x["rescale"][1] * eps
+    if g.pag:
+        eps = eps + x["pag_scale"] * ((eps_cond if do_cfg else raw) - eps_ptb)
+    eps = ddpm.to_epsilon(None, None, lat, eps, cfg.prediction_type, coef=x["coef"])
+    if g.sag:
+        eps = eps + x["sag_scale"] * (base_eps - eps_deg)
+    return eps
+
+
+def _eval_inputs(g: Guidance, prep: Dict[str, object], device, *, cfg_scale,
+                 image_scale=1.5, control_scale=None, ip_scale=None, pag_scale=None,
+                 sag_scale=None, guidance_rescale: float = 0.0, and_w=None,
+                 regions=None, t_cond=None) -> Dict[str, object]:
+    """:func:`guided_eps`'s side inputs of a request: :func:`prepare`'s
+    outputs and the request's scales on ``device`` (the guidance scales
+    ``cfg_scale`` and ``image_scale`` as given: host floats or 0-d CPU
+    tensors)."""
+    def dev(v):
+        return _to_device(torch.from_numpy(np.array(v, np.float32)), device)
+
+    x = {k: v for k, v in prep.items() if k != "lat0"}
+    x.update(cfg_scale=cfg_scale, image_scale=image_scale)
+    if control_scale is not None:
+        x["control_scale"] = dev(control_scale)
+    if ip_scale is not None:
+        x["ip_scale"] = dev(ip_scale)
+    if g.pag:
+        x["pag_scale"] = dev(pag_scale)
+    if g.sag:
+        x["sag_scale"] = dev(sag_scale)
+    if g.do_cfg and guidance_rescale > 0.0:
+        x["rescale"] = (dev(guidance_rescale), dev(1.0 - guidance_rescale))
+    if and_w is not None:
+        x["and_w"] = dev(and_w)
+    if regions is not None:
+        x["regions"] = _to_device(regions, device)
+    if t_cond is not None:
+        x["t_cond"] = t_cond
+    return x
+
+
+def decode(cfg: SDConfig, models, latents: torch.Tensor,
+           decode_tile: Optional[int] = None) -> torch.Tensor:
+    """Final latents (B, 4, h, w) -> uint8 (B, H, W, 3) images on their
+    device, through the whole or the tiled decoder: decoded (-1, 1)
+    rescaled to (0, 255), clamped, truncated."""
+    vae_kw = dict(attention_backend=cfg.vae_attention_backend,
+                  reference_quirks=cfg.reference_quirks)
+    lat_in = latents.contiguous(memory_format=_memory_format(latents.device))
+    if decode_tile:
+        images = vae_mod.apply_decoder_tiled(models["decoder"], lat_in, cfg.policy,
+                                             tile=decode_tile, **vae_kw)
+    else:
+        images = models["decoder"](lat_in, cfg.policy, **vae_kw)
+    images = rescale(images.float(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
+    return images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
+
+
+# ---------------------------------------------------------- the host's part
+def _sampler_setup(cfg: SDConfig, sampler_name: str, timestep_spacing: str,
+                   n_inference_steps: int):
+    """-> (schedule, timesteps, plan, stream, n_draws): the noise schedule,
+    the sampler's grid, restart's or dpm_fast's plan (else None) and the
+    named stream of its noise with its draw count (one a step, op, segment
+    or iteration)."""
+    schedule = ddpm.make_schedule(
+        beta_start=ddpm.REFERENCE_BETA_START if cfg.reference_quirks
+        else ddpm.BETA_START, zero_terminal_snr=cfg.zero_terminal_snr)
+    if sampler_name in ("lcm", "dpm_fast", "dpm_adaptive") \
+            and timestep_spacing != "uniform":
+        raise ValueError(f"sampler {sampler_name!r} defines its own timesteps; "
+                         "timestep_spacing must be 'uniform'")
+    if sampler_name == "lcm":  # the distillation grid
+        timesteps = lcm.inference_timesteps(n_inference_steps)
+    else:
+        timesteps = ddpm.timesteps_for(schedule, timestep_spacing, n_inference_steps,
+                                       sdxl=cfg.unet.add_embed_dim is not None)
+    # restart and dpm_fast run their own grids; the pipeline's maps the
+    # strength to their entry (``start_t``), where img2img noises the latents
+    plan, stream, n_draws = None, "sampler", n_inference_steps
+    if sampler_name == "restart":
+        plan = restart.build_plan(schedule, n_inference_steps)
+        stream, n_draws = "restart", plan["n_ops"]
+    elif sampler_name == "dpm_fast":
+        plan = dpm_fast.build_plan(schedule, n_inference_steps)
+        stream, n_draws = "dpm_fast", plan["m"]
+    elif sampler_name == "dpm_adaptive":
+        stream = "dpm_adaptive"
+    return schedule, timesteps, plan, stream, n_draws
+
+
+def _draw_noise(*, seed, fixed_noise, batch: int, lat_shape, n_steps: int, stream: str,
+                n_draws: int, encode: bool, inpaint=None, reference: bool = False,
+                variation=None, noise_multiplier=None, first: int = 0):
+    """The request's noise on the host, drawn up front: from the named
+    streams of ``seed`` ('latent_init', the sampler's ``stream``,
+    'encoder_noise' where an init image is ``encode``d, 'mask_encoder_noise'
+    or 'inpaint' for inpainting, reference-only's), the samples at their
+    indices from ``first``; or the injected ``fixed_noise``.  ``variation``
+    (seed, strength) slerps the variation seed's draw in, then
+    ``noise_multiplier`` scales the initial noise."""
+    if fixed_noise is not None:
+        noise = {"latent_init": np.reshape(fixed_noise["latent_init"], (batch,) + lat_shape),
+                 "sampler": np.reshape(fixed_noise["sampler_noise"],
+                                       (n_steps, batch) + lat_shape)}
+        if encode:
+            noise["encoder"] = np.reshape(fixed_noise["encoder_noise"], (batch,) + lat_shape)
+        if inpaint == "unet9":  # zeros where the injected noise has none
+            noise["mask_encoder"] = np.reshape(fixed_noise["mask_encoder_noise"],
+                                               (batch,) + lat_shape) \
+                if "mask_encoder_noise" in fixed_noise \
+                else np.zeros((batch,) + lat_shape, np.float32)
+        return {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in noise.items()}
+    s = 0 if seed is None else int(seed)
+    kw = dict(first=first)  # a data rank draws its samples at their indices
+    noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape, **kw),
+             "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape, **kw)}
+    if encode:
+        noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch, lat_shape, **kw)
+    if inpaint == "unet9":
+        noise["mask_encoder"] = rng_mod.batch_normal(s, "mask_encoder_noise", batch,
+                                                     lat_shape, **kw)
+    elif inpaint == "blend":
+        noise["inpaint"] = rng_mod.step_normals(s, "inpaint", n_steps, batch, lat_shape, **kw)
+    if reference:
+        noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape, **kw)
+        noise["ref_noise"] = rng_mod.step_normals(s, "ref_noise", n_steps, batch, lat_shape,
+                                                  **kw)
+    if variation is not None:
+        v_seed, v_strength = variation
+        noise["latent_init"] = slerp_noise(
+            torch.tensor(v_strength, dtype=torch.float32), noise["latent_init"],
+            rng_mod.variation_normal(int(v_seed), batch, lat_shape, **kw))
+    if noise_multiplier is not None:
+        # A1111's initial-noise multiplier, after the variation slerp
+        noise["latent_init"] = noise["latent_init"] \
+            * torch.tensor(noise_multiplier, dtype=torch.float32)
+    return noise
+
+
+def _denoise(sampler_name: str, schedule, timesteps, latents: torch.Tensor, noise, eps_at,
+             *, start_step: int, plan, eta: float, img2img: bool, inpaint=None,
+             lat0=None, m_lat=None) -> torch.Tensor:
+    """The denoise loop (:func:`_sample`) from ``start_step``; with
+    latent-blend inpainting the original latents ``lat0`` re-noised to each
+    step's level (the 'inpaint' draws, or under injected noise the
+    sampler's) and pasted outside the latent mask ``m_lat`` at the top of
+    every step, and exactly at the end."""
+    blend = None
+    if inpaint == "blend":
+        blend_noise = noise["inpaint"] if "inpaint" in noise else noise["sampler"]
+
+        def blend(i: int, lat: torch.Tensor) -> torch.Tensor:
+            noised0 = ddpm.add_noise(schedule, lat0, int(timesteps[i]), blend_noise[i])
+            return m_lat * lat + (1.0 - m_lat) * noised0
+    latents = _sample(sampler_name, schedule, timesteps, latents.float(), noise["sampler"],
+                      eps_at, start_step=start_step, plan=plan, eta=eta, img2img=img2img,
+                      blend=blend)
+    if inpaint == "blend":
+        # the exact final projection: the kept region is the original
+        latents = m_lat * latents + (1.0 - m_lat) * lat0
+    return latents
 
 
 # -------------------------------------------------------------- public API
@@ -1152,30 +1692,8 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
     start_step = ddpm.start_step_for_strength(n_inference_steps, strength) \
         if img2img else 0
 
-    schedule = ddpm.make_schedule(
-        beta_start=ddpm.REFERENCE_BETA_START if cfg.reference_quirks
-        else ddpm.BETA_START, zero_terminal_snr=cfg.zero_terminal_snr)
-    if sampler_name in ("lcm", "dpm_fast", "dpm_adaptive") \
-            and timestep_spacing != "uniform":
-        raise ValueError(f"sampler {sampler_name!r} defines its own timesteps; "
-                         "timestep_spacing must be 'uniform'")
-    if sampler_name == "lcm":  # the distillation grid
-        timesteps = lcm.inference_timesteps(n_inference_steps)
-    else:
-        timesteps = ddpm.timesteps_for(schedule, timestep_spacing, n_inference_steps,
-                                       sdxl=cfg.unet.add_embed_dim is not None)
-    # the sampler's noise stream: one draw a step, op, segment or iteration.
-    # restart and dpm_fast run their own grids; the pipeline's maps the
-    # strength to their entry (``start_t``), where img2img noises the latents
-    plan, stream, n_draws = None, "sampler", n_inference_steps
-    if sampler_name == "restart":
-        plan = restart.build_plan(schedule, n_inference_steps)
-        stream, n_draws = "restart", plan["n_ops"]
-    elif sampler_name == "dpm_fast":
-        plan = dpm_fast.build_plan(schedule, n_inference_steps)
-        stream, n_draws = "dpm_fast", plan["m"]
-    elif sampler_name == "dpm_adaptive":
-        stream = "dpm_adaptive"
+    schedule, timesteps, plan, stream, n_draws = _sampler_setup(
+        cfg, sampler_name, timestep_spacing, n_inference_steps)
     entry_ts = timesteps if plan is None else plan["start_t"]
 
     # the pixels the request encodes (img2img's and inpainting's init image,
@@ -1207,202 +1725,88 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
         device = next(models["diffusion"].parameters()).device
     device = torch.device(device)
     for m in models.values():
-        for net in m if isinstance(m, (list, tuple)) else [m]:
+        for net in _listed(m):
             net.to(device)
 
     # ---- noise: drawn up front on the host, copied to the device once
-    if fixed_noise is not None:
-        noise = {"latent_init": np.reshape(fixed_noise["latent_init"], (batch,) + lat_shape),
-                 "sampler": np.reshape(fixed_noise["sampler_noise"],
-                                       (n_inference_steps, batch) + lat_shape)}
-        if input_image is not None:
-            noise["encoder"] = np.reshape(fixed_noise["encoder_noise"],
-                                          (batch,) + lat_shape)
-        if inpaint == "unet9":  # zeros where the injected noise has none
-            noise["mask_encoder"] = np.reshape(fixed_noise["mask_encoder_noise"],
-                                               (batch,) + lat_shape) \
-                if "mask_encoder_noise" in fixed_noise \
-                else np.zeros((batch,) + lat_shape, np.float32)
-        noise = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in noise.items()}
-    else:
-        s = 0 if seed is None else int(seed)
-        # a data rank draws its samples at their indices in the whole batch
-        first = dict(first=_sample_offset)
-        noise = {"latent_init": rng_mod.batch_normal(s, "latent_init", batch, lat_shape,
-                                                     **first),
-                 "sampler": rng_mod.step_normals(s, stream, n_draws, batch, lat_shape,
-                                                 **first)}
-        if input_image is not None:
-            noise["encoder"] = rng_mod.batch_normal(s, "encoder_noise", batch, lat_shape,
-                                                    **first)
-        if inpaint == "unet9":
-            noise["mask_encoder"] = rng_mod.batch_normal(s, "mask_encoder_noise", batch,
-                                                         lat_shape, **first)
-        elif inpaint == "blend":
-            noise["inpaint"] = rng_mod.step_normals(s, "inpaint", n_inference_steps, batch,
-                                                    lat_shape, **first)
-        if reference_image is not None:
-            noise["ref_encoder"] = rng_mod.batch_normal(s, "ref_encoder", batch, lat_shape,
-                                                        **first)
-            noise["ref_noise"] = rng_mod.step_normals(s, "ref_noise", n_inference_steps,
-                                                      batch, lat_shape, **first)
-        if use_variation:
-            noise["latent_init"] = slerp_noise(
-                torch.tensor(variation_strength, dtype=torch.float32), noise["latent_init"],
-                rng_mod.variation_normal(int(variation_seed), batch, lat_shape, **first))
-        if noise_multiplier is not None:
-            # A1111's initial-noise multiplier, after the variation slerp
-            noise["latent_init"] = noise["latent_init"] \
-                * torch.tensor(noise_multiplier, dtype=torch.float32)
+    noise = _draw_noise(seed=seed, fixed_noise=fixed_noise, batch=batch, lat_shape=lat_shape,
+                        n_steps=n_inference_steps, stream=stream, n_draws=n_draws,
+                        encode=input_image is not None, inpaint=inpaint,
+                        reference=reference_image is not None,
+                        variation=(variation_seed, variation_strength) if use_variation
+                        else None, noise_multiplier=noise_multiplier, first=_sample_offset)
     noise = {k: _to_device(v, device) for k, v in noise.items()}
 
     # every training timestep, on the device once: the loops index it with
     # host ints, so no step copies a timestep to the device
     t_all = torch.arange(schedule.num_train_timesteps, dtype=torch.float32, device=device)
-    memory_format = torch.channels_last if device.type == "cuda" \
-        else torch.contiguous_format
+    memory_format = _memory_format(device)
     vae_kw = dict(attention_backend=cfg.vae_attention_backend,
                   reference_quirks=cfg.reference_quirks)
+
+    def dev(x):
+        return _to_device(torch.from_numpy(np.array(x, np.float32)), device)
+
+    def local(x):
+        return _local(x, row_split)
 
     # seamless tiling: every conv of the request wraps (cleared on the way
     # out, also when the request raises)
     with torch.inference_mode(), conv_ops.circular_padding(bool(tiling)), \
             quant_mod.weight_cache():
-        # one CLIP call for cond and uncond, every window, every
-        # realization of an edited prompt and every AND part
+        # ---- once a request: one CLIP call for cond and uncond, every
+        # window, every realization of an edited prompt and every AND part;
+        # the encodes and slice E's side-net features
         tokens = np.concatenate([cond_tokens, uncond_tokens]) if do_cfg else cond_tokens
         weights = None
         if emphasis:
             weights = np.concatenate([cond_w, uncond_w]) if do_cfg else cond_w
-            weights = _to_device(torch.as_tensor(weights), device)
-        size_emb = None if cfg.unet.add_embed_dim is None else \
-            _to_device(_size_embedding(cfg, height, width, size_ids), device)
-        context, add_cond = _encode_prompts(models, _to_device(torch.as_tensor(tokens), device),
-                                            weights, cfg, size_emb)
+        prep = Prep(cfg, batch, n_lanes, img2img=input_image is not None, ip2p=ip2p,
+                    inpaint=inpaint, hyper=hyper, encode_tile=encode_tile)
+        prepared = prepare(prep, models, _prep_inputs(
+            device, batch, tokens=tokens, weights=weights,
+            size_emb=None if cfg.unet.add_embed_dim is None
+            else _size_embedding(cfg, height, width, size_ids),
+            pixels=pixels, noise=noise, mask=mask if inpaint == "unet9" else None,
+            mask_lat=None if inpaint != "unet9"
+            else mask_to_latent_nearest(mask, cfg.vae.downsample_factor),
+            hints=None if nets is None else _hints(control_image, width, height, batch),
+            adapter_hints=None if adapters is None
+            else _hints(adapter_image, width, height, batch),
+            adapter_scale=adapter_scale, ip_image=ip_img,
+            hyper_strength=None if hyper is None else hypernetwork_strength))
+        context, add_cond = prepared["ctx"], prepared.get("add")
         if sched_idx is not None:  # (K, [2]B, ...): cond then uncond per K
             def per_k(x):
                 return torch.cat(x.unflatten(0, (-1, batch)).chunk(2 if do_cfg else 1), dim=1)
 
             context = per_k(context)
             add_cond = None if add_cond is None else per_k(add_cond)
-        if ip2p:
-            # InstructPix2Pix's three lanes: [text + image, image only (the
-            # uncond text), unconditional]
-            context = torch.cat([context, context[batch:]])
-            add_cond = None if add_cond is None else torch.cat([add_cond, add_cond[batch:]])
-        if hyper is not None:
-            # the hypernetwork transforms the whole CFG batch's context, k
-            # and v apart, once a request; the (ctx_k, ctx_v) pair rides
-            # through every cross-attention (ops/attention.apply)
-            from .weights import hypernetwork as hyper_mod
 
-            strength = torch.full((), float(hypernetwork_strength), dtype=torch.float32,
-                                  device=device)
-            context = hyper_mod.apply_hypernetwork(
-                models["hypernetwork"], context, strength, activation=hyper[0],
-                activate_output=hyper[1])
-
-        image = None
-        if pixels is not None:
-            image = _to_device(torch.as_tensor(pixels), device).expand(batch, -1, -1, -1) \
-                .contiguous(memory_format=memory_format)
+        lat0 = None
         if init_latents is not None:
             lat0 = init_latents.to(device) if init_latents.is_cuda \
                 else _to_device(init_latents, device)
             latents = ddpm.add_noise(schedule, lat0.expand(batch, -1, -1, -1),
                                      int(entry_ts[start_step]), noise["latent_init"])
         elif img2img:
-            lat0 = encode_image(models, image, noise["encoder"], cfg,
-                                encode_tile=encode_tile).float()
+            lat0 = prepared["lat0"]
             latents = ddpm.add_noise(schedule, lat0, int(entry_ts[start_step]),
                                      noise["latent_init"])
         else:
             latents = noise["latent_init"]
-
         cd = policy.compute_dtype
-        ip2p_extra = inpaint_extra = m_lat = None
-        if ip2p:
-            # the edit image's latents: the encoder's mode (zero noise) and,
-            # a published quirk of the family, not multiplied by the latent
-            # scale factor, so the encoder's x scale_factor is divided out;
-            # zeros in the unconditional lane
-            img_lat = models["encoder"](image, torch.zeros_like(latents), policy,
-                                        **vae_kw).float() / cfg.vae.scale_factor
-            ip2p_extra = torch.cat([img_lat, img_lat, torch.zeros_like(img_lat)]).to(cd)
-        if inpaint == "unet9":
-            # conditioning channels: the nearest-downsampled mask and the
-            # latents of the masked image (the repaint region zeroed)
-            factor = cfg.vae.downsample_factor
-            mask_dev = _to_device(_nchw(mask), device)
-            binm = (mask_dev > 0.5).to(image.dtype)
-            masked = (image * (1.0 - binm)).contiguous(memory_format=memory_format)
-            masked_lat = encode_image(models, masked, noise["mask_encoder"], cfg,
-                                      encode_tile=encode_tile)
-            inpaint_extra = torch.cat(
-                [_to_device(_nchw(mask_to_latent_nearest(mask, factor)), device).to(cd),
-                 masked_lat.to(cd)], dim=1)
-        elif inpaint == "blend":
-            # the soft (area-mean) latent mask keeps the seam smooth; the
-            # blend re-noises the original latents with the "inpaint" draws,
-            # or under fixed_noise with the sampler's
+        m_lat = None
+        if inpaint == "blend":
+            # the soft (area-mean) latent mask keeps the seam smooth
             m_lat = _to_device(_nchw(mask_to_latent_area(mask, cfg.vae.downsample_factor)),
                                device)
-            blend_noise = noise["inpaint"] if "inpaint" in noise else noise["sampler"]
 
-        def blend(i: int, lat: torch.Tensor) -> torch.Tensor:
-            """Re-noise the original latents to step ``i``'s level and paste
-            them into the kept region (the latent-blend inpaint mode)."""
-            noised0 = ddpm.add_noise(schedule, lat0, int(timesteps[i]), blend_noise[i])
-            return m_lat * lat + (1.0 - m_lat) * noised0
-
-        # ---- slice E, once a request: hint features, adapter features, IP
-        # tokens, the reference latents; every lane-matched for CFG (and AND)
-        def lanes(x):
-            return torch.cat([x] * n_lanes) if n_lanes > 1 else x
-
-        def dev(x):
-            return _to_device(torch.from_numpy(np.array(x, np.float32)), device)
-
-        def local(x):
-            """The rank's latent rows of a whole feature (sequence parallelism)."""
-            if row_split is None:
-                return x
-            return mesh_mod.local_rows(x, row_split).contiguous(memory_format=memory_format)
-
-        hint_feats = adapter_feats = adapter_single = ip_arg = ref_lat0 = None
-        if nets is not None:
-            hints = dev(_hints(control_image, width, height, batch))
-            hint_feats = [local(lanes(net.encode_hint(hints[ci].contiguous(
-                memory_format=memory_format), policy))) for ci, net in enumerate(nets)]
-            ctrl_scale = dev(controlnet_scale)
-        if adapters is not None:
-            a_hints, a_scale = dev(_hints(adapter_image, width, height, batch)), \
-                dev(adapter_scale)
-            for ai, ad in enumerate(adapters):
-                fs = [f * a_scale[ai].to(f.dtype) for f in ad(a_hints[ai].contiguous(
-                    memory_format=memory_format), policy)]
-                adapter_feats = fs if adapter_feats is None else \
-                    [a + b for a, b in zip(adapter_feats, fs)]
-            # PAG's and SAG's single-lane evaluations take the features as
-            # they are, the main one lane-matched
-            adapter_single = adapter_feats = [local(f) for f in adapter_feats]
-            adapter_feats = [lanes(f) for f in adapter_feats]
-        if ip_img is not None:
-            ipa, tower = models["ip_adapter"], models["clip_vision"]
-            px = dev(np.broadcast_to(ip_img, (batch,) + ip_img.shape[1:]).transpose(0, 3, 1, 2))
-            px = px.to(cd).contiguous(memory_format=memory_format)
-            tokens = ipa.image_tokens(tower, px, policy)
-            if do_cfg:
-                tokens = torch.cat([tokens] * n_and + [ipa.negative_tokens(tower, px, policy)])
-            ip_arg = (ipa.layers, tokens, dev(ip_adapter_scale))
-        if reference_image is not None:
-            ref_px = dev(np.broadcast_to(_prepare_image(reference_image, width, height),
-                                         (batch, 3, height, width)))
-            ref_lat0 = models["encoder"](ref_px.contiguous(memory_format=memory_format),
-                                         noise["ref_encoder"], policy, **vae_kw).float()
-            ref_fid = dev(reference_fidelity)
-            ref_mask = dev(np.repeat([0.0, 1.0], batch)) if do_cfg else None
-
+        # ---- a guided evaluation's inputs: the side nets' features (the
+        # rank's rows under sequence parallelism), slice F's per-request
+        # tensors (the guidance scales, the AND weights and region masks)
+        guide = Guidance(cfg, batch, do_cfg, n_and, ip2p=ip2p, pag=pag, sag=sag,
+                         n_frames=n_frames)
         t_cond = None
         if cfg.unet.time_cond_dim:
             # LCM's embedded guidance: the distilled UNet takes w = cfg_scale - 1
@@ -1410,46 +1814,29 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
             t_cond = _to_device(unet_mod.guidance_scale_embedding(
                 torch.tensor(cfg_scale, dtype=torch.float32) - 1.0,
                 cfg.unet.time_cond_dim), device)
-
-        unet = models["diffusion"]
-
-        def unet_eval(x, *args, **kw):
-            """One UNet evaluation; under sequence parallelism on the rank's
-            rows of ``x``, the output's rows gathered (SAG's map comes whole,
-            DeepCache's feature stays the rank's rows)."""
-            if row_split is None:
-                return unet(x, *args, **kw)
-            with mesh_mod.split_rows(row_split):
-                out = unet(local(x), *args, **kw)
-            if out is None:
-                return None
-            if isinstance(out, tuple):
-                return (mesh_mod.gather_rows(out[0], row_split),) + out[1:]
-            return mesh_mod.gather_rows(out, row_split)
-        # slice F's per-request tensors: the guidance scales, the AND
-        # weights and region masks, the dynamic-threshold quantile
-        pag_s = dev(pag_scale) if pag else None
-        sag_s = dev(sag_scale) if sag else None
-        rescale_w = (dev(guidance_rescale), dev(1.0 - guidance_rescale)) \
-            if do_cfg and guidance_rescale > 0.0 else None
-        and_wt = dev(and_w) if n_and > 1 else None
-        regions_d = None if regions is None else _to_device(regions, device)
+        ev = _eval_inputs(guide, prepared, device, cfg_scale=cfg_scale,
+                          image_scale=image_guidance_scale,
+                          control_scale=None if nets is None else controlnet_scale,
+                          ip_scale=None if ip_img is None else ip_adapter_scale,
+                          pag_scale=pag_scale, sag_scale=sag_scale,
+                          guidance_rescale=guidance_rescale, and_w=and_w, regions=regions,
+                          t_cond=t_cond)
+        for name in ("hints", "adapter", "adapter_single"):
+            if name in ev:
+                ev[name] = [local(f) for f in ev[name]]
+        ref_lat0 = None
+        if reference_image is not None:
+            ref_px = dev(np.broadcast_to(_prepare_image(reference_image, width, height),
+                                         (batch, 3, height, width)))
+            ref_lat0 = models["encoder"](ref_px.contiguous(memory_format=memory_format),
+                                         noise["ref_encoder"], policy, **vae_kw).float()
+            ref_fid = dev(reference_fidelity)
+            ref_mask = dev(np.repeat([0.0, 1.0], batch)) if do_cfg else None
         dyn_q = None if dynamic_threshold is None else dev(dynamic_threshold)
+        unet = models["diffusion"]
         # DeepCache: the deep feature of the last full evaluation, carried
         # across the loop's evaluations
         dc = {"cache": None}
-
-        def lane_side(side, sl):
-            """The side inputs of the lanes ``sl`` of the CFG stack (PAG's
-            cond lanes, SAG's base lanes): the per-lane IP tokens and
-            ControlNet residuals sliced, the adapter features single-lane."""
-            out = dict(side, adapter=adapter_single)
-            if do_cfg and ip_arg is not None:
-                out["ip"] = (ip_arg[0], ip_arg[1][sl], ip_arg[2])
-            if do_cfg and side["control"] is not None:
-                out["control"] = {"mid": side["control"]["mid"][sl],
-                                  "down": [d[sl] for d in side["control"]["down"]]}
-            return out
 
         def window_sweep(model_in, ctx, t, main):
             """The UNet over overlapping windows, one call each, and each
@@ -1490,154 +1877,59 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
 
         def eps_at(i: int, lat: torch.Tensor, t: int,
                    refresh: Optional[bool] = None) -> torch.Tensor:
-            """The guided epsilon of the latents at training timestep ``t`` (a
-            v-prediction model's output turned into epsilon); step index
-            ``i`` picks an edited prompt's conditioning and, with DeepCache,
-            whether the evaluation is full (``(i - start_step) % N == 0``,
-            unless ``refresh`` says; a shallow one reads the carried
-            feature).  The combine, in the JAX package's order: AND (and its
-            regions) or CFG with guidance rescale, PAG, the conversion to
-            epsilon, SAG, dynamic thresholding."""
-            lat_in = lat.to(cd)
-            if inpaint_extra is not None:
-                # [latents, mask, masked-image latents] (diffusers' order)
-                lat_in = torch.cat([lat_in, inpaint_extra], dim=1)
-            if ip2p:
-                # three lanes, each with its edit-image channels appended
-                model_in = torch.cat([torch.cat([lat_in] * 3), ip2p_extra], dim=1)
-            else:
-                model_in = lanes(lat_in)
-            ctx, add = context, add_cond
+            """The guided epsilon of the latents at training timestep ``t``
+            (:func:`guided_eps`); step index ``i`` picks an edited prompt's
+            conditioning and, with DeepCache, whether the evaluation is full
+            (``(i - start_step) % N == 0``, unless ``refresh`` says; a
+            shallow one reads the carried feature).  Reference-only's capture
+            pass runs first; dynamic thresholding last."""
+            x = ev
             if sched_idx is not None:
-                ctx = context[int(sched_idx[i])]
-                add = None if add_cond is None else add_cond[int(sched_idx[i])]
-            kw = dict(attention_backend=cfg.attention_backend,
-                      reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
-                      conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet,
-                      quant=cfg.quant)
-            if n_frames is not None:
-                # AnimateDiff: the lanes of each CFG group are the frames
-                kw.update(motion=models["motion"], frames=n_frames)
-            control = None
-            if nets is not None:
-                # the ControlNets take the 4-channel latents, whatever the UNet's
-                ctrl_in = lanes(lat.to(cd)).contiguous(memory_format=memory_format)
-                for ci, net in enumerate(nets):
-                    # the rank's rows of the residuals under sequence parallelism
-                    with mesh_mod.split_rows(row_split):
-                        c_i = net(local(ctrl_in), ctx, t_all[int(t)], hint_feats[ci], policy,
-                                  conditioning_scale=ctrl_scale[ci],
-                                  attention_backend=cfg.attention_backend,
-                                  fuse_qkv=cfg.fuse_qkv, add_cond=add,
-                                  conv_backend=cfg.conv_backend)
-                    control = c_i if control is None else {  # residuals sum
-                        "mid": control["mid"] + c_i["mid"],
-                        "down": [a + b for a, b in zip(control["down"], c_i["down"])]}
-            side = dict(control=control, adapter=adapter_feats, ip=ip_arg)
+                k = int(sched_idx[i])
+                x = dict(ev, ctx=context[k], add=None if add_cond is None else add_cond[k])
+            else:
+                x = dict(ev, ctx=context, add=add_cond)
+            x["coef"] = ddpm.alpha_coef(schedule, t)
+            ctx, add = x["ctx"], x["add"]
+            extra_side = None
             if ref_lat0 is not None:
                 # the capture pass: the reference re-noised to t, without the
                 # side nets; the main pass reads what it banks
+                kw = dict(attention_backend=cfg.attention_backend,
+                          reference_quirks=cfg.reference_quirks, fuse_qkv=cfg.fuse_qkv,
+                          conv_backend=cfg.conv_backend, t_cond=t_cond, modes=cfg.unet,
+                          quant=cfg.quant)
                 rn = ddpm.add_noise(schedule, ref_lat0, int(t),
                                     noise["ref_noise"][min(i, len(timesteps) - 1)])
                 bank = {} if "attn" in reference_mode else None
                 abank = {} if "adain" in reference_mode else None
-                unet_eval(lanes(rn.to(cd)).contiguous(memory_format=memory_format), ctx,
-                          t_all[int(t)], policy, head=False, add_cond=add, **kw,
-                          ref=None if bank is None else ("capture", bank),
-                          ref_adain=None if abank is None else ("capture", abank))
-                side.update(ref=None if bank is None else ("read", bank, ref_fid, ref_mask),
-                            ref_adain=None if abank is None
-                            else ("read", abank, ref_fid, ref_mask))
-            main = dict(kw, add_cond=add, **side)
-            model_in = model_in.contiguous(memory_format=memory_format)
-            mid_probs = None
+                _unet_eval(unet, row_split,
+                           guide_lanes(rn.to(cd)).contiguous(memory_format=memory_format),
+                           ctx, t_all[int(t)], policy, head=False, add_cond=add, **kw,
+                           ref=None if bank is None else ("capture", bank),
+                           ref_adain=None if abank is None else ("capture", abank))
+                extra_side = dict(ref=None if bank is None else ("read", bank, ref_fid,
+                                                                 ref_mask),
+                                  ref_adain=None if abank is None
+                                  else ("read", abank, ref_fid, ref_mask))
+            main_eval = None
             if mwin is not None or pano is not None:
-                eps = window_sweep(model_in, ctx, t_all[int(t)], main).to(cd)
-            elif deepcache is None:
-                out = unet_eval(model_in, ctx, t_all[int(t)], policy, return_mid_attn=sag,
-                                **main)
-                eps, mid_probs = out if sag else (out, None)
-            elif ((i - start_step) % deepcache == 0 if refresh is None else refresh):
-                eps, dc["cache"] = unet_eval(model_in, ctx, t_all[int(t)], policy,
-                                             return_cache=True, **main)
-            else:
-                eps = unet_eval(model_in, ctx, t_all[int(t)], policy, cache=dc["cache"],
-                                **main)
-            eps = eps.float()
-            raw = eps
-            if pag:
-                # the perturbed evaluation: the cond lanes, identity
-                # self-attention in the mid block
-                cond = slice(None, batch)
-                eps_ptb = unet_eval(lat_in.contiguous(memory_format=memory_format),
-                                    _lane(ctx, cond) if do_cfg else ctx, t_all[int(t)],
-                                    policy, pag=True, **kw, **lane_side(side, cond),
-                                    add_cond=add[cond] if do_cfg and add is not None else add
-                                    ).float()
-            if sag:
-                # blur x0 of the base lanes (uncond under CFG) where the mid
-                # block's attention mass concentrates, re-noise with their
-                # epsilon and evaluate them there
-                base = slice(batch, None) if do_cfg else slice(None)
-                lat32 = lat.float()
-                base_eps = ddpm.to_epsilon(schedule, t, lat32, raw[base], cfg.prediction_type)
-                a_t = schedule.alphas_cumprod[int(t)]
-                sa, sb = float(np.sqrt(a_t)), float(np.sqrt(np.float32(1.0) - a_t))
-                x0 = (lat32 - sb * base_eps) / sa
-                # a key's attention mass over the queries, the heads' mean
-                mass = mid_probs[base].float().mean(dim=1).sum(dim=1)   # (B, S_mid)
-                down = 2 ** (len(cfg.unet.ch_mults) - 1)
-                mh, mw = lat.shape[2] // down, lat.shape[3] // down
-                from .utils.image import resize
-
-                mask = resize((mass > 1.0).float().reshape(batch, 1, mh, mw),
-                              (batch, 1, lat.shape[2], lat.shape[3]), "nearest")
-                x0_deg = gaussian_blur(x0) * mask + x0 * (1.0 - mask)
-                lat_deg = sa * x0_deg + sb * base_eps
-                deg_in = lat_deg.to(cd)
-                if inpaint_extra is not None:
-                    deg_in = torch.cat([deg_in, inpaint_extra], dim=1)
-                eps_deg = unet_eval(deg_in.contiguous(memory_format=memory_format),
-                                    _lane(ctx, base), t_all[int(t)], policy, **kw,
-                                    **lane_side(side, base),
-                                    add_cond=None if add is None else add[base]).float()
-                eps_deg = ddpm.to_epsilon(schedule, t, lat_deg, eps_deg, cfg.prediction_type)
-            if ip2p:
-                # dual guidance (Brooks et al. 2023, eq. 3)
-                e_t, e_i, e_u = eps.chunk(3)
-                eps = e_u + cfg_scale * (e_t - e_i) + image_guidance_scale * (e_i - e_u)
-            elif n_and > 1:
-                # composable diffusion: eps_u + cfg Σ w_i (eps_i - eps_u), each
-                # weight times its region mask
-                parts = eps.chunk(n_and + 1)
-                eps_u = eps = parts[-1]
-                for k in range(n_and):
-                    w_k = and_wt[:, k, None, None, None]
-                    if regions_d is not None:
-                        w_k = w_k * regions_d[k]
-                    eps = eps + cfg_scale * w_k * (parts[k] - eps_u)
-            elif do_cfg:
-                eps_cond, eps_uncond = eps.chunk(2)
-                eps = eps_uncond + cfg_scale * (eps_cond - eps_uncond)
-                if rescale_w is not None:
-                    # "Common Diffusion Noise Schedules and Sample Steps are
-                    # Flawed", eq. 15-16: the std pulled back toward the
-                    # conditional one's, in model-output space (ddof 0)
-                    dims = tuple(range(1, eps.dim()))
-                    std_c = eps_cond.std(dim=dims, correction=0, keepdim=True)
-                    std_g = eps.std(dim=dims, correction=0, keepdim=True)
-                    rescaled = eps * (std_c / torch.clamp(std_g, min=1e-12))
-                    eps = rescale_w[0] * rescaled + rescale_w[1] * eps
-            if pag:
-                eps = eps + pag_s * ((eps_cond if do_cfg else raw) - eps_ptb)
-            eps = ddpm.to_epsilon(schedule, t, lat, eps, cfg.prediction_type)
-            if sag:
-                eps = eps + sag_s * (base_eps - eps_deg)
+                def main_eval(model_in, ctx, tt, main):
+                    return window_sweep(model_in, ctx, tt, main).to(cd)
+            elif deepcache is not None:
+                def main_eval(model_in, ctx, tt, main):
+                    if (i - start_step) % deepcache == 0 if refresh is None else refresh:
+                        eps, dc["cache"] = _unet_eval(unet, row_split, model_in, ctx, tt,
+                                                      policy, return_cache=True, **main)
+                        return eps
+                    return _unet_eval(unet, row_split, model_in, ctx, tt, policy,
+                                      cache=dc["cache"], **main)
+            eps = guided_eps(guide, models, lat, t_all[int(t)], x, row_split=row_split,
+                             main_eval=main_eval, extra_side=extra_side)
             if dyn_q is not None:
                 # dynamic thresholding (Imagen; diffusers' _threshold_sample):
                 # clip x0 at its per-sample |x0| quantile s >= 1, rescale by s
-                a_t = schedule.alphas_cumprod[int(t)]
-                sa, sb = float(np.sqrt(a_t)), float(np.sqrt(np.float32(1.0) - a_t))
+                sa, sb = x["coef"]
                 l32 = lat.float()
                 x0 = (l32 - sb * eps) / sa
                 q = torch.quantile(x0.reshape(x0.shape[0], -1).abs(), dyn_q, dim=1)
@@ -1648,22 +1940,13 @@ def _generate_local(prompt, uncond_prompt="", input_image=None,
                 _progress_tick(min(i, n_inference_steps - 1), n_inference_steps)
             return eps
 
-        latents = _sample(sampler_name, schedule, timesteps, latents.float(),
-                          noise["sampler"], eps_at, start_step=start_step, plan=plan,
-                          eta=float(ddim_eta), img2img=img2img,
-                          blend=blend if inpaint == "blend" else None)
-        if inpaint == "blend":
-            # the exact final projection: the kept region is the original
-            latents = m_lat * latents + (1.0 - m_lat) * lat0
+        def guide_lanes(v):
+            return torch.cat([v] * n_lanes) if n_lanes > 1 else v
 
-        lat_in = latents.contiguous(memory_format=memory_format)
-        if decode_tile:
-            images = vae_mod.apply_decoder_tiled(models["decoder"], lat_in, policy,
-                                                 tile=decode_tile, **vae_kw)
-        else:
-            images = models["decoder"](lat_in, policy, **vae_kw)
-        images = rescale(images.float(), (-1.0, 1.0), (0.0, 255.0), clamp=True)
-        images = images.to(torch.uint8).permute(0, 2, 3, 1)  # truncation
+        latents = _denoise(sampler_name, schedule, timesteps, latents, noise, eps_at,
+                           start_step=start_step, plan=plan, eta=float(ddim_eta),
+                           img2img=img2img, inpaint=inpaint, lat0=lat0, m_lat=m_lat)
+        images = decode(cfg, models, latents, decode_tile)
         if _device_output:
             return images, latents
         out = images.cpu().numpy()

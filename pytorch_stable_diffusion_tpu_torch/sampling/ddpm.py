@@ -226,18 +226,26 @@ def _alpha_bar_prev(schedule: DDPMSchedule, prev_t: int) -> np.float32:
     return np.float32(1.0)
 
 
+def alpha_coef(schedule: DDPMSchedule, t: int):
+    """(a, s) = (sqrt(abar_t), sqrt(1 - abar_t)) as host floats: the
+    coefficients of :func:`to_epsilon` and of x0 = (x - s eps) / a."""
+    abar = schedule.alphas_cumprod[int(t)]
+    return float(np.sqrt(abar)), float(np.sqrt(np.float32(1.0) - abar))
+
+
 def to_epsilon(schedule: DDPMSchedule, t: int, latents: torch.Tensor,
-               model_output: torch.Tensor, prediction_type: str = "epsilon"):
+               model_output: torch.Tensor, prediction_type: str = "epsilon", *, coef=None):
     """A model output as an epsilon prediction: "epsilon" passes through;
     "v" (x0 = a x - s v) gives eps = s x + a v, a = sqrt(abar_t),
-    s = sqrt(1 - abar_t)."""
+    s = sqrt(1 - abar_t).  ``coef``: :func:`alpha_coef` at t, given in place
+    of ``schedule`` and ``t`` (an exported program takes them as 0-d CPU
+    tensors, which give the same bits)."""
     if prediction_type == "epsilon":
         return model_output
     if prediction_type != "v":
         raise ValueError(f"unknown prediction_type {prediction_type!r}")
-    abar = schedule.alphas_cumprod[int(t)]
-    a, s = np.sqrt(abar), np.sqrt(np.float32(1.0) - abar)
-    return float(s) * latents.float() + float(a) * model_output.float()
+    a, s = alpha_coef(schedule, t) if coef is None else coef
+    return s * latents.float() + a * model_output.float()
 
 
 def step(schedule: DDPMSchedule, t: int, latents: torch.Tensor,

@@ -178,6 +178,45 @@ def test_no_jax_import_in_source(path):
                          src, re.M), path
 
 
+#: the JAX package's TPU-only modules, which have no port file (ROADMAP,
+#: "Do not port")
+NOT_PORTED = ("core/cache.py", "core/pytree.py", "ops/pallas/")
+JAX_PACKAGE = os.path.join(REPO, "pytorch_stable_diffusion_tpu")
+
+
+def _jax_modules():
+    for root, _, files in os.walk(JAX_PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(root, f), JAX_PACKAGE).replace(os.sep, "/")
+
+
+def test_every_jax_module_has_a_port_file():
+    """Walked as files, not imported: every module of the JAX package has a
+    port file at the same path but the TPU-only ones."""
+    jax_modules = sorted(_jax_modules())
+    assert "utils/aot.py" in jax_modules and "pipeline.py" in jax_modules
+    missing = [m for m in jax_modules if not m.startswith(NOT_PORTED)
+               and not os.path.exists(os.path.join(PACKAGE, m))]
+    assert missing == []
+    for m in NOT_PORTED:
+        assert any(j.startswith(m) for j in jax_modules), m
+
+
+def test_aot_imports_without_jax():
+    code = ("import sys; import pytorch_stable_diffusion_tpu_torch.utils.aot as a; "
+            "print('BAD', sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+            "('jax.', 'pytorch_stable_diffusion_tpu.')) or n == 'pytorch_stable_diffusion_tpu'));"
+            "print('OPS', all(hasattr(a.torch.ops.sdt_torch, n) for n in ("
+            "'flash_attention_bsc', 'flash_attention_onepass', 'flash_attention_multipass', "
+            "'flash_attention_streamed', 'scaled_silu_conv3x3')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout and "OPS True" in out.stdout, out.stdout
+
+
 WORDS = ["a", "cat", "dog", "photo", "of", "the", "painting"]
 TEXTS = ["a photo of a cat", "The Painting", "a  cat\n of\tdog", "cat&dog!!",
          "catdog", "", "caté", " ".join(["painting"] * 100)]
