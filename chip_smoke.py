@@ -396,6 +396,24 @@ Phases (any failure exits non-zero):
                 artifact's first and second call against eager's wall;
                 phase 3's host-cost line holds a K1 call through the op
                 against the direct ctypes path under it.
+ 12. slice I — the rest of the JAX package's public surface
+                (``phase_slice_i``, lines ``I ...``, right after H3b, on its
+                artifact and slice D's checkpoint file): SD-1.5 512² at full
+                width, attention, res blocks and VAE on the kernels (K1, K5,
+                K3, launches held to the plan): (a) the JAX quick start with
+                the port's names (``CLIPTokenizer.from_files``, top-level
+                ``load_models`` of slice D's file, ``generate``, 20 DDPM
+                steps) bit-identical to ``StableDiffusion.from_checkpoint``
+                on the same file and seed; (b) ``MIXED`` (fp32 weights, the
+                BF16 ones' values) against that BF16 request, bit-identical
+                image and latents, or, naming the first module whose output
+                differs, image PSNR >= 50 dB; the weights' bytes, peak
+                device memory and one UNet evaluation's device time
+                (torch.profiler) under each policy; (c) the serving loop,
+                ``examples/torch_aot_serve.serve_request`` on H3b's txt2img
+                artifact, three prompts at seeds 0, 1 and 2, each
+                bit-identical to eager ``generate`` with its seed, each
+                request's wall beside eager's.
 Each phase prints its seconds on a line of its own (``phase ...``).  Then
 one JSON line on the kernels, and last the contract line {"ok": true,
 "device": {...}}.
@@ -1985,8 +2003,8 @@ def phase_step(models, cfg, card, size=2048, context=77, batch=2, label="SD-1.5"
                                        conv_backend=cfg.conv_backend, add_cond=add,
                                        t_cond=t_cond)
 
-    profile_eval(step, card, f"step {label} ({size}², batch {batch}, {context}-token context, "
-                             f"{cfg.conv_backend}): one UNet evaluation")
+    return profile_eval(step, card, f"step {label} ({size}², batch {batch}, {context}-token "
+                                    f"context, {cfg.conv_backend}): one UNet evaluation")
 
 
 def profile_eval(step, card, what):
@@ -2193,9 +2211,11 @@ def hypernetwork_file(path, width=768):
 def phase_slice_d(port, card, request, zero_counts, read_path):
     """Slice D at full width, BF16, kernel attention, on files written in
     the real formats to a temporary directory (see the module docstring,
-    phase 6, slice D)."""
+    phase 6, slice D); -> the directory (kept) with the fp16 checkpoint and
+    the tokenizer's files, which slice I reads again."""
     import json
     import os
+    import shutil
     import tempfile
 
     import numpy as np
@@ -2243,7 +2263,6 @@ def phase_slice_d(port, card, request, zero_counts, read_path):
     print(f"D load load_sd_checkpoint_streamed (file -> card, a tensor at a time): "
           f"{dt:.2f} s, {peak.text()}; every tensor equal, bit for bit  [{card}]", flush=True)
     del streamed, want
-    os.remove(ckpt)
 
     kw = dict(uncond_prompt="", cfg_scale=7.5, sampler_name="dpm++", timestep_spacing="karras",
               n_inference_steps=20, seed=1337, height=512, width=512, return_latents=True)
@@ -2425,8 +2444,11 @@ def phase_slice_d(port, card, request, zero_counts, read_path):
             check(torch.equal(sd_[k].to("cuda"), v), f"save round trip: {name}.{k}")
     print("D save_safetensors -> load_sd_checkpoint: bit-identical", flush=True)
     del again, sd
-    tmp.cleanup()
+    os.remove(path)
+    shutil.rmtree(root)
     torch.cuda.empty_cache()
+    # slice I loads the checkpoint again through the top-level names
+    return {"dir": tmp, "ckpt": ckpt, "vocab": vocab, "merges": merges}
 
 
 # ----------------------------------------------------------------- slice C2
@@ -4312,7 +4334,8 @@ def phase_slice_h3b(port, card, zero_counts, read_path):
     launches during the call; img2img at strengths 0.8 and 0.5 from one
     artifact, each bit-identical to eager; a second model's weights through
     the same artifact, equal to eager with them and not to the first
-    model's image; the five ops through ``torch.ops``.  Lines ``H3b ...``."""
+    model's image; the five ops through ``torch.ops``.  Lines ``H3b ...``;
+    -> the txt2img artifact (loaded), its models, config and tokenizer."""
     import os
     import tempfile
 
@@ -4409,10 +4432,182 @@ def phase_slice_h3b(port, card, zero_counts, read_path):
           f"with it, differs from the first model's image (PSNR "
           f"{psnr(got[0].astype(np.float32), ref.astype(np.float32)):.1f} dB)  [{card}]",
           flush=True)
-    del other, models, arts
+    del other
     torch.cuda.empty_cache()
     h3b_ops(card)
     print(f"H3b: {time.perf_counter() - t_phase:.1f} s in all  [{card}]", flush=True)
+    # slice I serves from the txt2img artifact
+    return {"served": arts["txt2img"], "models": models, "cfg": cfg, "tok": tok}
+
+
+# -------------------------------------------------------------- slice I
+def example(name):
+    """The module ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def first_divergent_module(runs):
+    """Where two runs part: ``runs`` holds two (models, fn) pairs, where
+    ``fn(models)`` makes one short request; every module's tensor output is
+    recorded in call order (forward hooks on every submodule of the models)
+    and the two records are compared bit for bit; -> the first module whose
+    output differs, by name and type, or None."""
+    records = []
+    for models, fn in runs:
+        out = []
+
+        def hook(mod, args, res, name):
+            out.append((name, type(mod).__name__,
+                        res.detach().clone() if isinstance(res, torch.Tensor) else None))
+        hooks = [m.register_forward_hook(
+                     lambda mod, args, res, name=f"{key}.{sub}": hook(mod, args, res, name))
+                 for key, net in models.items() if isinstance(net, torch.nn.Module)
+                 for sub, m in net.named_modules()]
+        try:
+            fn(models)
+        finally:
+            for h in hooks:
+                h.remove()
+        records.append(out)
+    for (name, kind, a), (_, _, b) in zip(*records):
+        if a is not None and b is not None and not torch.equal(a, b):
+            return f"{name} ({kind})"
+    return None
+
+
+def weight_bytes(models):
+    return sum(t.numel() * t.element_size() for m in models.values()
+               for t in m.state_dict().values())
+
+
+def phase_slice_i(port, card, request, zero_counts, read_path, d_files, h3b):
+    """Slice I at SD-1.5 512² full width, attention, res blocks and VAE on
+    the kernels (see the module docstring, phase 12): (a) the JAX quick
+    start with the port's top-level names on slice D's checkpoint against
+    ``StableDiffusion.from_checkpoint``; (b) MIXED against BF16 from the
+    same bf16 values; (c) ``examples/torch_aot_serve.serve_request`` on
+    H3b's txt2img artifact against eager ``generate``.  Lines ``I ...``."""
+    import numpy as np
+
+    from pytorch_stable_diffusion_tpu_torch.models import assemble
+
+    cfg = port.sd15_config(policy=port.BF16, attention_backend="kernel",
+                           conv_backend="kernel", vae_attention_backend="kernel")
+    quick = dict(seed=1337, cfg_scale=7.5, n_inference_steps=20, height=512, width=512,
+                 config=cfg, return_latents=True)
+
+    # (a) the JAX quick start, the package name changed
+    t = time.perf_counter()
+    tokenizer = port.CLIPTokenizer.from_files(d_files["vocab"], d_files["merges"])
+    models = port.load_models(d_files["ckpt"], cfg)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t
+    zero_counts()
+    resident = {"BF16": torch.cuda.memory_allocated()}
+    img, lat = request("I a quick start: load_models + generate, 20 DDPM steps",
+                       lambda: port.generate(PROMPTS[0], models=models, tokenizer=tokenizer,
+                                             **quick), size=512, steps=20, n_images=1,
+                       config=cfg)
+    peak = {"BF16": torch.cuda.max_memory_allocated()}
+    read_path()
+    t = time.perf_counter()
+    sd = port.StableDiffusion.from_checkpoint(d_files["ckpt"], d_files["vocab"],
+                                              d_files["merges"], config=cfg)
+    torch.cuda.synchronize()
+    t_sd = time.perf_counter() - t
+    zero_counts()
+    ref, ref_lat = request("I a StableDiffusion.from_checkpoint txt2img, the same file and seed",
+                           lambda: sd.txt2img(PROMPTS[0], **quick), size=512, steps=20,
+                           n_images=1, config=cfg)
+    read_path()
+    del sd
+    check(np.array_equal(img, ref) and np.array_equal(lat, ref_lat),
+          "I a: the quick start's image differs from StableDiffusion.from_checkpoint's")
+    print(f"I a quick start (CLIPTokenizer.from_files, load_models, generate): bit-identical "
+          f"to StableDiffusion.from_checkpoint on slice D's file (image and latents); "
+          f"load_models {t_load:.2f} s, from_checkpoint {t_sd:.2f} s (file -> card)  [{card}]",
+          flush=True)
+
+    # (b) MIXED from the BF16 weights' values held in fp32
+    mixed_cfg = dataclasses.replace(cfg, policy=port.MIXED)
+    mixed = assemble(mixed_cfg, {name: {k: v.float() for k, v in m.state_dict().items()}
+                                 for name, m in models.items()})
+    check({p.dtype for m in mixed.values() for p in m.parameters()} == {torch.float32},
+          "I b: MIXED weights are not fp32")
+    torch.cuda.synchronize()
+    zero_counts()
+    resident["MIXED"] = torch.cuda.memory_allocated()
+    m_img, m_lat = request("I b MIXED (fp32 weights of the BF16 values), 20 DDPM steps",
+                           lambda: port.generate(PROMPTS[0], models=mixed, tokenizer=tokenizer,
+                                                 **dict(quick, config=mixed_cfg)),
+                           size=512, steps=20, n_images=1, config=mixed_cfg)
+    peak["MIXED"] = torch.cuda.max_memory_allocated()
+    read_path()
+    if np.array_equal(m_img, img) and np.array_equal(m_lat, lat):
+        print(f"I b MIXED against BF16: bit-identical (image and latents)  [{card}]",
+              flush=True)
+    else:
+        short = dict(quick, n_inference_steps=1)
+        op = first_divergent_module(
+            [(models, lambda m: port.generate(PROMPTS[0], models=m, tokenizer=tokenizer,
+                                              **short)),
+             (mixed, lambda m: port.generate(PROMPTS[0], models=m, tokenizer=tokenizer,
+                                             **dict(short, config=mixed_cfg)))])
+        db = psnr(m_img.astype(np.float32), img.astype(np.float32))
+        print(f"I b MIXED against BF16: not bit-identical; first module whose output "
+              f"differs: {op}; image PSNR {db:.2f} dB, latents max diff "
+              f"{np.abs(m_lat - lat).max():.3g}  [{card}]", flush=True)
+        check(db >= 50.0, f"I b: MIXED image {db:.2f} dB from BF16's (bar 50 dB; {op})")
+    evals = {}
+    for label, c, m in (("BF16", cfg, models), ("MIXED", mixed_cfg, mixed)):
+        evals[label] = phase_step(m, c, card, size=512, context=77, label=f"I b SD-1.5 {label}")
+    gib = {label: f"{peak[label] / 2**30:.3f} GiB over {resident[label] / 2**30:.3f} GiB "
+                  f"resident" for label in peak}
+    print(f"I b weights BF16 {weight_bytes(models) / 2**30:.3f} GiB, MIXED "
+          f"{weight_bytes(mixed) / 2**30:.3f} GiB; a 20-step request's peak device memory "
+          f"BF16 {gib['BF16']}, MIXED {gib['MIXED']} (both policies' weights); one UNet "
+          f"evaluation's device time BF16 {evals['BF16'][1] * 1e3:.3f} ms, MIXED "
+          f"{evals['MIXED'][1] * 1e3:.3f} ms (wall {evals['BF16'][0] * 1e3:.2f}, "
+          f"{evals['MIXED'][0] * 1e3:.2f} ms)  [{card}]", flush=True)
+    del mixed, models
+    torch.cuda.empty_cache()
+
+    # (c) the serving loop on H3b's txt2img artifact
+    serve = example("torch_aot_serve")
+    served, s_models, s_cfg, s_tok = h3b["served"], h3b["models"], h3b["cfg"], h3b["tok"]
+    for seed, prompt in enumerate(PROMPTS[:3]):
+        zero_counts()
+        t = time.perf_counter()
+        got = serve.serve_request(served, s_models, s_tok, prompt, seed=seed, cfg_scale=7.5)
+        torch.cuda.synchronize()
+        t_served = time.perf_counter() - t
+        launched = launch_counts()
+        read_path()
+        want_launches = expected_launches(s_cfg, 512, 512, steps=50, img2img=False)
+        check(launched == want_launches,
+              f"I c request {seed}: launched {launched}, want {want_launches}")
+        zero_counts()
+        t = time.perf_counter()
+        want = port.generate(prompt, models=s_models, tokenizer=s_tok, config=s_cfg, seed=seed,
+                             cfg_scale=7.5, sampler_name="ddpm", n_inference_steps=50,
+                             height=512, width=512, device="cuda")
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t
+        read_path()
+        check(got.shape == (1, 512, 512, 3) and got.dtype == np.uint8,
+              f"I c request {seed}: {got.shape} {got.dtype}")
+        check(np.array_equal(got[0], want),
+              f"I c request {seed}: the served image differs from eager generate")
+        print(f"I c request {seed} (seed {seed}, 50 DDPM steps, CFG 7.5): serve_request "
+              f"bit-identical to eager generate; wall {t_served:.2f} s, eager {t_eager:.2f} s; "
+              f"launches {launched}  [{card}]", flush=True)
 
 
 def _tokenizer_files(tok, d):
@@ -4698,7 +4893,7 @@ def main():
     phase_slice_b(port, request, base, a, zero_counts, read_path)
     lap("6 B")
     # slice D: checkpoint files, the StableDiffusion API and the weight transforms
-    phase_slice_d(port, card, request, zero_counts, read_path)
+    d_files = phase_slice_d(port, card, request, zero_counts, read_path)
     lap("6 D")
     # slice C3: inpainting, InstructPix2Pix, LCM and hires_fix at 512²
     phase_slice_c3(port, card, models, cfg, zero_counts, read_path)
@@ -4762,8 +4957,14 @@ def main():
     phase_slice_h2(port, card, request, zero_counts, read_path)
     lap("H2")
     # slice H3b: the exported program (utils/aot.py) at 512², K1, K3 and K5 inside it
-    phase_slice_h3b(port, card, zero_counts, read_path)
+    h3b = phase_slice_h3b(port, card, zero_counts, read_path)
     lap("H3b")
+    # slice I: the JAX quick start, MIXED and the serving loop on H3b's artifact
+    phase_slice_i(port, card, request, zero_counts, read_path, d_files, h3b)
+    lap("I")
+    del h3b
+    d_files["dir"].cleanup()
+    torch.cuda.empty_cache()
     # slice H3a: sequence parallelism, two gloo ranks on the one card
     phase_slice_h3a(port, card, zero_counts, read_path, main_launches)
     lap("H3a")

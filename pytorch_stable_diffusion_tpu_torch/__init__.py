@@ -29,7 +29,16 @@ CUDA kernels in ``csrc/``: K1 ``flash_attention_bsc.cu``, K2
 package imports torch and numpy (and scipy for the "beta" grid), never
 jax.
 
-Quick start::
+Quick start, the JAX package's with the package name changed::
+
+    from pytorch_stable_diffusion_tpu_torch import generate, load_models, CLIPTokenizer
+
+    tokenizer = CLIPTokenizer.from_files("vocab.json", "merges.txt")
+    models = load_models("v1-5-pruned-emaonly.ckpt")   # or .safetensors
+    image = generate("a photo of a dog", models=models, tokenizer=tokenizer,
+                     seed=1337, cfg_scale=7.5, n_inference_steps=50)
+
+or through the bundle object, on the kernels::
 
     from pytorch_stable_diffusion_tpu_torch import BF16, StableDiffusion, sd15_config
 
@@ -44,7 +53,7 @@ Quick start::
 Everything runs on the card unless ``device=`` names another device.
 """
 
-from .core.dtypes import BF16, FP32, Policy
+from .core.dtypes import BF16, FP32, MIXED, Policy
 from .models import build_models
 from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig, fast_preset,
                             sd2_inpaint_config, sd15_config, sd15_inpaint_config,
@@ -52,13 +61,18 @@ from .models.config import (CLIPConfig, SDConfig, UNetConfig, VAEConfig, fast_pr
                             sdxl_inpaint_config, sdxl_lcm_config, sdxl_refiner_config,
                             tiny_sd_config, tiny_sdxl_config, with_clip_skip, with_freeu,
                             with_hypertile, with_tome)
-from .pipeline import generate, generate_images, generate_many
-from .api import StableDiffusion
+from .pipeline import generate, generate_images, generate_many, get_time_embedding, rescale
+from .api import StableDiffusion, load_diffusers_models, load_models, load_models_streamed
+from .weights.tokenizer import CLIPTokenizer
 
-__all__ = ["BF16", "FP32", "Policy", "build_models", "CLIPConfig", "SDConfig",
+__version__ = "0.1.0"
+
+__all__ = ["BF16", "FP32", "MIXED", "Policy", "build_models", "CLIPConfig", "SDConfig",
            "UNetConfig", "VAEConfig", "sd15_config", "sd21_config", "sdxl_config",
            "sdxl_refiner_config", "sd15_inpaint_config", "sd15_ip2p_config",
            "sd15_lcm_config", "sd2_inpaint_config", "sdxl_inpaint_config", "sdxl_lcm_config",
            "tiny_sd_config", "tiny_sdxl_config", "with_clip_skip", "with_freeu",
            "with_hypertile", "with_tome", "fast_preset",
-           "generate", "generate_images", "generate_many", "StableDiffusion"]
+           "generate", "generate_images", "generate_many", "StableDiffusion",
+           "load_models", "load_diffusers_models", "load_models_streamed", "CLIPTokenizer",
+           "get_time_embedding", "rescale"]

@@ -485,6 +485,16 @@ def main(argv=None) -> int:
     print(f"[cli] generated in {time.time()-t0:.1f}s (incl. kernel builds)",
           flush=True)
 
+    save_image(img, args)
+    print(f"[cli] wrote {args.out} ({img.shape[1]}x{img.shape[0]})",
+          flush=True)
+    return 0
+
+
+def save_image(img, args) -> None:
+    """Write the uint8 (H, W, 3) ``img`` to ``args.out``; a PNG carries the
+    request's parameters (``args``: prompt, uncond_prompt, steps, sampler,
+    cfg_scale, seed, width, height, strength, ckpt)."""
     from PIL import Image
 
     pil = Image.fromarray(img)
@@ -507,9 +517,6 @@ def main(argv=None) -> int:
         pil.save(args.out, pnginfo=info)
     else:
         pil.save(args.out)
-    print(f"[cli] wrote {args.out} ({img.shape[1]}x{img.shape[0]})",
-          flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -23,17 +23,22 @@ The generation methods pass every keyword through to ``generate()``,
 slice F's modes too; :func:`fast_preset` gives the
 approximate-mode bundle: ``cfg, kw = fast_preset(sd.config)``, then
 ``StableDiffusion(sd.models, sd.tokenizer, cfg).txt2img(prompt, **kw)``.
+
+The JAX package's top-level loaders are here too: :func:`load_models`,
+:func:`load_diffusers_models` and :func:`load_models_streamed` read a file
+or a diffusers directory into the models dict ``generate(models=)`` takes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import pipeline as pipeline_mod
-from .models import assemble
+from .models import assemble, target_device
 from .models.config import SDConfig, fast_preset, sd15_config  # noqa: F401 (exported)
 from .weights.convert import load_sd_checkpoint
 from .weights.tokenizer import CLIPTokenizer
@@ -66,21 +71,69 @@ def _mask_array(mask_image) -> np.ndarray:
     return m
 
 
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("StableDiffusion: no CUDA device; pass device='cpu' "
-                               "to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 def _as_models(cfg: SDConfig, device: torch.device, state_dicts):
     """Port state dicts (CPU tensors of any dtype) -> models on ``device``
     in the policy's dtype, with no second copy."""
     dtype = cfg.policy.param_dtype
     return assemble(cfg, {name: {k: v.to(device=device, dtype=dtype) for k, v in sd.items()}
                           for name, sd in state_dicts.items()})
+
+
+def _stored_as(cfg: Optional[SDConfig], dtype) -> SDConfig:
+    """``cfg`` (SD-1.5 when None) with its weights stored in ``dtype`` (the
+    policy's ``param_dtype`` when None); the modules cast each weight to
+    the policy's compute dtype where they use it."""
+    cfg = cfg or sd15_config()
+    if dtype is None or dtype == cfg.policy.param_dtype:
+        return cfg
+    return dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, param_dtype=dtype))
+
+
+def load_models(path: str, cfg: Optional[SDConfig] = None, dtype=None, *,
+                allow_unsafe_fallback: bool = False, device=None):
+    """A CompVis checkpoint file (``.safetensors`` or ``.ckpt``) -> the
+    models dict ``generate(models=)`` takes: the JAX package's top-level
+    ``load_models`` (its ``weights/convert.load_sd_checkpoint``), with
+    models in place of parameter trees.  ``cfg`` is the family (SD-1.5
+    when None); the weights are stored in ``dtype`` (by default the
+    policy's ``param_dtype``) on the card unless ``device`` names another
+    device."""
+    cfg = _stored_as(cfg, dtype)
+    return _as_models(cfg, target_device(device, "load_models"), load_sd_checkpoint(
+        path, cfg, allow_unsafe_fallback=allow_unsafe_fallback))
+
+
+def load_diffusers_models(root: str, cfg: Optional[SDConfig] = None, dtype=None, *,
+                          device=None):
+    """A diffusers directory -> the models dict, as :func:`load_models`
+    (the JAX package's ``load_diffusers_models``,
+    ``weights/diffusers.load_diffusers_pipeline``)."""
+    from .weights import diffusers
+
+    cfg = _stored_as(cfg, dtype)
+    return _as_models(cfg, target_device(device, "load_diffusers_models"),
+                      diffusers.load_diffusers_pipeline(root, cfg))
+
+
+def load_models_streamed(path: str, cfg: Optional[SDConfig] = None, dtype=None, *,
+                         mesh=None, tp: bool = False, allow_unsafe_fallback: bool = False,
+                         device=None):
+    """A checkpoint file -> the models dict, read a tensor at a time
+    straight onto the device (the JAX package's ``load_models_streamed``,
+    ``weights/stream.load_sd_checkpoint_streamed``); with ``mesh`` and
+    ``tp=True`` each rank holds the models sharded over the mesh's model
+    axis, as ``generate(mesh=)`` takes them."""
+    from .weights import stream
+
+    cfg = _stored_as(cfg, dtype)
+    state_dicts = stream.load_sd_checkpoint_streamed(
+        path, cfg, device=target_device(device, "load_models_streamed"), mesh=mesh, tp=tp,
+        allow_unsafe_fallback=allow_unsafe_fallback)
+    if tp:
+        from .parallel import tp as tp_mod
+
+        return tp_mod.assemble(cfg, state_dicts, mesh)
+    return assemble(cfg, state_dicts)
 
 
 class StableDiffusion:
@@ -105,7 +158,7 @@ class StableDiffusion:
 
     def __init__(self, models, tokenizer, config: Optional[SDConfig] = None,
                  mesh=None, *, device=None):
-        self.device = _device(device)
+        self.device = target_device(device, "StableDiffusion")
         self.config = config or sd15_config()
         for m in models.values():
             for net in m if isinstance(m, (list, tuple)) else [m]:
@@ -143,8 +196,8 @@ class StableDiffusion:
         CLIP tokenizer's files.  ``loras``: adapters merged into the weights
         once loaded — each entry a path, or a ``(path, scale)`` pair."""
         config = config or sd15_config()
-        dev = _device(device)
-        models = _as_models(config, dev, load_sd_checkpoint(ckpt_path, config))
+        dev = target_device(device, "StableDiffusion")
+        models = load_models(ckpt_path, config, device=dev)
         if loras:
             from .weights import lora as lora_mod
 

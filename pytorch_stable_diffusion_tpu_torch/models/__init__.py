@@ -104,13 +104,13 @@ def build_side_nets(cfg: SDConfig, state_dicts, *, device=None,
     return out
 
 
-def target_device(device) -> torch.device:
+def target_device(device, who: str = "build_models") -> torch.device:
     """``device``, or the card when None; with no card and no device named
-    this raises instead of carrying on on the CPU."""
+    this raises (naming ``who``) instead of carrying on on the CPU."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("build_models: no CUDA device; pass device='cpu' "
-                               "to build the models on the CPU")
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
         device = "cuda"
     return torch.device(device)
 

@@ -205,6 +205,7 @@ import torch
 from . import prompt_schedule
 from .core import mesh as mesh_mod
 from .core import rng as rng_mod
+from .models import target_device
 from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .models.config import (SDConfig, check_ported, sd15_config, with_clip_skip, with_freeu,
@@ -418,6 +419,14 @@ def rescale(x, old_range, new_range, clamp: bool = False):
         x = x.clamp(new_min, new_max) if isinstance(x, torch.Tensor) \
             else np.clip(x, new_min, new_max)
     return x
+
+
+def get_time_embedding(timestep, device=None) -> torch.Tensor:
+    """(1, 320) float32 sinusoidal embedding of one timestep, the JAX
+    package's reference helper, on the card unless ``device`` names
+    another device (with no card and no device named it raises)."""
+    return unet_mod.timestep_embedding(timestep, 320,
+                                       device=target_device(device, "get_time_embedding"))
 
 
 def _prepare_image(input_image, width: int, height: int) -> np.ndarray:

@@ -105,6 +105,12 @@ def available() -> bool:
     return _load() is not None
 
 
+def build_error() -> Optional[str]:
+    """Why the reader could not be built (the compiler's message), or None."""
+    _load()
+    return _build_error
+
+
 class SafetensorsFile(Mapping):
     """A safetensors file, memory-mapped: ``f[name]`` copies that one tensor
     out of the mapping into a torch CPU tensor, so a caller that walks the

@@ -166,6 +166,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for script in ("torch_inference_demo.py", "torch_aot_serve.py"):
+        yield os.path.join(REPO, "examples", script)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
