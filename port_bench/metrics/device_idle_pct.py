@@ -1,0 +1,11 @@
+"""device_idle_pct: the share of the traced window in which no operation ran
+on the device: 100 (1 - union of the device operations' intervals / the
+window), the window spanning the first request's start to the last one's
+end."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
